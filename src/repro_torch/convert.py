@@ -1,0 +1,131 @@
+"""ViTDet parameters for the port: conversion from the reference's
+parameter tree, and a seeded PyTorch init with the same shapes and
+distributions.
+
+Port layout (plain dicts of tensors):
+
+  patch_embed {w (p*p*3, D), b (D,)}     pos_emb (Hp, Wp, D)
+  blocks[i]   {ln1, ln2 {w, b}, ffn {w_up, b_up, w_down, b_down},
+               attn {w_qkv (D, 3D), b_qkv (3D,), w_o (D, D), b_o (D,)}}
+  final_norm  {w, b}
+  head        {lateral[3], smooth[3], tower, cls, box, ctr: {w OIHW, b}}
+  pos_seq, pos_bank   derived position layouts (vit_backbone)
+
+The reference keeps q, k and v weights apart and concatenates them on
+every call; here they are concatenated once.  Its conv weights are HWIO;
+``F.conv2d`` takes OIHW.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core import vit_backbone as vb
+from repro_torch.models.config import ModelConfig
+
+
+def _t(x, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+def _conv(p: Mapping, device) -> Dict[str, torch.Tensor]:
+    w = np.asarray(p["w"], dtype=np.float32).transpose(3, 2, 0, 1)
+    return {"w": _t(np.ascontiguousarray(w), device), "b": _t(p["b"], device)}
+
+
+def _attn(p: Mapping, device) -> Dict[str, torch.Tensor]:
+    def cat(names, axis):
+        return _t(np.concatenate([np.asarray(p[n]) for n in names], axis),
+                  device)
+    return {"w_qkv": cat(("w_q", "w_k", "w_v"), 1),
+            "b_qkv": cat(("b_q", "b_k", "b_v"), 0),
+            "w_o": _t(p["w_o"], device), "b_o": _t(p["b_o"], device)}
+
+
+def params_from_jax(tree: Mapping, cfg: ModelConfig,
+                    device: str = "cuda") -> Dict:
+    """The reference's ``init_vitdet_params`` tree (numpy or array
+    leaves, read through ``np.asarray``) -> the port's parameters."""
+    def norm(p):
+        return {k: _t(v, device) for k, v in p.items()}
+
+    head = tree["head"]
+    params = {
+        "patch_embed": {k: _t(v, device)
+                        for k, v in tree["patch_embed"].items()},
+        "pos_emb": _t(tree["pos_emb"], device),
+        "blocks": [{"ln1": norm(b["ln1"]), "ln2": norm(b["ln2"]),
+                    "attn": _attn(b["attn"], device),
+                    "ffn": {k: _t(v, device) for k, v in b["ffn"].items()}}
+                   for b in tree["blocks"]],
+        "final_norm": norm(tree["final_norm"]),
+        "head": {"lateral": [_conv(p, device) for p in head["lateral"]],
+                 "smooth": [_conv(p, device) for p in head["smooth"]],
+                 **{k: _conv(head[k], device)
+                    for k in ("tower", "cls", "box", "ctr")}},
+    }
+    return vb.add_position_banks(cfg, params)
+
+
+def init_vitdet_params(cfg: ModelConfig, generator: torch.Generator,
+                       device: str = "cuda") -> Dict:
+    """Seeded init with the reference's shapes and distributions:
+    truncated normal in (-2, 2) std / sqrt(fan_in) for dense and conv
+    weights, normal std 0.02 for the position grid, zeros for biases
+    (class bias -4, the focal prior), ones for norm scales.  Tensors are
+    drawn on ``generator.device`` and moved to ``device``."""
+    gdev = generator.device
+    v = cfg.vit
+    D, F_, C = cfg.d_model, cfg.d_ff, v.out_channels
+    part = vb.vit_partition(cfg)
+
+    def trunc(shape, fan_in):
+        t = torch.empty(shape, device=gdev)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
+        return (t / math.sqrt(fan_in)).to(device)
+
+    def zeros(n, fill=0.0):
+        return torch.full((n,), fill, device=device)
+
+    def dense(k, n):
+        return trunc((k, n), k)
+
+    def conv(k, cin, cout, bias=0.0):
+        w = trunc((k, k, cin, cout), k * k * cin)       # HWIO, as drawn
+        return {"w": w.permute(3, 2, 0, 1).contiguous(),
+                "b": zeros(cout, bias)}
+
+    def norm():
+        return {"w": torch.ones(D, device=device), "b": zeros(D)}
+
+    def block():
+        wq, wk, wv = dense(D, cfg.q_dim), dense(D, cfg.kv_dim), \
+            dense(D, cfg.kv_dim)
+        return {"ln1": norm(), "ln2": norm(),
+                "attn": {"w_qkv": torch.cat([wq, wk, wv], dim=1),
+                         "b_qkv": zeros(cfg.q_dim + 2 * cfg.kv_dim),
+                         "w_o": dense(cfg.q_dim, D), "b_o": zeros(D)},
+                "ffn": {"w_up": dense(D, F_), "b_up": zeros(F_),
+                        "w_down": dense(F_, D), "b_down": zeros(D)}}
+
+    patch_dim = v.patch_size * v.patch_size * 3
+    pos = torch.empty((part.grid_h, part.grid_w, D), device=gdev)
+    torch.nn.init.normal_(pos, 0.0, 0.02, generator=generator)
+    params = {
+        "patch_embed": {"w": dense(patch_dim, D), "b": zeros(D)},
+        "pos_emb": pos.to(device),
+        "blocks": [block() for _ in range(cfg.n_layers)],
+        "final_norm": norm(),
+        "head": {"lateral": [], "smooth": []},
+    }
+    for _ in range(3):
+        params["head"]["lateral"].append(conv(1, D, C))
+        params["head"]["smooth"].append(conv(3, C, C))
+    params["head"].update(tower=conv(3, C, C),
+                          cls=conv(3, C, v.n_classes, bias=-4.0),
+                          box=conv(3, C, 4), ctr=conv(3, C, 1))
+    return vb.add_position_banks(cfg, params)

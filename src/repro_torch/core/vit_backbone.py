@@ -1,0 +1,185 @@
+"""ViTDet-style backbone with dynamic mixed-resolution inference (paper
+§III); port of the serving lanes of ``repro.core.vit_backbone``.
+
+``n_layers`` pre-norm ViT blocks split into N subsets of M blocks;
+within a subset the first M-1 blocks use window attention and the last
+global attention.  Two lanes:
+
+  full resolution   the frame's whole window-blocked sequence, with or
+                    without capturing restoration-point tiles;
+  padded (beta>=1)  the length-bucketed mixed sequence of a PlanLayout:
+                    window bank -> ``pack_pos`` kernel -> blocks with
+                    ``win_valid`` / ``kv_len`` -> ``restore_gather``
+                    kernel (splicing REUSE tiles) inside subset ``beta``
+                    -> remaining blocks -> capture.
+
+The padded lane at ``beta == 0`` (restore at input) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core import det_head as dh
+from repro_torch.core import mixed_res as mr
+from repro_torch.core.partition import Partition, make_partition
+from repro_torch.kernels import dispatch
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+
+def vit_partition(cfg: ModelConfig) -> Partition:
+    v = cfg.vit
+    d = cfg.mixed_res.downsample if cfg.mixed_res else 2
+    return make_partition(v.img_size[0] // v.patch_size,
+                          v.img_size[1] // v.patch_size, v.window_size, d)
+
+
+def blocks_per_subset(cfg: ModelConfig) -> int:
+    assert cfg.n_layers % cfg.vit.n_subsets == 0
+    return cfg.n_layers // cfg.vit.n_subsets
+
+
+def disable_tf32() -> None:
+    """Keep float32 GEMMs and cuDNN convolutions in full float32, as the
+    reference computes them (PyTorch runs cuDNN convolutions in TF32 by
+    default)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def add_position_banks(cfg: ModelConfig, params: Dict) -> Dict:
+    """Derive, once per parameter set, the two layouts of the positional
+    grid the forward adds: ``pos_seq``, the full-resolution window-blocked
+    sequence, and ``pos_bank``, the (nR*d^2 + nR, w^2, D) window bank that
+    the fused pack gathers from (LOW windows get the mean embedding of
+    their d x d patch groups)."""
+    part = vit_partition(cfg)
+    pos = params["pos_emb"][None]
+    params["pos_seq"] = mr.grid_to_full_seq(pos, part)[0]
+    params["pos_bank"] = mr.window_bank(pos, part)[0]
+    return params
+
+
+def patchify(image: torch.Tensor, patch: int) -> torch.Tensor:
+    """(B, H, W, 3) -> (B, H/p, W/p, p*p*3) raw patch grid."""
+    B, H, W, C = image.shape
+    x = image.reshape(B, H // patch, patch, W // patch, patch, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H // patch, W // patch, patch * patch * C)
+
+
+def embed_patches(cfg: ModelConfig, params, image: torch.Tensor,
+                  downsample: int = 1) -> torch.Tensor:
+    """Patchify the (optionally pixel-downsampled) image and project to D."""
+    if downsample > 1:
+        image = mr.downsample_grid(image, downsample)
+    p = params["patch_embed"]
+    return torch.matmul(patchify(image, cfg.vit.patch_size), p["w"]) + p["b"]
+
+
+def _vit_block(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
+               kv_len: Optional[torch.Tensor] = None,
+               win_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (B, T, D) window-blocked.  window=0 -> global attention."""
+    h = L.apply_norm(cfg, p["ln1"], x)
+    x = x + attn.attention_forward(cfg, p["attn"], h, window=window,
+                                   kv_len=kv_len, win_valid=win_valid)
+    h = L.apply_norm(cfg, p["ln2"], x)
+    return x + L.apply_mlp(cfg, p["ffn"], h)
+
+
+def forward_features(cfg: ModelConfig, params, image: torch.Tensor,
+                     beta: int = 0,
+                     reuse_tiles: Optional[torch.Tensor] = None,
+                     capture_beta: int = 0,
+                     layout: Optional[Dict[str, torch.Tensor]] = None):
+    """Backbone forward.  Returns the (B, Hp, Wp, D) full-resolution
+    feature map, or ``(feats, tiles)`` when ``capture_beta > 0``.
+
+    layout: the PlanLayout arrays of a length-bucketed padded sequence
+    (``win_src`` (·, nw_pad), ``nw``, ``out_src`` / ``out_map``
+    (·, nR*d^2), each shared or per-sample; core.partition).  None runs
+    the full-resolution lane.  A padded forward needs ``beta >= 1``; its
+    REUSE regions splice from ``reuse_tiles`` (B, nR, d^2, w^2, D).
+    capture_beta: also return the per-region tiles (B, nR, d^2, w^2, D)
+    of the token state entering the global block of subset
+    ``capture_beta`` (>= beta for a padded forward).
+    """
+    part = vit_partition(cfg)
+    M = blocks_per_subset(cfg)
+    N = cfg.vit.n_subsets
+    w2 = part.window * part.window
+    padded = layout is not None
+    assert 0 <= beta <= N and 0 <= capture_beta <= N
+    if padded:
+        if beta == 0:
+            raise NotImplementedError(
+                "the padded lane at beta == 0 (restore at input) is not "
+                "ported yet")
+        if capture_beta:
+            assert capture_beta >= beta, \
+                "cannot capture tiles before the restoration point"
+    else:
+        assert reuse_tiles is None, "REUSE tiles need a padded layout"
+
+    x_full = embed_patches(cfg, params, image)                # B,Hp,Wp,D
+    kv_len = win_valid = None
+    if padded:
+        # the pooled grid is always packed: one layout shape serves every
+        # plan mix, and a reuse-only sample never gathers from its half
+        x_low = embed_patches(cfg, params, image, part.downsample)
+        bank = mr.window_bank(x_full, part, x_low)
+        tokens = dispatch.pack_pos(bank, params["pos_bank"],
+                                   layout["win_src"], layout["nw"])
+        win_valid = layout["nw"].to(torch.int32).reshape(-1).expand(
+            tokens.shape[0]).contiguous()
+        kv_len = win_valid * w2
+    else:
+        tokens = mr.grid_to_full_seq(x_full, part) + params["pos_seq"]
+
+    tiles = None
+    restored = not padded
+    for s in range(N):
+        for m in range(M):
+            p_blk = params["blocks"][s * M + m]
+            is_global = m == M - 1
+            if is_global and not restored and beta == s + 1:
+                B, D = tokens.shape[0], tokens.shape[-1]
+                tokens = dispatch.restore_gather(
+                    tokens.reshape(B, -1, w2, D), layout["out_src"],
+                    layout["out_map"], part.window, part.downsample,
+                    reuse_tiles=reuse_tiles)
+                restored = True
+            if is_global and capture_beta == s + 1:
+                tiles = tokens.reshape(tokens.shape[0], part.n_regions,
+                                       part.windows_per_full_region, w2,
+                                       tokens.shape[-1])
+            tokens = _vit_block(cfg, p_blk, tokens,
+                                window=0 if is_global else w2,
+                                kv_len=None if restored else kv_len,
+                                win_valid=None if restored else win_valid)
+
+    tokens = L.apply_norm(cfg, params["final_norm"], tokens)
+    feats = mr.full_seq_to_grid(tokens, part)
+    if capture_beta:
+        return feats, tiles
+    return feats
+
+
+def forward_det(cfg: ModelConfig, params, image: torch.Tensor,
+                beta: int = 0, reuse_tiles: Optional[torch.Tensor] = None,
+                capture_beta: int = 0,
+                layout: Optional[Dict[str, torch.Tensor]] = None):
+    """Backbone + dense head.  Returns the det-head outputs, or
+    ``(outputs, tiles)`` when ``capture_beta > 0``."""
+    disable_tf32()
+    feats = forward_features(cfg, params, image, beta,
+                             reuse_tiles=reuse_tiles,
+                             capture_beta=capture_beta, layout=layout)
+    if capture_beta:
+        feats, tiles = feats
+        return dh.det_head_forward(cfg, params["head"], feats), tiles
+    return dh.det_head_forward(cfg, params["head"], feats)

@@ -1,0 +1,81 @@
+"""Non-overlapping window attention (ViTDet window blocks).
+
+``window_attention_cuda`` launches ``csrc/window_attention.cu``, the port
+of ``repro/kernels/window_attention/kernel.py:window_attention_kernel``;
+``window_attention_plain`` is the same function in plain PyTorch.
+
+q: (B, T, H, Dh); k/v: (B, T, KV, Dh) with H = KV * G; ``window`` is the
+number of TOKENS per window (w^2) and divides T.  ``win_valid``: optional
+(B,) count of valid windows per sample; later (pad) windows output
+zeros.  The kernel reads q, k and v through their batch and token
+strides, so the three column slices of the fused QKV product go in
+without a copy.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
+                                       head_rows, stream_of)
+
+KERNEL = CudaKernel("window_attention", "window_attention_f32",
+                    [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, F,
+                     I, P])
+SMEM_LIMIT = 232448          # dynamic shared memory a block may use (H100)
+
+
+def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           window: int, win_valid: Optional[torch.Tensor] = None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    B, T, H, Dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    W = T // window
+    scale = Dh ** -0.5 if scale is None else scale
+    qw = q.reshape(B, W, window, KV, G, Dh).float()
+    kw = k.reshape(B, W, window, KV, Dh).float()
+    vw = v.reshape(B, W, window, KV, Dh).float()
+    s = torch.einsum("bwikgd,bwjkd->bwkgij", qw, kw) * scale
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bwkgij,bwjkd->bwikgd", p, vw).reshape(B, W, window, H, Dh)
+    if win_valid is not None:
+        keep = (torch.arange(W, device=q.device)[None, :]
+                < win_valid.reshape(-1, 1).to(q.device))
+        o = torch.where(keep[:, :, None, None, None], o,
+                        torch.zeros((), dtype=o.dtype, device=o.device))
+    return o.reshape(B, T, H, Dh).to(q.dtype)
+
+
+def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          window: int, win_valid: Optional[torch.Tensor] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    B, T, H, Dh = q.shape
+    KV = k.shape[2]
+    if T % window or H % KV or k.shape != v.shape or k.shape[:2] != (B, T):
+        raise ValueError(f"window_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, window "
+                         f"{window}")
+    smem = 4 * (window * (Dh + 1) * 2 + window * Dh + window * (window + 1))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"window_attention: window {window} x head {Dh} "
+                         f"needs {smem} B of shared memory")
+    q, k, v = head_rows(q), head_rows(k), head_rows(v)
+    tensors = [q, k, v]
+    valid_arg = None
+    if win_valid is not None:
+        wv = win_valid.to(torch.int32).reshape(-1).expand(B).contiguous()
+        tensors.append(wv)
+        valid_arg = wv
+    check_cuda("window_attention", *tensors)
+    if q.dtype != torch.float32 or k.dtype != torch.float32 \
+            or v.dtype != torch.float32:
+        raise ValueError("window_attention: float32 q/k/v only")
+    scale = Dh ** -0.5 if scale is None else scale
+    out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
+    KERNEL(q, k, v, valid_arg, out,
+           B, T // window, window, H, KV, Dh, q.stride(0), q.stride(1),
+           k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
+           q.device.index, stream_of(q))
+    return out

@@ -1,0 +1,44 @@
+"""The port imports neither ``jax`` nor the reference package ``repro``:
+every ``repro_torch`` module imports in a fresh interpreter where
+``import jax`` fails, and ``chip_smoke.py`` names neither."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any "import jax" now raises
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m == "repro" or m.startswith(("repro.", "jax"))))
+assert not bad, bad
+print(len(names))
+"""
+
+
+def test_every_port_module_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_chip_smoke_imports_no_reference():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    roots = {m.split(".")[0] for m in mods}
+    assert "jax" not in roots and "repro" not in roots, sorted(roots)

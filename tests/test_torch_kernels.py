@@ -1,0 +1,258 @@
+"""Port parity: the plain versions of the five ported kernels against the
+reference's Pallas entry points (interpret mode on the CPU) and oracles,
+plus the device routing of ``repro_torch.kernels.dispatch``.
+
+Tolerances: the fused pack/restore are data movement plus one add, so
+they must be bit-equal; average pooling sums four floats (<= 1e-6);
+attention is float32 softmax attention whose summation order differs
+between the two frameworks (<= 1e-5 absolute on unit-normal inputs).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as jflash
+from repro.kernels.fused_serving import ops as jfused
+from repro.kernels.fused_serving.ref import (fused_pack_pos_ref,
+                                             fused_restore_ref)
+from repro.kernels.mixed_res_pool import ops as jpool
+from repro.kernels.window_attention import ops as jwin
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import ops as tflash
+from repro_torch.kernels.fused_serving import ops as tfused
+from repro_torch.kernels.mixed_res_pool import ops as tpool
+from repro_torch.kernels.window_attention import ops as twin
+
+torch.set_num_threads(2)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ---------------------------------------------------------------------------
+# fused serving: bit-exact
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+def test_pack_pos_plain_bit_equal(per_sample):
+    rng = np.random.default_rng(0)
+    B, nbank, w2, C, nw_pad = 2, 20, 64, 32, 12
+    bank = rng.standard_normal((B, nbank, w2, C)).astype(np.float32)
+    pos = rng.standard_normal((nbank, w2, C)).astype(np.float32)
+    src = rng.integers(0, nbank, (B, nw_pad) if per_sample else (nw_pad,))
+    src = src.astype(np.int32)
+    nw = np.array([5, nw_pad], np.int32)
+    got = tfused.pack_pos_plain(_t(bank), _t(pos), _t(src), _t(nw))
+    want = jfused.fused_pack_pos(jnp.asarray(bank), jnp.asarray(pos),
+                                 jnp.asarray(src), jnp.asarray(nw))
+    assert torch.equal(got, _t(np.asarray(want)))
+    src2 = src if per_sample else np.broadcast_to(src, (B, nw_pad))
+    ref = fused_pack_pos_ref(jnp.asarray(bank), jnp.asarray(pos),
+                             jnp.asarray(src2), jnp.asarray(nw))
+    assert torch.equal(got, _t(np.asarray(ref).reshape(B, -1, C)))
+    assert torch.count_nonzero(got.reshape(B, nw_pad, w2, C)[0, 5:]) == 0
+
+
+@pytest.mark.parametrize("with_tiles", [False, True])
+def test_restore_gather_plain_bit_equal(with_tiles):
+    rng = np.random.default_rng(1)
+    window, d = 8, 2
+    w2, dd = window * window, d * d
+    B, nw_pad, nR, D = 2, 9, 4, 16
+    nout = nR * dd
+    win = rng.standard_normal((B, nw_pad, w2, D)).astype(np.float32)
+    tiles = (rng.standard_normal((B, nR, dd, w2, D)).astype(np.float32)
+             if with_tiles else None)
+    out_src = rng.integers(0, nw_pad + nout, (B, nout)).astype(np.int32)
+    out_map = rng.integers(0, dd + 1, (B, nout)).astype(np.int32)
+    got = tfused.restore_gather_plain(
+        _t(win), _t(out_src), _t(out_map), window, d,
+        reuse_tiles=None if tiles is None else _t(tiles))
+    want = jfused.fused_restore(
+        jnp.asarray(win), jnp.asarray(out_src), jnp.asarray(out_map), window,
+        d, reuse_tiles=None if tiles is None else jnp.asarray(tiles))
+    assert torch.equal(got, _t(np.asarray(want)))
+    bank = np.concatenate(
+        [win, tiles.reshape(B, nout, w2, D) if with_tiles
+         else np.zeros((B, nout, w2, D), np.float32)], axis=1)
+    ref = fused_restore_ref(jnp.asarray(bank),
+                            jnp.asarray(jfused.upsample_token_maps(window, d)),
+                            jnp.asarray(out_src), jnp.asarray(out_map))
+    assert torch.equal(got, _t(np.asarray(ref).reshape(B, -1, D)))
+
+
+@pytest.mark.parametrize("window,d", [(2, 2), (8, 2), (4, 3)])
+def test_upsample_token_maps_match_reference(window, d):
+    np.testing.assert_array_equal(tfused.upsample_token_maps(window, d),
+                                  jfused.upsample_token_maps(window, d))
+
+
+# ---------------------------------------------------------------------------
+# average pool: <= 1e-6
+
+
+@pytest.mark.parametrize("shape,d", [((2, 64, 64, 3), 2), ((1, 32, 48, 8), 2),
+                                     ((1, 24, 24, 5), 3)])
+def test_avg_pool_plain_matches_reference(shape, d):
+    x = np.random.default_rng(2).uniform(0, 1, shape).astype(np.float32)
+    got = tpool.avg_pool_plain(_t(x), d)
+    want = np.asarray(jpool.avg_pool_2d(jnp.asarray(x), d, interpret=True))
+    assert got.shape == want.shape
+    assert float((got - _t(want)).abs().max()) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# attention: <= 1e-5
+
+
+def _qkv(rng, B, T, H, KV, Dh, S=None):
+    S = T if S is None else S
+    q = rng.standard_normal((B, T, H, Dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, Dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, Dh)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("valid", [None, (0, 0), (1, 2), (3, 3)])
+@pytest.mark.parametrize("w2,Dh", [(64, 64), (4, 16)])
+def test_window_attention_plain_matches_reference(group, valid, w2, Dh):
+    rng = np.random.default_rng(3)
+    B, W, H = 2, 3, 4
+    q, k, v = _qkv(rng, B, W * w2, H, H // group, Dh)
+    wv = None if valid is None else np.asarray(valid, np.int32)
+    got = twin.window_attention_plain(_t(q), _t(k), _t(v), w2,
+                                      None if wv is None else _t(wv))
+    want = jwin.window_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), w2,
+        win_valid=None if wv is None else jnp.asarray(wv), interpret=True)
+    assert float((got - _t(np.asarray(want))).abs().max()) <= 1e-5
+    if wv is not None:
+        out = got.reshape(B, W, w2, H, Dh)
+        for b in range(B):
+            assert torch.count_nonzero(out[b, wv[b]:]) == 0
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("T,S,causal", [(200, 200, False), (200, 200, True),
+                                        (64, 136, False)])
+def test_flash_attention_plain_matches_reference(group, T, S, causal):
+    rng = np.random.default_rng(4)
+    H = 4
+    q, k, v = _qkv(rng, 2, T, H, H // group, 64, S=S)
+    got = tflash.flash_attention_plain(_t(q), _t(k), _t(v), causal)
+    want = jflash.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=causal,
+                                  interpret=True)
+    assert float((got - _t(np.asarray(want))).abs().max()) <= 1e-5
+
+
+def test_flash_attention_plain_chunks_long_queries():
+    """T > Q_CHUNK runs in query chunks; the result equals one dense pass."""
+    rng = np.random.default_rng(5)
+    q, k, v = (_t(a) for a in _qkv(rng, 1, tflash.Q_CHUNK + 40, 2, 2, 16))
+    got = tflash.flash_attention_plain(q, k, v, causal=True)
+    s = torch.einsum("bthd,bshd->bhts", q, k) * 16 ** -0.5
+    T = q.shape[1]
+    s = s.masked_fill(torch.ones(T, T).triu(1).bool(), float("-inf"))
+    want = torch.einsum("bhts,bshd->bthd", torch.softmax(s, -1), v)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# dispatch: a CPU tensor takes the plain version and launches nothing
+
+
+def _dispatch_cases():
+    rng = np.random.default_rng(6)
+    q, k, v = (_t(a) for a in _qkv(rng, 1, 128, 2, 2, 16))
+    wv = torch.tensor([1], dtype=torch.int32)
+    bank = _t(rng.standard_normal((1, 6, 4, 8)).astype(np.float32))
+    pos = _t(rng.standard_normal((6, 4, 8)).astype(np.float32))
+    src = torch.tensor([3, 0, 5], dtype=torch.int32)
+    nw = torch.tensor([2], dtype=torch.int32)
+    win = _t(rng.standard_normal((1, 3, 4, 8)).astype(np.float32))
+    osrc = torch.tensor([0, 1, 2, 2], dtype=torch.int32)
+    omap = torch.tensor([0, 0, 1, 4], dtype=torch.int32)
+    img = _t(rng.uniform(0, 1, (1, 8, 8, 3)).astype(np.float32))
+    return {
+        "window_attention": (
+            lambda: dispatch.window_attention(q, k, v, 64, wv),
+            lambda: twin.window_attention_plain(q, k, v, 64, wv),
+            lambda: twin.window_attention_cuda(q, k, v, 64, wv)),
+        "flash_attention": (
+            lambda: dispatch.flash_attention(q, k, v),
+            lambda: tflash.flash_attention_plain(q, k, v),
+            lambda: tflash.flash_attention_cuda(q, k, v)),
+        "avg_pool": (
+            lambda: dispatch.avg_pool(img, 2),
+            lambda: tpool.avg_pool_plain(img, 2),
+            lambda: tpool.avg_pool_cuda(img, 2)),
+        "pack_pos": (
+            lambda: dispatch.pack_pos(bank, pos, src, nw),
+            lambda: tfused.pack_pos_plain(bank, pos, src, nw),
+            lambda: tfused.pack_pos_cuda(bank, pos, src, nw)),
+        "restore_gather": (
+            lambda: dispatch.restore_gather(win, osrc, omap, 2, 2),
+            lambda: tfused.restore_gather_plain(win, osrc, omap, 2, 2),
+            lambda: tfused.restore_gather_cuda(win, osrc, omap, 2, 2)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(dispatch.KERNELS))
+def test_dispatch_cpu_takes_plain_version_and_launches_nothing(name):
+    routed, plain, cuda = _dispatch_cases()[name]
+    dispatch.reset_launch_counts()
+    assert torch.equal(routed(), plain())
+    assert dispatch.launch_counts() == dict.fromkeys(dispatch.KERNELS, 0)
+    with pytest.raises(ValueError):      # the kernel wrapper takes no CPU
+        cuda()
+    assert dispatch.launch_counts()[name] == 0
+
+
+# ---------------------------------------------------------------------------
+# on the card (skipped where there is none; chip_smoke.py runs the same
+# comparison at the full-width shapes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(dispatch.KERNELS))
+def test_kernel_matches_plain_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (chip_smoke.py runs this "
+                    "check on the H100)")
+    rng = np.random.default_rng(7)
+    dev = "cuda"
+    if name in ("window_attention", "flash_attention"):
+        q, k, v = (_t(a).to(dev) for a in _qkv(rng, 2, 256, 4, 2, 64))
+        if name == "window_attention":
+            wv = torch.tensor([1, 4], dtype=torch.int32, device=dev)
+            got = twin.window_attention_cuda(q, k, v, 64, wv)
+            want = twin.window_attention_plain(q, k, v, 64, wv)
+        else:
+            got = tflash.flash_attention_cuda(q, k, v, causal=True)
+            want = tflash.flash_attention_plain(q, k, v, causal=True)
+        assert float((got - want).abs().max()) <= 1e-4
+    elif name == "avg_pool":
+        x = _t(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(dev)
+        got, want = tpool.avg_pool_cuda(x, 2), tpool.avg_pool_plain(x, 2)
+        assert float((got - want).abs().max()) <= 1e-6
+    elif name == "pack_pos":
+        bank = _t(rng.standard_normal((2, 20, 64, 32)).astype(np.float32))
+        pos = _t(rng.standard_normal((20, 64, 32)).astype(np.float32))
+        src = _t(rng.integers(0, 20, (2, 12)).astype(np.int32))
+        nw = torch.tensor([5, 12], dtype=torch.int32)
+        args = [a.to(dev) for a in (bank, pos, src, nw)]
+        assert torch.equal(tfused.pack_pos_cuda(*args),
+                           tfused.pack_pos_plain(*args))
+    else:
+        win = _t(rng.standard_normal((2, 9, 64, 16)).astype(np.float32))
+        tiles = _t(rng.standard_normal((2, 4, 4, 64, 16)).astype(np.float32))
+        osrc = _t(rng.integers(0, 25, (2, 16)).astype(np.int32))
+        omap = _t(rng.integers(0, 5, (2, 16)).astype(np.int32))
+        args = [a.to(dev) for a in (win, osrc, omap)]
+        assert torch.equal(
+            tfused.restore_gather_cuda(*args, 8, 2, tiles.to(dev)),
+            tfused.restore_gather_plain(*args, 8, 2, tiles.to(dev)))
