@@ -14,6 +14,13 @@ Port layout (plain dicts of tensors):
 The reference keeps q, k and v weights apart and concatenates them on
 every call; here they are concatenated once.  Its conv weights are HWIO;
 ``F.conv2d`` takes OIHW.
+
+A compressed reference tree (``repro.quant.ptq.compress``) converts too:
+its QuantTensor leaves are read by duck typing (``.q``, ``.scale``,
+``.out_dtype``) into the port's ``quant.qtensor.QuantTensor``; q/k/v
+fuse with ``concat_out`` semantics, conv codes turn HWIO -> OIHW with
+their scales kept per output channel, and the position grid stays
+quantized.
 """
 from __future__ import annotations
 
@@ -25,30 +32,53 @@ import torch
 
 from repro_torch.core import vit_backbone as vb
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant import qtensor as qt
 
 
-def _t(x, device) -> torch.Tensor:
+def _is_quant(x) -> bool:
+    return all(hasattr(x, a) for a in ("q", "scale", "out_dtype"))
+
+
+def _t(x, device):
+    """A float leaf -> float32 tensor; a QuantTensor leaf -> the port's
+    QuantTensor (codes and scales byte for byte)."""
+    if _is_quant(x):
+        return qt.QuantTensor(
+            torch.tensor(np.asarray(x.q, dtype=np.int8), device=device),
+            torch.tensor(np.asarray(x.scale, dtype=np.float32).reshape(-1),
+                         device=device), str(x.out_dtype))
     return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
 
 
-def _conv(p: Mapping, device) -> Dict[str, torch.Tensor]:
-    w = np.asarray(p["w"], dtype=np.float32).transpose(3, 2, 0, 1)
-    return {"w": _t(np.ascontiguousarray(w), device), "b": _t(p["b"], device)}
+def _conv(p: Mapping, device) -> Dict:
+    w = p["w"]
+    if _is_quant(w):            # HWIO codes -> OIHW, scales per O
+        q = np.ascontiguousarray(np.asarray(w.q, np.int8).transpose(3, 2, 0, 1))
+        wt = qt.QuantTensor(
+            torch.tensor(q, device=device),
+            torch.tensor(np.asarray(w.scale, np.float32).reshape(-1),
+                         device=device), str(w.out_dtype), axis=0)
+    else:
+        wt = _t(np.ascontiguousarray(
+            np.asarray(w, dtype=np.float32).transpose(3, 2, 0, 1)), device)
+    return {"w": wt, "b": _t(p["b"], device)}
 
 
-def _attn(p: Mapping, device) -> Dict[str, torch.Tensor]:
+def _attn(p: Mapping, device) -> Dict:
     def cat(names, axis):
         return _t(np.concatenate([np.asarray(p[n]) for n in names], axis),
                   device)
-    return {"w_qkv": cat(("w_q", "w_k", "w_v"), 1),
+    ws = [_t(p[n], device) for n in ("w_q", "w_k", "w_v")]
+    return {"w_qkv": qt.concat_out(ws),
             "b_qkv": cat(("b_q", "b_k", "b_v"), 0),
             "w_o": _t(p["w_o"], device), "b_o": _t(p["b_o"], device)}
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig,
                     device: str = "cuda") -> Dict:
-    """The reference's ``init_vitdet_params`` tree (numpy or array
-    leaves, read through ``np.asarray``) -> the port's parameters."""
+    """The reference's ``init_vitdet_params`` tree, float or compressed
+    (numpy or array leaves, read through ``np.asarray``; QuantTensor
+    leaves by duck typing) -> the port's parameters."""
     def norm(p):
         return {k: _t(v, device) for k, v in p.items()}
 

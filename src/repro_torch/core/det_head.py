@@ -21,13 +21,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant import qtensor as qt
 
 STRIDES = (8, 16, 32)
 
 
 def conv2d(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """NCHW SAME conv (odd square kernel), OIHW weight ``p["w"]``."""
-    w = p["w"]
+    """NCHW SAME conv (odd square kernel), OIHW weight ``p["w"]``.  An
+    int8 QuantTensor weight (scales per output channel O) dequantizes at
+    entry, as the reference's does: the int8 gain in the head is the
+    smaller resident weight, not an int8 convolution."""
+    w = qt.asarray(p["w"])
     return F.conv2d(x, w, p["b"], padding=w.shape[-1] // 2)
 
 

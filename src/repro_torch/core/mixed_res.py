@@ -6,7 +6,10 @@ Layout (window-blocked, see core.partition): a sequence of whole
 windows, each flattened row-major to ``w*w`` tokens.  The padded serving
 lane packs from a window bank [every full-res window | one LOW window
 per region] through ``kernels.dispatch.pack_pos`` and restores through
-``kernels.dispatch.restore_gather``.
+``kernels.dispatch.restore_gather``.  At beta == 0 (restore at input) it
+packs with the plain gather :func:`pack_padded` and restores with
+:func:`restore_padded`, whose LOW windows go through
+``kernels.dispatch.nn_upsample``.
 """
 from __future__ import annotations
 
@@ -67,6 +70,72 @@ def window_bank(x_grid: torch.Tensor, part: Partition,
         x_low_grid = downsample_grid(x_grid, part.downsample)
     low = low_grid_to_windows(x_low_grid, part)           # B,nR,w^2,C
     return torch.cat([regions.reshape(B, nR * dd, w2, C), low], dim=1)
+
+
+def pack_padded(x_grid: torch.Tensor, part: Partition, win_src: torch.Tensor,
+                x_low_grid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The length-bucketed mixed sequence, unfused: window ``i`` of
+    sample ``b`` is window ``win_src[b, i]`` of the bank (pad windows
+    replicate window 0, as in the reference).  win_src: (nw_pad,) shared
+    or (B, nw_pad).  Returns tokens (B, nw_pad * w^2, C)."""
+    bank = window_bank(x_grid, part, x_low_grid)
+    src = win_src.to(device=bank.device, dtype=torch.long)
+    if src.dim() == 2:
+        windows = bank[torch.arange(bank.shape[0],
+                                    device=bank.device)[:, None], src]
+    else:
+        windows = bank[:, src]
+    return windows.reshape(bank.shape[0], -1, bank.shape[-1])
+
+
+def _per_sample(ids: torch.Tensor, B: int) -> torch.Tensor:
+    ids = ids.to(torch.long)
+    return ids[None].expand(B, ids.shape[0]) if ids.dim() == 1 else ids
+
+
+def restore_padded(tokens: torch.Tensor, part: Partition,
+                   win_dst: torch.Tensor, low_src: torch.Tensor,
+                   low_ids: torch.Tensor) -> torch.Tensor:
+    """Restore the full-resolution sequence from a padded mixed one.
+
+    tokens: (B, nw_pad * w^2, D).  FULL windows scatter window-level at
+    ``win_dst`` (pad and LOW windows carry the sentinel slot nR*d^2);
+    LOW windows are gathered at ``low_src``, upsampled, and scattered
+    region-level at ``low_ids`` (pads carry the sentinel region nR).
+    Duplicate indices only ever hit a sentinel row, which is sliced off,
+    so the order of the scatter's writes cannot change the result.
+    Output: (B, Hp*Wp, D) window-blocked."""
+    B, _, D = tokens.shape
+    w, d = part.window, part.downsample
+    w2 = w * w
+    nR, dd = part.n_regions, part.windows_per_full_region
+    windows = tokens.reshape(B, -1, w2, D)
+    b = torch.arange(B, device=tokens.device)[:, None]
+    dst = _per_sample(win_dst, B).to(tokens.device)
+    lsrc = _per_sample(low_src, B).to(tokens.device)
+    lids = _per_sample(low_ids, B).to(tokens.device)
+
+    buf = tokens.new_zeros((B, nR * dd + 1, w2, D))
+    buf[b, dst] = windows
+    out = tokens.new_zeros((B, nR + 1, dd, w2, D))
+    out[:, :nR] = buf[:, :nR * dd].reshape(B, nR, dd, w2, D)
+    up = _upsample_low_windows(windows[b, lsrc].reshape(B, -1, w, w, D),
+                               part)
+    out[b, lids] = up
+    return out[:, :nR].reshape(B, part.grid_h * part.grid_w, D)
+
+
+def _upsample_low_windows(low_part: torch.Tensor, part: Partition
+                          ) -> torch.Tensor:
+    """Nearest-neighbour upsample LOW windows (B, n, w, w, D) ->
+    (B, n, d^2, w^2, D) window-blocked full-region tiles (the
+    ``nn_upsample`` kernel on the card)."""
+    B, nL = low_part.shape[:2]
+    D = low_part.shape[-1]
+    w, d = part.window, part.downsample
+    up = dispatch.nn_upsample(low_part.reshape(B * nL, w, w, D), d)
+    up = up.reshape(B, nL, d, w, d, w, D)
+    return up.permute(0, 1, 2, 4, 3, 5, 6).reshape(B, nL, d * d, w * w, D)
 
 
 def full_seq_to_grid(tokens: torch.Tensor, part: Partition) -> torch.Tensor:

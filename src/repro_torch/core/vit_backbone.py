@@ -11,9 +11,16 @@ global attention.  Two lanes:
                     window bank -> ``pack_pos`` kernel -> blocks with
                     ``win_valid`` / ``kv_len`` -> ``restore_gather``
                     kernel (splicing REUSE tiles) inside subset ``beta``
-                    -> remaining blocks -> capture.
+                    -> remaining blocks -> capture;
+  padded (beta=0)   restore at input (the paper's "Subset 0"): the
+                    window-bank gather, then ``mixed_res.restore_padded``
+                    (LOW windows through the ``nn_upsample`` kernel) and
+                    the full-resolution positions, then every block at
+                    full length; no REUSE tiles (they are
+                    restoration-point features).
 
-The padded lane at ``beta == 0`` (restore at input) is not ported yet.
+Every linear weight may be a ``quant.qtensor.QuantTensor`` (the int8
+lane): the GEMMs route through ``qtensor.matmul``.
 """
 from __future__ import annotations
 
@@ -28,6 +35,10 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant import qtensor as qt
+
+# parameter-tree keys derived from pos_emb by add_position_banks
+DERIVED_KEYS = ("pos_seq", "pos_bank")
 
 
 def vit_partition(cfg: ModelConfig) -> Partition:
@@ -55,12 +66,18 @@ def add_position_banks(cfg: ModelConfig, params: Dict) -> Dict:
     grid the forward adds: ``pos_seq``, the full-resolution window-blocked
     sequence, and ``pos_bank``, the (nR*d^2 + nR, w^2, D) window bank that
     the fused pack gathers from (LOW windows get the mean embedding of
-    their d x d patch groups)."""
+    their d x d patch groups).  A quantized grid is dequantized first."""
     part = vit_partition(cfg)
-    pos = params["pos_emb"][None]
+    pos = qt.asarray(params["pos_emb"])[None]
     params["pos_seq"] = mr.grid_to_full_seq(pos, part)[0]
     params["pos_bank"] = mr.window_bank(pos, part)[0]
     return params
+
+
+def strip_derived(params: Dict) -> Dict:
+    """The parameter tree without the layouts ``add_position_banks``
+    derives (a shallow copy)."""
+    return {k: v for k, v in params.items() if k not in DERIVED_KEYS}
 
 
 def patchify(image: torch.Tensor, patch: int) -> torch.Tensor:
@@ -77,7 +94,7 @@ def embed_patches(cfg: ModelConfig, params, image: torch.Tensor,
     if downsample > 1:
         image = mr.downsample_grid(image, downsample)
     p = params["patch_embed"]
-    return torch.matmul(patchify(image, cfg.vit.patch_size), p["w"]) + p["b"]
+    return qt.matmul(patchify(image, cfg.vit.patch_size), p["w"]) + p["b"]
 
 
 def _vit_block(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
@@ -101,9 +118,11 @@ def forward_features(cfg: ModelConfig, params, image: torch.Tensor,
 
     layout: the PlanLayout arrays of a length-bucketed padded sequence
     (``win_src`` (·, nw_pad), ``nw``, ``out_src`` / ``out_map``
-    (·, nR*d^2), each shared or per-sample; core.partition).  None runs
-    the full-resolution lane.  A padded forward needs ``beta >= 1``; its
-    REUSE regions splice from ``reuse_tiles`` (B, nR, d^2, w^2, D).
+    (·, nR*d^2) at beta >= 1; ``win_src``, ``win_dst`` (·, nw_pad),
+    ``low_src`` / ``low_ids`` (·, nR) at beta == 0; each shared or
+    per-sample; core.partition).  None runs the full-resolution lane.
+    At beta >= 1 REUSE regions splice from ``reuse_tiles``
+    (B, nR, d^2, w^2, D); at beta == 0 there are none.
     capture_beta: also return the per-region tiles (B, nR, d^2, w^2, D)
     of the token state entering the global block of subset
     ``capture_beta`` (>= beta for a padded forward).
@@ -113,17 +132,16 @@ def forward_features(cfg: ModelConfig, params, image: torch.Tensor,
     N = cfg.vit.n_subsets
     w2 = part.window * part.window
     padded = layout is not None
+    mixed = padded and beta > 0
     assert 0 <= beta <= N and 0 <= capture_beta <= N
-    if padded:
-        if beta == 0:
-            raise NotImplementedError(
-                "the padded lane at beta == 0 (restore at input) is not "
-                "ported yet")
-        if capture_beta:
-            assert capture_beta >= beta, \
-                "cannot capture tiles before the restoration point"
-    else:
+    if padded and beta == 0:
+        assert reuse_tiles is None, \
+            "REUSE tiles cannot splice at beta == 0 (restore at input)"
+    elif not padded:
         assert reuse_tiles is None, "REUSE tiles need a padded layout"
+    if capture_beta and mixed:
+        assert capture_beta >= beta, \
+            "cannot capture tiles before the restoration point"
 
     x_full = embed_patches(cfg, params, image)                # B,Hp,Wp,D
     kv_len = win_valid = None
@@ -131,17 +149,23 @@ def forward_features(cfg: ModelConfig, params, image: torch.Tensor,
         # the pooled grid is always packed: one layout shape serves every
         # plan mix, and a reuse-only sample never gathers from its half
         x_low = embed_patches(cfg, params, image, part.downsample)
+    if mixed:
         bank = mr.window_bank(x_full, part, x_low)
         tokens = dispatch.pack_pos(bank, params["pos_bank"],
                                    layout["win_src"], layout["nw"])
         win_valid = layout["nw"].to(torch.int32).reshape(-1).expand(
             tokens.shape[0]).contiguous()
         kv_len = win_valid * w2
+    elif padded:                          # beta == 0: restore at input
+        tokens = mr.pack_padded(x_full, part, layout["win_src"], x_low)
+        tokens = mr.restore_padded(tokens, part, layout["win_dst"],
+                                   layout["low_src"], layout["low_ids"])
+        tokens = tokens + params["pos_seq"]
     else:
         tokens = mr.grid_to_full_seq(x_full, part) + params["pos_seq"]
 
     tiles = None
-    restored = not padded
+    restored = not mixed
     for s in range(N):
         for m in range(M):
             p_blk = params["blocks"][s * M + m]

@@ -2,8 +2,16 @@
 
 A CUDA tensor launches the op's hand-written kernel (``csrc/``); a CPU
 tensor takes the op's plain PyTorch version; any other device raises.
-There is no backend knob and no environment switch, and a kernel that
-fails to build or launch raises rather than falling back.
+There is no backend knob, and a kernel that fails to build or launch
+raises rather than falling back.
+
+The quant plane (``resolve_quant``) chooses how a ``QuantTensor`` weight
+multiplies (``quant.qtensor.matmul``): ``"native"`` runs the int8 GEMM
+route below, ``"dequant"`` the float GEMM on the dequantized weight, the
+reference's explicit oracle lane that a caller asks for.  Precedence, as
+in the reference: the ``REPRO_QUANT`` environment variable (read once at
+import, :func:`refresh_from_env`) > a per-call ``mode`` >
+:func:`set_quant_mode` > ``"native"``.
 
 Each kernel keeps a launch count (``launch_counts``), which grows only
 where a wrapper launched its kernel, so a run can show that it went
@@ -11,12 +19,15 @@ through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels.flash_attention import ops as _flash
 from repro_torch.kernels.fused_serving import ops as _fused
+from repro_torch.kernels.int8_matmul import ops as _int8
 from repro_torch.kernels.mixed_res_pool import ops as _pool
 from repro_torch.kernels.window_attention import ops as _win
 
@@ -26,7 +37,15 @@ KERNELS = {
     "pack_pos": _fused.PACK_POS,
     "restore_gather": _fused.RESTORE,
     "avg_pool": _pool.KERNEL,
+    "nn_upsample": _pool.UPSAMPLE,
+    "int8_matmul": _int8.KERNEL,
 }
+
+QUANT_MODES = ("native", "dequant")
+QUANT_ENV_VAR = "REPRO_QUANT"
+
+_ENV_QUANT: Optional[str] = None        # cached REPRO_QUANT override
+_PROCESS_QUANT: Optional[str] = None    # set_quant_mode() default
 
 
 def on_card(x: torch.Tensor) -> bool:
@@ -44,6 +63,64 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# quant plane
+
+
+def _check_quant(mode: str) -> str:
+    if mode not in QUANT_MODES:
+        raise ValueError(f"quant mode must be one of {QUANT_MODES}, got "
+                         f"{mode!r}")
+    return mode
+
+
+def refresh_from_env() -> Optional[str]:
+    """Re-read the cached ``REPRO_QUANT`` override (it is resolved on
+    every quantized matmul, so it is not read per call)."""
+    global _ENV_QUANT
+    qenv = os.environ.get(QUANT_ENV_VAR)
+    _ENV_QUANT = _check_quant(qenv) if qenv else None
+    return _ENV_QUANT
+
+
+def set_quant_mode(mode: Optional[str]) -> None:
+    """Process-wide default for ``mode=None`` call sites; ``None``
+    restores the built-in ``"native"``."""
+    global _PROCESS_QUANT
+    _PROCESS_QUANT = _check_quant(mode) if mode is not None else None
+
+
+@contextlib.contextmanager
+def quant_scope(mode: Optional[str]):
+    """Temporarily set the process quant mode; a ``None`` scope is a
+    no-op."""
+    if mode is None:
+        yield
+        return
+    prev = _PROCESS_QUANT
+    set_quant_mode(mode)
+    try:
+        yield
+    finally:
+        set_quant_mode(prev)
+
+
+def resolve_quant(mode: Optional[str] = None) -> str:
+    """Resolve a quant-mode request to ``"native"`` or ``"dequant"``."""
+    if _ENV_QUANT is not None:
+        return _ENV_QUANT
+    if mode is None:
+        return _PROCESS_QUANT if _PROCESS_QUANT is not None else "native"
+    return _check_quant(mode)
+
+
+refresh_from_env()
+
+
+# ---------------------------------------------------------------------------
+# kernel routes
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,6 +148,26 @@ def avg_pool(x: torch.Tensor, d: int) -> torch.Tensor:
     if on_card(x):
         return _pool.avg_pool_cuda(x, d)
     return _pool.avg_pool_plain(x, d)
+
+
+def nn_upsample(x: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H*d, W*d, C) nearest-neighbour upsample."""
+    if d == 1:
+        return x
+    if on_card(x):
+        return _pool.nn_upsample_cuda(x, d)
+    return _pool.nn_upsample_plain(x, d)
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
+                sw: torch.Tensor, *,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Quantized GEMM: xq (M, K) int8 row-quantized activations, wq
+    (K, N) int8 per-output-channel codes (K-contiguous, as
+    ``QuantTensor`` keeps them), sx (M,) / sw (N,) float32 scales."""
+    if on_card(xq):
+        return _int8.int8_matmul_cuda(xq, wq, sx, sw, out_dtype)
+    return _int8.int8_matmul_plain(xq, wq, sx, sw, out_dtype)
 
 
 def pack_pos(bank: torch.Tensor, pos_bank: torch.Tensor,

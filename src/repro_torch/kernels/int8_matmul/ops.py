@@ -1,0 +1,75 @@
+"""int8 x int8 -> int32 GEMM with a per-row x per-column dequant
+epilogue, the quantized lane's matmul:
+
+    out[m, n] = float(sum_k xq[m, k] * wq[k, n]) * sx[m] * sw[n]
+
+``int8_matmul_cuda`` launches ``csrc/int8_matmul.cu``, the port of
+``repro/kernels/int8_matmul/kernel.py:int8_matmul_kernel``;
+``int8_matmul_plain`` is the same function in plain PyTorch.  Both are
+exact: the integer sum has no rounding, and the epilogue is the same
+three float32 operations in the same order as the reference
+(``repro/kernels/int8_matmul/ref.py``), so kernel, plain version and
+reference agree bit for bit.
+
+The kernel reads the weight codes K-contiguous, as the (N, K) matrix
+whose transpose is ``wq``; ``quant.qtensor.QuantTensor`` keeps its 2-D
+codes in that layout (``wq.stride() == (1, K)``).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import I, P, CudaKernel, check_cuda, stream_of
+
+KERNEL = CudaKernel("int8_matmul", "int8_matmul_f32",
+                    [P, P, P, P, P, I, I, I, I, P])
+
+# float64 holds every integer up to 2**53 exactly; |sum| <= K * 127**2
+_MAX_EXACT_K = 2 ** 53 // 127 ** 2
+
+
+def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
+                      sw: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """xq: (M, K) int8; wq: (K, N) int8; sx: (M,) f32; sw: (N,) f32.
+
+    The int8 x int8 sum runs as a float64 matmul, which is exact here
+    (every partial sum is an integer below 2**53) and, unlike an int32
+    matmul, runs through BLAS on the CPU and is available on the card."""
+    if xq.shape[1] > _MAX_EXACT_K:
+        raise ValueError(f"int8_matmul: K={xq.shape[1]} exceeds float64's "
+                         f"exact range")
+    acc = torch.matmul(xq.double(), wq.double()).to(torch.int32)
+    out = acc.float() * sx[:, None].float() * sw[None, :].float()
+    return out.to(out_dtype)
+
+
+def int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
+                     sw: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    check_cuda("int8_matmul", xq, wq, sx, sw)
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError(f"int8_matmul: int8 operands, got {xq.dtype} and "
+                         f"{wq.dtype}")
+    if sx.dtype != torch.float32 or sw.dtype != torch.float32:
+        raise ValueError("int8_matmul: float32 scales only")
+    if out_dtype != torch.float32:
+        raise NotImplementedError(f"int8_matmul: out_dtype {out_dtype} (the "
+                                  f"kernel writes float32)")
+    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[0]:
+        raise ValueError(f"int8_matmul: xq {tuple(xq.shape)} and wq "
+                         f"{tuple(wq.shape)} do not multiply")
+    M, K = xq.shape
+    N = wq.shape[1]
+    if sx.shape != (M,) or sw.shape != (N,):
+        raise ValueError(f"int8_matmul: scales {tuple(sx.shape)} / "
+                         f"{tuple(sw.shape)} for a ({M}, {N}) output")
+    if not xq.is_contiguous() or not wq.t().is_contiguous():
+        raise ValueError("int8_matmul: xq must be row-major and wq the "
+                         "transpose of a row-major (N, K) matrix")
+    sx, sw = sx.contiguous(), sw.contiguous()
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    if M and N:
+        KERNEL(xq, wq, sx, sw, out, M, N, K, xq.device.index,
+               stream_of(xq))
+    return out

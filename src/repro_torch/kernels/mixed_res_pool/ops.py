@@ -1,10 +1,13 @@
-"""d x d average pool (mixed-resolution downsampling, paper §III-A).
+"""d x d average pool (mixed-resolution downsampling, paper §III-A) and
+d x d nearest-neighbour upsample (restoration at beta = 0, §III-B).
 
-``avg_pool_cuda`` launches ``csrc/avg_pool.cu``, the port of
-``repro/kernels/mixed_res_pool/kernel.py:avg_pool_kernel``;
-``avg_pool_plain`` is the same function in plain PyTorch, which the CPU
-path and the tests use.  ``kernels.dispatch.avg_pool`` picks between
-them by device.
+``avg_pool_cuda`` / ``nn_upsample_cuda`` launch ``csrc/avg_pool.cu`` /
+``csrc/nn_upsample.cu``, the ports of
+``repro/kernels/mixed_res_pool/kernel.py:avg_pool_kernel`` and
+``:nn_upsample_kernel``; the ``*_plain`` functions are the same ops in
+plain PyTorch, which the CPU path and the tests use.
+``kernels.dispatch.avg_pool`` / ``nn_upsample`` pick between them by
+device.
 """
 from __future__ import annotations
 
@@ -13,6 +16,15 @@ import torch
 from repro_torch.kernels.build import I, P, CudaKernel, check_cuda, stream_of
 
 KERNEL = CudaKernel("avg_pool", "avg_pool_f32", [P, P, I, I, I, I, I, I, P])
+UPSAMPLE = CudaKernel("nn_upsample", "nn_upsample_f32",
+                      [P, P, I, I, I, I, I, I, P])
+
+
+def _check_grid(name: str, x: torch.Tensor) -> None:
+    check_cuda(name, x)
+    if x.dtype != torch.float32 or x.dim() != 4:
+        raise ValueError(f"{name}: (B, H, W, C) float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
 
 
 def avg_pool_plain(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -24,10 +36,7 @@ def avg_pool_plain(x: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def avg_pool_cuda(x: torch.Tensor, d: int) -> torch.Tensor:
-    check_cuda("avg_pool", x)
-    if x.dtype != torch.float32 or x.dim() != 4:
-        raise ValueError(f"avg_pool: (B, H, W, C) float32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    _check_grid("avg_pool", x)
     B, H, W, C = x.shape
     if H % d or W % d:
         raise ValueError(f"avg_pool: {H}x{W} not divisible by d={d}")
@@ -35,4 +44,21 @@ def avg_pool_cuda(x: torch.Tensor, d: int) -> torch.Tensor:
     out = torch.empty((B, H // d, W // d, C), dtype=x.dtype, device=x.device)
     KERNEL(x, out, B, H, W, C, d, x.device.index,
            stream_of(x))
+    return out
+
+
+def nn_upsample_plain(x: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H*d, W*d, C): every pixel repeated over a
+    d x d block."""
+    return x.repeat_interleave(d, dim=1).repeat_interleave(d, dim=2)
+
+
+def nn_upsample_cuda(x: torch.Tensor, d: int) -> torch.Tensor:
+    _check_grid("nn_upsample", x)
+    if d < 1:
+        raise ValueError(f"nn_upsample: d={d}")
+    B, H, W, C = x.shape
+    x = x.contiguous()
+    out = torch.empty((B, H * d, W * d, C), dtype=x.dtype, device=x.device)
+    UPSAMPLE(x, out, B, H, W, C, d, x.device.index, stream_of(x))
     return out

@@ -5,19 +5,42 @@ attention.  Layouts: activations (B, T, D); q/k/v (B, T, H, Dh).
 Unmasked global attention goes to the flash kernel and window attention
 to the window kernel (``kernels.dispatch``).  Global attention with a
 per-sample ``kv_len`` (the pre-restoration global blocks of a padded
-sequence) stays plain PyTorch, as the reference leaves it to XLA.
+sequence) stays plain PyTorch, as the reference leaves it to XLA.  The
+QKV and output projections go through ``quant.qtensor.matmul``, so their
+weights may be int8 ``QuantTensor``s.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import dispatch
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant import qtensor as qt
 
 NEG_INF = -2.0 ** 30   # large-finite: avoids NaN rows for fully-masked queries
 Q_CHUNK = 1024         # query block of the chunked dense path
+
+# Head-importance tap (quant.prune calibration): when armed, every
+# attention_forward appends the per-head mean |output| (pre-w_o) to the
+# store; the backbone makes n_layers attention calls per forward, in
+# layer order, so the store reshapes to (frames, layers, heads).
+_HEAD_TAP: Optional[List[np.ndarray]] = None
+
+
+@contextlib.contextmanager
+def head_tap(store: List[np.ndarray]):
+    """Arm the per-head output-magnitude tap for calibration."""
+    global _HEAD_TAP
+    prev = _HEAD_TAP
+    _HEAD_TAP = store
+    try:
+        yield store
+    finally:
+        _HEAD_TAP = prev
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,7 +90,7 @@ def _project_qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     """One fused (D, q_dim + 2*kv_dim) GEMM; q, k and v are column views
     of its output (the kernels read them through their strides)."""
     B, T, _ = x.shape
-    qkv = torch.matmul(x, p["w_qkv"]) + p["b_qkv"]
+    qkv = qt.matmul(x, p["w_qkv"]) + p["b_qkv"]
     q, k, v = torch.split(qkv, (cfg.q_dim, cfg.kv_dim, cfg.kv_dim), dim=-1)
     return (q.reshape(B, T, cfg.n_heads, cfg.head_dim),
             k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim),
@@ -87,5 +110,7 @@ def attention_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         out = window_sdpa(q, k, v, window, win_valid=win_valid)
     else:
         out = sdpa(q, k, v, kv_len=kv_len)
-    return torch.matmul(out.reshape(x.shape[0], x.shape[1], cfg.q_dim),
-                        p["w_o"]) + p["b_o"]
+    if _HEAD_TAP is not None:
+        _HEAD_TAP.append(out.float().abs().mean(dim=(0, 1, 3)).cpu().numpy())
+    return qt.matmul(out.reshape(x.shape[0], x.shape[1], cfg.q_dim),
+                     p["w_o"]) + p["b_o"]

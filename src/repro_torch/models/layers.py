@@ -1,5 +1,6 @@
 """LayerNorm and the GELU MLP of the ViT blocks (the ``repro.models.layers``
-subset the serving path runs).  Parameters are plain dicts of tensors.
+subset the serving path runs).  Parameters are plain dicts of tensors;
+MLP weights may be int8 ``QuantTensor``s (``quant.qtensor.matmul``).
 """
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant import qtensor as qt
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -34,5 +36,5 @@ def apply_mlp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
     """Plain GELU MLP.  The reference uses the tanh approximation
     (``jax.nn.gelu(approximate=True)``); PyTorch's default is erf."""
-    h = F.gelu(torch.matmul(x, p["w_up"]) + p["b_up"], approximate="tanh")
-    return torch.matmul(h, p["w_down"]) + p["b_down"]
+    h = F.gelu(qt.matmul(x, p["w_up"]) + p["b_up"], approximate="tanh")
+    return qt.matmul(h, p["w_down"]) + p["b_down"]

@@ -15,8 +15,17 @@ runs each key once (allocator pools, cuBLAS/cuDNN handles and algorithm
 choices, kernel libraries) and ``stats.note_compile`` counts first uses;
 one after warmup is a steady-state stall (``stats.steady_compiles``).
 
+``ServerModel(cfg, params, quant=QuantSpec(...))`` compresses the tree
+(``quant.ptq.compress``: head pruning, then int8 weights) before anything
+runs, so the whole grid serves the compressed model and the grid keys do
+not change.  Mixed waves at ``beta == 0`` restore at input (key
+``(lb, 0, 0, B bucket)``): no restoration point, so no REUSE plans and
+no capture.
+
 Not ported yet: ``stage_frames``, ``infer_speculative``, ``restart``, the
-host-resident cache mode, quantization and the kernel autotuner.
+host-resident cache mode, the kernel autotuner, the half-precision
+quantized lanes (fp16/bf16 weights or activations) and calibration
+(``quant/calibrate.py``).
 """
 from __future__ import annotations
 
@@ -34,16 +43,22 @@ from repro_torch.core import vit_backbone as vb
 from repro_torch.core.partition import RegionPlan
 from repro_torch.models.config import ModelConfig
 from repro_torch.offload import detection as det
+from repro_torch.quant import ptq
+from repro_torch.quant import qtensor as qt
 from repro_torch.serve.request import (FeatureCache, ServingStats,
                                        StaleCacheEpoch)
 
-# the PlanLayout arrays the fused padded forward reads
-_LAYOUT_ARGS = ("win_src", "nw", "out_src", "out_map")
+# the PlanLayout arrays the padded forwards read: the fused lane at
+# beta >= 1 (win_src, nw, out_src, out_map) and the restore-at-input lane
+# at beta == 0 (win_src, win_dst, low_src, low_ids)
+_LAYOUT_ARGS = ("win_src", "win_dst", "low_src", "low_ids", "nw",
+                "out_src", "out_map")
 
 
 def to_device(tree, device: torch.device):
-    """A parameter tree (dicts and lists of tensors) on ``device``."""
-    if isinstance(tree, torch.Tensor):
+    """A parameter tree (dicts and lists of tensors and QuantTensors) on
+    ``device``."""
+    if isinstance(tree, (torch.Tensor, qt.QuantTensor)):
         return tree.to(device)
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
@@ -82,17 +97,33 @@ class ServerModel:
     point.  Wave sizes are padded UP to ``b_buckets`` edges with copies of
     sample 0; padded rows are dropped from the detections and never touch
     a FeatureCache.
+
+    ``quant``: an optional ``quant.ptq.QuantSpec``; the tree is compressed
+    on ``device`` before anything runs (``calib_frames`` feed head
+    scoring when the spec prunes) and ``quant_report`` keeps the
+    compression report.  Pre-compressed trees pass ``quant=None``.
     """
 
     def __init__(self, cfg: ModelConfig, params, top_k: int = 32,
                  score_thresh: float = 0.4, n_buckets: int = 4,
                  b_buckets: Tuple[int, ...] = pt.BATCH_BUCKETS,
                  n_length_buckets: int = pt.N_LENGTH_BUCKETS,
-                 device: str = "cuda"):
+                 device: str = "cuda", quant=None, calib_frames=None):
         vb.disable_tf32()
-        self.cfg = cfg
         self.device = torch.device(device)
-        self.params = to_device(params, self.device)
+        params = to_device(params, self.device)
+        self.quant_report = None
+        if quant is not None:
+            cfg, params, self.quant_report = ptq.compress(
+                cfg, params, quant, calib_frames=calib_frames)
+        self.cfg = cfg
+        self.params = params
+        # activation dtype of the grid, read from the tree so that
+        # pre-compressed parameters work too
+        self.act_dtype = params["patch_embed"]["b"].dtype
+        if self.act_dtype != torch.float32:
+            raise NotImplementedError(
+                f"activation dtype {self.act_dtype}: only float32 is ported")
         self.part = vb.vit_partition(cfg)
         self.top_k = top_k
         self.score_thresh = score_thresh
@@ -135,8 +166,11 @@ class ServerModel:
             out = vb.forward_det(self.cfg, self.params, imgs,
                                  capture_beta=capture)
         else:
+            # beta == 0 restores at input: REUSE tiles are restoration-
+            # point features and cannot splice there
             out = vb.forward_det(self.cfg, self.params, imgs, beta=beta,
-                                 layout=layout, reuse_tiles=reuse_tiles,
+                                 layout=layout,
+                                 reuse_tiles=reuse_tiles if beta else None,
                                  capture_beta=capture)
         if capture:
             outs, tiles = out
@@ -186,15 +220,20 @@ class ServerModel:
         if lb == 0:
             self._run(0, 0, cap, imgs)
             return
-        nout = self.part.n_regions * self.part.windows_per_full_region
-        zeros = torch.zeros((batch, lb), dtype=torch.int32,
-                            device=self.device)
-        layout = {"win_src": zeros,
+        nR = self.part.n_regions
+        nout = nR * self.part.windows_per_full_region
+
+        def fill(n, v=0):
+            return torch.full((batch, n), v, dtype=torch.int32,
+                              device=self.device)
+
+        # every window real at beta >= 1; at beta == 0 every scatter
+        # lands on the sentinel rows, as a plan's pad entries do
+        layout = {"win_src": fill(lb), "win_dst": fill(lb, nout),
+                  "low_src": fill(nR), "low_ids": fill(nR, nR),
                   "nw": torch.full((batch,), lb, dtype=torch.int32,
                                    device=self.device),
-                  "out_src": torch.zeros((batch, nout), dtype=torch.int32,
-                                         device=self.device)}
-        layout["out_map"] = layout["out_src"]
+                  "out_src": fill(nout), "out_map": fill(nout)}
         self._run(lb, beta, cap, imgs, layout, self._zeros_tiles(batch))
 
     def default_plan_space(self, betas: Sequence[int],
@@ -203,8 +242,9 @@ class ServerModel:
                            full_res: bool = True
                            ) -> List[Tuple[int, int, int, int]]:
         """The plan grid a config space induces: every n_low bucket edge
-        x n_reuse edge x beta x capture point (beta 0 is not ported and is
-        skipped, as the reference skips it)."""
+        x n_reuse edge x beta x capture point.  Beta 0 is skipped, as the
+        reference skips it; a deployment that serves restore-at-input
+        waves lists its (n_low, 0, 0, 0) plans itself."""
         edges = pt.bucket_set(self.part.n_regions, self.n_buckets)
         space: List[Tuple[int, int, int, int]] = []
         if full_res:
@@ -243,11 +283,16 @@ class ServerModel:
                    caches: Optional[Sequence[Optional[FeatureCache]]] = None,
                    frame_ids: Optional[Sequence[int]] = None,
                    capture_beta: int = 0,
+                   lb_override: Optional[int] = None,
                    defer: bool = False):
         """Serve one wave (B >= 1 frames, (B, H, W, 3) float32 numpy or
         tensor) through the collapsed grid.
 
-        The wave runs at the length bucket of its LONGEST plan.
+        The wave runs at the length bucket of its LONGEST plan, or at
+        ``lb_override``, which may only pad further (a length edge that
+        holds every plan; an all-FULL wave then runs on the mixed key at
+        beta max(beta, 1)).  A mixed wave at ``beta == 0`` restores at
+        input: it carries no REUSE plan and captures no tiles.
         caches/frame_ids: the per-client FeatureCaches of sessionful jobs
         (entries may be None for stateless jobs); each sample splices
         from and refreshes its OWN cache.  The wave is padded up to the next batch bucket
@@ -292,13 +337,18 @@ class ServerModel:
         if npad:
             imgs = torch.cat([imgs, imgs[:1].expand(npad, *imgs.shape[1:])])
         layouts: Optional[List[pt.PlanLayout]] = None
-        if full_res:
+        if full_res and lb_override is None:
             store_cap = capture_beta if caches is not None else 0
             exec_cap = self._full_cap(store_cap)
             out = self._run(0, 0, exec_cap, imgs)
         else:
-            lb = self.length_bucket(max(pt.plan_n_windows(p, self.part)
-                                        for p in plans))
+            beta_eff = beta if not full_res else max(beta, 1)
+            nws = [pt.plan_n_windows(p, self.part) for p in plans]
+            lb = (self.length_bucket(max(nws)) if lb_override is None
+                  else lb_override)
+            assert lb >= max(nws) and lb in self.length_edges, \
+                f"lb_override {lb} cannot hold {max(nws)} windows " \
+                f"(edges {self.length_edges})"
             layouts = [pt.plan_layout(p.states, lb, self.part)
                        for p in plans]
             arrays, _ = pt.stack_plan_layouts(layouts)
@@ -306,9 +356,11 @@ class ServerModel:
                                          device=self.device)
                       for k in _LAYOUT_ARGS}
             tiles_in = self._wave_tiles(layouts, caches, npad)
-            exec_cap = beta              # mixed keys always capture
-            store_cap = beta if caches is not None else 0
-            out = self._run(lb, beta, exec_cap, imgs, layout, tiles_in)
+            # mixed keys always capture at their restoration point;
+            # beta 0 has none, so it never captures
+            exec_cap = beta_eff
+            store_cap = beta_eff if caches is not None else 0
+            out = self._run(lb, beta_eff, exec_cap, imgs, layout, tiles_in)
 
         if exec_cap:
             (boxes, scores, classes), tiles_out = out
@@ -330,7 +382,7 @@ class ServerModel:
             z = torch.zeros((Bp, part.n_regions,
                              part.windows_per_full_region,
                              part.tokens_low_region, self.cfg.d_model),
-                            device=self.device)
+                            dtype=self.act_dtype, device=self.device)
             self._zero_tiles[Bp] = z
         return z
 

@@ -1,0 +1,143 @@
+"""Post-training compression of the ViTDet parameter tree; port of
+``repro.quant.ptq``.
+
+``QuantSpec`` names one point in the (weight dtype, activation dtype,
+pruned heads) space; :func:`compress` applies it (head pruning first,
+on the float weights, then quantization) and returns the re-packed
+``(cfg, params, report)``.  The result is a drop-in parameter tree:
+every linear use-site routes through ``quant.qtensor.matmul``, so
+``ServerModel(cfg, params, quant=spec)`` is the whole deployment story.
+
+"int8" makes per-output-channel symmetric QuantTensors of every linear
+weight (fused QKV, w_o, MLP, patch embed, the position grid and the
+detection-head convs); biases and norm affines stay float.  This port
+serves float32 activations only: the half-precision lanes (``act_dtype``
+"fp16"/"bf16", ``weight_dtype`` "fp16"/"bf16") need half variants of
+the attention, pack/restore and pool kernels and raise here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import vit_backbone as vb
+from repro_torch.models.config import ModelConfig
+from repro_torch.quant import prune
+from repro_torch.quant import qtensor as qt
+
+DTYPES = {"fp32": torch.float32, "fp16": torch.float16,
+          "bf16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class QuantSpec:
+    """One deployment compression point."""
+    weight_dtype: str = "int8"        # fp32 | fp16 | bf16 | int8
+    act_dtype: str = "fp32"           # fp32 | fp16 | bf16
+    prune_heads: int = 0              # heads dropped per layer
+
+    def __post_init__(self):
+        assert self.weight_dtype in ("fp32", "fp16", "bf16", "int8"), \
+            self.weight_dtype
+        assert self.act_dtype in DTYPES, self.act_dtype
+
+    @property
+    def act_torch(self) -> torch.dtype:
+        return DTYPES[self.act_dtype]
+
+    @property
+    def name(self) -> str:
+        n = self.weight_dtype
+        if self.act_dtype != "fp32":
+            n += f"+{self.act_dtype}"
+        if self.prune_heads:
+            n += f"-p{self.prune_heads}"
+        return n
+
+
+# the candidate ladder of the reference's calibration gate, most
+# compressed first
+DEFAULT_CANDIDATES: Tuple[QuantSpec, ...] = (
+    QuantSpec("int8", "fp16", 1),
+    QuantSpec("int8", "fp16", 0),
+    QuantSpec("int8", "fp32", 0),
+    QuantSpec("fp16", "fp16", 0),
+)
+
+
+def quantize_vitdet_params(params, out_dtype=torch.float32):
+    """Per-output-channel int8 QuantTensors for every linear weight of a
+    (derived-key-free) ViTDet tree; biases and norm affines pass
+    through.  Conv weights are OIHW, quantized per output channel O."""
+    def qz(w, axis=-1):
+        return qt.quantize_weight(w, out_dtype=out_dtype, axis=axis)
+
+    def conv(c):
+        return {**c, "w": qz(c["w"], axis=0)}
+
+    blocks = []
+    for blk in params["blocks"]:
+        a = dict(blk["attn"])
+        for key in ("w_qkv", "w_o"):
+            a[key] = qz(a[key])
+        f = dict(blk["ffn"])
+        for key in ("w_up", "w_down", "w_gate"):
+            if key in f:
+                f[key] = qz(f[key])
+        blocks.append({**blk, "attn": a, "ffn": f})
+    head = dict(params["head"])
+    head["lateral"] = [conv(c) for c in head["lateral"]]
+    head["smooth"] = [conv(c) for c in head["smooth"]]
+    for key in ("tower", "cls", "box", "ctr"):
+        head[key] = conv(head[key])
+    return {
+        **params,
+        "patch_embed": {**params["patch_embed"],
+                        "w": qz(params["patch_embed"]["w"])},
+        "pos_emb": qz(params["pos_emb"]),
+        "blocks": blocks,
+        "head": head,
+    }
+
+
+def compress(cfg: ModelConfig, params, spec: QuantSpec,
+             calib_frames: Optional[Sequence[np.ndarray]] = None,
+             head_scores: Optional[np.ndarray] = None):
+    """Apply ``spec`` to a float ViTDet tree.
+
+    Returns ``(cfg, params, report)``: cfg shrinks ``n_heads`` when
+    pruning, params carries QuantTensors (and its position layouts
+    re-derived from the quantized grid), and the report records bytes
+    before and after (the derived position layouts not counted, as the
+    reference's tree has none), the ratio, and each layer's kept and
+    dropped heads."""
+    if spec.act_dtype != "fp32" or spec.weight_dtype in ("fp16", "bf16"):
+        raise NotImplementedError(
+            f"{spec.name}: only float32 activations with fp32 or int8 "
+            f"weights are ported (half lanes need half kernel variants)")
+    params = vb.strip_derived(params)
+    bytes0 = qt.tree_bytes(params)
+    report: Dict = {"spec": spec.name, "weight_dtype": spec.weight_dtype,
+                    "act_dtype": spec.act_dtype,
+                    "prune_heads": spec.prune_heads, "bytes_fp32": bytes0}
+    if spec.prune_heads:
+        scores = head_scores
+        if scores is None:
+            scores = (prune.score_heads(cfg, vb.add_position_banks(
+                cfg, dict(params)), calib_frames)
+                if calib_frames is not None and len(calib_frames)
+                else prune.w_o_head_norms(cfg, params))
+        H = cfg.n_heads
+        cfg, params, kept = prune.prune_heads(cfg, params,
+                                              spec.prune_heads, scores)
+        report["kept_heads"] = kept
+        report["dropped_heads"] = [
+            sorted(set(range(H)) - set(ks)) for ks in kept]
+    if spec.weight_dtype == "int8":
+        params = quantize_vitdet_params(params, out_dtype=spec.act_torch)
+    report["bytes"] = qt.tree_bytes(params)
+    report["ratio"] = bytes0 / max(report["bytes"], 1)
+    return cfg, vb.add_position_banks(cfg, params), report

@@ -116,18 +116,39 @@ def test_padded_lane_with_reuse_and_capture(model, beta):
     assert _close(gt, wt) <= TOL
 
 
-def test_padded_lane_beta0_not_ported(model):
-    _, tc, _, tparams, img = model
+@pytest.mark.parametrize("capture", [0, 2])
+def test_padded_lane_beta0_matches_reference(model, capture):
+    """Restore at input: the unfused window gather, the LOW windows
+    upsampled (the reference's nn_upsample kernel in interpret mode, the
+    port's plain version), full-resolution positions, every block at
+    full length."""
+    jc, tc, jparams, tparams, img = model
     part = tvb.vit_partition(tc)
-    lay = jpt.plan_layout(_plans(part.n_regions)[0], part.n_regions * 4,
-                          part)
-    layout = {"win_src": torch.from_numpy(lay.win_src),
-              "nw": torch.tensor([lay.nw], dtype=torch.int32),
-              "out_src": torch.from_numpy(lay.out_src),
-              "out_map": torch.from_numpy(lay.out_map)}
-    with pytest.raises(NotImplementedError):
-        tvb.forward_features(tc, tparams, torch.from_numpy(img[:1]),
-                             beta=0, layout=layout)
+    a, b = _plans(part.n_regions)
+    a[a == jpt.REUSE] = jpt.LOW            # no REUSE at beta 0
+    b[b == jpt.REUSE] = jpt.FULL
+    lb = max(jpt.length_bucket_set(jvb.vit_partition(jc)))
+    arrays, _ = jpt.stack_plan_layouts(
+        [jpt.plan_layout(s, lb, jvb.vit_partition(jc)) for s in (a, b)])
+    want = jvb.forward_features(
+        jc, jparams, jnp.asarray(img), beta=0, backend="pallas",
+        layout={k: jnp.asarray(v) for k, v in arrays.items()},
+        capture_beta=capture)
+    got = tvb.forward_features(
+        tc, tparams, torch.from_numpy(img), beta=0,
+        layout={k: torch.from_numpy(v) for k, v in arrays.items()},
+        capture_beta=capture)
+    if capture:
+        assert _close(got[1], want[1]) <= TOL
+        got, want = got[0], want[0]
+    assert _close(got, want) <= TOL
+    with pytest.raises(AssertionError):    # REUSE tiles cannot splice
+        tvb.forward_features(
+            tc, tparams, torch.from_numpy(img), beta=0,
+            layout={k: torch.from_numpy(v) for k, v in arrays.items()},
+            reuse_tiles=torch.zeros(2, part.n_regions,
+                                    part.windows_per_full_region,
+                                    part.tokens_low_region, tc.d_model))
 
 
 def test_det_head_and_decode(model):

@@ -1,11 +1,13 @@
-"""Port parity: the plain versions of the five ported kernels against the
+"""Port parity: the plain versions of the ported kernels against the
 reference's Pallas entry points (interpret mode on the CPU) and oracles,
 plus the device routing of ``repro_torch.kernels.dispatch``.
 
-Tolerances: the fused pack/restore are data movement plus one add, so
-they must be bit-equal; average pooling sums four floats (<= 1e-6);
-attention is float32 softmax attention whose summation order differs
-between the two frameworks (<= 1e-5 absolute on unit-normal inputs).
+Tolerances: the fused pack/restore are data movement plus one add, and
+the nearest-neighbour upsample is data movement alone, so they must be
+bit-equal; average pooling sums four floats (<= 1e-6); attention is
+float32 softmax attention whose summation order differs between the two
+frameworks (<= 1e-5 absolute on unit-normal inputs).  The int8 GEMM's
+parity tests live in ``test_torch_quant.py`` (bit-equal).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from repro.kernels.window_attention import ops as jwin
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import ops as tflash
 from repro_torch.kernels.fused_serving import ops as tfused
+from repro_torch.kernels.int8_matmul import ops as tmm
 from repro_torch.kernels.mixed_res_pool import ops as tpool
 from repro_torch.kernels.window_attention import ops as twin
 
@@ -103,6 +106,15 @@ def test_avg_pool_plain_matches_reference(shape, d):
     assert float((got - _t(want)).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("shape,d", [((32, 8, 8, 64), 2), ((3, 4, 6, 5), 2),
+                                     ((2, 3, 3, 130), 3)])
+def test_nn_upsample_plain_bit_equal(shape, d):
+    x = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+    got = tpool.nn_upsample_plain(_t(x), d)
+    want = np.asarray(jpool.nn_upsample_2d(jnp.asarray(x), d, interpret=True))
+    assert torch.equal(got, _t(want))
+
+
 # ---------------------------------------------------------------------------
 # attention: <= 1e-5
 
@@ -177,6 +189,9 @@ def _dispatch_cases():
     osrc = torch.tensor([0, 1, 2, 2], dtype=torch.int32)
     omap = torch.tensor([0, 0, 1, 4], dtype=torch.int32)
     img = _t(rng.uniform(0, 1, (1, 8, 8, 3)).astype(np.float32))
+    xq = _t(rng.integers(-127, 128, (5, 24), dtype=np.int8))
+    wq = _t(rng.integers(-127, 128, (24, 7), dtype=np.int8))
+    sx, sw = torch.ones(5), torch.full((7,), 0.5)
     return {
         "window_attention": (
             lambda: dispatch.window_attention(q, k, v, 64, wv),
@@ -190,6 +205,14 @@ def _dispatch_cases():
             lambda: dispatch.avg_pool(img, 2),
             lambda: tpool.avg_pool_plain(img, 2),
             lambda: tpool.avg_pool_cuda(img, 2)),
+        "nn_upsample": (
+            lambda: dispatch.nn_upsample(img, 2),
+            lambda: tpool.nn_upsample_plain(img, 2),
+            lambda: tpool.nn_upsample_cuda(img, 2)),
+        "int8_matmul": (
+            lambda: dispatch.int8_matmul(xq, wq, sx, sw),
+            lambda: tmm.int8_matmul_plain(xq, wq, sx, sw),
+            lambda: tmm.int8_matmul_cuda(xq, wq, sx, sw)),
         "pack_pos": (
             lambda: dispatch.pack_pos(bank, pos, src, nw),
             lambda: tfused.pack_pos_plain(bank, pos, src, nw),
@@ -239,6 +262,19 @@ def test_kernel_matches_plain_on_card(name):
         x = _t(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(dev)
         got, want = tpool.avg_pool_cuda(x, 2), tpool.avg_pool_plain(x, 2)
         assert float((got - want).abs().max()) <= 1e-6
+    elif name == "nn_upsample":
+        for shape, d in (((32, 8, 8, 1024), 2), ((3, 5, 7, 6), 3)):
+            x = _t(rng.standard_normal(shape).astype(np.float32)).to(dev)
+            assert torch.equal(tpool.nn_upsample_cuda(x, d),
+                               tpool.nn_upsample_plain(x, d))
+    elif name == "int8_matmul":
+        for M, K, N in ((256, 1024, 2880), (1000, 100, 130), (37, 64, 8)):
+            xq = _t(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
+            wq = _t(rng.integers(-127, 128, (N, K), dtype=np.int8)).to(dev).t()
+            sx = _t(rng.uniform(0.01, 1, M).astype(np.float32)).to(dev)
+            sw = _t(rng.uniform(0.01, 1, N).astype(np.float32)).to(dev)
+            assert torch.equal(tmm.int8_matmul_cuda(xq, wq, sx, sw),
+                               tmm.int8_matmul_plain(xq, wq, sx, sw))
     elif name == "pack_pos":
         bank = _t(rng.standard_normal((2, 20, 64, 32)).astype(np.float32))
         pos = _t(rng.standard_normal((20, 64, 32)).astype(np.float32))
