@@ -8,8 +8,8 @@ CUDA toolkit and PyTorch built for CUDA:
 
 Phases; any failure exits non-zero and prints no result:
 
-  1. print the card's name and power limit; build the seven CUDA kernels
-     (six libraries) from ``src/repro_torch/csrc`` (one nvcc per source,
+  1. print the card's name and power limit; build the eight CUDA kernels
+     (seven libraries) from ``src/repro_torch/csrc`` (one nvcc per source,
      all at once);
   2. hold each kernel against its plain PyTorch version on the card, at
      the full-width ViTDet-L shapes the serving path gives it, and time
@@ -19,7 +19,10 @@ Phases; any failure exits non-zero and prints no result:
      and a ragged one; its numbers in the kernels line are sums over the
      five (the bound is the sum of each shape's bound, "by" the kind
      that bounds most of it).  The per-row activation quantization in front of each GEMM is
-     timed on its own;
+     timed on its own.  ``decode_attention`` is checked to 1e-5 at the
+     Qwen3-4B serving shape (its kernels-line row) and at a ragged
+     8192-key cache, and ``flash_attention`` at the LM prefill's causal
+     GQA shapes (T = 128 and the mixed prefill's T = 96);
   3. serve full-width ViTDet-L (24 blocks, D=1024, 1024x1024 frames,
      weights drawn from a seed) through ``ServerModel.infer_wave``: warm
      up, then a full-resolution wave that captures restoration-point
@@ -44,7 +47,20 @@ Phases; any failure exits non-zero and prints no result:
   6. an 8-block full-width quantized wave, card vs CPU: features and
      tiles agree to 5% of their largest magnitude (a one-ulp difference
      upstream can flip an int8 code at a rounding tie; see
-     ``tests/test_torch_quant.py``).
+     ``tests/test_torch_quant.py``);
+  7. serve full-width Qwen3-4B (36 layers, D=2560, GQA 32/8, weights
+     from a seed) through ``repro_torch.serve.engine.ServeEngine``: warm
+     up, then a plain wave and a mixed beta-2 wave (4 of 8 spans pooled)
+     of 8 requests x 128 prompt tokens x 16 new tokens.  Every request
+     must get 16 tokens, each wave must launch ``flash_attention`` 36
+     times (one prefill) and ``decode_attention`` 36 times per decode
+     step, and no key may first run after warmup.  Wall time (median of
+     three), prefill and decode-step times, and one traced wave of each
+     kind: device time by kernel family and the device's busy share
+     inside the prefill and inside the decode steps;
+  8. a 4-layer full-width Qwen3 on the card and, through the plain
+     versions, on the CPU: prefill logits and 8 teacher-forced decode
+     steps, plain and mixed at beta 2, agree to 1e-3 relative.
 
 Each serving path resets the launch counts just before it and reads them
 just after.  The line before the last is a JSON object with every
@@ -73,6 +89,11 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12           # H100 SXM float32 FMA outside tensor cores
 PEAK_INT8 = 1979e12         # H100 SXM dense int8 tensor-core ops/s
 ATTN_TOL = 1e-4             # float32 attention, kernel vs plain, absolute
+DECODE_TOL = 1e-5           # float32 decode attention, another sum order
+LM_RTOL = 1e-3              # 4-layer Qwen3 logits, card vs CPU, relative
+LM_B, LM_T, LM_NEW = 8, 128, 16      # the LM serving waves
+LM_MAX_LEN = 152
+LM_LONG_LENS = (8192, 6000, 4097, 2048, 513, 64, 1, 8192)
 POOL_TOL = 1e-6             # mean of four floats, absolute
 E2E_RTOL = 1e-3             # 8-block forward, card vs CPU, relative
 QUANT_E2E_RTOL = 0.05       # 8-block quantized forward, card vs CPU
@@ -105,6 +126,8 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/mixed_res_pool/kernel.py:63"),
     "int8_matmul": ("src/repro_torch/csrc/int8_matmul.cu",
                     "src/repro/kernels/int8_matmul/kernel.py:52"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:81"),
 }
 
 
@@ -153,7 +176,7 @@ def run(torch):
     from repro_torch.configs.vitdet_l import CONFIG
     from repro_torch.core import partition as pt
     from repro_torch.core import vit_backbone as vb
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, dispatch
     from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.fused_serving import ops as fused
     from repro_torch.kernels.int8_matmul import ops as i8
@@ -169,7 +192,7 @@ def run(torch):
     say(smi.stdout.strip())
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    vb.disable_tf32()
+    dispatch.disable_tf32()
     t0 = time.perf_counter()
     logs = build.build()
     say(f"build: {len(logs)} libraries in {time.perf_counter() - t0:.1f} s")
@@ -308,6 +331,7 @@ def run(torch):
            4 * 4 * B * T * H * Dh, 4 * B * H * T * T * Dh)
     del bank, pos_bank, windows, tiles, q, k, v, qw, kw, vw, qf, kf, vf
     torch.cuda.empty_cache()
+    lm_kernels = lm_kernel_checks(torch, F, flash, dev, gen, put)
 
     # nn_upsample: the LOW windows of a beta-0 wave, (B * nR, w, w, D)
     x = torch.randn((B * nR, part.window, part.window, D), generator=gen,
@@ -347,6 +371,16 @@ def run(torch):
 
     # phase 6 -------------------------------------------------------------
     quant_cross_check(torch, cfg.replace(n_layers=8), dev, plans, pt, vb)
+
+    # phase 7 -------------------------------------------------------------
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    lm_launches, lat["lm"] = serve_lm(torch, QWEN, dev)
+    rows["decode_attention"]["launches"] = lm_launches["decode_attention"]
+    lat["lm"]["kernels"] = lm_kernels
+
+    # phase 8 -------------------------------------------------------------
+    lat["lm"]["card_vs_cpu"] = lm_cross_check(torch, QWEN.replace(n_layers=4),
+                                              dev)
 
     out = []
     for name in KERNEL_SOURCES:
@@ -655,13 +689,15 @@ def serve_quant(torch, cfg, dev, gen, plans, pt, qt):
 # fragments come before the plain "gemm" of the cuBLAS/CUTLASS matmuls.
 FAMILIES = (("window_attention", "window_attention"),
             ("flash_attention", "flash_attention"),
+            ("decode_split_kernel", "decode_attention"),
+            ("decode_combine_kernel", "decode_attention"),
             ("pack_pos", "fused_serving"), ("restore_gather", "fused_serving"),
             ("avg_pool_kernel", "avg_pool"),
             ("nn_upsample_kernel", "nn_upsample"),
             ("int8_matmul_kernel", "int8_gemm"),
             ("fprop", "conv"), ("fft", "conv"), ("cf32", "conv"),
             ("region_transform", "conv"), ("cudnn", "conv"),
-            ("gemm", "gemm"),
+            ("gemm", "gemm"), ("gemv", "gemm"), ("splitK", "gemm"),
             ("softmax", "softmax"), ("reduce_kernel", "reduce"),
             ("elementwise", "elementwise"),
             ("Memcpy", "memcpy"), ("Memset", "memset"))
@@ -778,6 +814,341 @@ def compare_on_cpu(torch, cfg, dev, gen, p_gpu, plans, pt, vb, rtol,
             f"{rel:.3g} (limit {rtol})")
         check(rel <= rtol, f"{what}: card vs CPU {rel} > {rtol}")
     say(f"  CPU forward {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the LM serving lane (Qwen3-4B through ServeEngine)
+
+
+def lm_kernel_checks(torch, F, flash, dev, gen, put):
+    """Phase 2 for the LM lane: ``decode_attention`` against its plain
+    version at the serving shape (its kernels-line row, through ``put``)
+    and at a ragged long cache; ``flash_attention`` at the LM prefill's
+    causal GQA shapes.  Returns the extra rows."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    H, KV, Dh = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
+    extra = {}
+
+    def decode_case(S, lens):
+        q = torch.randn((LM_B, 1, H, Dh), generator=gen, device=dev)
+        k = torch.randn((LM_B, S, KV, Dh), generator=gen, device=dev)
+        v = torch.randn((LM_B, S, KV, Dh), generator=gen, device=dev)
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = dec.decode_attention_cuda(q, k, v, kl)
+        err = float((got - dec.decode_attention_plain(q, k, v, kl))
+                    .abs().max())
+        check(err <= DECODE_TOL, f"decode_attention S={S}: max error {err} "
+              f"> {DECODE_TOL}")
+        k_ms = timed(torch, lambda: dec.KERNEL.relaunch(1))
+        p_ms = timed(torch, lambda: dec.decode_attention_plain(q, k, v, kl))
+        qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = (torch.arange(S, device=dev)[None] < kl[:, None])[:, None,
+                                                                  None]
+        l_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+            qt_, kt, vt, attn_mask=mask, enable_gqa=True))
+        keys = sum(min(x, S) for x in lens)       # the rows this run reads
+        nbytes = 4 * (keys * KV * Dh * 2 + 2 * q.numel() + LM_B)
+        b_ms, b_by = bound(nbytes, 4 * keys * H * Dh, PEAK_FP32)
+        return err, k_ms, p_ms, l_ms, b_ms, b_by, \
+            dec.n_splits(LM_B, KV, H // KV, S,
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count)
+
+    long = decode_case(LM_LONG_LENS[0], list(LM_LONG_LENS))
+    extra["decode_attention_long"] = dict(zip(
+        ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+         "bound_by", "splits"), long))
+    say(f"  decode_attention (8, 1, 32, 128) vs ragged (8, 8192, 8, 128) "
+        f"kv_len {list(LM_LONG_LENS)}: {extra['decode_attention_long']}")
+    serving = decode_case(LM_MAX_LEN, [LM_T + 1] * LM_B)
+    put("decode_attention", *serving[:6])
+    extra["decode_attention_serving_splits"] = serving[6]
+
+    for T in (LM_T, LM_T - 32):       # plain prefill; mixed at 4 of 8 pooled
+        q = torch.randn((LM_B, T, H, Dh), generator=gen, device=dev)
+        k = torch.randn((LM_B, T, KV, Dh), generator=gen, device=dev)
+        v = torch.randn((LM_B, T, KV, Dh), generator=gen, device=dev)
+        got = flash.flash_attention_cuda(q, k, v, causal=True)
+        err = float((got - flash.flash_attention_plain(q, k, v, causal=True))
+                    .abs().max())
+        check(err <= ATTN_TOL, f"flash_attention causal GQA T={T}: max "
+              f"error {err}")
+        k_ms = timed(torch, lambda: flash.KERNEL.relaunch(1))
+        p_ms = timed(torch, lambda: flash.flash_attention_plain(
+            q, k, v, causal=True))
+        qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        l_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+            qt_, kt, vt, is_causal=True, enable_gqa=True))
+        pairs = T * (T + 1) // 2                  # causal (query, key) pairs
+        b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
+                           4 * LM_B * H * pairs * Dh, PEAK_FP32)
+        row = {"shape": [LM_B, T, H, KV, Dh], "max_abs_err": err,
+               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+               "bound_ms": b_ms, "bound_by": b_by}
+        extra[f"flash_attention_causal_T{T}"] = row
+        say(f"  flash_attention causal GQA {row}")
+    return extra
+
+
+def _marked(torch, fn, name):
+    """``fn`` run inside a ``record_function`` range named ``name``."""
+    def run(*a, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*a, **kw)
+    return run
+
+
+def serve_lm(torch, cfg, dev):
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.request import Request
+
+    say(f"phase 7: ServeEngine, {cfg.name} {cfg.n_layers} layers D="
+        f"{cfg.d_model} GQA {cfg.n_heads}/{cfg.n_kv_heads} Dh="
+        f"{cfg.head_dim}, waves of {LM_B} x {LM_T} + {LM_NEW} tokens")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = registry.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_tensors(params))
+    say(f"  init {n_params} parameters ({4 * n_params} bytes) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_batch=LM_B, max_len=LM_MAX_LEN, buckets=(LM_T,),
+        device=str(dev)))
+    n_spans = LM_T // (cfg.mixed_res.window * cfg.mixed_res.downsample)
+    mask = np.zeros(n_spans, np.int32)
+    mask[:n_spans // 2] = 1
+    n_keys = eng.warmup(plan_space=[(n_spans // 2, 0, BETA)])
+    say(f"  warmup of {n_keys} keys {eng.stats.warmup_wall_s:.2f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, LM_T).astype(np.int32)
+               for _ in range(LM_B)]
+    steps = LM_NEW - 1                      # the first token is prefill's
+    out = {"B": LM_B, "T": LM_T, "new": LM_NEW, "beta": BETA,
+           "n_params": n_params, "warmup_keys": n_keys,
+           "warmup_s": eng.stats.warmup_wall_s}
+    launches_total = dict.fromkeys(dispatch.KERNELS, 0)
+
+    def wave(mixed):
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=LM_NEW,
+                               low_span_mask=mask if mixed else None,
+                               beta=BETA if mixed else 0))
+        t = time.perf_counter()
+        resp = eng.run()
+        wall = time.perf_counter() - t
+        check(len(resp) == LM_B and all(r.n_tokens == LM_NEW for r in resp),
+              f"LM wave: {[r.n_tokens for r in resp]} tokens, want "
+              f"{LM_NEW} each")
+        check(all(0 <= x < cfg.vocab_size for r in resp for x in r.tokens),
+              "LM wave: token out of the vocabulary")
+        return wall, [r.tokens for r in resp]
+
+    for kind, mixed in (("plain", False), ("mixed", True)):
+        dispatch.reset_launch_counts()      # the LM path starts here
+        first, tokens = wave(mixed)
+        launches = dispatch.launch_counts()  # ... and ends here
+        say(f"  {kind} wave launches {json.dumps(launches)}")
+        check(launches["flash_attention"] == cfg.n_layers,
+              f"{kind}: flash launched {launches['flash_attention']} times, "
+              f"want {cfg.n_layers} (one prefill)")
+        check(launches["decode_attention"] == cfg.n_layers * steps,
+              f"{kind}: decode launched {launches['decode_attention']} "
+              f"times, want {cfg.n_layers} x {steps}")
+        for name, n in launches.items():
+            launches_total[name] += n
+        walls = [wave(mixed)[0] for _ in range(3)]
+        rec = {"first_s": first, "median_s": statistics.median(walls),
+               "launches": launches, "tokens_0": tokens[0]}
+        rec["tokens_per_s"] = LM_B * LM_NEW / rec["median_s"]
+        rec.update(lm_phase_times(torch, eng, cfg, prompts, mask, mixed))
+        out[kind] = rec
+        say(f"  {kind} wave: first {first:.4f} s, median {rec['median_s']:.4f}"
+            f" s, {rec['tokens_per_s']:.1f} tok/s; prefill "
+            f"{rec['prefill_ms']:.3f} ms, decode {rec['decode_step_ms']:.3f} "
+            f"ms/step")
+    check(eng.stats.steady_compiles == 0,
+          f"LM steady-state first uses: {eng.stats.steady_compile_keys}")
+    out["steady_compiles"] = eng.stats.steady_compiles
+
+    # trace one wave of each kind, prefill and decode steps marked
+    for key in list(eng._prefill_fns):
+        eng._prefill_fns[key] = _marked(torch, eng._prefill_fns[key],
+                                        "lm_prefill")
+    for key in list(eng._decode_fns):
+        eng._decode_fns[key] = _marked(torch, eng._decode_fns[key],
+                                       "lm_decode")
+    for kind, mixed in (("plain", False), ("mixed", True)):
+        out[kind]["profile"] = profile_lm(
+            torch, f"lm_{kind}", lambda: wave(mixed), out[kind]["median_s"])
+    check(eng.stats.steady_compiles == 0, "LM: steady-state first uses")
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches_total, out
+
+
+def tree_tensors(tree):
+    """The tensors of a parameter tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from tree_tensors(v)
+    else:
+        yield tree
+
+
+def lm_phase_times(torch, eng, cfg, prompts, mask, mixed):
+    """Host clock, synchronised, around the engine's own prefill of the
+    wave's key and around its 15 decode steps, each read back to the host
+    as the engine reads it (median of three)."""
+    T, B = LM_T, LM_B
+    toks = torch.as_tensor(np.stack(prompts).astype(np.int64),
+                           device=eng.device)
+    n_pool = int(mask.sum()) if mixed else 0
+    beta = BETA if mixed else 0
+    fn = eng._get_prefill(T, n_pool, beta, B)
+    pack = eng._pack_for(T, n_pool, 0, mask) if mixed else None
+    pre, dec = [], []
+    with torch.no_grad():
+        for _ in range(3):
+            state = eng._state(B)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, state = (fn(toks, state, pack) if mixed
+                             else fn(toks, state))
+            torch.cuda.synchronize()
+            pre.append(time.perf_counter() - t)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            decode = eng._get_decode(B)
+            t = time.perf_counter()
+            for step in range(1, LM_NEW):
+                logits, state = decode(tok, T + step - 1, state)
+                tok = logits[:, -1].argmax(-1, keepdim=True)
+                tok.cpu()
+            torch.cuda.synchronize()
+            dec.append((time.perf_counter() - t) / (LM_NEW - 1))
+    return {"prefill_ms": statistics.median(pre) * 1e3,
+            "decode_step_ms": statistics.median(dec) * 1e3}
+
+
+def profile_lm(torch, name, run_wave, wall_s):
+    """Trace one LM wave: device time by kernel family, and the device's
+    busy share inside the prefill (from its first kernel to its last) and
+    across the decode steps (from the first step's first kernel to the
+    last step's last), where host launch overhead shows as idle gaps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_wave()
+    (OUT_DIR / f"profile_{name}.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=60))
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = {m: sorted((e.time_range.start, e.time_range.end) for e in dev
+                       if e.name == m) for m in ("lm_prefill", "lm_decode")}
+    check(len(spans["lm_prefill"]) == 1
+          and len(spans["lm_decode"]) == LM_NEW - 1,
+          f"profile {name}: {len(spans['lm_prefill'])} prefill and "
+          f"{len(spans['lm_decode'])} decode spans")
+    kernels = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in dev if e.name not in spans
+                     and not getattr(e, "is_user_annotation", False)
+                     and e.time_range.elapsed_us() > 0)
+    fam: dict = {}
+    for s, e, n in kernels:
+        key = next((f for frag, f in FAMILIES if frag in n), "other")
+        fam[key] = fam.get(key, 0.0) + (e - s) / 1e3
+    busy = sum(fam.values())
+    check(busy > 0, f"profile {name}: no device time traced")
+
+    def share(lo, hi):
+        """Kernel time inside [lo, hi) over its length (one stream)."""
+        t = sum(max(0, min(e, hi) - max(s, lo)) for s, e, _ in kernels)
+        return t / max(hi - lo, 1), (hi - lo) / 1e3
+
+    p_lo, p_hi = spans["lm_prefill"][0]
+    d_lo, d_hi = spans["lm_decode"][0][0], spans["lm_decode"][-1][1]
+    p_share, p_ms = share(p_lo, p_hi)
+    d_share, d_ms = share(d_lo, d_hi)
+    per_step = sum(d_lo <= s < d_hi for s, _, _ in kernels) / (LM_NEW - 1)
+    out = {"device_ms": busy, "busy_share": busy / (wall_s * 1e3),
+           "prefill_window_ms": p_ms, "prefill_busy_share": p_share,
+           "decode_window_ms": d_ms, "decode_busy_share": d_share,
+           "kernels_per_decode_step": per_step,
+           "families_ms": dict(sorted(fam.items(), key=lambda kv: -kv[1]))}
+    say(f"  profile {name}: device {busy:.2f} ms of {wall_s * 1e3:.2f} ms "
+        f"wall (busy {out['busy_share']:.3f}); prefill window {p_ms:.2f} ms "
+        f"busy {p_share:.3f}; decode window {d_ms:.2f} ms busy "
+        f"{d_share:.3f}, {per_step:.0f} kernels a step; " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["families_ms"].items()))
+    return out
+
+
+def lm_cross_check(torch, cfg, dev):
+    """A 4-layer full-width Qwen3 on the card and, through the plain
+    versions, on the CPU: prefill logits and 8 teacher-forced decode
+    steps, plain and mixed at beta 2, each to LM_RTOL of its largest
+    magnitude."""
+    from repro_torch.core import seq_mixed_res as smr
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.offload.simulator import to_device
+    say(f"phase 8: {cfg.n_layers}-layer full-width {cfg.name}, card vs CPU")
+    torch.set_num_threads(os.cpu_count() or 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    p_gpu = registry.init_params(cfg, gen, device=dev)
+    p_cpu = to_device(p_gpu, torch.device("cpu"))
+    B, T, n_dec = 2, LM_T, 8
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T + n_dec)))
+    part = smr.seq_partition(cfg, T)
+    mask = np.zeros(part.n_spans, np.int32)
+    mask[:part.n_spans // 2] = 1
+    pack = smr.build_seq_pack(mask, int(mask.sum()), part)
+    worst = {}
+
+    def run(device, params, mixed):
+        state = registry.init_decode_state(cfg, B, T + n_dec, device=device)
+        with torch.no_grad():
+            x = toks[:, :T].to(device)
+            if mixed:
+                pk = {k: torch.as_tensor(v.astype(np.int64), device=device)
+                      for k, v in pack.items()}
+                h, state, _ = smr.mixed_prefill(cfg, params, x, pk, BETA,
+                                                state)
+            else:
+                h, state, _ = registry.prefill(cfg, params, {"tokens": x},
+                                               state)
+            out = [tfm.logits_from_hidden(cfg, params, h[:, -1:])]
+            for i in range(n_dec):
+                lg, state = registry.decode_step(
+                    cfg, params, toks[:, T + i:T + i + 1].to(device), T + i,
+                    state)
+                out.append(lg)
+        return [o.float().cpu() for o in out]
+
+    for kind, mixed in (("plain", False), ("mixed", True)):
+        t0 = time.perf_counter()
+        got = run(dev, p_gpu, mixed)
+        want = run("cpu", p_cpu, mixed)
+        rel = [float((g - c).abs().max() / c.abs().max())
+               for g, c in zip(got, want)]
+        check(all(np.isfinite(rel)), f"{kind}: non-finite logits")
+        worst[kind] = {"prefill": rel[0], "decode_max": max(rel[1:])}
+        say(f"  {kind}: prefill logits max relative error {rel[0]:.3g}, "
+            f"{n_dec} decode steps max {max(rel[1:]):.3g} (limit {LM_RTOL}); "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(max(rel) <= LM_RTOL, f"{kind}: card vs CPU {max(rel)} > "
+              f"{LM_RTOL}")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return worst
 
 
 if __name__ == "__main__":

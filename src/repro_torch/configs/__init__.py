@@ -1,0 +1,36 @@
+"""Architecture configs of the archs the port serves.
+
+``get_config(name)`` returns the full published config and
+``get_reduced(name)`` the CPU smoke-test variant, as in
+``repro.configs``.  Archs the port does not serve yet raise; their order
+of porting is in ``ROADMAP.md`` (Queue 1, item 9).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig, reduced
+
+ARCH_MODULES = {
+    "qwen3-4b": "repro_torch.configs.qwen3_4b",
+    "vitdet-l": "repro_torch.configs.vitdet_l",
+}
+
+
+def _module(name: str):
+    if name not in ARCH_MODULES:
+        raise KeyError(f"arch {name!r} is not ported to repro_torch (have "
+                       f"{sorted(ARCH_MODULES)}); ROADMAP.md lists the "
+                       f"order in which the others follow")
+    return importlib.import_module(ARCH_MODULES[name])
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    mod = _module(name)
+    if hasattr(mod, "REDUCED"):
+        return mod.REDUCED
+    return reduced(mod.CONFIG)

@@ -1,6 +1,6 @@
-"""ViTDet parameters for the port: conversion from the reference's
-parameter tree, and a seeded PyTorch init with the same shapes and
-distributions.
+"""Parameters for the port: conversion of ViTDet and dense-LM trees from
+the reference, and a seeded PyTorch init of ViTDet with the reference's
+shapes and distributions (the LM's is ``models.transformer.init_lm_params``).
 
 Port layout (plain dicts of tensors):
 
@@ -159,3 +159,40 @@ def init_vitdet_params(cfg: ModelConfig, generator: torch.Generator,
                           cls=conv(3, C, v.n_classes, bias=-4.0),
                           box=conv(3, C, 4), ctr=conv(3, C, 1))
     return vb.add_position_banks(cfg, params)
+
+
+def lm_params_from_jax(tree: Mapping, cfg: ModelConfig,
+                       device: str = "cuda") -> Dict:
+    """The reference's dense ``init_lm_params`` tree (scan-stacked
+    ``dense_blocks`` with a leading (L, ...) axis; numpy or array leaves)
+    -> the port's per-layer parameters, with ``w_q | w_k | w_v`` (and
+    their biases) fused once into ``w_qkv`` (``b_qkv``)."""
+    from repro_torch.models import transformer as tfm
+    tfm.check_dense(cfg)
+    stack = tree["dense_blocks"]
+
+    def layer(i, sub):
+        return {k: (layer(i, v) if isinstance(v, Mapping)
+                    else np.asarray(v)[i]) for k, v in sub.items()}
+
+    def tensors(sub):
+        return {k: _t(v, device) for k, v in sub.items()}
+
+    blocks = []
+    for i in range(cfg.n_layers):
+        b = layer(i, stack)
+        a = b["attn"]
+        attn = {"w_qkv": _t(np.concatenate([a["w_q"], a["w_k"], a["w_v"]],
+                                           axis=1), device),
+                "w_o": _t(a["w_o"], device)}
+        for k in ("q_norm", "k_norm", "b_o"):
+            if k in a:
+                attn[k] = _t(a[k], device)
+        if "b_q" in a:
+            attn["b_qkv"] = _t(np.concatenate([a["b_q"], a["b_k"],
+                                               a["b_v"]]), device)
+        blocks.append({"ln1": tensors(b["ln1"]), "ln2": tensors(b["ln2"]),
+                       "attn": attn, "ffn": tensors(b["ffn"])})
+    return {"embed": tensors(tree["embed"]), "blocks": blocks,
+            "final_norm": tensors(tree["final_norm"]),
+            "lm_head": tensors(tree.get("lm_head", {}))}

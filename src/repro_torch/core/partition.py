@@ -88,6 +88,19 @@ def make_partition(grid_h: int, grid_w: int, window: int,
 # to a small static bucket set so the server compiles a handful of shapes)
 
 
+def bucket_n_low(n_low: int, n_regions: int, n_buckets: int = 4) -> int:
+    """Round ``n_low`` DOWN to the nearest bucket edge.
+
+    Rounding down downsamples *fewer* regions than requested — the safe
+    direction for accuracy (some regions selected for downsampling stay
+    full-res).  Buckets: 0, R/n, 2R/n, ..., R (R = n_regions).
+    """
+    if n_low <= 0:
+        return 0
+    step = max(n_regions // n_buckets, 1)
+    return min((n_low // step) * step, n_regions)
+
+
 def bucket_set(n_regions: int, n_buckets: int = 4) -> Tuple[int, ...]:
     step = max(n_regions // n_buckets, 1)
     edges = list(range(0, n_regions + 1, step))

@@ -53,14 +53,6 @@ def blocks_per_subset(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.vit.n_subsets
 
 
-def disable_tf32() -> None:
-    """Keep float32 GEMMs and cuDNN convolutions in full float32, as the
-    reference computes them (PyTorch runs cuDNN convolutions in TF32 by
-    default)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 def add_position_banks(cfg: ModelConfig, params: Dict) -> Dict:
     """Derive, once per parameter set, the two layouts of the positional
     grid the forward adds: ``pos_seq``, the full-resolution window-blocked
@@ -199,7 +191,7 @@ def forward_det(cfg: ModelConfig, params, image: torch.Tensor,
                 layout: Optional[Dict[str, torch.Tensor]] = None):
     """Backbone + dense head.  Returns the det-head outputs, or
     ``(outputs, tiles)`` when ``capture_beta > 0``."""
-    disable_tf32()
+    dispatch.disable_tf32()
     feats = forward_features(cfg, params, image, beta,
                              reuse_tiles=reuse_tiles,
                              capture_beta=capture_beta, layout=layout)

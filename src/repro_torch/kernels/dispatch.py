@@ -25,6 +25,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention import ops as _decode
 from repro_torch.kernels.flash_attention import ops as _flash
 from repro_torch.kernels.fused_serving import ops as _fused
 from repro_torch.kernels.int8_matmul import ops as _int8
@@ -39,6 +40,7 @@ KERNELS = {
     "avg_pool": _pool.KERNEL,
     "nn_upsample": _pool.UPSAMPLE,
     "int8_matmul": _int8.KERNEL,
+    "decode_attention": _decode.KERNEL,
 }
 
 QUANT_MODES = ("native", "dequant")
@@ -46,6 +48,14 @@ QUANT_ENV_VAR = "REPRO_QUANT"
 
 _ENV_QUANT: Optional[str] = None        # cached REPRO_QUANT override
 _PROCESS_QUANT: Optional[str] = None    # set_quant_mode() default
+
+
+def disable_tf32() -> None:
+    """Keep float32 GEMMs and cuDNN convolutions in full float32, as the
+    reference computes them (PyTorch runs cuDNN convolutions in TF32 by
+    default)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def on_card(x: torch.Tensor) -> bool:
@@ -139,6 +149,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if on_card(q):
         return _flash.flash_attention_cuda(q, k, v, causal)
     return _flash.flash_attention_plain(q, k, v, causal)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """One-token decode: q (B, 1, H, Dh) against a (B, S, KV, Dh) cache
+    with (B,) int32 valid lengths ``kv_len``."""
+    if on_card(q):
+        return _decode.decode_attention_cuda(q, k, v, kv_len)
+    return _decode.decode_attention_plain(q, k, v, kv_len)
 
 
 def avg_pool(x: torch.Tensor, d: int) -> torch.Tensor:

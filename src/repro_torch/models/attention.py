@@ -1,13 +1,17 @@
-"""ViT attention (the ``repro.models.attention`` subset the serving path
-runs): fused QKV projection, global and window scaled dot-product
-attention.  Layouts: activations (B, T, D); q/k/v (B, T, H, Dh).
+"""Attention (the ``repro.models.attention`` subset the ViT and dense-LM
+serving paths run): fused QKV projection, global, causal and window
+scaled dot-product attention, and the LM's KV-cache prefill and decode.
+Layouts: activations (B, T, D); q/k/v (B, T, H, Dh); caches
+(B, max_len, KV, Dh).
 
-Unmasked global attention goes to the flash kernel and window attention
-to the window kernel (``kernels.dispatch``).  Global attention with a
-per-sample ``kv_len`` (the pre-restoration global blocks of a padded
-sequence) stays plain PyTorch, as the reference leaves it to XLA.  The
-QKV and output projections go through ``quant.qtensor.matmul``, so their
-weights may be int8 ``QuantTensor``s.
+``sdpa`` routes as the reference's kernel lane does: the plain
+full-sequence case (causal or not) to the flash kernel, the one-token
+``kv_len`` cache read to the decode kernel, everything else (a
+multi-token ``kv_len`` mask, as in the pre-restoration global blocks of a
+padded ViT sequence; a nonzero ``q_offset``; an explicit ``scale``) to
+the masked dense path, as the reference leaves it to XLA.  Projections
+go through ``quant.qtensor.matmul``, so their weights may be int8
+``QuantTensor``s.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import dispatch
+from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant import qtensor as qt
 
@@ -44,29 +49,46 @@ def head_tap(store: List[np.ndarray]):
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-         kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Bidirectional global attention.  q: (B,T,H,Dh)  k/v: (B,S,KV,Dh)
-    with H = KV * G.  Returns (B,T,H,Dh).
+         causal: bool = False, q_offset: int = 0,
+         kv_len: Optional[torch.Tensor] = None,
+         scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,T,H,Dh)  k/v: (B,S,KV,Dh) with H = KV * G.  Returns (B,T,H,Dh).
 
-    ``kv_len``: optional (B,) count of valid keys per sample; keys past
-    it are masked.  Without it the call is the flash kernel's.  Long
-    masked sequences (T > 2*Q_CHUNK) run Q_CHUNK query rows at a time.
+    ``causal``: query t (at absolute position ``q_offset + t``) sees keys
+    s <= q_offset + t.  ``kv_len``: optional (B,) count of valid keys per
+    sample; keys past it are masked.  ``scale`` defaults to Dh^-0.5.
+    Long masked sequences (T > 2*Q_CHUNK) run Q_CHUNK query rows at a
+    time.
     """
-    if kv_len is None:
-        return dispatch.flash_attention(q, k, v)
+    plain = kv_len is None and q_offset == 0 and scale is None
+    if plain:
+        return dispatch.flash_attention(q, k, v, causal=causal)
+    if (q.shape[1] == 1 and not causal and q_offset == 0
+            and scale is None):
+        return dispatch.decode_attention(q, k, v, kv_len)
     if q.shape[1] > 2 * Q_CHUNK:
-        return torch.cat([_sdpa_dense(q[:, t0:t0 + Q_CHUNK], k, v, kv_len)
-                          for t0 in range(0, q.shape[1], Q_CHUNK)], dim=1)
-    return _sdpa_dense(q, k, v, kv_len)
+        return torch.cat([
+            _sdpa_dense(q[:, t0:t0 + Q_CHUNK], k, v, causal=causal,
+                        q_offset=q_offset + t0, kv_len=kv_len, scale=scale)
+            for t0 in range(0, q.shape[1], Q_CHUNK)], dim=1)
+    return _sdpa_dense(q, k, v, causal=causal, q_offset=q_offset,
+                       kv_len=kv_len, scale=scale)
 
 
-def _sdpa_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _sdpa_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool = False, q_offset: int = 0,
+                kv_len: Optional[torch.Tensor] = None,
+                scale: Optional[float] = None) -> torch.Tensor:
     B, T, H, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
+    scale = Dh ** -0.5 if scale is None else scale
     qg = q.reshape(B, T, KV, G, Dh).float()
-    logits = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * Dh ** -0.5
+    logits = torch.einsum("btkgd,bskd->bkgts", qg, k.float()) * scale
+    if causal:
+        seen = (torch.arange(T, device=q.device)[:, None] + q_offset
+                >= torch.arange(S, device=q.device)[None, :])         # (T,S)
+        logits = logits.masked_fill(~seen, NEG_INF)
     if kv_len is not None:
         valid = (torch.arange(S, device=q.device)[None, :]
                  < kv_len.to(q.device)[:, None])                      # (B,S)
@@ -86,15 +108,28 @@ def window_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _project_qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                 x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """One fused (D, q_dim + 2*kv_dim) GEMM; q, k and v are column views
-    of its output (the kernels read them through their strides)."""
+                 x: torch.Tensor, rope=None) -> Tuple[torch.Tensor, ...]:
+    """One fused (D, q_dim + 2*kv_dim) GEMM, at prefill and at decode
+    alike; q, k and v are column views of its output (the kernels read
+    them through their strides).  The reference concatenates its three
+    weights on every prefill and keeps three GEMMs at decode; each output
+    column depends only on its own weight column, so the results agree
+    up to the GEMM's summation order.  Then ``qk_norm`` (per head) and,
+    the rotation by ``rope`` (``layers.rope_table``; None for none)."""
     B, T, _ = x.shape
-    qkv = qt.matmul(x, p["w_qkv"]) + p["b_qkv"]
+    qkv = qt.matmul(x, p["w_qkv"])
+    if "b_qkv" in p:
+        qkv = qkv + p["b_qkv"]
     q, k, v = torch.split(qkv, (cfg.q_dim, cfg.kv_dim, cfg.kv_dim), dim=-1)
-    return (q.reshape(B, T, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim))
+    q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = L.apply_rope(q, rope)
+    k = L.apply_rope(k, rope)
+    return q, k, v
 
 
 def attention_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -114,3 +149,52 @@ def attention_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         _HEAD_TAP.append(out.float().abs().mean(dim=(0, 1, 3)).cpu().numpy())
     return qt.matmul(out.reshape(x.shape[0], x.shape[1], cfg.q_dim),
                      p["w_o"]) + p["b_o"]
+
+
+# ---------------------------------------------------------------------------
+# LM attention with a KV cache
+
+
+def _out_proj(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+              out: torch.Tensor) -> torch.Tensor:
+    B, T = out.shape[:2]
+    out = qt.matmul(out.reshape(B, T, cfg.q_dim), p["w_o"])
+    return out + p["b_o"] if "b_o" in p else out
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  dtype: torch.dtype = torch.float32,
+                  device="cuda") -> Dict[str, torch.Tensor]:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_prefill(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                      x: torch.Tensor, rope, cache: Dict[str, torch.Tensor]
+                      ) -> torch.Tensor:
+    """Prefill: causal attention over x (B, T, D); k/v are written into
+    ``cache`` IN PLACE at [0, T) (the reference returns an updated copy;
+    here the caller's cache tensors are the state).  ``rope``: the
+    positions' ``layers.rope_table``, or None for no rotation."""
+    T = x.shape[1]
+    q, k, v = _project_qkv(cfg, p, x, rope)
+    cache["k"][:, :T] = k
+    cache["v"][:, :T] = v
+    return _out_proj(cfg, p, sdpa(q, k, v, causal=True))
+
+
+def attention_decode(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                     x: torch.Tensor, pos: int, rope,
+                     cache: Dict[str, torch.Tensor],
+                     kv_len: torch.Tensor) -> torch.Tensor:
+    """One-token decode.  x: (B, 1, D); ``pos``: the absolute position
+    of the token; ``rope``: its ``layers.rope_table``.  k/v are written
+    into ``cache`` IN PLACE at ``pos`` (no copy of the cache per step);
+    the query reads the cache through ``kv_len``, the (B,) int32 count
+    pos + 1 of valid keys that a step builds once for all layers (the
+    decode kernel on the card)."""
+    q, k, v = _project_qkv(cfg, p, x, rope)
+    cache["k"][:, pos] = k[:, 0]
+    cache["v"][:, pos] = v[:, 0]
+    return _out_proj(cfg, p, sdpa(q, cache["k"], cache["v"], kv_len=kv_len))

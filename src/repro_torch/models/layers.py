@@ -1,16 +1,29 @@
-"""LayerNorm and the GELU MLP of the ViT blocks (the ``repro.models.layers``
-subset the serving path runs).  Parameters are plain dicts of tensors;
-MLP weights may be int8 ``QuantTensor``s (``quant.qtensor.matmul``).
+"""Norms, rotary embeddings, MLPs and the token embedding (the
+``repro.models.layers`` subset the ViT and dense-LM serving paths run).
+Parameters are plain dicts of tensors; projection weights may be int8
+``QuantTensor``s (``quant.qtensor.matmul``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant import qtensor as qt
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with float32 statistics."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * weight.float()).to(dt)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -24,17 +37,97 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return out.to(dt)
 
 
+def init_norm(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+    if cfg.norm == "layernorm":
+        return {"w": torch.ones(cfg.d_model, device=device),
+                "b": torch.zeros(cfg.d_model, device=device)}
+    return {"w": torch.ones(cfg.d_model, device=device)}
+
+
 def apply_norm(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                x: torch.Tensor) -> torch.Tensor:
-    """The ViT's pre-norm (``cfg.norm == "layernorm"``, as ViTDet has)."""
-    if cfg.norm != "layernorm":
-        raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
-    return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+    """The block's pre-norm: LayerNorm (ViTDet) or RMSNorm (the LMs)."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["w"], p["b"], cfg.norm_eps)
+    return rms_norm(x, p["w"], cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+
+
+def rope_frequencies(head_dim: int, theta: float, partial_factor: float = 1.0,
+                     device=None) -> torch.Tensor:
+    """Inverse frequencies for the rotated sub-dimension, (rot_dim // 2,)."""
+    rot_dim = int(head_dim * partial_factor) // 2 * 2
+    exponent = (torch.arange(0, rot_dim, 2, dtype=torch.float32,
+                             device=device) / max(rot_dim, 1))
+    return 1.0 / (theta ** exponent)
+
+
+def rope_table(positions: torch.Tensor, head_dim: int, theta: float,
+               partial_factor: float = 1.0
+               ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """cos and sin of the rotation angles, (..., T, 1, rot_dim // 2), for
+    ``positions`` (..., T); None when nothing rotates.  A forward computes
+    it once and hands it to every layer's :func:`apply_rope`."""
+    rot_dim = int(head_dim * partial_factor) // 2 * 2
+    if rot_dim == 0:
+        return None
+    inv_freq = rope_frequencies(head_dim, theta, partial_factor,
+                                device=positions.device)
+    ang = positions.float()[..., None] * inv_freq
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor,
+               table: Optional[Tuple[torch.Tensor, torch.Tensor]]
+               ) -> torch.Tensor:
+    """Rotate the leading rot_dim channels of the head dim by ``table``
+    (:func:`rope_table` of the positions; None rotates nothing).
+
+    x: (..., T, H, Dh).
+    """
+    if table is None:
+        return x
+    cos, sin = table
+    rot_dim = 2 * cos.shape[-1]
+    x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
+    x1, x2 = x_rot.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
 
 
 def apply_mlp(cfg: ModelConfig, p: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
-    """Plain GELU MLP.  The reference uses the tanh approximation
+    """SwiGLU (gate + up + down) when the block has ``w_gate``, else the
+    plain GELU MLP.  The reference's GELU is the tanh approximation
     (``jax.nn.gelu(approximate=True)``); PyTorch's default is erf."""
+    if "w_gate" in p:
+        h = F.silu(qt.matmul(x, p["w_gate"])) * qt.matmul(x, p["w_up"])
+        return qt.matmul(h, p["w_down"])
     h = F.gelu(qt.matmul(x, p["w_up"]) + p["b_up"], approximate="tanh")
     return qt.matmul(h, p["w_down"]) + p["b_down"]
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+
+
+def embed_tokens(p: Dict[str, torch.Tensor],
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return p["tok"][tokens]
+
+
+def lm_logits(cfg: ModelConfig, head_p: Dict[str, torch.Tensor],
+              embed_p: Dict[str, torch.Tensor],
+              x: torch.Tensor) -> torch.Tensor:
+    """Vocabulary logits; tied embeddings read the embedding table
+    transposed (a plain GEMM, left to ``torch.matmul``)."""
+    if cfg.tied_embeddings:
+        return x @ embed_p["tok"].T
+    return x @ head_p["w"]

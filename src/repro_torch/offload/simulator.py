@@ -41,6 +41,7 @@ from repro_torch.core import mixed_res as mr
 from repro_torch.core import partition as pt
 from repro_torch.core import vit_backbone as vb
 from repro_torch.core.partition import RegionPlan
+from repro_torch.kernels import dispatch
 from repro_torch.models.config import ModelConfig
 from repro_torch.offload import detection as det
 from repro_torch.quant import ptq
@@ -109,7 +110,7 @@ class ServerModel:
                  b_buckets: Tuple[int, ...] = pt.BATCH_BUCKETS,
                  n_length_buckets: int = pt.N_LENGTH_BUCKETS,
                  device: str = "cuda", quant=None, calib_frames=None):
-        vb.disable_tf32()
+        dispatch.disable_tf32()
         self.device = torch.device(device)
         params = to_device(params, self.device)
         self.quant_report = None

@@ -1,5 +1,6 @@
-"""Replica telemetry and per-client feature-cache sessions (the
-``repro.serve.request`` types the edge detector's serving path uses).
+"""Serving request/response types, replica telemetry and per-client
+feature-cache sessions (the ``repro.serve.request`` types the edge
+detector's serving path and the LM serving engine use).
 
 :class:`FeatureCache` is the session state behind temporal region reuse:
 one cache per client stream, holding the per-region backbone-feature
@@ -7,7 +8,9 @@ tiles captured at the restoration point of that client's previous
 offload, plus the bookkeeping that bounds staleness — a region may be
 reused at most ``max_age`` (K) CONSECUTIVE offloads before it must be
 transmitted again.  Tiles stay on the card: reuse gathers are device
-index ops and a refresh overwrites the cached buffer in place.
+index ops and a refresh overwrites the cached buffer in place.  The LM
+engine (``serve/engine.py``) uses the same bookkeeping without tiles to
+gate and bucket reuse spans.
 """
 from __future__ import annotations
 
@@ -85,6 +88,14 @@ class FeatureCache:
         if self.age is None:
             self.age = np.zeros((self.n_regions,), np.int32)
 
+    def eligible(self, beta: int) -> np.ndarray:
+        """(n_regions,) bool: regions whose cached tile may be reused for
+        an offload restoring at ``beta`` (cache warm, same restoration
+        point, staleness bound not yet hit)."""
+        if not self.warm or beta < 1 or beta != self.beta:
+            return np.zeros((self.n_regions,), bool)
+        return self.age < self.max_age
+
     def gather(self, reuse_ids: np.ndarray) -> torch.Tensor:
         """(n_reuse, d^2, w^2, D) tiles of the plan's reuse set, gathered
         on the card."""
@@ -119,3 +130,66 @@ class FeatureCache:
         else:
             self.tiles = tiles.clone()
         self.note(reuse_ids, beta, frame, epoch=epoch)
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (T,) int32 token ids
+    max_new_tokens: int = 32
+    eos_id: Optional[int] = None
+    # paper technique: spans of the prompt that may be pooled at prefill
+    low_span_mask: Optional[np.ndarray] = None
+    beta: int = 0
+    arrival_time: float = 0.0
+    # temporal reuse: the client's session identity and the spans it
+    # claims unchanged since its previous request (serve/engine.py gates
+    # them against the per-client FeatureCache staleness bound)
+    client_id: int = -1
+    reuse_span_mask: Optional[np.ndarray] = None
+
+    def _spans(self, mask: Optional[np.ndarray],
+               n: Optional[int]) -> np.ndarray:
+        if mask is None or self.beta <= 0:
+            return np.zeros((0,), np.int32)
+        sel = np.nonzero(np.asarray(mask).reshape(-1) != 0)[0]
+        if n is not None:
+            sel = sel[:n]
+        return sel.astype(np.int32)
+
+    def low_spans(self, n_low: Optional[int] = None) -> np.ndarray:
+        """Span indices actually pooled, in selection order.  ``n_low``:
+        the bucket — extra selections beyond it are dropped (the trimming
+        rule of ``seq_mixed_res.build_seq_pack``), so two requests with
+        equal ``low_spans(n_low)`` get byte-identical packs and may share
+        a wave."""
+        return self._spans(self.low_span_mask, n_low)
+
+    def reuse_spans(self, n_reuse: Optional[int] = None) -> np.ndarray:
+        """Span indices the client marked temporally reusable, trimmed
+        like :meth:`low_spans`."""
+        return self._spans(self.reuse_span_mask, n_reuse)
+
+    def mask_key(self, n_low: Optional[int] = None,
+                 reuse_ids: Optional[np.ndarray] = None) -> bytes:
+        """Canonical wave-key bytes of the (bucket-trimmed) span layout;
+        ``reuse_ids`` are the EFFECTIVE reuse spans (after the engine's
+        staleness gate), part of the identity because co-batched requests
+        share one pack."""
+        key = self.low_spans(n_low).tobytes()
+        if reuse_ids is not None and len(reuse_ids):
+            key += b"|" + np.asarray(reuse_ids, np.int32).tobytes()
+        return key
+
+
+@dataclass
+class Response:
+    rid: int
+    tokens: List[int] = field(default_factory=list)
+    prefill_done: float = 0.0
+    finished: float = 0.0
+    slot: int = -1
+
+    @property
+    def n_tokens(self) -> int:
+        return len(self.tokens)

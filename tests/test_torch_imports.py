@@ -27,7 +27,12 @@ print(" ".join(names))
 REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.quant.prune", "repro_torch.kernels.int8_matmul.ops",
             "repro_torch.kernels.mixed_res_pool.ops",
-            "repro_torch.offload.simulator")
+            "repro_torch.offload.simulator",
+            "repro_torch.configs.qwen3_4b",
+            "repro_torch.kernels.decode_attention.ops",
+            "repro_torch.models.transformer", "repro_torch.models.registry",
+            "repro_torch.core.seq_mixed_res", "repro_torch.serve.scheduler",
+            "repro_torch.serve.engine", "repro_torch.launch.serve")
 
 
 def test_every_port_module_imports_without_jax():

@@ -21,6 +21,7 @@ from repro.kernels.fused_serving.ref import (fused_pack_pos_ref,
 from repro.kernels.mixed_res_pool import ops as jpool
 from repro.kernels.window_attention import ops as jwin
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.decode_attention import ops as tdec
 from repro_torch.kernels.flash_attention import ops as tflash
 from repro_torch.kernels.fused_serving import ops as tfused
 from repro_torch.kernels.int8_matmul import ops as tmm
@@ -192,7 +193,13 @@ def _dispatch_cases():
     xq = _t(rng.integers(-127, 128, (5, 24), dtype=np.int8))
     wq = _t(rng.integers(-127, 128, (24, 7), dtype=np.int8))
     sx, sw = torch.ones(5), torch.full((7,), 0.5)
+    kv_len = torch.tensor([100], dtype=torch.int32)
+    q1 = q[:, :1]
     return {
+        "decode_attention": (
+            lambda: dispatch.decode_attention(q1, k, v, kv_len),
+            lambda: tdec.decode_attention_plain(q1, k, v, kv_len),
+            lambda: tdec.decode_attention_cuda(q1, k, v, kv_len)),
         "window_attention": (
             lambda: dispatch.window_attention(q, k, v, 64, wv),
             lambda: twin.window_attention_plain(q, k, v, 64, wv),
@@ -258,6 +265,12 @@ def test_kernel_matches_plain_on_card(name):
             got = tflash.flash_attention_cuda(q, k, v, causal=True)
             want = tflash.flash_attention_plain(q, k, v, causal=True)
         assert float((got - want).abs().max()) <= 1e-4
+    elif name == "decode_attention":
+        q, k, v = (_t(a).to(dev) for a in _qkv(rng, 2, 256, 4, 2, 64))
+        kv_len = torch.tensor([1, 200], dtype=torch.int32, device=dev)
+        got = tdec.decode_attention_cuda(q[:, :1], k, v, kv_len)
+        want = tdec.decode_attention_plain(q[:, :1], k, v, kv_len)
+        assert float((got - want).abs().max()) <= 1e-5
     elif name == "avg_pool":
         x = _t(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(dev)
         got, want = tpool.avg_pool_cuda(x, 2), tpool.avg_pool_plain(x, 2)
