@@ -8,8 +8,8 @@ CUDA toolkit and PyTorch built for CUDA:
 
 Phases; any failure exits non-zero and prints no result:
 
-  1. print the card's name and power limit; build the eight CUDA kernels
-     (seven libraries) from ``src/repro_torch/csrc`` (one nvcc per source,
+  1. print the card's name and power limit; build the nine CUDA kernels
+     (eight libraries) from ``src/repro_torch/csrc`` (one nvcc per source,
      all at once);
   2. hold each kernel against its plain PyTorch version on the card, at
      the full-width ViTDet-L shapes the serving path gives it, and time
@@ -60,11 +60,43 @@ Phases; any failure exits non-zero and prints no result:
      inside the prefill and inside the decode steps;
   8. a 4-layer full-width Qwen3 on the card and, through the plain
      versions, on the CPU: prefill logits and 8 teacher-forced decode
-     steps, plain and mixed at beta 2, agree to 1e-3 relative.
+     steps, plain and mixed at beta 2, agree to 1e-3 relative;
+  9. ``ssd_scan`` against its plain version on the card, y and the final
+     state within 1e-4 of their largest magnitudes: the mamba2-370m
+     serving shape (x (8, 1024, 32, 64), B/C (8, 1024, 1, 128), chunk
+     256; timed, its kernels-line row), the zamba2-1.2b shape (H = 64,
+     N = 64), one 128-row chunk, a ragged T = 1000, two B/C groups,
+     every (N, P slice) instance the library builds (N 16-128, P 16-128,
+     G = 2, ragged T = 200 in chunks of 64) and the four shapes of the
+     reference's ``test_ssd_scan``, and a state handoff through
+     ``init_state``;
+ 10. serve full-width mamba2-370m (48 layers, D=1024, weights from a
+     seed) through ``ServeEngine``: warm up, then plain waves of 8
+     requests x 1024 prompt tokens x 16 new tokens.  Every request must
+     get 16 tokens, a wave must launch ``ssd_scan`` 48 times (one
+     prefill), and no key may first run after warmup.  Wall time
+     (median of three), prefill and decode-step times, one traced wave;
+     then ``mixed_forward_ssm`` at beta 2 with half the spans pooled
+     (layers 0-23 at T_mix = 768; 48 ``ssd_scan`` launches) beside the
+     plain ``forward_hidden``, both timed;
+ 11. the same for full-width zamba2-1.2b (38 mamba layers, D=2048, one
+     shared attention + SwiGLU block applied 6 times): 38 ``ssd_scan``
+     and 6 ``flash_attention`` launches a prefill, 6 ``decode_attention``
+     launches a decode step;
+ 12. a 4-layer full-width mamba2 and a 6-layer full-width zamba2 (layer
+     5 runs the shared block) on the card and, through the plain
+     versions, on the CPU, at B = 2 and T = 512 (two chunks): prefill
+     logits and 8 teacher-forced decode steps, and the mamba2's
+     ``mixed_forward_ssm`` at beta 2, agree to 1e-3 relative.
 
 Each serving path resets the launch counts just before it and reads them
 just after.  The line before the last is a JSON object with every
-kernel's numbers; the last is ``{"ok": true, "device": {...}}``.
+kernel's numbers: its ``launches`` is the sum over the serving paths
+that ran it, and ``launches_by_path`` gives each path's count (the
+ViTDet-L waves of phase 3, its beta-0 wave, the int8 waves of phase 5,
+the two Qwen3-4B waves of phase 7, one wave of each SSM model, and the
+``mixed_forward_ssm`` forward).  The last line is ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -94,6 +126,11 @@ LM_RTOL = 1e-3              # 4-layer Qwen3 logits, card vs CPU, relative
 LM_B, LM_T, LM_NEW = 8, 128, 16      # the LM serving waves
 LM_MAX_LEN = 152
 LM_LONG_LENS = (8192, 6000, 4097, 2048, 513, 64, 1, 8192)
+SSD_TOL = 1e-4              # SSD scan, kernel vs plain, of the largest value
+SSM_B, SSM_T, SSM_NEW = 8, 1024, 16   # the SSM serving waves
+SSD_NS = (16, 32, 64, 128)  # the state sizes ssd_scan.cu is built for
+SSD_REF_SHAPES = ((2, 128, 8, 1, 32, 16, 32), (1, 200, 16, 2, 64, 32, 64),
+                  (2, 64, 4, 4, 16, 64, 32), (1, 96, 8, 1, 128, 64, 96))
 POOL_TOL = 1e-6             # mean of four floats, absolute
 E2E_RTOL = 1e-3             # 8-block forward, card vs CPU, relative
 QUANT_E2E_RTOL = 0.05       # 8-block quantized forward, card vs CPU
@@ -128,6 +165,8 @@ KERNEL_SOURCES = {
                     "src/repro/kernels/int8_matmul/kernel.py:52"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:81"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:104"),
 }
 
 
@@ -356,17 +395,26 @@ def run(torch):
     del x, got, want
     torch.cuda.empty_cache()
 
+    # each serving path's launch counts, reset just before it and read
+    # just after: kernel -> {path: launches}
+    by_path = {name: {} for name in KERNEL_SOURCES}
+
+    def count(path, launches):
+        for name, n in launches.items():
+            if n:
+                by_path[name][path] = n
+
     # phase 3 -------------------------------------------------------------
-    launches, lat = serve(torch, cfg, dev, gen, plans, pt)
-    for name, row in rows.items():
-        row["launches"] = launches[name]
+    launches, b0_launches, lat = serve(torch, cfg, dev, gen, plans, pt)
+    count("vitdet-l", launches)
+    count("vitdet-l beta 0", b0_launches)
 
     # phase 4 -------------------------------------------------------------
     cross_check(torch, cfg.replace(n_layers=8), dev, plans, pt, vb)
 
     # phase 5 -------------------------------------------------------------
     qlaunches, qlat = serve_quant(torch, cfg, dev, gen, plans, pt, qt)
-    rows["int8_matmul"]["launches"] = qlaunches["int8_matmul"]
+    count("vitdet-l int8", qlaunches)
     lat["quant"] = qlat
 
     # phase 6 -------------------------------------------------------------
@@ -375,19 +423,39 @@ def run(torch):
     # phase 7 -------------------------------------------------------------
     from repro_torch.configs.qwen3_4b import CONFIG as QWEN
     lm_launches, lat["lm"] = serve_lm(torch, QWEN, dev)
-    rows["decode_attention"]["launches"] = lm_launches["decode_attention"]
+    count("qwen3-4b", lm_launches)
     lat["lm"]["kernels"] = lm_kernels
 
     # phase 8 -------------------------------------------------------------
     lat["lm"]["card_vs_cpu"] = lm_cross_check(torch, QWEN.replace(n_layers=4),
                                               dev)
 
+    # phase 9 -------------------------------------------------------------
+    from repro_torch.configs.mamba2_370m import CONFIG as MAMBA
+    from repro_torch.configs.zamba2_1p2b import CONFIG as ZAMBA
+    lat["ssm"] = {"kernels": ssd_kernel_checks(torch, dev, gen, put)}
+
+    # phases 10 and 11 ------------------------------------------------------
+    for phase, c in ((10, MAMBA), (11, ZAMBA)):
+        ln, lat["ssm"][c.name] = serve_ssm(torch, c, dev, phase)
+        count(c.name, ln)
+    count("mamba2-370m mixed_forward_ssm", {"ssd_scan": lat["ssm"][
+        MAMBA.name]["mixed_forward_ssm"]["ssd_scan_launches"]})
+
+    # phase 12 ------------------------------------------------------------
+    lat["ssm"]["card_vs_cpu"] = {
+        c.name: lm_cross_check(torch, c, dev, phase=12, T=2 * 256)
+        for c in (MAMBA.replace(n_layers=4), ZAMBA.replace(n_layers=6))}
+
     out = []
     for name in KERNEL_SOURCES:
         src, replaces = KERNEL_SOURCES[name]
         r = rows[name]
+        check(by_path[name], f"{name} launched on no serving path")
         out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": r["launches"],
+                    "replaces": replaces,
+                    "launches": sum(by_path[name].values()),
+                    "launches_by_path": by_path[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
@@ -576,10 +644,9 @@ def serve(torch, cfg, dev, gen, plans, pt):
         f"{lat['beta0_median_s']:.4f} s")
     lat["profile"]["beta0"] = profile_wave(torch, "beta0", wave0,
                                            lat["beta0_median_s"])
-    launches["nn_upsample"] = b0_launches["nn_upsample"]
     del srv, params
     torch.cuda.empty_cache()
-    return launches, lat
+    return launches, b0_launches, lat
 
 
 def beta0_plans(pt, nR):
@@ -690,6 +757,7 @@ def serve_quant(torch, cfg, dev, gen, plans, pt, qt):
 FAMILIES = (("window_attention", "window_attention"),
             ("flash_attention", "flash_attention"),
             ("decode_split_kernel", "decode_attention"),
+            ("ssd_scan_kernel", "ssd_scan"),
             ("decode_combine_kernel", "decode_attention"),
             ("pack_pos", "fused_serving"), ("restore_gather", "fused_serving"),
             ("avg_pool_kernel", "avg_pool"),
@@ -899,6 +967,15 @@ def _marked(torch, fn, name):
     return run
 
 
+def mark_engine(torch, eng):
+    """Run every prefill and decode key of ``eng`` inside ``lm_prefill``
+    / ``lm_decode`` ranges, which ``profile_lm`` reads."""
+    for fns, name in ((eng._prefill_fns, "lm_prefill"),
+                      (eng._decode_fns, "lm_decode")):
+        for key in list(fns):
+            fns[key] = _marked(torch, fns[key], name)
+
+
 def serve_lm(torch, cfg, dev):
     from repro_torch.kernels import dispatch
     from repro_torch.models import registry
@@ -975,12 +1052,7 @@ def serve_lm(torch, cfg, dev):
     out["steady_compiles"] = eng.stats.steady_compiles
 
     # trace one wave of each kind, prefill and decode steps marked
-    for key in list(eng._prefill_fns):
-        eng._prefill_fns[key] = _marked(torch, eng._prefill_fns[key],
-                                        "lm_prefill")
-    for key in list(eng._decode_fns):
-        eng._decode_fns[key] = _marked(torch, eng._decode_fns[key],
-                                       "lm_decode")
+    mark_engine(torch, eng)
     for kind, mixed in (("plain", False), ("mixed", True)):
         out[kind]["profile"] = profile_lm(
             torch, f"lm_{kind}", lambda: wave(mixed), out[kind]["median_s"])
@@ -1002,11 +1074,11 @@ def tree_tensors(tree):
         yield tree
 
 
-def lm_phase_times(torch, eng, cfg, prompts, mask, mixed):
+def lm_phase_times(torch, eng, cfg, prompts, mask, mixed, new=LM_NEW):
     """Host clock, synchronised, around the engine's own prefill of the
-    wave's key and around its 15 decode steps, each read back to the host
-    as the engine reads it (median of three)."""
-    T, B = LM_T, LM_B
+    wave's key and around its ``new - 1`` decode steps, each read back to
+    the host as the engine reads it (median of three)."""
+    T, B = len(prompts[0]), len(prompts)
     toks = torch.as_tensor(np.stack(prompts).astype(np.int64),
                            device=eng.device)
     n_pool = int(mask.sum()) if mixed else 0
@@ -1026,17 +1098,17 @@ def lm_phase_times(torch, eng, cfg, prompts, mask, mixed):
             tok = logits[:, -1].argmax(-1, keepdim=True)
             decode = eng._get_decode(B)
             t = time.perf_counter()
-            for step in range(1, LM_NEW):
+            for step in range(1, new):
                 logits, state = decode(tok, T + step - 1, state)
                 tok = logits[:, -1].argmax(-1, keepdim=True)
                 tok.cpu()
             torch.cuda.synchronize()
-            dec.append((time.perf_counter() - t) / (LM_NEW - 1))
+            dec.append((time.perf_counter() - t) / (new - 1))
     return {"prefill_ms": statistics.median(pre) * 1e3,
             "decode_step_ms": statistics.median(dec) * 1e3}
 
 
-def profile_lm(torch, name, run_wave, wall_s):
+def profile_lm(torch, name, run_wave, wall_s, steps=LM_NEW - 1):
     """Trace one LM wave: device time by kernel family, and the device's
     busy share inside the prefill (from its first kernel to its last) and
     across the decode steps (from the first step's first kernel to the
@@ -1053,7 +1125,7 @@ def profile_lm(torch, name, run_wave, wall_s):
     spans = {m: sorted((e.time_range.start, e.time_range.end) for e in dev
                        if e.name == m) for m in ("lm_prefill", "lm_decode")}
     check(len(spans["lm_prefill"]) == 1
-          and len(spans["lm_decode"]) == LM_NEW - 1,
+          and len(spans["lm_decode"]) == steps,
           f"profile {name}: {len(spans['lm_prefill'])} prefill and "
           f"{len(spans['lm_decode'])} decode spans")
     kernels = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -1076,7 +1148,7 @@ def profile_lm(torch, name, run_wave, wall_s):
     d_lo, d_hi = spans["lm_decode"][0][0], spans["lm_decode"][-1][1]
     p_share, p_ms = share(p_lo, p_hi)
     d_share, d_ms = share(d_lo, d_hi)
-    per_step = sum(d_lo <= s < d_hi for s, _, _ in kernels) / (LM_NEW - 1)
+    per_step = sum(d_lo <= s < d_hi for s, _, _ in kernels) / steps
     out = {"device_ms": busy, "busy_share": busy / (wall_s * 1e3),
            "prefill_window_ms": p_ms, "prefill_busy_share": p_share,
            "decode_window_ms": d_ms, "decode_busy_share": d_share,
@@ -1090,21 +1162,23 @@ def profile_lm(torch, name, run_wave, wall_s):
     return out
 
 
-def lm_cross_check(torch, cfg, dev):
-    """A 4-layer full-width Qwen3 on the card and, through the plain
+def lm_cross_check(torch, cfg, dev, phase=8, T=LM_T):
+    """A few layers of a full-width LM on the card and, through the plain
     versions, on the CPU: prefill logits and 8 teacher-forced decode
-    steps, plain and mixed at beta 2, each to LM_RTOL of its largest
-    magnitude."""
+    steps, each to LM_RTOL of its largest magnitude.  A dense model runs
+    plain and mixed at beta 2; an SSM model also compares the hidden
+    states of ``mixed_forward_ssm`` at beta 2 (half the spans pooled)."""
     from repro_torch.core import seq_mixed_res as smr
     from repro_torch.models import registry
     from repro_torch.models import transformer as tfm
     from repro_torch.offload.simulator import to_device
-    say(f"phase 8: {cfg.n_layers}-layer full-width {cfg.name}, card vs CPU")
+    say(f"phase {phase}: {cfg.n_layers}-layer full-width {cfg.name}, card "
+        f"vs CPU")
     torch.set_num_threads(os.cpu_count() or 1)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     p_gpu = registry.init_params(cfg, gen, device=dev)
     p_cpu = to_device(p_gpu, torch.device("cpu"))
-    B, T, n_dec = 2, LM_T, 8
+    B, n_dec = 2, 8
     rng = np.random.default_rng(SEED + 3)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, T + n_dec)))
     part = smr.seq_partition(cfg, T)
@@ -1133,7 +1207,9 @@ def lm_cross_check(torch, cfg, dev):
                 out.append(lg)
         return [o.float().cpu() for o in out]
 
-    for kind, mixed in (("plain", False), ("mixed", True)):
+    kinds = ((("plain", False), ("mixed", True)) if cfg.family == "dense"
+             else (("plain", False),))
+    for kind, mixed in kinds:
         t0 = time.perf_counter()
         got = run(dev, p_gpu, mixed)
         want = run("cpu", p_cpu, mixed)
@@ -1146,9 +1222,300 @@ def lm_cross_check(torch, cfg, dev):
             f"{time.perf_counter() - t0:.1f} s")
         check(max(rel) <= LM_RTOL, f"{kind}: card vs CPU {max(rel)} > "
               f"{LM_RTOL}")
+    if cfg.family == "ssm":
+        pk = {k: torch.as_tensor(v.astype(np.int64)) for k, v in pack.items()}
+        with torch.no_grad():
+            got, want = (smr.mixed_forward_ssm(
+                cfg, params, toks[:, :T].to(device),
+                {k: v.to(device) for k, v in pk.items()}, BETA)[0].cpu()
+                for device, params in ((dev, p_gpu), ("cpu", p_cpu)))
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(np.isfinite(rel) and rel <= LM_RTOL,
+              f"mixed_forward_ssm: card vs CPU {rel} > {LM_RTOL}")
+        worst["mixed_forward_ssm"] = rel
+        say(f"  mixed_forward_ssm beta {BETA}: hidden max relative error "
+            f"{rel:.3g} (limit {LM_RTOL})")
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
     return worst
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 serving lane (mamba2-370m and zamba2-1.2b through ServeEngine)
+
+
+def serve_ssm(torch, cfg, dev, phase):
+    """Phases 10 and 11: serve a full-width SSM or hybrid LM (weights from
+    a seed) through ``ServeEngine``: warm up, then plain waves of SSM_B
+    requests x SSM_T prompt tokens x SSM_NEW new tokens.  Every request
+    must get SSM_NEW tokens; a wave launches ``ssd_scan`` once per mamba
+    layer (one prefill) and, for the hybrid, ``flash_attention`` once per
+    shared call and ``decode_attention`` once per shared call and decode
+    step; no key may first run after warmup.  Wall time (median of
+    three), prefill and decode-step times, one traced wave.  For the SSM
+    LM also one ``mixed_forward_ssm`` at beta 2 with half the spans
+    pooled beside the plain ``forward_hidden``, both timed."""
+    from repro_torch.core import seq_mixed_res as smr
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import hybrid as hyb
+    from repro_torch.models import registry, ssm_lm
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    from repro_torch.serve.request import Request
+
+    calls = hyb.n_shared_calls(cfg) if cfg.family == "hybrid" else 0
+    steps = SSM_NEW - 1
+    say(f"phase {phase}: ServeEngine, {cfg.name} ({cfg.family}) "
+        f"{cfg.n_layers} mamba layers D={cfg.d_model} N={cfg.ssm.d_state}"
+        f"{f', {calls} shared attention calls' if calls else ''}, waves of "
+        f"{SSM_B} x {SSM_T} + {SSM_NEW} tokens")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = registry.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_tensors(params))
+    say(f"  init {n_params} parameters ({4 * n_params} bytes) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_batch=SSM_B, max_len=SSM_T + SSM_NEW, buckets=(SSM_T,),
+        device=str(dev)))
+    n_keys = eng.warmup()
+    say(f"  warmup of {n_keys} keys {eng.stats.warmup_wall_s:.2f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, SSM_T).astype(np.int32)
+               for _ in range(SSM_B)]
+    want = {"ssd_scan": cfg.n_layers, "flash_attention": calls,
+            "decode_attention": calls * steps}
+
+    def wave():
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=SSM_NEW))
+        t = time.perf_counter()
+        resp = eng.run()
+        wall = time.perf_counter() - t
+        check(len(resp) == SSM_B and all(r.n_tokens == SSM_NEW
+                                         for r in resp),
+              f"{cfg.name} wave: {[r.n_tokens for r in resp]} tokens, want "
+              f"{SSM_NEW} each")
+        check(all(0 <= x < cfg.vocab_size for r in resp for x in r.tokens),
+              f"{cfg.name} wave: token out of the vocabulary")
+        return wall, [r.tokens for r in resp]
+
+    dispatch.reset_launch_counts()          # the SSM path starts here
+    first, tokens = wave()
+    launches = dispatch.launch_counts()     # ... and ends here
+    say(f"  launches {json.dumps(launches)}")
+    for name, n in want.items():
+        check(launches[name] == n, f"{cfg.name}: {name} launched "
+              f"{launches[name]} times, want {n}")
+    walls = [wave()[0] for _ in range(3)]
+    out = {"B": SSM_B, "T": SSM_T, "new": SSM_NEW, "n_params": n_params,
+           "warmup_keys": n_keys, "warmup_s": eng.stats.warmup_wall_s,
+           "first_s": first, "median_s": statistics.median(walls),
+           "launches": launches, "tokens_0": tokens[0]}
+    out["tokens_per_s"] = SSM_B * SSM_NEW / out["median_s"]
+    out.update(lm_phase_times(torch, eng, cfg, prompts, None, False,
+                              new=SSM_NEW))
+    say(f"  wave: first {first:.4f} s, median {out['median_s']:.4f} s, "
+        f"{out['tokens_per_s']:.1f} tok/s; prefill {out['prefill_ms']:.3f} "
+        f"ms, decode {out['decode_step_ms']:.3f} ms/step")
+    check(eng.stats.steady_compiles == 0,
+          f"{cfg.name} steady-state first uses: "
+          f"{eng.stats.steady_compile_keys}")
+    out["steady_compiles"] = eng.stats.steady_compiles
+    mark_engine(torch, eng)
+    out["profile"] = profile_lm(torch, cfg.name, wave, out["median_s"],
+                                steps=steps)
+    check(eng.stats.steady_compiles == 0, f"{cfg.name}: steady first uses")
+
+    if cfg.family == "ssm":
+        part = smr.seq_partition(cfg, SSM_T)
+        mask = np.zeros(part.n_spans, np.int32)
+        mask[::2] = 1
+        n_low = int(mask.sum())
+        pack = {k: torch.as_tensor(v.astype(np.int64), device=dev)
+                for k, v in smr.build_seq_pack(mask, n_low, part).items()}
+        toks = torch.as_tensor(np.stack(prompts).astype(np.int64),
+                               device=dev)
+
+        def fwd(mixed):
+            with torch.no_grad():
+                if mixed:
+                    return smr.mixed_forward_ssm(cfg, params, toks, pack,
+                                                 BETA)[0]
+                return ssm_lm.forward_hidden(cfg, params, toks)[0]
+
+        dispatch.reset_launch_counts()      # the mixed forward starts here
+        h = fwd(True)
+        n_scan = dispatch.launch_counts()["ssd_scan"]   # ... and ends here
+        check(n_scan == cfg.n_layers, f"mixed_forward_ssm launched ssd_scan "
+              f"{n_scan} times, want {cfg.n_layers}")
+        check(tuple(h.shape) == (SSM_B, SSM_T, cfg.d_model)
+              and bool(torch.isfinite(h).all()),
+              "mixed_forward_ssm: wrong shape or non-finite")
+
+        def ms(mixed):
+            ts = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fwd(mixed)
+                torch.cuda.synchronize()
+                ts.append(time.perf_counter() - t)
+            return statistics.median(ts) * 1e3
+
+        out["mixed_forward_ssm"] = {
+            "beta": BETA, "n_low": n_low, "T_mix": part.n_tokens(n_low),
+            "layers_pooled": smr.layers_before_rp(cfg, BETA, cfg.n_layers),
+            "ssd_scan_launches": n_scan, "plain_ms": ms(False),
+            "mixed_ms": ms(True)}
+        say(f"  mixed_forward_ssm: {out['mixed_forward_ssm']}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def ssd_inputs(torch, cfg, dev, gen, b, T, groups=None):
+    """Scan inputs shaped as a mamba layer hands them over: x, B and C are
+    column views of one silu'd (b, T, conv_ch) conv output; dt is
+    softplus(N(0, 1) + dt_bias) with the init's dt_bias (a log-uniform dt
+    in [dt_min, dt_max]); A = -(1..H)."""
+    import torch.nn.functional as F
+    from repro_torch.models import mamba2 as m2
+    s = cfg.ssm
+    G = groups or s.n_groups
+    d_inner, H, _ = m2.ssm_dims(cfg)
+    N, P = s.d_state, s.head_dim
+    xbc = F.silu(torch.randn((b, T, d_inner + 2 * G * N), generator=gen,
+                             device=dev))
+    xs, Bm, Cm = xbc.split((d_inner, G * N, G * N), dim=-1)
+    u = torch.rand((H,), generator=gen, device=dev)
+    dt0 = torch.exp(u * (np.log(s.dt_max) - np.log(s.dt_min))
+                    + np.log(s.dt_min))
+    bias = dt0 + torch.log(-torch.expm1(-dt0))
+    dt = F.softplus(torch.randn((b, T, H), generator=gen, device=dev) + bias)
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=dev)
+    return (xs.reshape(b, T, H, P), dt, A, Bm.reshape(b, T, G, N),
+            Cm.reshape(b, T, G, N))
+
+
+def ssd_cost(b, T, H, G, N, P, chunk, init_state=False):
+    """Bytes (each input read once, each output written once) and the
+    float32 operations the chunked form needs, for this call's chunks (the
+    last one may be short): the C_i.B_j scores over the lower triangle
+    once per B/C group (they do not depend on the head); per head the
+    masked-decay product with xbar, the state update and, where the state
+    coming in is not zero (every chunk but the first without
+    ``init_state``), the C_i.S term."""
+    chunk = min(chunk, T)
+    nbytes = 4 * (2 * b * T * H * P + b * T * H + H + 2 * b * T * G * N
+                  + b * H * N * P)
+    ops = 0
+    for t0 in range(0, T, chunk):
+        q = min(chunk, T - t0)
+        carried = 2 * q * N * P if (t0 or init_state) else 0
+        ops += b * G * N * q * (q + 1) \
+            + b * H * (P * q * (q + 1) + 2 * q * N * P + carried)
+    return nbytes, ops
+
+
+def ssd_kernel_checks(torch, dev, gen, put):
+    """Phase 9: ``ssd_scan`` against its plain version on the card, y and
+    the final state each within SSD_TOL of the plain version's largest
+    magnitude: the mamba2-370m serving shape (its kernels-line row, timed
+    through ``put``), the zamba2-1.2b shape, one 128-row chunk, a ragged
+    T, two B/C groups, every (N, P slice) instance the library builds and
+    the reference's test shapes at small sizes, and a state handoff (two
+    halves chained through ``init_state`` against the whole).  Returns the
+    other cases' rows."""
+    from repro_torch.configs.mamba2_370m import CONFIG as MAMBA
+    from repro_torch.configs.zamba2_1p2b import CONFIG as ZAMBA
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    say("phase 9: ssd_scan vs its plain version on the card")
+    extra = {}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def case(name, cfg, b, T, groups=None, timed_case=False):
+        args = ssd_inputs(torch, cfg, dev, gen, b, T, groups)
+        chunk = cfg.ssm.chunk_size
+        y, s = ssd.ssd_scan_cuda(*args, chunk)
+        yp, sp = ssd.ssd_scan_plain(*args, chunk)
+        errs = (rel(y, yp), rel(s, sp))
+        check(all(np.isfinite(errs)) and max(errs) <= SSD_TOL,
+              f"ssd_scan {name}: relative error y {errs[0]}, state "
+              f"{errs[1]} (limit {SSD_TOL})")
+        x, dt, A, Bm, Cm = args
+        shape = (b, T, x.shape[2], Bm.shape[2], Bm.shape[3], x.shape[3],
+                 chunk)
+        row = {"shape_b_T_H_G_N_P_chunk": shape, "rel_err_y": errs[0],
+               "rel_err_state": errs[1],
+               "max_abs_err": float(max((y - yp).abs().max(),
+                                        (s - sp).abs().max()))}
+        if timed_case:
+            row["ms"] = timed(torch, lambda: ssd.KERNEL.relaunch(1))
+            row["plain_ms"] = timed(torch,
+                                    lambda: ssd.ssd_scan_plain(*args, chunk))
+            row["bound_ms"], row["bound_by"] = bound(*ssd_cost(*shape),
+                                                     PEAK_FP32)
+        say(f"  ssd_scan {name} {shape}: relative error y {errs[0]:.3g}, "
+            f"state {errs[1]:.3g} (limit {SSD_TOL})")
+        extra[name] = row
+        return row
+
+    row = case("mamba2_serving", MAMBA, SSM_B, SSM_T, timed_case=True)
+    put("ssd_scan", row["max_abs_err"], row["ms"], row["plain_ms"], None,
+        row["bound_ms"], row["bound_by"])
+    z = case("zamba2_serving", ZAMBA, SSM_B, SSM_T, timed_case=True)
+    say(f"  ssd_scan zamba2 shape: kernel_ms={z['ms']:.4f} plain_ms="
+        f"{z['plain_ms']:.4f} bound_ms={z['bound_ms']:.4f} "
+        f"({z['bound_by']})")
+    case("one_chunk_T128", MAMBA, SSM_B, 128)
+    case("ragged_T1000", MAMBA, 2, 1000)
+    case("groups_2", MAMBA, 2, 512, groups=2)
+
+    # every (N, P slice) instance the library builds, and the reference's
+    # own test shapes (tests/test_kernels.py, test_ssd_scan)
+    grid = [(2, 200, 8, 2, n, p, 64) for n in SSD_NS for p in (16, 32, 64)]
+    grid += [(2, 200, 4, 1, 64, 128, 64)] + list(SSD_REF_SHAPES)
+    extra["small_shapes"] = {}
+    for shape in grid:
+        b, T, H, G, N, P, chunk = shape
+        x = torch.randn((b, T, H, P), generator=gen, device=dev)
+        dt = F.softplus(torch.randn((b, T, H), generator=gen, device=dev))
+        A = -torch.exp(torch.randn((H,), generator=gen, device=dev) * 0.5)
+        Bm, Cm = (torch.randn((b, T, G, N), generator=gen, device=dev) * 0.3
+                  for _ in range(2))
+        y, s = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk)
+        yp, sp = ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk)
+        errs = (rel(y, yp), rel(s, sp))
+        check(all(np.isfinite(errs)) and max(errs) <= SSD_TOL,
+              f"ssd_scan {shape}: relative error y {errs[0]}, state "
+              f"{errs[1]} (limit {SSD_TOL})")
+        extra["small_shapes"][str(shape)] = errs
+    worst = max(max(e) for e in extra["small_shapes"].values())
+    say(f"  ssd_scan at {len(grid)} small shapes (b, T, H, G, N, P, chunk),"
+        f" every built instance: worst relative error {worst:.3g} (limit "
+        f"{SSD_TOL})")
+
+    # state handoff: the halves chained through init_state == the whole
+    x, dt, A, Bm, Cm = ssd_inputs(torch, MAMBA, dev, gen, 2, 1024)
+    y, s = ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, 256)
+    h = 512 + 100                             # a cut inside a chunk
+    y1, s1 = ssd.ssd_scan_cuda(x[:, :h], dt[:, :h], A, Bm[:, :h],
+                               Cm[:, :h], 256)
+    y2, s2 = ssd.ssd_scan_cuda(x[:, h:], dt[:, h:], A, Bm[:, h:],
+                               Cm[:, h:], 256, init_state=s1)
+    yp, sp = ssd.ssd_scan_plain(x[:, h:], dt[:, h:], A, Bm[:, h:],
+                                Cm[:, h:], 256, init_state=s1)
+    errs = (rel(torch.cat([y1, y2], 1), y), rel(s2, s), rel(y2, yp),
+            rel(s2, sp))
+    check(max(errs) <= SSD_TOL, f"ssd_scan handoff: relative errors {errs}")
+    extra["handoff"] = dict(zip(("y_vs_whole", "state_vs_whole",
+                                 "y_vs_plain", "state_vs_plain"), errs))
+    say(f"  ssd_scan handoff at row {h}: {extra['handoff']}")
+    return extra
 
 
 if __name__ == "__main__":

@@ -12,8 +12,10 @@ import importlib
 from repro_torch.models.config import ModelConfig, reduced
 
 ARCH_MODULES = {
+    "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "vitdet-l": "repro_torch.configs.vitdet_l",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
 }
 
 

@@ -1,6 +1,7 @@
-"""Parameters for the port: conversion of ViTDet and dense-LM trees from
-the reference, and a seeded PyTorch init of ViTDet with the reference's
-shapes and distributions (the LM's is ``models.transformer.init_lm_params``).
+"""Parameters for the port: conversion of ViTDet, dense-LM, SSM-LM and
+hybrid trees from the reference (the LMs' scan-stacked layers become
+per-layer lists), and a seeded PyTorch init of ViTDet with the
+reference's shapes and distributions (the LMs' are in ``models``).
 
 Port layout (plain dicts of tensors):
 
@@ -161,6 +162,38 @@ def init_vitdet_params(cfg: ModelConfig, generator: torch.Generator,
     return vb.add_position_banks(cfg, params)
 
 
+def _layer(stack: Mapping, i: int) -> Dict:
+    """Layer ``i`` of a scan-stacked subtree (leading (L, ...) axis)."""
+    return {k: (_layer(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
+            for k, v in stack.items()}
+
+
+def _tensors(tree: Mapping, device) -> Dict:
+    return {k: (_tensors(v, device) if isinstance(v, Mapping)
+                else _t(v, device)) for k, v in tree.items()}
+
+
+def _fused_attn(a: Mapping, device) -> Dict:
+    """Reference LM attention weights -> the port's, ``w_q | w_k | w_v``
+    (and their biases) fused into ``w_qkv`` (``b_qkv``)."""
+    attn = {"w_qkv": _t(np.concatenate([a["w_q"], a["w_k"], a["w_v"]],
+                                       axis=1), device),
+            "w_o": _t(a["w_o"], device)}
+    for k in ("q_norm", "k_norm", "b_o"):
+        if k in a:
+            attn[k] = _t(a[k], device)
+    if "b_q" in a:
+        attn["b_qkv"] = _t(np.concatenate([a["b_q"], a["b_k"], a["b_v"]]),
+                           device)
+    return attn
+
+
+def _head(tree: Mapping, device) -> Dict:
+    return {"embed": _tensors(tree["embed"], device),
+            "final_norm": _tensors(tree["final_norm"], device),
+            "lm_head": _tensors(tree.get("lm_head", {}), device)}
+
+
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig,
                        device: str = "cuda") -> Dict:
     """The reference's dense ``init_lm_params`` tree (scan-stacked
@@ -169,30 +202,34 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig,
     their biases) fused once into ``w_qkv`` (``b_qkv``)."""
     from repro_torch.models import transformer as tfm
     tfm.check_dense(cfg)
-    stack = tree["dense_blocks"]
-
-    def layer(i, sub):
-        return {k: (layer(i, v) if isinstance(v, Mapping)
-                    else np.asarray(v)[i]) for k, v in sub.items()}
-
-    def tensors(sub):
-        return {k: _t(v, device) for k, v in sub.items()}
-
     blocks = []
     for i in range(cfg.n_layers):
-        b = layer(i, stack)
-        a = b["attn"]
-        attn = {"w_qkv": _t(np.concatenate([a["w_q"], a["w_k"], a["w_v"]],
-                                           axis=1), device),
-                "w_o": _t(a["w_o"], device)}
-        for k in ("q_norm", "k_norm", "b_o"):
-            if k in a:
-                attn[k] = _t(a[k], device)
-        if "b_q" in a:
-            attn["b_qkv"] = _t(np.concatenate([a["b_q"], a["b_k"],
-                                               a["b_v"]]), device)
-        blocks.append({"ln1": tensors(b["ln1"]), "ln2": tensors(b["ln2"]),
-                       "attn": attn, "ffn": tensors(b["ffn"])})
-    return {"embed": tensors(tree["embed"]), "blocks": blocks,
-            "final_norm": tensors(tree["final_norm"]),
-            "lm_head": tensors(tree.get("lm_head", {}))}
+        b = _layer(tree["dense_blocks"], i)
+        blocks.append({"ln1": _tensors(b["ln1"], device),
+                       "ln2": _tensors(b["ln2"], device),
+                       "attn": _fused_attn(b["attn"], device),
+                       "ffn": _tensors(b["ffn"], device)})
+    return dict(_head(tree, device), blocks=blocks)
+
+
+def ssm_params_from_jax(tree: Mapping, cfg: ModelConfig,
+                        device: str = "cuda") -> Dict:
+    """The reference's ``init_ssm_params`` tree (``mamba_blocks`` stacked
+    on a leading (L, ...) axis) -> the port's per-layer ``mamba_blocks``
+    list."""
+    return dict(_head(tree, device), mamba_blocks=[
+        _tensors(_layer(tree["mamba_blocks"], i), device)
+        for i in range(cfg.n_layers)])
+
+
+def hybrid_params_from_jax(tree: Mapping, cfg: ModelConfig,
+                           device: str = "cuda") -> Dict:
+    """The reference's ``init_hybrid_params`` tree -> the port's: the
+    mamba blocks as :func:`ssm_params_from_jax` converts them, plus the
+    ``shared`` block with its q/k/v weights fused into ``w_qkv``."""
+    sh = tree["shared"]
+    shared = {"ln1": _tensors(sh["ln1"], device),
+              "attn": _fused_attn(sh["attn"], device),
+              "ln2": _tensors(sh["ln2"], device),
+              "ffn": _tensors(sh["ffn"], device)}
+    return dict(ssm_params_from_jax(tree, cfg, device), shared=shared)

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -165,7 +166,8 @@ def restore_kv_caches(caches: Dict, restore_idx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# mixed-granularity prefill (dense decoders)
+# mixed-granularity prefill (dense decoders; the SSM and hybrid families
+# have none in the reference either: its run_blocks knows no mamba layer)
 
 
 def mixed_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
@@ -196,6 +198,34 @@ def mixed_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                                    cfg.n_layers, caches)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return x, caches, aux + a2
+
+
+# ---------------------------------------------------------------------------
+# SSM family: the paper's 1-D technique on the Mamba-2 backbone (pooling
+# gives linear savings only on a linear-time backbone)
+
+
+def mixed_forward_ssm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                      pack: Dict[str, torch.Tensor], beta: int):
+    """Forward with mixed-granularity lower layers on the pure SSM LM:
+    layers [0, Lb) run on the pooled sequence, then a broadcast restore,
+    then the rest at full resolution.  Every layer's scan goes through
+    ``dispatch.ssd_scan``.  Returns (hidden (B, T, D), aux)."""
+    x = L.embed_tokens(params["embed"], tokens)
+    Lb = layers_before_rp(cfg, beta, cfg.n_layers)
+    blocks = params["mamba_blocks"]
+
+    def run(x, layers):
+        for p in layers:
+            x = x + m2.mamba2_forward(cfg, p["mamba"],
+                                      L.apply_norm(cfg, p["ln"], x))
+        return x
+
+    if Lb > 0:
+        xm = pack_sequence(x, pack["mix_idx"], cfg.mixed_res.downsample)
+        x = restore_sequence(run(xm, blocks[:Lb]), pack["restore_idx"])
+    x = run(x, blocks[Lb:])
+    return L.apply_norm(cfg, params["final_norm"], x), 0.0
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,17 @@ static inline cudaError_t repro_begin(int device) {
   return cudaSuccess;
 }
 
+// Let `kernel` take `smem` bytes of dynamic shared memory when that is
+// above the 48 KB default.  The limit is a per-device attribute, so it is
+// set on every such launch (a cheap host call), not once per process.
+template <typename Kernel>
+static inline cudaError_t repro_allow_smem(Kernel* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 static inline int repro_ceil_div(long long a, long long b) {
   return static_cast<int>((a + b - 1) / b);
 }

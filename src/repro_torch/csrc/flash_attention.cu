@@ -165,14 +165,8 @@ static cudaError_t launch(const float* q, const float* k, const float* v,
                                        static_cast<size_t>(kBK) * (DH + 1) +
                                        static_cast<size_t>(kBK) * DH +
                                        static_cast<size_t>(kBQ) * (kBK + 1));
-  static bool opted = false;  // per process and head size; one card
-  if (!opted && smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<DH>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    opted = true;
-  }
+  cudaError_t e = repro_allow_smem(flash_attention_kernel<DH>, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid((T + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<DH><<<grid, kThreads, smem, stream>>>(
       q, k, v, out, T, S, H, KV, sqb, sqt, skb, skt, svb, svt, scale,

@@ -118,14 +118,8 @@ REPRO_EXPORT int window_attention_f32(
   if (KV <= 0 || H % KV) return cudaErrorInvalidValue;
   if (B == 0 || W == 0) return cudaSuccess;
   const size_t smem = smem_bytes(w2, Dh);
-  static size_t opted = 0;  // per process; one card
-  if (smem > 48 * 1024 && smem > opted) {
-    e = cudaFuncSetAttribute(window_attention_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    opted = smem;
-  }
+  e = repro_allow_smem(window_attention_kernel, smem);
+  if (e != cudaSuccess) return e;
   dim3 grid(B * W, H);
   window_attention_kernel<<<grid, 256, smem,
                             static_cast<cudaStream_t>(stream)>>>(

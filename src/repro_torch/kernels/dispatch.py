@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,6 +30,7 @@ from repro_torch.kernels.flash_attention import ops as _flash
 from repro_torch.kernels.fused_serving import ops as _fused
 from repro_torch.kernels.int8_matmul import ops as _int8
 from repro_torch.kernels.mixed_res_pool import ops as _pool
+from repro_torch.kernels.ssd_scan import ops as _ssd
 from repro_torch.kernels.window_attention import ops as _win
 
 KERNELS = {
@@ -41,6 +42,7 @@ KERNELS = {
     "nn_upsample": _pool.UPSAMPLE,
     "int8_matmul": _int8.KERNEL,
     "decode_attention": _decode.KERNEL,
+    "ssd_scan": _ssd.KERNEL,
 }
 
 QUANT_MODES = ("native", "dequant")
@@ -158,6 +160,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if on_card(q):
         return _decode.decode_attention_cuda(q, k, v, kv_len)
     return _decode.decode_attention_plain(q, k, v, kv_len)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD chunked scan: x (b, T, H, P), dt (b, T, H), A (H,),
+    B/C (b, T, G, N), chunk length ``chunk``, optional initial state
+    (b, H, N, P).  Returns (y (b, T, H, P), final state (b, H, N, P))."""
+    if on_card(x):
+        return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk, init_state)
+    return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, init_state)
 
 
 def avg_pool(x: torch.Tensor, d: int) -> torch.Tensor:

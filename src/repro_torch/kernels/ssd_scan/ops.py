@@ -1,0 +1,133 @@
+"""Mamba-2 SSD chunked scan (every mamba layer's prefill, once per layer).
+
+``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``, the port of
+``repro/kernels/ssd_scan/kernel.py:ssd_scan_kernel``; ``ssd_scan_plain``
+is the same function in plain PyTorch, the port of
+``repro.models.mamba2.ssd_chunked`` (the function the reference's
+serving prefill computes).  Both take the ``ssd_ops.ssd`` arguments and
+return ``(y, final_state)``:
+
+  x:  (b, T, H, P)  inputs (the dt scaling ``xbar = x * dt`` is inside)
+  dt: (b, T, H)     post-softplus step sizes
+  A:  (H,)          negative decay rates (``dA = dt * A`` is inside)
+  Bm/Cm: (b, T, G, N), head h reads group h // (H / G)
+  chunk: chunk length Q (taken as min(chunk, T))
+  init_state: (b, H, N, P) or None (zeros)
+  -> y (b, T, H, P) float32, final_state (b, H, N, P) float32
+
+A ragged T is zero-padded to a chunk multiple in the plain version; the
+padded rows have dt = 0, so they leave the state unchanged (the kernel
+bounds its last chunk instead, which gives the same result).  The kernel
+reads x, B and C through their batch and token strides, so column views
+of the conv output need no copy.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.build import (I, L, P, CudaKernel, check_cuda,
+                                       head_rows, stream_of)
+
+KERNEL = CudaKernel("ssd_scan", "ssd_scan_f32",
+                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L,
+                     L, L, L, L, I, P])
+STATE_DIMS = (16, 32, 64, 128)       # N the kernel is built for
+P_SLICE = 64                         # head-dim columns one block owns
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                   init_state: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, T, H, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    chunk = min(chunk, T)
+    T0 = T
+    if T % chunk:
+        # zero-pad to a chunk multiple: dt = 0 rows are state-neutral
+        # (dA = 0 -> decay 1, xbar = 0), so the recurrence is unaffected
+        pad = chunk - T % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        T = T + pad
+    nc = T // chunk
+    f32 = torch.float32
+    xc = x.reshape(b, nc, chunk, H, Pd).to(f32)
+    dtc = dt.reshape(b, nc, chunk, H).to(f32)
+    Bh = Bm.reshape(b, nc, chunk, G, N).to(f32).repeat_interleave(hpg, 3)
+    Ch = Cm.reshape(b, nc, chunk, G, N).to(f32).repeat_interleave(hpg, 3)
+
+    dA = dtc * A.to(f32)[None, None, None, :]        # (b,nc,Q,H), negative
+    cum = torch.cumsum(dA, dim=2)                    # within-chunk log decay
+    xbar = xc * dtc[..., None]
+
+    # intra-chunk: Y[i] = sum_{j<=i} exp(cum_i - cum_j) (C_i.B_j) xbar_j
+    lmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                  device=x.device))
+    ldec = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (b,nc,i,j,H)
+    ldec = ldec.masked_fill(~lmask[None, None, :, :, None], float("-inf"))
+    scores = torch.einsum("bnihd,bnjhd->bnijh", Ch, Bh)
+    Y = torch.einsum("bnijh,bnjhp->bnihp", scores * torch.exp(ldec), xbar)
+
+    # chunk-local end states: S_loc = sum_j exp(cum_Q - cum_j) B_j xbar_j^T
+    dec_to_end = torch.exp(cum[:, :, -1:, :] - cum)          # (b,nc,Q,H)
+    S_loc = torch.einsum("bnjhd,bnjhp->bnhdp", Bh * dec_to_end[..., None],
+                         xbar)
+
+    # inter-chunk recurrence over nc
+    chunk_dec = torch.exp(cum[:, :, -1, :])                  # (b,nc,H)
+    s = (torch.zeros((b, H, N, Pd), dtype=f32, device=x.device)
+         if init_state is None else init_state.to(f32))
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s)
+        s = s * chunk_dec[:, c, :, None, None] + S_loc[:, c]
+    s_prevs = torch.stack(s_prevs, dim=1)                    # (b,nc,H,N,P)
+
+    Y = Y + torch.einsum("bnihd,bnhdp->bnihp",
+                         Ch * torch.exp(cum)[..., None], s_prevs)
+    return Y.reshape(b, T, H, Pd)[:, :T0], s
+
+
+def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                  init_state: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    b, T, H, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    ps = min(Pd, P_SLICE)
+    if (G < 1 or H % G or tuple(dt.shape) != (b, T, H)
+            or tuple(A.shape) != (H,) or tuple(Cm.shape) != tuple(Bm.shape)
+            or Bm.shape[:2] != (b, T) or N not in STATE_DIMS
+            or ps not in (16, 32, 64) or Pd % ps or T < 1 or chunk < 1
+            or (init_state is not None
+                and tuple(init_state.shape) != (b, H, N, Pd))):
+        raise ValueError(
+            f"ssd_scan: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+            f"{tuple(A.shape)}, B {tuple(Bm.shape)}, C {tuple(Cm.shape)}; "
+            f"N one of {STATE_DIMS}, P 16, 32 or a multiple of 64, G "
+            f"dividing H")
+    tensors = [x, dt, A, Bm, Cm] + ([init_state] if init_state is not None
+                                    else [])
+    check_cuda("ssd_scan", *tensors)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError("ssd_scan: float32 inputs only")
+    chunk = min(chunk, T)
+    x, Bm, Cm = head_rows(x), head_rows(Bm), head_rows(Cm)
+    dt = dt if dt.stride(2) == 1 else dt.contiguous()
+    A = A.contiguous()
+    s0 = init_state.contiguous() if init_state is not None else 0
+    dev = x.device
+    y = torch.empty((b, T, H, Pd), dtype=torch.float32, device=dev)
+    s_fin = torch.empty((b, H, N, Pd), dtype=torch.float32, device=dev)
+    KERNEL(x, dt, A, Bm, Cm, s0, y, s_fin, b, T, H, G, N, Pd, chunk,
+           x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
+           Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+           dev.index, stream_of(x))
+    return y, s_fin

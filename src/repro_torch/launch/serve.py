@@ -7,6 +7,10 @@ Usage:
       [--reduced] [--requests 16 --prompt-len 128 --max-new 16] \\
       [--mixed --beta 2 --low-frac 0.5] [--device cpu]
 
+``--arch`` is one of ``repro_torch.configs.ARCH_MODULES`` (qwen3-4b,
+mamba2-370m, zamba2-1.2b); the SSM and hybrid families serve the plain
+path (``--mixed`` is turned off for them, as in the reference).
+
 Exits 0 only if every request got ``--max-new`` tokens.
 """
 from __future__ import annotations
@@ -48,6 +52,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family in ("ssm", "hybrid", "encdec", "vit"):
+        print(f"[serve] mixed prefill demo targets decoder LMs; "
+              f"{args.arch} family={cfg.family} runs the plain path")
+        args.mixed = False
     dev = torch.device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = registry.init_params(cfg, gen, device=dev)

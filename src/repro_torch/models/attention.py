@@ -1,5 +1,5 @@
-"""Attention (the ``repro.models.attention`` subset the ViT and dense-LM
-serving paths run): fused QKV projection, global, causal and window
+"""Attention (the ``repro.models.attention`` subset the ViT, dense-LM and
+hybrid serving paths run): fused QKV projection, global, causal and window
 scaled dot-product attention, and the LM's KV-cache prefill and decode.
 Layouts: activations (B, T, D); q/k/v (B, T, H, Dh); caches
 (B, max_len, KV, Dh).
@@ -135,20 +135,22 @@ def _project_qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 def attention_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       x: torch.Tensor, *, window: int = 0,
                       kv_len: Optional[torch.Tensor] = None,
-                      win_valid: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
-    """ViT attention layer (no RoPE).  ``window`` > 0 selects window
-    attention over runs of ``window`` tokens, else global attention;
-    ``kv_len`` / ``win_valid`` carry a padded sequence's validity."""
-    q, k, v = _project_qkv(cfg, p, x)
+                      win_valid: Optional[torch.Tensor] = None,
+                      rope=None, causal: bool = False) -> torch.Tensor:
+    """Full-sequence attention without a cache: the ViT's layers (no
+    rotation, not causal) and the hybrid LM's shared block without a
+    cache (``rope``: the positions' ``layers.rope_table``, causal).
+    ``window`` > 0 selects window attention over runs of ``window``
+    tokens, else global attention; ``kv_len`` / ``win_valid`` carry a
+    padded sequence's validity."""
+    q, k, v = _project_qkv(cfg, p, x, rope)
     if window > 0:
         out = window_sdpa(q, k, v, window, win_valid=win_valid)
     else:
-        out = sdpa(q, k, v, kv_len=kv_len)
+        out = sdpa(q, k, v, causal=causal, kv_len=kv_len)
     if _HEAD_TAP is not None:
         _HEAD_TAP.append(out.float().abs().mean(dim=(0, 1, 3)).cpu().numpy())
-    return qt.matmul(out.reshape(x.shape[0], x.shape[1], cfg.q_dim),
-                     p["w_o"]) + p["b_o"]
+    return _out_proj(cfg, p, out)
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +162,26 @@ def _out_proj(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     B, T = out.shape[:2]
     out = qt.matmul(out.reshape(B, T, cfg.q_dim), p["w_o"])
     return out + p["b_o"] if "b_o" in p else out
+
+
+def init_attention(cfg: ModelConfig, generator: torch.Generator,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """Seeded LM attention weights: q, k and v drawn apart (the
+    reference's ``init_attention``) and stored fused as ``w_qkv``; ones
+    for the qk norms, zeros for the biases."""
+    D = cfg.d_model
+    p = {"w_qkv": torch.cat([L.dense_init(D, cfg.q_dim, generator, device),
+                             L.dense_init(D, cfg.kv_dim, generator, device),
+                             L.dense_init(D, cfg.kv_dim, generator, device)],
+                            dim=1),
+         "w_o": L.dense_init(cfg.q_dim, D, generator, device)}
+    if cfg.qk_norm:
+        p.update(q_norm=torch.ones(cfg.head_dim, device=device),
+                 k_norm=torch.ones(cfg.head_dim, device=device))
+    if cfg.attention_bias:
+        p.update(b_qkv=torch.zeros(cfg.q_dim + 2 * cfg.kv_dim, device=device),
+                 b_o=torch.zeros(D, device=device))
+    return p
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

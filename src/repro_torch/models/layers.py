@@ -5,6 +5,7 @@ Parameters are plain dicts of tensors; projection weights may be int8
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -12,6 +13,48 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant import qtensor as qt
+
+# ---------------------------------------------------------------------------
+# seeded inits (the reference's distributions; torch.Generator draws)
+
+
+def dense_init(k: int, n: int, generator: torch.Generator,
+               device="cuda") -> torch.Tensor:
+    """A (k, n) weight: truncated normal in (-2, 2) times 1 / sqrt(k),
+    drawn on ``generator.device`` and moved to ``device``."""
+    t = torch.empty((k, n), device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t / math.sqrt(k)).to(device)
+
+
+def init_mlp(cfg: ModelConfig, generator: torch.Generator,
+             device="cuda") -> Dict[str, torch.Tensor]:
+    """SwiGLU (gate, up, down) or the plain GELU MLP with zero biases."""
+    D, F_ = cfg.d_model, cfg.d_ff
+    if cfg.activation == "silu":
+        return {"w_gate": dense_init(D, F_, generator, device),
+                "w_up": dense_init(D, F_, generator, device),
+                "w_down": dense_init(F_, D, generator, device)}
+    return {"w_up": dense_init(D, F_, generator, device),
+            "b_up": torch.zeros(F_, device=device),
+            "w_down": dense_init(F_, D, generator, device),
+            "b_down": torch.zeros(D, device=device)}
+
+
+def init_embedding(cfg: ModelConfig, generator: torch.Generator,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """The token table, normal with std 0.02."""
+    tok = torch.empty((cfg.vocab_size, cfg.d_model), device=generator.device)
+    torch.nn.init.normal_(tok, 0.0, 0.02, generator=generator)
+    return {"tok": tok.to(device)}
+
+
+def init_lm_head(cfg: ModelConfig, generator: torch.Generator,
+                 device="cuda") -> Dict[str, torch.Tensor]:
+    if cfg.tied_embeddings:
+        return {}
+    return {"w": dense_init(cfg.d_model, cfg.vocab_size, generator, device)}
+
 
 # ---------------------------------------------------------------------------
 # norms

@@ -16,7 +16,6 @@ MoE, MLA and VLM configs raise: their port follows in the order
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -48,46 +47,18 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
     weights are drawn apart and stored fused as ``w_qkv``.  Tensors are
     drawn on ``generator.device`` and moved to ``device``."""
     check_dense(cfg)
-    gdev = generator.device
-    D, F_ = cfg.d_model, cfg.d_ff
-
-    def dense(k, n):
-        t = torch.empty((k, n), device=gdev)
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                    generator=generator)
-        return (t / math.sqrt(k)).to(device)
-
-    def ones(n):
-        return torch.ones(n, device=device)
 
     def block():
-        attn_p = {"w_qkv": torch.cat([dense(D, cfg.q_dim),
-                                      dense(D, cfg.kv_dim),
-                                      dense(D, cfg.kv_dim)], dim=1),
-                  "w_o": dense(cfg.q_dim, D)}
-        if cfg.qk_norm:
-            attn_p.update(q_norm=ones(cfg.head_dim),
-                          k_norm=ones(cfg.head_dim))
-        if cfg.attention_bias:
-            attn_p.update(b_qkv=torch.zeros(cfg.q_dim + 2 * cfg.kv_dim,
-                                            device=device),
-                          b_o=torch.zeros(D, device=device))
-        ffn = ({"w_gate": dense(D, F_), "w_up": dense(D, F_),
-                "w_down": dense(F_, D)} if cfg.activation == "silu" else
-               {"w_up": dense(D, F_), "b_up": torch.zeros(F_, device=device),
-                "w_down": dense(F_, D), "b_down": torch.zeros(D,
-                                                              device=device)})
-        return {"ln1": L.init_norm(cfg, device), "ln2": L.init_norm(cfg, device),
-                "attn": attn_p, "ffn": ffn}
+        return {"ln1": L.init_norm(cfg, device),
+                "ln2": L.init_norm(cfg, device),
+                "attn": attn.init_attention(cfg, generator, device),
+                "ffn": L.init_mlp(cfg, generator, device)}
 
-    tok = torch.empty((cfg.vocab_size, D), device=gdev)
-    torch.nn.init.normal_(tok, 0.0, 0.02, generator=generator)
-    params = {"embed": {"tok": tok.to(device)},
-              "blocks": [block() for _ in range(cfg.n_layers)],
-              "final_norm": L.init_norm(cfg, device),
-              "lm_head": ({} if cfg.tied_embeddings
-                          else {"w": dense(D, cfg.vocab_size)})}
-    return params
+    embed = L.init_embedding(cfg, generator, device)
+    return {"embed": embed,
+            "blocks": [block() for _ in range(cfg.n_layers)],
+            "final_norm": L.init_norm(cfg, device),
+            "lm_head": L.init_lm_head(cfg, generator, device)}
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,13 @@ The engine batches requests into **waves**:
 
 PyTorch runs eagerly, so a key's "compile" is its first run; ``warmup``
 runs every key of the grid once and ``stats.steady_compiles`` counts a
-first run after it.  On the card the prefill's causal attention runs the
-flash kernel and every decode step's cache read the decode kernel, once
-per layer (``kernels.dispatch``); the KV caches are updated in place.
+first run after it.  Any family the registry serves runs here: dense
+decoders, the pure SSM LM and the Mamba-2 hybrid (plain waves only for
+the last two, :data:`NO_MIXED_FAMILIES`).  On the card a dense prefill's
+causal attention runs the flash kernel and every decode step's cache
+read the decode kernel, once per layer; a mamba layer's prefill runs the
+``ssd_scan`` kernel (``kernels.dispatch``).  Caches and states are
+updated in place.
 """
 from __future__ import annotations
 
@@ -45,6 +49,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.serve.request import (FeatureCache, Request, Response,
                                        ServingStats)
 from repro_torch.serve.scheduler import form_wave
+
+
+# Families whose mixed-granularity prefill the engine refuses: the
+# reference runs it through transformer.run_blocks, which walks dense and
+# MoE stacks only, so on these configs it runs no layer at all and serves
+# the packed-and-restored embeddings with zero SSM states (its launcher
+# turns --mixed off for them).  The port refuses rather than copy that.
+NO_MIXED_FAMILIES = ("ssm", "hybrid")
 
 
 @dataclass
@@ -92,7 +104,23 @@ class ServeEngine:
         return batch_bucket(b, self.sc.b_buckets)
 
     # ------------------------------------------------------------------
+    def _refuse_mixed(self) -> None:
+        raise ValueError(
+            f"{self.cfg.name}: family {self.cfg.family!r} has no "
+            f"mixed-granularity prefill.  The reference's mixed_prefill runs "
+            f"its layers through transformer.run_blocks, which knows no "
+            f"mamba layer: it would run zero layers and leave every SSM "
+            f"state at zero.  Serve this family with beta 0 or without span "
+            f"masks")
+
     def submit(self, req: Request) -> None:
+        """Queue a request.  A pooling request (span masks selecting a
+        span, beta > 0) for an SSM or hybrid config raises ValueError:
+        see :data:`NO_MIXED_FAMILIES`."""
+        if (self.cfg is not None and self.cfg.family in NO_MIXED_FAMILIES
+                and req.beta > 0 and (req.low_spans().shape[0]
+                                      or req.reuse_spans().shape[0])):
+            self._refuse_mixed()
         self.queue.append(req)
 
     def session(self, client_id: int, n_spans: int) -> FeatureCache:
@@ -219,6 +247,8 @@ class ServeEngine:
             (n_low + n_reuse, beta)
             for (n_low, n_reuse, beta) in (plan_space or ())
             if (n_low + n_reuse) > 0 and beta > 0)
+        if pools and self.cfg.family in NO_MIXED_FAMILIES:
+            self._refuse_mixed()
         with torch.no_grad():
             for B in batch_buckets:
                 self._get_decode(B)(self._tokens(np.zeros((B, 1))), lens[0],

@@ -1,7 +1,9 @@
 """Port parity for the LM serving engine: ``repro_torch.serve.engine``
 against the reference ``repro.serve.engine.ServeEngine`` (its CPU/XLA
 lane) on the same parameters (qwen3-4b ``REDUCED`` from the reference's
-``init_params``, converted) and the same requests.
+``init_params``, converted; for the SSM lane mamba2-370m ``REDUCED`` and
+zamba2-1.2b ``REDUCED`` at 6 layers, so its shared block runs) and the
+same requests.
 
 Wave keys and wave formation must be equal.  Greedy tokens must be equal
 on plain, mixed, reuse-session, padded-B (3 -> 4) and EOS waves; where a
@@ -263,6 +265,92 @@ def test_launch_serve_on_cpu(extra, capsys):
     out = capsys.readouterr().out
     assert "[serve] 3 requests, 9 tokens" in out
     assert f"mixed={'on' if extra else 'off'}" in out
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families
+
+
+@pytest.fixture(scope="module", params=["mamba2-370m", "zamba2-1.2b"])
+def ssm_setup(request):
+    layers = 6 if request.param == "zamba2-1.2b" else 2
+    jcfg = jget_reduced(request.param).replace(n_layers=layers)
+    tcfg = get_reduced(request.param).replace(n_layers=layers)
+    jparams = jregistry.init_params(jcfg, jax.random.PRNGKey(0))
+    conv = (convert.ssm_params_from_jax if tcfg.family == "ssm"
+            else convert.hybrid_params_from_jax)
+    tparams = conv(jax.tree_util.tree_map(np.asarray, jparams), tcfg, "cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+def test_ssm_plain_padded_wave_tokens_match_reference(ssm_setup):
+    """Three requests pad to the B = 4 bucket (slot 0 replicated) after a
+    warmup over the same keys; the same greedy tokens as the reference
+    engine, and no key first runs after warmup."""
+    engines = _engines(ssm_setup, max_batch=4, max_len=T + NEW + 8,
+                       buckets=(T,))
+    n = engines[1].warmup()
+    assert set(engines[1]._prefill_fns) | set(engines[1]._decode_fns) == {
+        ("decode", b) for b in (1, 2, 4)} | {
+        ("prefill", T, 0, 0, b) for b in (1, 2, 4)}
+    assert n == 6
+    rng = np.random.default_rng(7)
+    prompts = _prompts(rng, ssm_setup[1], 3)
+    for rid, p in enumerate(prompts):
+        _submit(engines, rid, p, max_new_tokens=NEW)
+    jresp, tresp = _run(engines)
+    assert len(engines[1].wave_latencies) == 1
+    _assert_same_tokens(ssm_setup, jresp, tresp, dict(enumerate(prompts)))
+    assert _ref_steps(ssm_setup, prompts[1], jresp[1], None, 0)[0] == \
+        jresp[1]
+    assert engines[1].stats.steady_compiles == 0, \
+        engines[1].stats.steady_compile_keys
+
+
+def test_ssm_two_waves_tokens_match_reference(ssm_setup):
+    """Five requests at max_batch 4: a full wave of 4 and a wave of 1."""
+    engines = _engines(ssm_setup, max_batch=4, max_len=T + NEW + 8,
+                       buckets=(T,))
+    rng = np.random.default_rng(8)
+    prompts = _prompts(rng, ssm_setup[1], 5)
+    for rid, p in enumerate(prompts):
+        _submit(engines, rid, p, max_new_tokens=NEW)
+    jresp, tresp = _run(engines)
+    assert len(engines[1].wave_latencies) == 2
+    _assert_same_tokens(ssm_setup, jresp, tresp, dict(enumerate(prompts)))
+
+
+def test_ssm_mixed_request_raises(ssm_setup):
+    """The reference's mixed prefill runs no mamba layer (its run_blocks
+    knows only dense and MoE stacks) and leaves every SSM state at zero:
+    the port refuses a pooling request for these families, at submit and
+    in warmup; a mask at beta 0, or one that selects no span, still
+    serves plain."""
+    tcfg, tparams = ssm_setup[1], ssm_setup[3]
+    eng = ServeEngine(tcfg, tparams, ServeConfig(
+        max_batch=4, max_len=T + NEW + 8, buckets=(T,), device="cpu"))
+    prompt = np.zeros(T, np.int32)
+    for kw in (dict(low_span_mask=np.array([1, 0])),
+               dict(reuse_span_mask=np.array([0, 1]), client_id=3)):
+        with pytest.raises(ValueError, match="no mixed-granularity"):
+            eng.submit(Request(rid=0, prompt=prompt, beta=2, **kw))
+    with pytest.raises(ValueError, match="zero layers"):
+        eng.warmup(plan_space=[(1, 0, 2)])
+    eng.submit(Request(rid=1, prompt=prompt, max_new_tokens=2,
+                       low_span_mask=np.array([1, 0]), beta=0))
+    eng.submit(Request(rid=2, prompt=prompt, max_new_tokens=2,
+                       low_span_mask=np.array([0, 0]), beta=2))
+    assert [r.n_tokens for r in eng.run()] == [2, 2]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])
+def test_launch_serve_ssm_on_cpu_runs_the_plain_path(arch, capsys):
+    assert tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--requests", "3", "--prompt-len", "32",
+                         "--max-new", "3", "--mixed"]) == 0
+    out = capsys.readouterr().out
+    assert "runs the plain path" in out
+    assert "[serve] 3 requests, 9 tokens" in out and "mixed=off" in out
 
 
 @pytest.mark.cuda

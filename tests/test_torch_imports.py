@@ -32,7 +32,11 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.kernels.decode_attention.ops",
             "repro_torch.models.transformer", "repro_torch.models.registry",
             "repro_torch.core.seq_mixed_res", "repro_torch.serve.scheduler",
-            "repro_torch.serve.engine", "repro_torch.launch.serve")
+            "repro_torch.serve.engine", "repro_torch.launch.serve",
+            "repro_torch.configs.mamba2_370m",
+            "repro_torch.configs.zamba2_1p2b",
+            "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.mamba2",
+            "repro_torch.models.hybrid", "repro_torch.models.ssm_lm")
 
 
 def test_every_port_module_imports_without_jax():

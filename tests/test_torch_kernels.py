@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import ops as tflash
 from repro_torch.kernels.fused_serving import ops as tfused
 from repro_torch.kernels.int8_matmul import ops as tmm
 from repro_torch.kernels.mixed_res_pool import ops as tpool
+from repro_torch.kernels.ssd_scan import ops as tssd
 from repro_torch.kernels.window_attention import ops as twin
 
 torch.set_num_threads(2)
@@ -195,7 +196,15 @@ def _dispatch_cases():
     sx, sw = torch.ones(5), torch.full((7,), 0.5)
     kv_len = torch.tensor([100], dtype=torch.int32)
     q1 = q[:, :1]
+    ssd = (q, torch.nn.functional.softplus(q[..., 0]), -torch.ones(2),
+           k[:, :, :1], v[:, :, :1], 32)
     return {
+        "ssd_scan": (      # (y, final state) flattened into one tensor
+            lambda: torch.cat([t.reshape(-1)
+                               for t in dispatch.ssd_scan(*ssd)]),
+            lambda: torch.cat([t.reshape(-1)
+                               for t in tssd.ssd_scan_plain(*ssd)]),
+            lambda: tssd.ssd_scan_cuda(*ssd)),
         "decode_attention": (
             lambda: dispatch.decode_attention(q1, k, v, kv_len),
             lambda: tdec.decode_attention_plain(q1, k, v, kv_len),
@@ -271,6 +280,18 @@ def test_kernel_matches_plain_on_card(name):
         got = tdec.decode_attention_cuda(q[:, :1], k, v, kv_len)
         want = tdec.decode_attention_plain(q[:, :1], k, v, kv_len)
         assert float((got - want).abs().max()) <= 1e-5
+    elif name == "ssd_scan":
+        x = _t(rng.standard_normal((2, 300, 8, 64)).astype(np.float32))
+        dt = torch.nn.functional.softplus(_t(rng.standard_normal(
+            (2, 300, 8)).astype(np.float32)))
+        bc = _t(0.3 * rng.standard_normal((2, 300, 2, 2, 128)).astype(
+            np.float32))
+        args = [a.to(dev) for a in (x, dt, -torch.arange(1.0, 9.0),
+                                    bc[:, :, 0], bc[:, :, 1])]
+        for got, want in zip(tssd.ssd_scan_cuda(*args, 256),
+                             tssd.ssd_scan_plain(*args, 256)):
+            assert float((got - want).abs().max() / want.abs().max()) \
+                <= 1e-4
     elif name == "avg_pool":
         x = _t(rng.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32)).to(dev)
         got, want = tpool.avg_pool_cuda(x, 2), tpool.avg_pool_plain(x, 2)

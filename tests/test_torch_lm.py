@@ -86,11 +86,11 @@ def test_configs_copy_the_reference():
     from repro.configs import get_config as jget_config
     for get, jget in ((get_config, jget_config),
                       (get_reduced, jget_reduced)):
-        for arch in (ARCH, "vitdet-l"):
+        for arch in (ARCH, "vitdet-l", "mamba2-370m", "zamba2-1.2b"):
             assert dataclasses.asdict(get(arch)) == \
                 dataclasses.asdict(jget(arch))
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mamba2-370m")
+        get_config("whisper-medium")
 
 
 def test_unported_families_raise():
