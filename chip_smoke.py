@@ -14,11 +14,18 @@ Phases; any failure exits non-zero and prints no result:
   2. hold each kernel against its plain PyTorch version on the card, at
      the full-width ViTDet-L shapes the serving path gives it, and time
      the kernel alone, the plain version and, where one PyTorch call
-     computes the same function, that call.  ``int8_matmul`` is checked
-     bit-equal at the five GEMM shapes of the quantized model (M = 8192)
-     and a ragged one; its numbers in the kernels line are sums over the
-     five (the bound is the sum of each shape's bound, "by" the kind
-     that bounds most of it).  The per-row activation quantization in front of each GEMM is
+     computes the same function, that call.  ``window_attention`` is
+     checked to 1e-4 at the padded shape with ``win_valid``, the int8
+     lane's 15-head call through views of a 2880-wide fused QKV, and
+     the full-resolution shape (its kernels-line row).  ``int8_matmul``
+     is checked bit-equal at the five GEMM shapes of the quantized model
+     (M = 8192), each at both output tile widths (the other one timed
+     for the record), and at two ragged ones (K = 100, which the wrapper
+     zero-pads to 112, and the pruned 960 x 2880 at M = 1000); its
+     numbers in the kernels line are sums over the five (the bound is
+     the sum of each shape's bound, "by" the kind that bounds most of
+     it).  Both print their achieved rates and share of their bound.
+     The per-row activation quantization in front of each GEMM is
      timed on its own.  ``decode_attention`` is checked to 1e-5 at the
      Qwen3-4B serving shape (its kernels-line row) and at a ragged
      8192-key cache, and ``flash_attention`` at the LM prefill's causal
@@ -287,6 +294,12 @@ def run(torch):
     def max_err(a, b):
         return float((a - b).abs().max())
 
+    def rate(name, ms, nbytes):
+        """Print a byte-bound kernel's achieved rate and share of its
+        bound."""
+        say(f"  {name}: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
+            f"{nbytes / PEAK_BYTES * 1e3 / ms:.3f} of its byte bound")
+
     # avg_pool: the raw frame, pooled before the low-resolution embedding
     x = torch.rand((B, *cfg.vit.img_size, 3), generator=gen, device=dev)
     got, want = pool.avg_pool_cuda(x, 2), pool.avg_pool_plain(x, 2)
@@ -342,9 +355,21 @@ def run(torch):
     wv = lay["nw"]
     err_p = max_err(win.window_attention_cuda(qp, kp, vp, w2, wv),
                     win.window_attention_plain(qp, kp, vp, w2, wv))
+    # the int8 lane's call: 15 heads, views of a 2880-wide fused QKV
+    qkv = torch.randn((B, T, 3 * (H - 1) * Dh), generator=gen, device=dev)
+    q15, k15, v15 = (t.reshape(B, T, H - 1, Dh)
+                     for t in qkv.split((H - 1) * Dh, dim=-1))
+    err_15 = max_err(win.window_attention_cuda(q15, k15, v15, w2),
+                     win.window_attention_plain(q15, k15, v15, w2))
+    ms_15 = timed(torch, lambda: win.KERNEL.relaunch(1))
+    rate("window_attention H=15", ms_15, 16 * B * T * (H - 1) * Dh)
+    del qkv, q15, k15, v15
     q, k, v = qkv_views(T)
     got = win.window_attention_cuda(q, k, v, w2)
-    err = max(err_p, max_err(got, win.window_attention_plain(q, k, v, w2)))
+    err = max(err_p, err_15,
+              max_err(got, win.window_attention_plain(q, k, v, w2)))
+    say(f"  window_attention errors: padded {err_p:.3g}, H=15 {err_15:.3g}, "
+        f"full-res {err:.3g} (limit {ATTN_TOL})")
     check(err <= ATTN_TOL, f"window_attention: max error {err}")
     qw, kw, vw = (t.reshape(B, T // w2, w2, H, Dh).permute(0, 1, 3, 2, 4)
                   .reshape(-1, H, w2, Dh).contiguous() for t in (q, k, v))
@@ -352,6 +377,8 @@ def run(torch):
            lambda: win.window_attention_plain(q, k, v, w2),
            lambda: F.scaled_dot_product_attention(qw, kw, vw),
            4 * 4 * B * T * H * Dh, 4 * B * (T // w2) * H * w2 * w2 * Dh)
+    rate("window_attention", rows["window_attention"]["ms"],
+         4 * 4 * B * T * H * Dh)
 
     # flash attention: the unmasked global blocks after restoration; a
     # causal GQA call first (the kernel keeps both options)
@@ -474,7 +501,7 @@ def gemm_checks(torch, i8, qt, dev, gen, n_layers):
     ragged shape (checked only).  Returns the timed rows."""
     out = []
     for (M, K, N) in [(GEMM_M, K, N) for K, N in GEMM_SHAPES] + \
-            [(1000, 100, 130)]:
+            [(1000, 100, 130), (1000, 960, 2880)]:
         xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
                            dtype=torch.int32).to(torch.int8)
         wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
@@ -490,23 +517,39 @@ def gemm_checks(torch, i8, qt, dev, gen, n_layers):
             say(f"  int8_matmul {M}x{K}x{N} (ragged): bit-equal")
             continue
         k_ms = timed(torch, lambda: i8.KERNEL.relaunch(1))
+        # the other output tile width, checked and timed for the record
+        tile = i8.tile_n(N, K)
+        chosen = i8.tile_n
+        i8.tile_n = lambda n, k: 384 - tile
+        try:
+            other = i8.int8_matmul_cuda(xq, wq, sx, sw)
+            check(torch.equal(other, want), f"int8_matmul {M}x{K}x{N}: the "
+                  f"{384 - tile}-wide tile differs from plain")
+            o_ms = timed(torch, lambda: i8.KERNEL.relaunch(1))
+        finally:
+            i8.tile_n = chosen
         p_ms = timed(torch, lambda: i8.int8_matmul_plain(xq, wq, sx, sw))
         l_ms = timed(torch, lambda: torch._int_mm(xq, wq))
         xf = torch.randn((M, K), generator=gen, device=dev)
         wf = torch.randn((K, N), generator=gen, device=dev)
         f_ms = timed(torch, lambda: torch.matmul(xf, wf))
         r_ms = timed(torch, lambda: qt._quantize_rows(xf))
-        b_ms, b_by = bound(M * K + K * N + 4 * (M + N) + 4 * M * N,
-                           2 * M * N * K, PEAK_INT8)
+        nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
+        b_ms, b_by = bound(nbytes, 2 * M * N * K, PEAK_INT8)
         row = {"M": M, "K": K, "N": N, "ms": k_ms, "plain_ms": p_ms,
                "library_ms": l_ms, "fp32_matmul_ms": f_ms,
-               "row_quant_ms": r_ms, "bound_ms": b_ms, "bound_by": b_by}
+               "row_quant_ms": r_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "tile_n": tile, f"ms_tile_{tile}": k_ms,
+               f"ms_tile_{384 - tile}": o_ms}
         out.append(row)
         say(f"  int8_matmul {M}x{K}x{N}: bit-equal kernel_ms={k_ms:.4f} "
-            f"({2 * M * N * K / k_ms / 1e9:.1f} TOPS) plain_ms={p_ms:.4f} "
-            f"int_mm_ms={l_ms:.4f} fp32_matmul_ms={f_ms:.4f} "
-            f"row_quant_ms={r_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
-        del xq, wq, xf, wf, got, want
+            f"(128x{tile} tiles; 128x{384 - tile}: {o_ms:.4f}) "
+            f"plain_ms={p_ms:.4f} int_mm_ms={l_ms:.4f} "
+            f"fp32_matmul_ms={f_ms:.4f} row_quant_ms={r_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        say(f"    {2 * M * N * K / k_ms / 1e9:.1f} TOPS, "
+            f"{nbytes / k_ms / 1e6:.1f} GB/s, {b_ms / k_ms:.3f} of its bound")
+        del xq, wq, xf, wf, got, want, other
     by_k = {r["K"]: r["row_quant_ms"] for r in out}
     block = sum(by_k[K] for K, _ in GEMM_SHAPES[1:])
     say(f"  row quantization per full-res wave ({n_layers} blocks x "

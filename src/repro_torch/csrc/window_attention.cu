@@ -7,106 +7,320 @@
 // float32, query head h reads kv head h / (H / KV).  Windows at or past
 // win_valid[b] (the pad windows of a length-bucketed sequence) write
 // zeros and skip the arithmetic.  At ViTDet-L width w2 = 64, Dh = 64,
-// H = 16, T in {1536, 3072, 4096}.
+// H = 16 (15 in the int8 lane), T in {1536, 3072, 4096}; q, k and v are
+// column views of the fused QKV product (token pitch 3072 or 2880).
 //
-// Bound on the H100: operations, ~4 * w2 * Dh flops per token and head
-// (1.07 GFLOP per full-resolution layer) against 67 TFLOP/s of float32
-// FMA; the bytes (q, k, v read once, out written once: 64 MB per
-// full-resolution layer) take about as long at 3.35 TB/s.  Tensor cores
-// in TF32 would lose the float32 parity, so this version uses FMA.
-// Design: one block per (window, head); q, k and v of the window (48 KB
-// at w2 = Dh = 64) and the w2 x w2 scores (16 KB) live in dynamic shared
-// memory (above the 48 KB static limit, so the entry point opts in);
-// rows of q and k are padded by one float so that threads walking
-// different rows hit different banks.  Scores: one thread per (i, j);
-// softmax: one warp per row; output: one thread per (i, d).
+// Bound on the H100: bytes.  q, k, v read once and out written once are
+// 16 B per token, head and feature (134 MB per full-resolution layer of a
+// wave of two, 40 us at 3.35 TB/s), against 4 * w2 * Dh flops per token
+// and head (2.15 GFLOP, 32 us on the float32 FMA units, 4.3 us at the
+// TF32 tensor-core rate).  A scalar FMA kernel sits at the FMA bound or
+// above it, with shared-memory loads beside every FMA; the tensor cores
+// take the arithmetic off the critical path, if they keep float32
+// accuracy.
+//
+// Design: mma.sync m16n8k8 TF32 tensor-core tiles in the 3xTF32 scheme.
+// Each operand x splits into x_hi (x with its low 13 mantissa bits
+// cleared, a TF32 value) and x_lo = x - x_hi, of which the tensor core
+// reads the top 11 significant bits; a product keeps three terms,
+// a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, in a float32 accumulator.  The
+// dropped a_lo*b_lo and the bits of x_lo the tensor core ignores leave
+// at most ~2^-19 of each product, near float32, where one TF32 product
+// (2^-11) breaks the 1e-4 parity.  The split is an AND and a subtraction; two
+// cvt.rna roundings (round to nearest, 2^-22) cost more ALU time than the
+// tensor cores save, for no accuracy the parity needs.
+//  - A block owns one (window, head): w2 rounded up to a multiple of 16
+//    query rows, 16 per warp (4 warps at w2 = 64).  The blocks of one
+//    window are its heads, launched side by side, so the blocks in flight
+//    read whole token rows of the fused QKV product.  q, k and v of the
+//    window are staged with 16-byte cp.async copies into shared rows of
+//    Dh + 4 floats, so the fragment loads of a warp hit 32 distinct banks.
+//    52 KB of shared memory and 128 threads a block: four blocks (16
+//    warps) an SM, one block's copies overlapping the others' arithmetic.
+//  - S = Q K^T (16 x w2 per warp) stays in registers; the row softmax runs
+//    there, the row max and sum over the four threads of a row by quad
+//    shuffles.  Pad keys (w2 not a multiple of 16) score -inf; pad rows of
+//    q, k and v are zero and pad query rows are not stored.
+//  - O = P V reuses the score accumulators as the A operand without a
+//    trip through shared memory: a thread's accumulator holds columns
+//    2t, 2t + 1 of each 8-key tile and the A fragment wants k = t, t + 4,
+//    so each 8-key tile's keys are relabelled (k slot t <-> key 2t, slot
+//    t + 4 <-> key 2t + 1) and v's B fragment is read with the same
+//    relabelling; a sum over keys does not depend on their order.  The
+//    rows are divided by the softmax sum at the end and stored as float2.
+// Dh must be a multiple of 8 and at most 128, w2 at most 128.
 #include <math.h>
+
+#include <cstdint>
 
 #include "common.cuh"
 
-__global__ void window_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ win_valid,
-    float* __restrict__ out, int W, int w2, int H, int KV, int Dh,
-    long long sqb, long long sqt, long long skb, long long skt,
-    long long svb, long long svt, float scale) {
-  const int bw = blockIdx.x, h = blockIdx.y;
-  const int b = bw / W, w = bw % W;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long long t0 = static_cast<long long>(w) * w2;
-  float* ob = out + (static_cast<long long>(b) * W * w2 + t0) * H * Dh +
-              static_cast<long long>(h) * Dh;
-  const long long sot = static_cast<long long>(H) * Dh;
+namespace {
 
-  if (win_valid != nullptr && w >= win_valid[b]) {
-    for (int idx = tid; idx < w2 * Dh; idx += nt)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x = hi + lo: hi is x with the low 13 mantissa bits cleared (a TF32
+// value), lo = x - hi (exact); the tensor core reads lo's top 11
+// significant bits and ignores the rest, so x - hi - lo < 2^-21 |x|
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b in the 3xTF32 scheme, from float fragments
+__device__ __forceinline__ void mma_3xtf32(float* c, const float* a,
+                                           const float* b) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) split_tf32(b[i], bh[i], bl[i]);
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// Stage rows [0, w2) of a (w2, Dh) slab with token pitch `st` into shared
+// rows of `ld` floats.
+__device__ __forceinline__ void stage(float* s, const float* g, long long st,
+                                      int w2, int Dh, int ld, bool vec) {
+  if (vec) {
+    const int cpr = Dh / 4;
+    for (int idx = threadIdx.x; idx < w2 * cpr; idx += blockDim.x) {
+      const int i = idx / cpr, c = (idx % cpr) * 4;
+      cp_async16(s + i * ld + c, g + i * st + c);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < w2 * Dh; idx += blockDim.x) {
+      const int i = idx / Dh, c = idx % Dh;
+      cp_async4(s + i * ld + c, g + i * st + c);
+    }
+  }
+}
+
+// The arguments every (window, head) of a call shares.
+struct Args {
+  const float *q, *k, *v;
+  const int* win_valid;
+  float* out;
+  int W, w2, H, KV, Dh;
+  long long sqb, sqt, skb, skt, svb, svt;
+  float scale;
+  bool vec;
+};
+
+// Item `it` of the call is window bw = it / H (of the B * W), head it % H.
+__device__ __forceinline__ bool item_valid(const Args& a, int it) {
+  const int bw = it / a.H;
+  return a.win_valid == nullptr || bw % a.W < a.win_valid[bw / a.W];
+}
+
+// Start the cp.async copies of item `it`'s q, k and v rows into `buf`.
+__device__ __forceinline__ void load_item(const Args& a, int it, float* buf,
+                                          int w2p, int ld) {
+  const int bw = it / a.H, h = it % a.H;
+  const int b = bw / a.W;
+  const long long t0 = static_cast<long long>(bw % a.W) * a.w2;
+  const int kvh = h / (a.H / a.KV);
+  stage(buf, a.q + b * a.sqb + t0 * a.sqt + static_cast<long long>(h) * a.Dh,
+        a.sqt, a.w2, a.Dh, ld, a.vec);
+  stage(buf + w2p * ld,
+        a.k + b * a.skb + t0 * a.skt + static_cast<long long>(kvh) * a.Dh,
+        a.skt, a.w2, a.Dh, ld, a.vec);
+  stage(buf + 2 * w2p * ld,
+        a.v + b * a.svb + t0 * a.svt + static_cast<long long>(kvh) * a.Dh,
+        a.svt, a.w2, a.Dh, ld, a.vec);
+}
+
+// Item `it` from its staged rows in `buf` (or zeros for a pad window).
+template <int NT, int ND>
+__device__ __forceinline__ void attend(const Args& a, int it,
+                                       const float* buf, int w2p, int ld) {
+  const int bw = it / a.H, h = it % a.H;
+  const int w2 = a.w2, Dh = a.Dh;
+  const long long sot = static_cast<long long>(a.H) * Dh;
+  float* ob = a.out + static_cast<long long>(bw) * w2 * sot +
+              static_cast<long long>(h) * Dh;
+  if (!item_valid(a, it)) {
+    for (int idx = threadIdx.x; idx < w2 * Dh; idx += blockDim.x)
       ob[(idx / Dh) * sot + idx % Dh] = 0.0f;
     return;
   }
+  const int nt = w2p / 8, nd = Dh / 8;
+  const float* Ks = buf + w2p * ld;
+  const float* Vs = Ks + w2p * ld;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float* qw = buf + (16 * warp + g) * ld + t;
 
-  extern __shared__ float sm[];
-  const int ld = Dh + 1, lds = w2 + 1;
-  float* Qs = sm;                 // w2 x ld
-  float* Ks = Qs + w2 * ld;       // w2 x ld
-  float* Vs = Ks + w2 * ld;       // w2 x Dh
-  float* Ss = Vs + w2 * Dh;       // w2 x lds
-
-  const float* qb = q + b * sqb + t0 * sqt + static_cast<long long>(h) * Dh;
-  const float* kb = k + b * skb + t0 * skt + static_cast<long long>(kvh) * Dh;
-  const float* vb = v + b * svb + t0 * svt + static_cast<long long>(kvh) * Dh;
-  for (int idx = tid; idx < w2 * Dh; idx += nt) {
-    const int i = idx / Dh, d = idx % Dh;
-    Qs[i * ld + d] = qb[i * sqt + d];
-    Ks[i * ld + d] = kb[i * skt + d];
-    Vs[i * Dh + d] = vb[i * svt + d];
-  }
-  __syncthreads();
-
-  for (int idx = tid; idx < w2 * w2; idx += nt) {
-    const int i = idx / w2, j = idx % w2;
-    float s = 0.0f;
-    for (int d = 0; d < Dh; ++d) s = fmaf(Qs[i * ld + d], Ks[j * ld + d], s);
-    Ss[i * lds + j] = s * scale;
-  }
-  __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32, nwarps = nt / 32;
-  for (int i = warp; i < w2; i += nwarps) {
-    float* row = Ss + i * lds;
-    float m = -INFINITY;
-    for (int j = lane; j < w2; j += 32) m = fmaxf(m, row[j]);
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.0f;
-    for (int j = lane; j < w2; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
+  // S = Q K^T: fragment (j, e) is row g (+8 for e >= 2), key 8j + 2t + (e&1)
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < ND; ++kk) {
+    if (kk >= nd) break;
+    const float af[4] = {qw[8 * kk], qw[8 * kk + 8 * ld], qw[8 * kk + 4],
+                         qw[8 * kk + 8 * ld + 4]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) break;
+      const float* kp = Ks + (8 * j + g) * ld + 8 * kk + t;
+      const float bf[2] = {kp[0], kp[4]};
+      mma_3xtf32(s[j], af, bf);
     }
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    for (int j = lane; j < w2; j += 32) row[j] = row[j] / sum;
   }
-  __syncthreads();
 
-  for (int idx = tid; idx < w2 * Dh; idx += nt) {
-    const int i = idx / Dh, d = idx % Dh;
-    float o = 0.0f;
-    for (int j = 0; j < w2; ++j) o = fmaf(Ss[i * lds + j], Vs[j * Dh + d], o);
-    ob[i * sot + d] = o;
+  // row softmax in registers; rows g and g + 8 of the warp's 16
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool key = 8 * j + 2 * t + e < w2;
+      s[j][e] = key ? s[j][e] * a.scale : -INFINITY;
+      s[j][2 + e] = key ? s[j][2 + e] * a.scale : -INFINITY;
+      m0 = fmaxf(m0, s[j][e]);
+      m1 = fmaxf(m1, s[j][2 + e]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = expf(s[j][e] - m0);
+      s[j][2 + e] = expf(s[j][2 + e] - m1);
+      l0 += s[j][e];
+      l1 += s[j][2 + e];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+
+  // O = P V, keys of tile j relabelled: k slot t <-> key 8j + 2t, slot
+  // t + 4 <-> key 8j + 2t + 1
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) break;
+    const float af[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+    const float* vp = Vs + (8 * j + 2 * t) * ld + g;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (n >= nd) break;
+      const float bf[2] = {vp[8 * n], vp[8 * n + ld]};
+      mma_3xtf32(o[n], af, bf);
+    }
+  }
+
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  const float i0 = 1.0f / l0, i1 = 1.0f / l1;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    if (n >= nd) break;
+    const int c = 8 * n + 2 * t;
+    if (r0 < w2)
+      *reinterpret_cast<float2*>(ob + r0 * sot + c) =
+          make_float2(o[n][0] * i0, o[n][1] * i0);
+    if (r1 < w2)
+      *reinterpret_cast<float2*>(ob + r1 * sot + c) =
+          make_float2(o[n][2] * i1, o[n][3] * i1);
   }
 }
 
-static size_t smem_bytes(int w2, int Dh) {
-  return sizeof(float) * (static_cast<size_t>(w2) * (Dh + 1) * 2 +
-                          static_cast<size_t>(w2) * Dh +
-                          static_cast<size_t>(w2) * (w2 + 1));
+// NT: most 8-key tiles (w2 rounded up to 16, over 8); ND: most 8-feature
+// tiles (Dh / 8); the loops run to the call's own counts.  Block it is
+// head it % H of window it / H (of the B * W), so the blocks in flight
+// read whole token rows of a fused QKV.
+template <int NT, int ND>
+__global__ void __launch_bounds__(16 * NT, NT == 8 ? 4 : 1)
+    window_attention_kernel(const Args a) {
+  const int it = blockIdx.x;
+  const int w2p = (a.w2 + 15) / 16 * 16, ld = a.Dh + 4;
+  extern __shared__ __align__(16) float sm[];
+  if (item_valid(a, it)) {
+    load_item(a, it, sm, w2p, ld);
+    cp_async_commit();
+    // pad rows (w2 <= row < w2p) of q, k and v are zero
+    for (int idx = threadIdx.x; idx < 3 * (w2p - a.w2) * a.Dh;
+         idx += blockDim.x) {
+      const int r = idx / a.Dh, c = idx % a.Dh;
+      sm[(r / (w2p - a.w2)) * w2p * ld + (a.w2 + r % (w2p - a.w2)) * ld + c] =
+          0.0f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  attend<NT, ND>(a, it, sm, w2p, ld);
 }
 
-REPRO_EXPORT long long window_attention_smem_bytes(int w2, int Dh) {
-  return static_cast<long long>(smem_bytes(w2, Dh));
+template <int NT, int ND>
+cudaError_t launch(const Args& a, int n_items, cudaStream_t stream) {
+  const int w2p = (a.w2 + 15) / 16 * 16;
+  const size_t smem = sizeof(float) * 3 * w2p * (a.Dh + 4);
+  cudaError_t e = repro_allow_smem(window_attention_kernel<NT, ND>, smem);
+  if (e != cudaSuccess) return e;
+  window_attention_kernel<NT, ND><<<n_items, 2 * w2p, smem, stream>>>(a);
+  return cudaGetLastError();
 }
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
 
 REPRO_EXPORT int window_attention_f32(
     const float* q, const float* k, const float* v, const int* win_valid,
@@ -115,15 +329,18 @@ REPRO_EXPORT int window_attention_f32(
     long long svt, float scale, int device, void* stream) {
   cudaError_t e = repro_begin(device);
   if (e != cudaSuccess) return e;
-  if (KV <= 0 || H % KV) return cudaErrorInvalidValue;
-  if (B == 0 || W == 0) return cudaSuccess;
-  const size_t smem = smem_bytes(w2, Dh);
-  e = repro_allow_smem(window_attention_kernel, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid(B * W, H);
-  window_attention_kernel<<<grid, 256, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, win_valid, out, W, w2, H, KV, Dh, sqb, sqt, skb, skt, svb,
-      svt, scale);
-  return cudaGetLastError();
+  if (KV <= 0 || H % KV || w2 <= 0 || w2 > 128 || Dh <= 0 || Dh % 8 ||
+      Dh > 128)
+    return cudaErrorInvalidValue;
+  if (B == 0 || W == 0 || H == 0) return cudaSuccess;
+  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
+                   (sqb | sqt | skb | skt | svb | svt) % 4 == 0;
+  const Args a{q,   k,   v,   win_valid, out, W,   w2,  H,     KV,
+               Dh,  sqb, sqt, skb,       skt, svb, svt, scale, vec};
+  const long long n_items = static_cast<long long>(B) * W * H;
+  if (n_items > 0x7fffffff) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w2 <= 64 && Dh <= 64)
+    return launch<8, 8>(a, static_cast<int>(n_items), s);
+  return launch<16, 16>(a, static_cast<int>(n_items), s);
 }

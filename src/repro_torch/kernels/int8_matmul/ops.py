@@ -13,16 +13,22 @@ reference agree bit for bit.
 
 The kernel reads the weight codes K-contiguous, as the (N, K) matrix
 whose transpose is ``wq``; ``quant.qtensor.QuantTensor`` keeps its 2-D
-codes in that layout (``wq.stride() == (1, K)``).
+codes in that layout (``wq.stride() == (1, K)``).  Its TMA loads need a
+K that is a multiple of 16: the wrapper zero-pads a K that is not
+(``pad_k``, exact for integer sums), which no model shape needs.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels.build import I, P, CudaKernel, check_cuda, stream_of
 
 KERNEL = CudaKernel("int8_matmul", "int8_matmul_f32",
-                    [P, P, P, P, P, I, I, I, I, P])
+                    [P, P, P, P, P, I, I, I, I, I, P])
+K_ALIGN = 16                 # TMA: 16-byte row pitch
+BALANCE = 590                # H100 int8 ops per byte: 1,979 TOPS / 3.35 TB/s
 
 # float64 holds every integer up to 2**53 exactly; |sum| <= K * 127**2
 _MAX_EXACT_K = 2 ** 53 // 127 ** 2
@@ -42,6 +48,33 @@ def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     acc = torch.matmul(xq.double(), wq.double()).to(torch.int32)
     out = acc.float() * sx[:, None].float() * sw[None, :].float()
     return out.to(out_dtype)
+
+
+def tile_n(N: int, K: int) -> int:
+    """The kernel's output tile width for an (M, K) x (K, N) product at
+    M >> N, K.  256 where the tensor cores bound it (more int8 operations
+    per byte of operands and float32 output than the card's balance): a
+    128 x 256 tile halves the shared-memory reads per operation.  Else
+    128, where the output's bytes bound it: two 128 x 128 blocks share an
+    SM, and one's epilogue overlaps the other's main loop."""
+    return 256 if 2 * N * K >= BALANCE * (4 * N + K) else 128
+
+
+def pad_k(xq: torch.Tensor, wq: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero-pad the shared K of xq (M, K) and wq (K, N) up to a positive
+    multiple of ``K_ALIGN``; returns them unchanged where it is one.  The
+    padded wq is again the transpose of a row-major (N, K') matrix.  The
+    added products are 0 * 0, so the GEMM's result does not change."""
+    K = xq.shape[1]
+    Kp = max(K_ALIGN, -(-K // K_ALIGN) * K_ALIGN)
+    if Kp == K:
+        return xq, wq
+    xp = xq.new_zeros((xq.shape[0], Kp))
+    xp[:, :K] = xq
+    wp = wq.new_zeros((wq.shape[1], Kp))
+    wp[:, :K] = wq.t()
+    return xp, wp.t()
 
 
 def int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
@@ -67,9 +100,14 @@ def int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     if not xq.is_contiguous() or not wq.t().is_contiguous():
         raise ValueError("int8_matmul: xq must be row-major and wq the "
                          "transpose of a row-major (N, K) matrix")
+    xq, wq = pad_k(xq, wq)
+    if xq.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError("int8_matmul: xq and wq must start 16-byte aligned "
+                         "(TMA)")
     sx, sw = sx.contiguous(), sw.contiguous()
     out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
     if M and N:
-        KERNEL(xq, wq, sx, sw, out, M, N, K, xq.device.index,
+        K = xq.shape[1]
+        KERNEL(xq, wq, sx, sw, out, M, N, K, tile_n(N, K), xq.device.index,
                stream_of(xq))
     return out

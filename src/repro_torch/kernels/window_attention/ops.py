@@ -9,7 +9,9 @@ number of TOKENS per window (w^2) and divides T.  ``win_valid``: optional
 (B,) count of valid windows per sample; later (pad) windows output
 zeros.  The kernel reads q, k and v through their batch and token
 strides, so the three column slices of the fused QKV product go in
-without a copy.
+without a copy.  It computes both products on the TF32 tensor cores in
+the 3xTF32 scheme (each operand split into two TF32 parts, three
+products kept), which stays within ~1e-5 of float32 here.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
 KERNEL = CudaKernel("window_attention", "window_attention_f32",
                     [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, F,
                      I, P])
-SMEM_LIMIT = 232448          # dynamic shared memory a block may use (H100)
+MAX_WINDOW = MAX_HEAD_DIM = 128   # the kernel's register tiles
 
 
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -57,10 +59,11 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, window "
                          f"{window}")
-    smem = 4 * (window * (Dh + 1) * 2 + window * Dh + window * (window + 1))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"window_attention: window {window} x head {Dh} "
-                         f"needs {smem} B of shared memory")
+    if window > MAX_WINDOW or Dh % 8 or Dh > MAX_HEAD_DIM:
+        raise ValueError(f"window_attention: the kernel takes windows of at "
+                         f"most {MAX_WINDOW} tokens and head widths that are "
+                         f"multiples of 8 up to {MAX_HEAD_DIM}, got window "
+                         f"{window}, head {Dh}")
     q, k, v = head_rows(q), head_rows(k), head_rows(v)
     tensors = [q, k, v]
     valid_arg = None

@@ -264,15 +264,24 @@ def test_kernel_matches_plain_on_card(name):
                     "check on the H100)")
     rng = np.random.default_rng(7)
     dev = "cuda"
-    if name in ("window_attention", "flash_attention"):
+    if name == "window_attention":
         q, k, v = (_t(a).to(dev) for a in _qkv(rng, 2, 256, 4, 2, 64))
-        if name == "window_attention":
-            wv = torch.tensor([1, 4], dtype=torch.int32, device=dev)
-            got = twin.window_attention_cuda(q, k, v, 64, wv)
-            want = twin.window_attention_plain(q, k, v, 64, wv)
-        else:
-            got = tflash.flash_attention_cuda(q, k, v, causal=True)
-            want = tflash.flash_attention_plain(q, k, v, causal=True)
+        wv = torch.tensor([1, 4], dtype=torch.int32, device=dev)
+        # the int8 lane's 15 heads: column views of a 2880-wide fused QKV
+        qkv = _t(rng.standard_normal((2, 128, 2880)).astype(np.float32))
+        q15, k15, v15 = (t.reshape(2, 128, 15, 64).to(dev)
+                         for t in qkv.split(960, dim=-1))
+        small = [_t(a).to(dev) for a in _qkv(rng, 2, 12, 4, 4, 16)]
+        for args, w2, valid in (((q, k, v), 64, wv), ((q, k, v), 64, None),
+                                ((q15, k15, v15), 64, None),
+                                (small, 4, wv)):
+            got = twin.window_attention_cuda(*args, w2, valid)
+            want = twin.window_attention_plain(*args, w2, valid)
+            assert float((got - want).abs().max()) <= 1e-4
+    elif name == "flash_attention":
+        q, k, v = (_t(a).to(dev) for a in _qkv(rng, 2, 256, 4, 2, 64))
+        got = tflash.flash_attention_cuda(q, k, v, causal=True)
+        want = tflash.flash_attention_plain(q, k, v, causal=True)
         assert float((got - want).abs().max()) <= 1e-4
     elif name == "decode_attention":
         q, k, v = (_t(a).to(dev) for a in _qkv(rng, 2, 256, 4, 2, 64))
@@ -302,7 +311,10 @@ def test_kernel_matches_plain_on_card(name):
             assert torch.equal(tpool.nn_upsample_cuda(x, d),
                                tpool.nn_upsample_plain(x, d))
     elif name == "int8_matmul":
-        for M, K, N in ((256, 1024, 2880), (1000, 100, 130), (37, 64, 8)):
+        # ragged M at the pruned widths, the unaligned K = 100 (zero-padded
+        # to 112), a 128 x 256-tile shape (K = 4096) and a tiny one
+        for M, K, N in ((256, 1024, 2880), (1000, 960, 2880),
+                        (1000, 100, 130), (300, 4096, 1024), (37, 64, 8)):
             xq = _t(rng.integers(-127, 128, (M, K), dtype=np.int8)).to(dev)
             wq = _t(rng.integers(-127, 128, (N, K), dtype=np.int8)).to(dev).t()
             sx = _t(rng.uniform(0.01, 1, M).astype(np.float32)).to(dev)
