@@ -28,8 +28,14 @@ Phases; any failure exits non-zero and prints no result:
      The per-row activation quantization in front of each GEMM is
      timed on its own.  ``decode_attention`` is checked to 1e-5 at the
      Qwen3-4B serving shape (its kernels-line row) and at a ragged
-     8192-key cache, and ``flash_attention`` at the LM prefill's causal
-     GQA shapes (T = 128 and the mixed prefill's T = 96);
+     8192-key cache.  ``flash_attention`` is checked to 1e-4, causal and
+     not, at a causal-GQA T = 1000 and at every head width it builds (16,
+     32, 64, 128; T and S off its 64-row tiles, S < T, GQA groups 1 and
+     4), then at the ViT shape (its kernels-line row) and the LM prefill's
+     causal GQA shapes (T = 128 and the mixed prefill's T = 96).  The
+     three float32 tensor-core kernels (window, flash, ``ssd_scan``) are
+     bounded by their bytes or by three TF32 products per product at the
+     TF32 peak (3xTF32), whichever is larger;
   3. serve full-width ViTDet-L (24 blocks, D=1024, 1024x1024 frames,
      weights drawn from a seed) through ``ServerModel.infer_wave``: warm
      up, then a full-resolution wave that captures restoration-point
@@ -76,7 +82,8 @@ Phases; any failure exits non-zero and prints no result:
      every (N, P slice) instance the library builds (N 16-128, P 16-128,
      G = 2, ragged T = 200 in chunks of 64) and the four shapes of the
      reference's ``test_ssd_scan``, and a state handoff through
-     ``init_state``;
+     ``init_state``; the two serving shapes are timed, and traced for the
+     device time of each of the scan's four kernels;
  10. serve full-width mamba2-370m (48 layers, D=1024, weights from a
      seed) through ``ServeEngine``: warm up, then plain waves of 8
      requests x 1024 prompt tokens x 16 new tokens.  Every request must
@@ -127,6 +134,12 @@ B = 2                       # wave size of the serving phases (B bucket 2)
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12           # H100 SXM float32 FMA outside tensor cores
 PEAK_INT8 = 1979e12         # H100 SXM dense int8 tensor-core ops/s
+PEAK_TF32 = 495e12          # H100 SXM dense TF32 tensor-core flops/s
+TF32_PRODUCTS = 3           # 3xTF32: float32 accuracy from three products
+# flash_attention's extra checks (B, T, S, H, KV, Dh): every head width the
+# kernel builds, T and S off its 64-row tiles, S < T, GQA groups 1 and 4
+FLASH_CASES = ((2, 130, 77, 4, 4, 16), (2, 200, 300, 8, 2, 32),
+               (1, 333, 200, 16, 4, 64), (2, 200, 130, 8, 2, 128))
 ATTN_TOL = 1e-4             # float32 attention, kernel vs plain, absolute
 DECODE_TOL = 1e-5           # float32 decode attention, another sum order
 LM_RTOL = 1e-3              # 4-layer Qwen3 logits, card vs CPU, relative
@@ -136,6 +149,9 @@ LM_LONG_LENS = (8192, 6000, 4097, 2048, 513, 64, 1, 8192)
 SSD_TOL = 1e-4              # SSD scan, kernel vs plain, of the largest value
 SSM_B, SSM_T, SSM_NEW = 8, 1024, 16   # the SSM serving waves
 SSD_NS = (16, 32, 64, 128)  # the state sizes ssd_scan.cu is built for
+# the four kernels one ssd_scan call runs, in order
+SSD_STAGES = ("ssd_scores_kernel", "ssd_states_kernel", "ssd_pass_kernel",
+              "ssd_outputs_kernel")
 SSD_REF_SHAPES = ((2, 128, 8, 1, 32, 16, 32), (1, 200, 16, 2, 64, 32, 64),
                   (2, 64, 4, 4, 16, 64, 32), (1, 96, 8, 1, 128, 64, 96))
 POOL_TOL = 1e-6             # mean of four floats, absolute
@@ -376,25 +392,37 @@ def run(torch):
     record("window_attention", err, win.KERNEL,
            lambda: win.window_attention_plain(q, k, v, w2),
            lambda: F.scaled_dot_product_attention(qw, kw, vw),
-           4 * 4 * B * T * H * Dh, 4 * B * (T // w2) * H * w2 * w2 * Dh)
+           4 * 4 * B * T * H * Dh,
+           TF32_PRODUCTS * 4 * B * (T // w2) * H * w2 * w2 * Dh, PEAK_TF32)
     rate("window_attention", rows["window_attention"]["ms"],
          4 * 4 * B * T * H * Dh)
 
     # flash attention: the unmasked global blocks after restoration; a
-    # causal GQA call first (the kernel keeps both options)
-    qs, ks, vs = (torch.randn((1, 1000, H, Dh), generator=gen, device=dev),
-                  torch.randn((1, 1000, 4, Dh), generator=gen, device=dev),
-                  torch.randn((1, 1000, 4, Dh), generator=gen, device=dev))
-    err_c = max_err(flash.flash_attention_cuda(qs, ks, vs, causal=True),
-                    flash.flash_attention_plain(qs, ks, vs, causal=True))
+    # causal GQA call and the extra cases first, each causal and not (the
+    # kernel keeps both options)
+    errs = {}
+    for (fb, ft, fs, fh, fkv, fd) in ((1, 1000, 1000, H, 4, Dh),) \
+            + FLASH_CASES:
+        qs = torch.randn((fb, ft, fh, fd), generator=gen, device=dev)
+        ks, vs = (torch.randn((fb, fs, fkv, fd), generator=gen, device=dev)
+                  for _ in range(2))
+        for causal in (True, False):
+            errs[(fb, ft, fs, fh, fkv, fd, causal)] = max_err(
+                flash.flash_attention_cuda(qs, ks, vs, causal=causal),
+                flash.flash_attention_plain(qs, ks, vs, causal=causal))
+    say(f"  flash_attention max errors by (B, T, S, H, KV, Dh, causal): "
+        f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} } (limit "
+        f"{ATTN_TOL})")
     got = flash.flash_attention_cuda(q, k, v)
-    err = max(err_c, max_err(got, flash.flash_attention_plain(q, k, v)))
+    err = max(max(errs.values()),
+              max_err(got, flash.flash_attention_plain(q, k, v)))
     check(err <= ATTN_TOL, f"flash_attention: max error {err}")
     qf, kf, vf = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
     record("flash_attention", err, flash.KERNEL,
            lambda: flash.flash_attention_plain(q, k, v),
            lambda: F.scaled_dot_product_attention(qf, kf, vf),
-           4 * 4 * B * T * H * Dh, 4 * B * H * T * T * Dh)
+           4 * 4 * B * T * H * Dh, TF32_PRODUCTS * 4 * B * H * T * T * Dh,
+           PEAK_TF32)
     del bank, pos_bank, windows, tiles, q, k, v, qw, kw, vw, qf, kf, vf
     torch.cuda.empty_cache()
     lm_kernels = lm_kernel_checks(torch, F, flash, dev, gen, put)
@@ -800,7 +828,10 @@ def serve_quant(torch, cfg, dev, gen, plans, pt, qt):
 FAMILIES = (("window_attention", "window_attention"),
             ("flash_attention", "flash_attention"),
             ("decode_split_kernel", "decode_attention"),
-            ("ssd_scan_kernel", "ssd_scan"),
+            ("ssd_scores_kernel", "ssd_scan"),
+            ("ssd_states_kernel", "ssd_scan"),
+            ("ssd_pass_kernel", "ssd_scan"),
+            ("ssd_outputs_kernel", "ssd_scan"),
             ("decode_combine_kernel", "decode_attention"),
             ("pack_pos", "fused_serving"), ("restore_gather", "fused_serving"),
             ("avg_pool_kernel", "avg_pool"),
@@ -993,7 +1024,8 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put):
             qt_, kt, vt, is_causal=True, enable_gqa=True))
         pairs = T * (T + 1) // 2                  # causal (query, key) pairs
         b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
-                           4 * LM_B * H * pairs * Dh, PEAK_FP32)
+                           TF32_PRODUCTS * 4 * LM_B * H * pairs * Dh,
+                           PEAK_TF32)
         row = {"shape": [LM_B, T, H, KV, Dh], "max_abs_err": err,
                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                "bound_ms": b_ms, "bound_by": b_by}
@@ -1461,6 +1493,28 @@ def ssd_cost(b, T, H, G, N, P, chunk, init_state=False):
     return nbytes, ops
 
 
+def kernel_breakdown(torch, fn, names, n=20):
+    """Device microseconds per call of ``fn`` spent in each kernel whose
+    name holds one of ``names`` (a trace of ``n`` calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = next((k for k in names if k in e.name), None)
+            if key:
+                us[key] += e.time_range.elapsed_us() / n
+    check(all(us.values()), f"kernel_breakdown: untraced kernels in {us}")
+    return us
+
+
 def ssd_kernel_checks(torch, dev, gen, put):
     """Phase 9: ``ssd_scan`` against its plain version on the card, y and
     the final state each within SSD_TOL of the plain version's largest
@@ -1500,8 +1554,13 @@ def ssd_kernel_checks(torch, dev, gen, put):
             row["ms"] = timed(torch, lambda: ssd.KERNEL.relaunch(1))
             row["plain_ms"] = timed(torch,
                                     lambda: ssd.ssd_scan_plain(*args, chunk))
-            row["bound_ms"], row["bound_by"] = bound(*ssd_cost(*shape),
-                                                     PEAK_FP32)
+            nbytes, nops = ssd_cost(*shape)
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, TF32_PRODUCTS * nops, PEAK_TF32)
+            row["kernels_us"] = kernel_breakdown(
+                torch, lambda: ssd.KERNEL.relaunch(1), SSD_STAGES)
+            say(f"  ssd_scan {name} device us per call by kernel: "
+                f"{row['kernels_us']}")
         say(f"  ssd_scan {name} {shape}: relative error y {errs[0]:.3g}, "
             f"state {errs[1]:.3g} (limit {SSD_TOL})")
         extra[name] = row

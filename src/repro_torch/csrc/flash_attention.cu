@@ -1,178 +1,306 @@
-// Flash attention: online-softmax attention over kv tiles, float32.
+// Flash attention: online-softmax attention over kv tiles, float32
+// accuracy on the TF32 tensor cores.
 //
 // Replaces src/repro/kernels/flash_attention/kernel.py:
 // flash_attention_kernel (_flash_kernel).  q: (B, T, H, Dh), k/v:
-// (B, S, KV, Dh); query head h reads kv head h / (H / KV); optional
-// causal mask (query t sees keys s <= t); a row that no key reaches
-// writes 0.  On the serving path it runs the unmasked global blocks after
-// the restoration point: (B, 4096, 16, 64), not causal.
+// (B, S, KV, Dh), read through their batch and token strides; query head
+// h reads kv head h / (H / KV); optional causal mask (query t sees keys
+// s <= t); a row that no key reaches writes 0.  On the serving paths:
+// the ViT global blocks after the restoration point, (2, 4096, 16, 64)
+// not causal, as column views of the fused QKV product (token pitch 3072,
+// or 2880 in the int8 lane); the LM prefill, causal GQA (8, 128, 32/8,
+// 128); zamba2's shared block, causal.
 //
-// Bound on the H100: operations, 4 * T * S * Dh flops per head (68.7
-// GFLOP per 4096-token sample at 16 heads) against 67 TFLOP/s of float32
-// FMA.  TF32 tensor cores would break float32 parity with the reference,
-// so this version stays on FMA.  Design: one block of 256 threads per
-// (64-query tile, head, batch row); the TPU's sequential kv grid axis
-// becomes a loop over 64-key tiles inside the block, with the running
-// max, sum and output accumulator in registers.  Thread (ty, tx) of a
-// 16 x 16 layout owns query rows 4*ty .. 4*ty+3, score columns tx + 16c
-// and output columns tx + 16c: each shared-memory read of q or k feeds
-// four FMAs, row statistics reduce over the 16 lanes of a half warp with
-// shuffles, and probabilities pass through shared memory to the P @ V
-// product.  Rows of q, k and P are padded by one float against bank
-// conflicts; about 66 KB of dynamic shared memory at Dh = 64.
+// Bound on the H100: operations, 4 * T * S * Dh flops per head (137.4
+// GFLOP at the ViT shape).  At float32 accuracy through 3xTF32 (three
+// TF32 products per product, tf32_mma.cuh) that is 3 x 137.4 GFLOP at
+// the 495 TFLOP/s dense TF32 rate: 0.83 ms, against 2.05 ms on the 67
+// TFLOP/s float32 FMA units, where a scalar kernel is held further back
+// by its shared-memory loads (four FMAs per pair of loads).
+//
+// Design:
+//  - A block of 4 warps owns 64 MT query rows of one (batch row, head),
+//    MT 16-row m-tiles a warp; the TPU's sequential kv grid axis becomes
+//    a loop over 64-key tiles of the matching kv head.  Grid (T / 64 MT,
+//    H, B); MT = 2 at Dh <= 64, 1 at Dh = 128.
+//  - S = Q K^T and O += P V run as mma.sync m16n8k8 tiles in the 3xTF32
+//    scheme into float32 accumulators; S (16 MT x 64 a warp) and O
+//    (16 MT x Dh) stay in registers.
+//  - The online softmax runs in registers on scores prescaled by
+//    scale * log2(e) (exp2): the row max over the four threads of a row
+//    by quad shuffles; each thread keeps a partial row sum of its own
+//    columns, rescaled with the row, and the four are added once at the
+//    end.  Masked scores are -inf; a row whose running max is still -inf
+//    subtracts 0, so its probabilities and its rescale factor are 0 and
+//    its output stays 0.
+//  - P feeds P V as the A operand without leaving registers: the 8 keys
+//    of each tile are relabelled (k slot t <-> key 2t, slot t + 4 <->
+//    key 2t + 1) and V's B fragment is read with the same relabelling,
+//    as in window_attention.cu.
+//  - K and V tiles are double-buffered: 16-byte cp.async copies of tile
+//    kt + 1 (zero-filled past S) are issued right after tile kt lands,
+//    so they run under tile kt's arithmetic.  Shared rows are Dh + 4
+//    floats, so every fragment load of a warp hits 32 distinct banks.
+//  - Where the operands split into TF32 hi / lo: K and V per fragment as
+//    each warp reads them, every split feeding the warp's MT m-tiles:
+//    hi / lo copies in shared memory would save the splits but double
+//    the shared-memory bytes each mma reads.  Q per tile from shared
+//    memory, an eighth of the K and V splits: held split in registers it
+//    takes Dh registers a tile, which two m-tiles cannot afford.  P is
+//    split in registers.
+//  - Causal: key tiles wholly above the diagonal are skipped; only tiles
+//    that straddle it or S test the mask.
+// Shared memory: Q plus two stages of K and V, (64 MT + 4 x 64) x (Dh + 4)
+// floats: 104 KB at Dh = 64, MT = 2 (two blocks an SM), 169 KB at
+// Dh = 128.
 #include <math.h>
 
-#include "common.cuh"
+#include <cstdint>
 
-constexpr int kBQ = 64, kBK = 64, kThreads = 256;
+#include "common.cuh"
+#include "tf32_mma.cuh"
+
+namespace {
+
+constexpr int kBK = 64, kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Args {
+  const float *q, *k, *v;
+  float* out;
+  int T, S, H, KV;
+  long long sqb, sqt, skb, skt, svb, svt;
+  float scale_log2;  // softmax scale * log2(e)
+  int causal;
+  bool vec;          // 16-byte copies (aligned base and strides)
+};
+
+// 16-row m-tiles a warp: two where the registers allow (at Dh = 128 O
+// alone takes 64 registers a tile)
+__host__ __device__ constexpr int m_tiles(int dh) { return dh <= 64 ? 2 : 1; }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int T, int S,
-    int H, int KV, long long sqb, long long sqt, long long skb,
-    long long skt, long long svb, long long svt, float scale, int causal) {
-  constexpr int LD = DH + 1, LDP = kBK + 1, NC = DH / 16;
-  extern __shared__ float sm[];
-  float* Qs = sm;               // kBQ x LD
-  float* Ks = Qs + kBQ * LD;    // kBK x LD
-  float* Vs = Ks + kBK * LD;    // kBK x DH
-  float* Ps = Vs + kBK * DH;    // kBQ x LDP
+__global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1)
+    flash_attention_kernel(const Args a) {
+  constexpr int LD = DH + 4, ND = DH / 8, NJ = kBK / 8, MT = m_tiles(DH);
+  constexpr int BQ = 64 * MT;  // query rows a block
+  extern __shared__ __align__(16) float sm[];
+  float* Qs = sm;               // BQ x LD
+  float* KVs = Qs + BQ * LD;    // stage s: K at 2 s kBK LD, V after it
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float* qb = q + b * sqb + static_cast<long long>(h) * DH;
-  const float* kb = k + b * skb + static_cast<long long>(kvh) * DH;
-  const float* vb = v + b * svb + static_cast<long long>(kvh) * DH;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (a.H / a.KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const float* kb = a.k + b * a.skb + static_cast<long long>(kvh) * DH;
+  const float* vb = a.v + b * a.svb + static_cast<long long>(kvh) * DH;
 
-  for (int idx = tid; idx < kBQ * DH; idx += kThreads) {
-    const int r = idx / DH, d = idx % DH;
-    Qs[r * LD + d] = q0 + r < T ? qb[(q0 + r) * sqt + d] : 0.0f;
+  int n_kt = (a.S + kBK - 1) / kBK;
+  if (a.causal) {  // tiles wholly above the diagonal contribute nothing
+    const int last = (min(q0 + BQ, a.T) - 1) / kBK + 1;
+    n_kt = min(n_kt, last);
   }
 
-  float m[4], l[4], acc[4][NC];
+  stage_rows<DH>(Qs, LD,
+                 a.q + b * a.sqb + static_cast<long long>(q0) * a.sqt +
+                     static_cast<long long>(h) * DH,
+                 a.sqt, BQ, a.T - q0, a.vec);
+  if (n_kt > 0) {
+    stage_rows<DH>(KVs, LD, kb, a.skt, kBK, a.S, a.vec);
+    stage_rows<DH>(KVs + kBK * LD, LD, vb, a.svt, kBK, a.S, a.vec);
+  }
+  cp_async_commit();
+
+  // the warp's m-tile mt holds rows 16 (MT warp + mt) + g and + 8; the
+  // thread's fragments read columns t and t + 4
+  const float* qw = Qs + (16 * MT * warp + g) * LD + t;
+  int r0[MT];
+  float o[MT][ND][4], m0[MT], m1[MT], l0[MT], l1[MT];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
+  for (int mt = 0; mt < MT; ++mt) {
+    r0[mt] = q0 + 16 * (MT * warp + mt) + g;
+    m0[mt] = m1[mt] = -INFINITY;
+    l0[mt] = l1[mt] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.0f;
   }
 
-  int n_kt = (S + kBK - 1) / kBK;
-  if (causal) {  // tiles wholly above the diagonal contribute nothing
-    const int last = (q0 + kBQ - 1) / kBK + 1;
-    n_kt = last < n_kt ? last : n_kt;
-  }
   for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; every warp is done with kt - 1
+    if (kt + 1 < n_kt) {
+      const int k1 = (kt + 1) * kBK;
+      float* nxt = KVs + ((kt + 1) & 1) * 2 * kBK * LD;
+      stage_rows<DH>(nxt, LD, kb + k1 * a.skt, a.skt, kBK, a.S - k1, a.vec);
+      stage_rows<DH>(nxt + kBK * LD, LD, vb + k1 * a.svt, a.svt, kBK,
+                     a.S - k1, a.vec);
+    }
+    cp_async_commit();
+    const float* Ks = KVs + (kt & 1) * 2 * kBK * LD;
+    const float* Vs = Ks + kBK * LD;
     const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int idx = tid; idx < kBK * DH; idx += kThreads) {
-      const int r = idx / DH, d = idx % DH;
-      const bool in = k0 + r < S;
-      Ks[r * LD + d] = in ? kb[(k0 + r) * skt + d] : 0.0f;
-      Vs[r * DH + d] = in ? vb[(k0 + r) * svt + d] : 0.0f;
-    }
-    __syncthreads();
 
-    float s[4][4];
+    // S = Q K^T: fragment (mt, j, e) is row r0[mt] (+8 for e >= 2), key
+    // k0 + 8j + 2t + (e & 1); each K fragment is split once for the MT
+    // m-tiles
+    float s[MT][NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      float qv[4], kv[4];
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * LD + d];
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.0f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) kv[c] = Ks[(tx + 16 * c) * LD + d];
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = fmaf(qv[i], kv[c], s[i][c]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = k0 + tx + 16 * c;
-        const bool ok = kj < S && (!causal || kj <= qi);
-        s[i][c] = ok ? s[i][c] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][c]);
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* qp = qw + 16 * mt * LD + 8 * kk;
+        split_tf32(qp[0], ah[mt][0], al[mt][0]);
+        split_tf32(qp[8 * LD], ah[mt][1], al[mt][1]);
+        split_tf32(qp[4], ah[mt][2], al[mt][2]);
+        split_tf32(qp[8 * LD + 4], ah[mt][3], al[mt][3]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      // m_new == -inf: no key reached this row yet; keep everything at 0
-      const float alpha = m_new == -INFINITY ? 1.0f : expf(m[i] - m_new);
-      float rs = 0.0f;
+      for (int j = 0; j < NJ; ++j) {
+        const float* kp = Ks + (8 * j + g) * LD + 8 * kk + t;
+        uint32_t bh[2], bl[2];
+        split_tf32(kp[0], bh[0], bl[0]);
+        split_tf32(kp[4], bh[1], bl[1]);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = s[i][c] == -INFINITY ? 0.0f : expf(s[i][c] - m_new);
-        Ps[(ty * 4 + i) * LDP + tx + 16 * c] = p;
-        rs += p;
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32_split(s[mt][j], ah[mt], al[mt], bh, bl);
+      }
+    }
+
+    // online softmax, in base 2
+    const bool edge = k0 + kBK > a.S || (a.causal && k0 + kBK - 1 > q0);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int ra = r0[mt], rb = ra + 8;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v0 = s[mt][j][e] * a.scale_log2;
+          float v1 = s[mt][j][2 + e] * a.scale_log2;
+          if (edge) {
+            const int kj = k0 + 8 * j + 2 * t + e;
+            if (kj >= a.S || (a.causal && kj > ra)) v0 = -INFINITY;
+            if (kj >= a.S || (a.causal && kj > rb)) v1 = -INFINITY;
+          }
+          s[mt][j][e] = v0;
+          s[mt][j][2 + e] = v1;
+          mx0 = fmaxf(mx0, v0);
+          mx1 = fmaxf(mx1, v1);
+        }
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0[mt], mx0), mn1 = fmaxf(m1[mt], mx1);
+      // a row no key has reached yet subtracts 0: exp2(-inf) = 0 throughout
+      const float mr0 = mn0 == -INFINITY ? 0.0f : mn0;
+      const float mr1 = mn1 == -INFINITY ? 0.0f : mn1;
+      const float al0 = exp2f(m0[mt] - mr0), al1 = exp2f(m1[mt] - mr1);
+      m0[mt] = mn0;
+      m1[mt] = mn1;
+      float rs0 = 0.0f, rs1 = 0.0f;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[mt][j][e] = exp2f(s[mt][j][e] - mr0);
+          s[mt][j][2 + e] = exp2f(s[mt][j][2 + e] - mr1);
+          rs0 += s[mt][j][e];
+          rs1 += s[mt][j][2 + e];
+        }
+      }
+      l0[mt] = l0[mt] * al0 + rs0;
+      l1[mt] = l1[mt] * al1 + rs1;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[mt][n][0] *= al0;
+        o[mt][n][1] *= al0;
+        o[mt][n][2] *= al1;
+        o[mt][n][3] *= al1;
+      }
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float pv[4], vv[NC];
+    // O += P V, keys of tile j relabelled: k slot t <-> key 8j + 2t, slot
+    // t + 4 <-> key 8j + 2t + 1; each V fragment is split once for the MT
+    // m-tiles
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty * 4 + i) * LDP + j];
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = Vs[j * DH + tx + 16 * c];
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(s[mt][j][0], ah[mt][0], al[mt][0]);
+        split_tf32(s[mt][j][2], ah[mt][1], al[mt][1]);
+        split_tf32(s[mt][j][1], ah[mt][2], al[mt][2]);
+        split_tf32(s[mt][j][3], ah[mt][3], al[mt][3]);
+      }
+      const float* vp = Vs + (8 * j + 2 * t) * LD + g;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < ND; ++n) {
+        uint32_t bh[2], bl[2];
+        split_tf32(vp[8 * n], bh[0], bl[0]);
+        split_tf32(vp[8 * n + LD], bh[1], bl[1]);
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32_split(o[mt][n], ah[mt], al[mt], bh, bl);
+      }
     }
   }
+  cp_async_wait<0>();  // the Q copy, when no tile ran
 
-  const long long sot = static_cast<long long>(H) * DH;
-  float* ob = out + static_cast<long long>(b) * T * sot +
-              static_cast<long long>(h) * DH;
+  const long long sot = static_cast<long long>(a.H) * DH;
+  float* ob = a.out + static_cast<long long>(b) * a.T * sot +
+              static_cast<long long>(h) * DH + 2 * t;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
-    if (qi >= T) continue;
-    const float inv = l[i] > 0.0f ? 1.0f / l[i] : 0.0f;
+  for (int mt = 0; mt < MT; ++mt) {
+    float s0 = l0[mt], s1 = l1[mt];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) ob[qi * sot + tx + 16 * c] = acc[i][c] * inv;
+    for (int off = 1; off < 4; off <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    }
+    const float i0 = s0 > 0.0f ? 1.0f / s0 : 0.0f;
+    const float i1 = s1 > 0.0f ? 1.0f / s1 : 0.0f;
+    const int ra = r0[mt], rb = ra + 8;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      if (ra < a.T)
+        *reinterpret_cast<float2*>(ob + ra * sot + 8 * n) =
+            make_float2(o[mt][n][0] * i0, o[mt][n][1] * i0);
+      if (rb < a.T)
+        *reinterpret_cast<float2*>(ob + rb * sot + 8 * n) =
+            make_float2(o[mt][n][2] * i1, o[mt][n][3] * i1);
+    }
   }
 }
 
 template <int DH>
-static cudaError_t launch(const float* q, const float* k, const float* v,
-                          float* out, int B, int T, int S, int H, int KV,
-                          long long sqb, long long sqt, long long skb,
-                          long long skt, long long svb, long long svt,
-                          float scale, int causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(kBQ) * (DH + 1) +
-                                       static_cast<size_t>(kBK) * (DH + 1) +
-                                       static_cast<size_t>(kBK) * DH +
-                                       static_cast<size_t>(kBQ) * (kBK + 1));
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  constexpr int BQ = 64 * m_tiles(DH);
+  const size_t smem = sizeof(float) * (BQ + 4 * kBK) * (DH + 4);
   cudaError_t e = repro_allow_smem(flash_attention_kernel<DH>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, T, S, H, KV, sqb, sqt, skb, skt, svb, svt, scale,
-      causal);
+  dim3 grid((a.T + BQ - 1) / BQ, a.H, B);
+  flash_attention_kernel<DH><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
 
 REPRO_EXPORT int flash_attention_f32(
     const float* q, const float* k, const float* v, float* out, int B,
@@ -182,17 +310,18 @@ REPRO_EXPORT int flash_attention_f32(
   cudaError_t e = repro_begin(device);
   if (e != cudaSuccess) return e;
   if (KV <= 0 || H % KV) return cudaErrorInvalidValue;
-  if (B == 0 || T == 0) return cudaSuccess;
+  if (B == 0 || T == 0 || H == 0) return cudaSuccess;
+  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
+                   (sqb | sqt | skb | skt | svb | svt) % 4 == 0;
+  const Args a{q,   k,   v,   out, T,   S,   H,
+               KV,  sqb, sqt, skb, skt, svb, svt,
+               scale * kLog2e, causal, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 16: return launch<16>(q, k, v, out, B, T, S, H, KV, sqb, sqt, skb,
-                               skt, svb, svt, scale, causal, st);
-    case 32: return launch<32>(q, k, v, out, B, T, S, H, KV, sqb, sqt, skb,
-                               skt, svb, svt, scale, causal, st);
-    case 64: return launch<64>(q, k, v, out, B, T, S, H, KV, sqb, sqt, skb,
-                               skt, svb, svt, scale, causal, st);
-    case 128: return launch<128>(q, k, v, out, B, T, S, H, KV, sqb, sqt, skb,
-                                 skt, svb, svt, scale, causal, st);
+    case 16: return launch<16>(a, B, st);
+    case 32: return launch<32>(a, B, st);
+    case 64: return launch<64>(a, B, st);
+    case 128: return launch<128>(a, B, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,7 +19,8 @@
 // take the arithmetic off the critical path, if they keep float32
 // accuracy.
 //
-// Design: mma.sync m16n8k8 TF32 tensor-core tiles in the 3xTF32 scheme.
+// Design: mma.sync m16n8k8 TF32 tensor-core tiles in the 3xTF32 scheme
+// (the helpers are shared with the other float32 kernels, tf32_mma.cuh).
 // Each operand x splits into x_hi (x with its low 13 mantissa bits
 // cleared, a TF32 value) and x_lo = x - x_hi, of which the tensor core
 // reads the top 11 significant bits; a product keeps three terms,
@@ -54,66 +55,9 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = hi + lo: hi is x with the low 13 mantissa bits cleared (a TF32
-// value), lo = x - hi (exact); the tensor core reads lo's top 11
-// significant bits and ignores the rest, so x - hi - lo < 2^-21 |x|
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b in the 3xTF32 scheme, from float fragments
-__device__ __forceinline__ void mma_3xtf32(float* c, const float* a,
-                                           const float* b) {
-  uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], ah[i], al[i]);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) split_tf32(b[i], bh[i], bl[i]);
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
 
 // Stage rows [0, w2) of a (w2, Dh) slab with token pitch `st` into shared
 // rows of `ld` floats.
@@ -123,12 +67,12 @@ __device__ __forceinline__ void stage(float* s, const float* g, long long st,
     const int cpr = Dh / 4;
     for (int idx = threadIdx.x; idx < w2 * cpr; idx += blockDim.x) {
       const int i = idx / cpr, c = (idx % cpr) * 4;
-      cp_async16(s + i * ld + c, g + i * st + c);
+      cp_async16_zfill(s + i * ld + c, g + i * st + c, true);
     }
   } else {
     for (int idx = threadIdx.x; idx < w2 * Dh; idx += blockDim.x) {
       const int i = idx / Dh, c = idx % Dh;
-      cp_async4(s + i * ld + c, g + i * st + c);
+      cp_async4_zfill(s + i * ld + c, g + i * st + c, true);
     }
   }
 }

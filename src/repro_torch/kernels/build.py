@@ -6,8 +6,8 @@ PyTorch header is included, so a source builds in seconds; the build
 runs at first use, or for every source at once through :func:`build`
 (one ``nvcc`` per source, all started together).  Libraries land in
 ``build/repro_torch_kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and the flags, so an edit
-never loads a stale library.
+``.gitignore``), named by a hash of the source, the headers and the
+flags, so an edit never loads a stale library.
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; :class:`CudaKernel` raises
@@ -50,10 +50,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    common = (CSRC / "common.cuh").read_bytes()
-    tag = hashlib.sha256(src + common + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:12]
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    every header under ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 

@@ -3,9 +3,10 @@ engine's decode step, once per layer).
 
 ``decode_attention_cuda`` launches ``csrc/decode_attention.cu``, the
 port of ``repro/kernels/decode_attention/kernel.py:decode_attention_kernel``;
-``decode_attention_plain`` is the same function in plain PyTorch: a dense
-masked float32 softmax (the reference's ``ref.py``), with zeros for a row
-whose ``kv_len`` is 0, as the Pallas kernel gives.
+``decode_attention_plain`` (``ref.py``, re-exported here) is the same
+function in plain PyTorch: a dense masked float32 softmax (the
+reference's ``ref.py``), with zeros for a row whose ``kv_len`` is 0, as
+the Pallas kernel gives.
 
 q: (B, 1, H, Dh); k/v: (B, S, KV, Dh) with H = KV * G; kv_len: (B,)
 int32 valid cache lengths.  Returns (B, 1, H, Dh).  The kernel reads the
@@ -19,12 +20,13 @@ import torch
 
 from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
                                        head_rows, stream_of)
+from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
+    NEG_INF, decode_attention_plain)
 
 KERNEL = CudaKernel("decode_attention", "decode_attention_f32",
                     [P, P, P, P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L,
                      F, I, P])
 HEAD_DIMS = (16, 32, 64, 128)
-NEG_INF = -2.0 ** 30
 # split the keys of a (batch row, kv head) over several blocks only when
 # each split keeps at least this many keys; aim at this many blocks per SM
 MIN_KEYS_PER_SPLIT = 256
@@ -41,23 +43,6 @@ def n_splits(B: int, KV: int, G: int, S: int, sms: int) -> int:
     pairs = B * KV * -(-G // MAX_GROUP)
     want = -(-BLOCKS_PER_SM * sms // max(pairs, 1))
     return max(1, min(want, -(-S // MIN_KEYS_PER_SPLIT)))
-
-
-def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           kv_len: torch.Tensor,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    B, _, H, Dh = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = Dh ** -0.5 if scale is None else scale
-    qg = q.reshape(B, KV, G, Dh).float()
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale
-    valid = (torch.arange(S, device=q.device)[None, :]
-             < kv_len.to(q.device)[:, None])                         # (B,S)
-    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
-    p = torch.softmax(s, dim=-1) * valid.any(-1)[:, None, None, None]
-    o = torch.einsum("bkgs,bskd->bkgd", p, v.float())
-    return o.reshape(B, 1, H, Dh).to(q.dtype)
 
 
 def _aligned(t: torch.Tensor, *strides: int) -> bool:

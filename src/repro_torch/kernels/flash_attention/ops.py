@@ -2,9 +2,9 @@
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``, the port
 of ``repro/kernels/flash_attention/kernel.py:flash_attention_kernel``;
-``flash_attention_plain`` is the same function in plain PyTorch: dense
-float32 softmax attention, taken ``Q_CHUNK`` query rows at a time so the
-score buffer stays bounded.
+``flash_attention_plain`` (``ref.py``, re-exported here) is the same
+function in plain PyTorch: dense float32 softmax attention, taken
+``Q_CHUNK`` query rows at a time so the score buffer stays bounded.
 
 q: (B, T, H, Dh); k/v: (B, S, KV, Dh) with H = KV * G.  ``causal``: query
 t sees keys s <= t.  A row that no key reaches outputs zeros.  The
@@ -18,39 +18,13 @@ import torch
 
 from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
                                        head_rows, stream_of)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
+    NEG_INF, Q_CHUNK, flash_attention_plain)
 
 KERNEL = CudaKernel("flash_attention", "flash_attention_f32",
                     [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, F, I, I,
                      P])
 HEAD_DIMS = (16, 32, 64, 128)
-Q_CHUNK = 1024
-NEG_INF = -2.0 ** 30
-
-
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = False,
-                          scale: Optional[float] = None) -> torch.Tensor:
-    B, T, H, Dh = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = Dh ** -0.5 if scale is None else scale
-    kf, vf = k.float(), v.float()
-    outs = []
-    for t0 in range(0, T, Q_CHUNK):
-        qc = q[:, t0:t0 + Q_CHUNK]
-        Tc = qc.shape[1]
-        qg = qc.reshape(B, Tc, KV, G, Dh).float()
-        s = torch.einsum("btkgd,bskd->bkgts", qg, kf) * scale
-        if causal:
-            seen = (torch.arange(Tc, device=q.device)[:, None] + t0
-                    >= torch.arange(S, device=q.device)[None, :])
-            s = s.masked_fill(~seen, NEG_INF)
-            p = torch.softmax(s, dim=-1) * seen.any(-1)[:, None]
-        else:
-            p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgts,bskd->btkgd", p, vf)
-        outs.append(o.reshape(B, Tc, H, Dh))
-    return torch.cat(outs, dim=1).to(q.dtype)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

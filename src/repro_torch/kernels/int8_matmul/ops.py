@@ -5,11 +5,11 @@ epilogue, the quantized lane's matmul:
 
 ``int8_matmul_cuda`` launches ``csrc/int8_matmul.cu``, the port of
 ``repro/kernels/int8_matmul/kernel.py:int8_matmul_kernel``;
-``int8_matmul_plain`` is the same function in plain PyTorch.  Both are
-exact: the integer sum has no rounding, and the epilogue is the same
-three float32 operations in the same order as the reference
-(``repro/kernels/int8_matmul/ref.py``), so kernel, plain version and
-reference agree bit for bit.
+``int8_matmul_plain`` (``ref.py``, re-exported here) is the same function
+in plain PyTorch.  Both are exact: the integer sum has no rounding, and
+the epilogue is the same three float32 operations in the same order as
+the reference (``repro/kernels/int8_matmul/ref.py``), so kernel, plain
+version and reference agree bit for bit.
 
 The kernel reads the weight codes K-contiguous, as the (N, K) matrix
 whose transpose is ``wq``; ``quant.qtensor.QuantTensor`` keeps its 2-D
@@ -24,30 +24,12 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels.build import I, P, CudaKernel, check_cuda, stream_of
+from repro_torch.kernels.int8_matmul.ref import int8_matmul_plain  # noqa: F401
 
 KERNEL = CudaKernel("int8_matmul", "int8_matmul_f32",
                     [P, P, P, P, P, I, I, I, I, I, P])
 K_ALIGN = 16                 # TMA: 16-byte row pitch
 BALANCE = 590                # H100 int8 ops per byte: 1,979 TOPS / 3.35 TB/s
-
-# float64 holds every integer up to 2**53 exactly; |sum| <= K * 127**2
-_MAX_EXACT_K = 2 ** 53 // 127 ** 2
-
-
-def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
-                      sw: torch.Tensor,
-                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """xq: (M, K) int8; wq: (K, N) int8; sx: (M,) f32; sw: (N,) f32.
-
-    The int8 x int8 sum runs as a float64 matmul, which is exact here
-    (every partial sum is an integer below 2**53) and, unlike an int32
-    matmul, runs through BLAS on the CPU and is available on the card."""
-    if xq.shape[1] > _MAX_EXACT_K:
-        raise ValueError(f"int8_matmul: K={xq.shape[1]} exceeds float64's "
-                         f"exact range")
-    acc = torch.matmul(xq.double(), wq.double()).to(torch.int32)
-    out = acc.float() * sx[:, None].float() * sw[None, :].float()
-    return out.to(out_dtype)
 
 
 def tile_n(N: int, K: int) -> int:

@@ -4,8 +4,9 @@ d x d nearest-neighbour upsample (restoration at beta = 0, §III-B).
 ``avg_pool_cuda`` / ``nn_upsample_cuda`` launch ``csrc/avg_pool.cu`` /
 ``csrc/nn_upsample.cu``, the ports of
 ``repro/kernels/mixed_res_pool/kernel.py:avg_pool_kernel`` and
-``:nn_upsample_kernel``; the ``*_plain`` functions are the same ops in
-plain PyTorch, which the CPU path and the tests use.
+``:nn_upsample_kernel``; the ``*_plain`` functions (``ref.py``,
+re-exported here) are the same ops in plain PyTorch, which the CPU path
+and the tests use.
 ``kernels.dispatch.avg_pool`` / ``nn_upsample`` pick between them by
 device.
 """
@@ -14,6 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.build import I, P, CudaKernel, check_cuda, stream_of
+from repro_torch.kernels.mixed_res_pool.ref import (  # noqa: F401
+    avg_pool_plain, nn_upsample_plain)
 
 KERNEL = CudaKernel("avg_pool", "avg_pool_f32", [P, P, I, I, I, I, I, I, P])
 UPSAMPLE = CudaKernel("nn_upsample", "nn_upsample_f32",
@@ -27,14 +30,6 @@ def _check_grid(name: str, x: torch.Tensor) -> None:
                          f"{tuple(x.shape)} {x.dtype}")
 
 
-def avg_pool_plain(x: torch.Tensor, d: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B, H/d, W/d, C) mean over each d x d block,
-    accumulated in float32."""
-    B, H, W, C = x.shape
-    x6 = x.reshape(B, H // d, d, W // d, d, C)
-    return x6.float().mean(dim=(2, 4)).to(x.dtype)
-
-
 def avg_pool_cuda(x: torch.Tensor, d: int) -> torch.Tensor:
     _check_grid("avg_pool", x)
     B, H, W, C = x.shape
@@ -45,12 +40,6 @@ def avg_pool_cuda(x: torch.Tensor, d: int) -> torch.Tensor:
     KERNEL(x, out, B, H, W, C, d, x.device.index,
            stream_of(x))
     return out
-
-
-def nn_upsample_plain(x: torch.Tensor, d: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B, H*d, W*d, C): every pixel repeated over a
-    d x d block."""
-    return x.repeat_interleave(d, dim=1).repeat_interleave(d, dim=2)
 
 
 def nn_upsample_cuda(x: torch.Tensor, d: int) -> torch.Tensor:

@@ -2,10 +2,10 @@
 
 ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``, the port of
 ``repro/kernels/ssd_scan/kernel.py:ssd_scan_kernel``; ``ssd_scan_plain``
-is the same function in plain PyTorch, the port of
-``repro.models.mamba2.ssd_chunked`` (the function the reference's
-serving prefill computes).  Both take the ``ssd_ops.ssd`` arguments and
-return ``(y, final_state)``:
+(``ref.py``, re-exported here) is the same function in plain PyTorch,
+the port of ``repro.models.mamba2.ssd_chunked`` (the function the
+reference's serving prefill computes).  Both take the ``ssd_ops.ssd``
+arguments and return ``(y, final_state)``:
 
   x:  (b, T, H, P)  inputs (the dt scaling ``xbar = x * dt`` is inside)
   dt: (b, T, H)     post-softplus step sizes
@@ -19,80 +19,38 @@ A ragged T is zero-padded to a chunk multiple in the plain version; the
 padded rows have dt = 0, so they leave the state unchanged (the kernel
 bounds its last chunk instead, which gives the same result).  The kernel
 reads x, B and C through their batch and token strides, so column views
-of the conv output need no copy.
+of the conv output need no copy.  One call runs four kernels on the
+caller's stream (one counted launch); the wrapper allocates their
+scratch, the C.B scores, chunk states and prefix sums
+(:func:`scratch_floats`).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.build import (I, L, P, CudaKernel, check_cuda,
                                        head_rows, stream_of)
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain  # noqa: F401
 
 KERNEL = CudaKernel("ssd_scan", "ssd_scan_f32",
-                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L,
-                     L, L, L, L, I, P])
+                    [P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, I, I, L, L,
+                     L, L, L, L, L, L, I, P])
 STATE_DIMS = (16, 32, 64, 128)       # N the kernel is built for
 P_SLICE = 64                         # head-dim columns one block owns
+TILE = 64                            # the kernels' row tile
 
 
-def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
-                   init_state: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, T, H, Pd = x.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    hpg = H // G
-    chunk = min(chunk, T)
-    T0 = T
-    if T % chunk:
-        # zero-pad to a chunk multiple: dt = 0 rows are state-neutral
-        # (dA = 0 -> decay 1, xbar = 0), so the recurrence is unaffected
-        pad = chunk - T % chunk
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
-        T = T + pad
-    nc = T // chunk
-    f32 = torch.float32
-    xc = x.reshape(b, nc, chunk, H, Pd).to(f32)
-    dtc = dt.reshape(b, nc, chunk, H).to(f32)
-    Bh = Bm.reshape(b, nc, chunk, G, N).to(f32).repeat_interleave(hpg, 3)
-    Ch = Cm.reshape(b, nc, chunk, G, N).to(f32).repeat_interleave(hpg, 3)
-
-    dA = dtc * A.to(f32)[None, None, None, :]        # (b,nc,Q,H), negative
-    cum = torch.cumsum(dA, dim=2)                    # within-chunk log decay
-    xbar = xc * dtc[..., None]
-
-    # intra-chunk: Y[i] = sum_{j<=i} exp(cum_i - cum_j) (C_i.B_j) xbar_j
-    lmask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                  device=x.device))
-    ldec = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (b,nc,i,j,H)
-    ldec = ldec.masked_fill(~lmask[None, None, :, :, None], float("-inf"))
-    scores = torch.einsum("bnihd,bnjhd->bnijh", Ch, Bh)
-    Y = torch.einsum("bnijh,bnjhp->bnihp", scores * torch.exp(ldec), xbar)
-
-    # chunk-local end states: S_loc = sum_j exp(cum_Q - cum_j) B_j xbar_j^T
-    dec_to_end = torch.exp(cum[:, :, -1:, :] - cum)          # (b,nc,Q,H)
-    S_loc = torch.einsum("bnjhd,bnjhp->bnhdp", Bh * dec_to_end[..., None],
-                         xbar)
-
-    # inter-chunk recurrence over nc
-    chunk_dec = torch.exp(cum[:, :, -1, :])                  # (b,nc,H)
-    s = (torch.zeros((b, H, N, Pd), dtype=f32, device=x.device)
-         if init_state is None else init_state.to(f32))
-    s_prevs = []
-    for c in range(nc):
-        s_prevs.append(s)
-        s = s * chunk_dec[:, c, :, None, None] + S_loc[:, c]
-    s_prevs = torch.stack(s_prevs, dim=1)                    # (b,nc,H,N,P)
-
-    Y = Y + torch.einsum("bnihd,bnhdp->bnihp",
-                         Ch * torch.exp(cum)[..., None], s_prevs)
-    return Y.reshape(b, T, H, Pd)[:, :T0], s
+def scratch_floats(b: int, T: int, H: int, G: int, N: int, P: int,
+                   chunk: int) -> int:
+    """Floats of scratch one call needs (``csrc/ssd_scan.cu``
+    ``scratch_floats``): the C.B scores (b, nc, G, Qp, Qp), the chunk
+    states (b, nc, H, N, P) and the prefix sums (b, H, nc, Qp), with nc
+    chunks and Qp the chunk length rounded up to a multiple of TILE."""
+    nc = -(-T // chunk)
+    Qp = -(-chunk // TILE) * TILE
+    return b * nc * (G * Qp * Qp + H * N * P + H * Qp)
 
 
 def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -126,7 +84,10 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dev = x.device
     y = torch.empty((b, T, H, Pd), dtype=torch.float32, device=dev)
     s_fin = torch.empty((b, H, N, Pd), dtype=torch.float32, device=dev)
-    KERNEL(x, dt, A, Bm, Cm, s0, y, s_fin, b, T, H, G, N, Pd, chunk,
+    n_scratch = scratch_floats(b, T, H, G, N, Pd, chunk)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    KERNEL(x, dt, A, Bm, Cm, s0, y, s_fin, scratch, n_scratch, b, T, H, G,
+           N, Pd, chunk,
            x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
            dev.index, stream_of(x))

@@ -2,7 +2,8 @@
 
 ``window_attention_cuda`` launches ``csrc/window_attention.cu``, the port
 of ``repro/kernels/window_attention/kernel.py:window_attention_kernel``;
-``window_attention_plain`` is the same function in plain PyTorch.
+``window_attention_plain`` (``ref.py``, re-exported here) is the same
+function in plain PyTorch.
 
 q: (B, T, H, Dh); k/v: (B, T, KV, Dh) with H = KV * G; ``window`` is the
 number of TOKENS per window (w^2) and divides T.  ``win_valid``: optional
@@ -21,33 +22,13 @@ import torch
 
 from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
                                        head_rows, stream_of)
+from repro_torch.kernels.window_attention.ref import (  # noqa: F401
+    window_attention_plain)
 
 KERNEL = CudaKernel("window_attention", "window_attention_f32",
                     [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, F,
                      I, P])
 MAX_WINDOW = MAX_HEAD_DIM = 128   # the kernel's register tiles
-
-
-def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           window: int, win_valid: Optional[torch.Tensor] = None,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    B, T, H, Dh = q.shape
-    KV = k.shape[2]
-    G = H // KV
-    W = T // window
-    scale = Dh ** -0.5 if scale is None else scale
-    qw = q.reshape(B, W, window, KV, G, Dh).float()
-    kw = k.reshape(B, W, window, KV, Dh).float()
-    vw = v.reshape(B, W, window, KV, Dh).float()
-    s = torch.einsum("bwikgd,bwjkd->bwkgij", qw, kw) * scale
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bwkgij,bwjkd->bwikgd", p, vw).reshape(B, W, window, H, Dh)
-    if win_valid is not None:
-        keep = (torch.arange(W, device=q.device)[None, :]
-                < win_valid.reshape(-1, 1).to(q.device))
-        o = torch.where(keep[:, :, None, None, None], o,
-                        torch.zeros((), dtype=o.dtype, device=o.device))
-    return o.reshape(B, T, H, Dh).to(q.dtype)
 
 
 def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

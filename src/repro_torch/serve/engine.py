@@ -114,14 +114,24 @@ class ServeEngine:
             f"masks")
 
     def submit(self, req: Request) -> None:
-        """Queue a request.  A pooling request (span masks selecting a
-        span, beta > 0) for an SSM or hybrid config raises ValueError:
-        see :data:`NO_MIXED_FAMILIES`."""
+        """Queue a request.  A pooling request for an SSM or hybrid config
+        raises ValueError (see :data:`NO_MIXED_FAMILIES`): beta > 0 and a
+        low count that stays above 0 once bucketed, as :meth:`_wave_key`
+        buckets it, or any reuse span (a session may make it effective
+        before the wave forms).  Low spans that bucket away run the plain
+        prefill, as in the reference."""
         if (self.cfg is not None and self.cfg.family in NO_MIXED_FAMILIES
-                and req.beta > 0 and (req.low_spans().shape[0]
+                and req.beta > 0 and (self._bucketed_n_low(req)
                                       or req.reuse_spans().shape[0])):
             self._refuse_mixed()
         self.queue.append(req)
+
+    def _bucketed_n_low(self, r: Request) -> int:
+        n = int(r.low_spans().shape[0])
+        if n == 0:
+            return 0
+        n_spans = int(np.asarray(r.low_span_mask).reshape(-1).shape[0])
+        return bucket_n_low(n, n_spans, self.sc.n_low_buckets)
 
     def session(self, client_id: int, n_spans: int) -> FeatureCache:
         sess = self.sessions.get(client_id)
@@ -243,6 +253,8 @@ class ServeEngine:
         if batch_buckets is None:
             cover = self.batch_bucket(min(sc.max_batch, max(sc.b_buckets)))
             batch_buckets = tuple(b for b in sc.b_buckets if b <= cover)
+        # plan_space holds wave-key counts, bucketed as _wave_key buckets
+        # them: a pooled key of an SSM or hybrid config is one it refuses
         pools = dict.fromkeys(
             (n_low + n_reuse, beta)
             for (n_low, n_reuse, beta) in (plan_space or ())
@@ -286,11 +298,7 @@ class ServeEngine:
         n_reuse = int(reuse.shape[0])
         if spans.shape[0] == 0 and n_reuse == 0:
             return (T, 0, 0, 0, b"")
-        n_low = 0
-        if spans.shape[0] > 0:
-            n_spans = int(np.asarray(r.low_span_mask).reshape(-1).shape[0])
-            n_low = bucket_n_low(int(spans.shape[0]), n_spans,
-                                 self.sc.n_low_buckets)
+        n_low = self._bucketed_n_low(r)
         if n_low == 0 and n_reuse == 0:   # bucketed away: plain prefill
             return (T, 0, 0, 0, b"")
         return (T, n_low, n_reuse, r.beta, r.mask_key(n_low, reuse))

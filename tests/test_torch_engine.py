@@ -61,13 +61,14 @@ def _ref_steps(setup, prompt, tokens, pooled_mask, beta):
     """The reference's greedy token and top-2 logit margin at every step
     of one request run alone, teacher-forced on ``tokens``."""
     jcfg, _, jparams, _ = setup
-    state = jregistry.init_decode_state(jcfg, 1, T + NEW + 8, jnp.float32)
+    Tp = len(prompt)
+    state = jregistry.init_decode_state(jcfg, 1, Tp + NEW + 8, jnp.float32)
     toks = jnp.asarray(prompt)[None]
     if pooled_mask is None:
         hidden, state, _ = jregistry.prefill(jcfg, jparams,
                                              {"tokens": toks}, state)
     else:
-        part = jsmr.seq_partition(jcfg, T)
+        part = jsmr.seq_partition(jcfg, Tp)
         pack = jsmr.build_seq_pack(pooled_mask, int(pooled_mask.sum()), part)
         hidden, state, _ = jsmr.mixed_prefill(
             jcfg, jparams, toks, {k: jnp.asarray(v) for k, v in
@@ -75,7 +76,7 @@ def _ref_steps(setup, prompt, tokens, pooled_mask, beta):
     logits = [jtfm.logits_from_hidden(jcfg, jparams, hidden[:, -1:])]
     for step, tok in enumerate(tokens[:-1], start=1):
         lg, state = jregistry.decode_step(
-            jcfg, jparams, jnp.asarray([[tok]], jnp.int32), T + step - 1,
+            jcfg, jparams, jnp.asarray([[tok]], jnp.int32), Tp + step - 1,
             state)
         logits.append(lg)
     flat = [np.asarray(lg).reshape(-1) for lg in logits]
@@ -341,6 +342,28 @@ def test_ssm_mixed_request_raises(ssm_setup):
     eng.submit(Request(rid=2, prompt=prompt, max_new_tokens=2,
                        low_span_mask=np.array([0, 0]), beta=2))
     assert [r.n_tokens for r in eng.run()] == [2, 2]
+
+
+def test_ssm_low_span_that_buckets_away_serves_plain(ssm_setup):
+    """T = 128 in 8 spans, one of them low, at beta 2: ``bucket_n_low``
+    rounds 1 of 8 down to 0, so both engines key the request plain and
+    serve it through the plain prefill, with the same greedy tokens."""
+    TL = 128
+    engines = _engines(ssm_setup, max_batch=2, max_len=TL + NEW + 8,
+                       buckets=(TL,))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, ssm_setup[1].vocab_size, (TL,))
+               .astype(np.int32) for _ in range(2)]
+    mask = np.zeros(8, np.int32)
+    mask[3] = 1
+    for rid, p in enumerate(prompts):
+        _submit(engines, rid, p, max_new_tokens=NEW, low_span_mask=mask,
+                beta=2)
+    assert [e._wave_key(e.queue[0]) for e in engines] == [(TL, 0, 0, 0,
+                                                           b"")] * 2
+    jresp, tresp = _run(engines)
+    assert [len(t) for t in tresp.values()] == [NEW, NEW]
+    _assert_same_tokens(ssm_setup, jresp, tresp, dict(enumerate(prompts)))
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b"])

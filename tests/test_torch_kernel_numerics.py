@@ -1,5 +1,5 @@
-"""The arithmetic of the port's two tensor-core kernels, checked on the
-CPU before the card runs them.
+"""The arithmetic of the port's tensor-core kernels, checked on the CPU
+before the card runs them.
 
 ``window_attention``'s kernel computes both products in the 3xTF32
 scheme: each float32 operand x splits into x_hi, x with its low 13
@@ -10,6 +10,18 @@ does that arithmetic in plain torch and is held to 1e-4 absolute, the
 kernel's tolerance on the card, against the plain version and the
 reference's dense oracle, on unit-normal inputs.
 
+``flash_attention`` and ``ssd_scan`` compute their products in the
+same scheme.  Their emulations below follow the kernels' decomposition:
+flash's online softmax in base 2 over 64-key tiles, rescaled per tile,
+P split as it leaves the scores; the SSD scan's chunk-parallel split into
+per-group C.B scores, chunk-local states (the decay weights folded into
+B before the split), sequential state passing and per-chunk outputs with
+the decay evaluated only at or below the diagonal.  Flash is held to
+1e-4 absolute, the SSD scan to 1e-4 of its largest value, against the
+port's plain versions and the reference (flash's Pallas kernel in
+interpret mode and its oracle; ``ssd_ops.ssd`` in interpret mode and
+``ssd_chunked``).
+
 ``int8_matmul``'s TMA loads need K to be a multiple of 16; the wrapper
 zero-pads it (``pad_k``), which must leave the result bit-equal.
 """
@@ -18,13 +30,22 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention import ops as jflash
+from repro.kernels.flash_attention.ref import flash_attention_ref
+from repro.kernels.ssd_scan import ops as jssd
 from repro.kernels.window_attention.ref import window_attention_ref
+from repro.models import mamba2 as jm2
+from repro_torch.kernels import build as tbuild
+from repro_torch.kernels.flash_attention import ops as tflash
 from repro_torch.kernels.int8_matmul import ops as tmm
+from repro_torch.kernels.ssd_scan import ops as tssd
 from repro_torch.kernels.window_attention import ops as twin
 
 torch.set_num_threads(2)
 
-TOL = 1e-4          # window_attention, kernel (here: emulation) vs plain
+TOL = 1e-4          # attention, kernel (here: emulation) vs plain, absolute
+SSD_TOL = 1e-4      # SSD scan, of the largest value
+LOG2E = 1.4426950408889634
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -109,6 +130,218 @@ def test_tf32_split_is_what_the_kernel_feeds_the_tensor_cores():
     assert torch.all((hi.view(torch.int32) & 0x1FFF) == 0)
     err = (x - hi - _tf32(x - hi)).abs() / x.abs()
     assert float(err.max()) <= 2.0 ** -21
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: tiled online softmax on 3xTF32 products
+
+
+def flash_3xtf32(q, k, v, causal=False, tile=64):
+    """The flash kernel's arithmetic: per 64-key tile, S = Q K^T in 3xTF32
+    scaled by scale * log2(e), masked scores -inf, the running max (a row
+    no key has reached subtracts 0), exp2, the tile's probabilities
+    added to the rescaled row sum and P V (P split as a 3xTF32 operand)
+    to the rescaled output; rows divided by their sum at the end, 0 where
+    it is 0."""
+    B, T, H, Dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, T, KV, G, Dh)
+    m = torch.full((B, KV, G, T), float("-inf"))
+    lsum = torch.zeros((B, KV, G, T))
+    o = torch.zeros((B, KV, G, T, Dh))
+    rows = torch.arange(T)[:, None]
+    for k0 in range(0, S, tile):
+        if causal and k0 > T - 1:
+            break                       # wholly above the diagonal
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        s = _mm_3xtf32("btkgd,bskd->bkgts", qg, kt) * (Dh ** -0.5 * LOG2E)
+        if causal:
+            seen = rows >= torch.arange(k0, k0 + kt.shape[1])[None, :]
+            s = s.masked_fill(~seen, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_ref = torch.where(m_new == float("-inf"), 0.0, m_new)
+        alpha = torch.exp2(m - m_ref)
+        p = torch.exp2(s - m_ref[..., None])
+        lsum = lsum * alpha + p.sum(-1)
+        o = o * alpha[..., None] + _mm_3xtf32("bkgts,bskd->bkgtd", p, vt)
+        m = m_new
+    inv = torch.where(lsum > 0, 1.0 / lsum, 0.0)
+    out = o * inv[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh)
+
+
+# (B, T, S, H, KV, Dh): GQA groups 1 and 4, T and S off the 64-key tile,
+# S < T, and every head width the kernel builds
+FLASH_SHAPES = [(1, 130, 130, 4, 4, 16), (2, 100, 77, 8, 2, 32),
+                (1, 200, 150, 4, 1, 64), (1, 70, 200, 2, 2, 128),
+                (1, 64, 64, 4, 1, 64)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_3xtf32_matches_plain_and_reference(shape, causal):
+    B, T, S, H, KV, Dh = shape
+    rng = np.random.default_rng(sum(shape) + causal)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, T, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh)))
+    got = flash_3xtf32(*map(torch.from_numpy, (q, k, v)), causal)
+    plain = tflash.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                         causal)
+    assert float((got - plain).abs().max()) <= TOL
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    for want in (jflash.flash_attention(jq, jk, jv, causal=causal),
+                 flash_attention_ref(jq, jk, jv, causal=causal)):
+        assert float(np.abs(got.numpy() - np.asarray(want)).max()) <= TOL
+
+
+def test_flash_3xtf32_row_no_key_reaches_is_zero():
+    """No key at all (S = 0), and a tile that masks a row completely after
+    an earlier tile reached it (causal, rows below 64 in the second
+    tile): zeros for the first, the plain version for the second."""
+    rng = np.random.default_rng(21)
+    q = torch.from_numpy(rng.standard_normal((1, 70, 2, 16))
+                         .astype(np.float32))
+    empty = torch.zeros((1, 0, 2, 16))
+    got = flash_3xtf32(q, empty, empty)
+    assert torch.count_nonzero(got) == 0
+    assert torch.count_nonzero(tflash.flash_attention_plain(q, empty,
+                                                            empty)) == 0
+    k = torch.from_numpy(rng.standard_normal((1, 70, 2, 16))
+                         .astype(np.float32))
+    got = flash_3xtf32(q, k, k, causal=True)
+    want = tflash.flash_attention_plain(q, k, k, causal=True)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan: the chunk-parallel split on 3xTF32 products
+
+
+def ssd_3xtf32(x, dt, A, Bm, Cm, chunk, init_state=None, tile=64):
+    """The SSD kernels' arithmetic, chunk by chunk (the last one ragged):
+    C.B scores once per group; chunk-local states B^T (w x) with w_j =
+    exp(cum_last - cum_j) dt_j folded into B; the states passed on in
+    sequence; outputs per 64-row tile starting at row r: exp(cum_r)
+    C_i . S_prev plus the scores times v_j = exp(cum_r - cum_j) dt_j
+    times x over the columns j < r, all scaled by u_i = exp(cum_i -
+    cum_r) (each factor at most 1), then the diagonal tile with
+    exp(cum_i - cum_j) dt_j evaluated only where j <= i.  Every product
+    in 3xTF32."""
+    b, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    Q = min(chunk, T)
+    s = torch.zeros((b, H, N, P)) if init_state is None else init_state
+    chunks = []
+    for t0 in range(0, T, Q):
+        xc, dtc = x[:, t0:t0 + Q], dt[:, t0:t0 + Q]          # (b, Qc, H, .)
+        Bc, Cc = Bm[:, t0:t0 + Q], Cm[:, t0:t0 + Q]          # (b, Qc, G, N)
+        cum = torch.cumsum(dtc * A, dim=1)                   # (b, Qc, H)
+        scores = _mm_3xtf32("bigd,bjgd->bijg", Cc, Bc)        # per group
+        w = torch.exp(cum[:, -1:] - cum) * dtc
+        Bh = Bc.repeat_interleave(hpg, 2)                    # (b, Qc, H, N)
+        loc = _mm_3xtf32("bjhn,bjhp->bhnp", Bh * w[..., None], xc)
+        chunks.append((scores.repeat_interleave(hpg, 3), cum, xc, dtc,
+                       Cc.repeat_interleave(hpg, 2), loc))
+    out = []
+    for sc, cum, xc, dtc, Ch, loc in chunks:                 # sc: (b,i,j,H)
+        prev = s
+        s = torch.exp(cum[:, -1])[..., None, None] * s + loc
+        for r in range(0, xc.shape[1], tile):
+            rows = slice(r, r + tile)
+            acc = (torch.exp(cum[:, r])[:, None, :, None]
+                   * _mm_3xtf32("bihn,bhnp->bihp", Ch[:, rows], prev))
+            if r:
+                v = torch.exp(cum[:, r:r + 1] - cum[:, :r]) * dtc[:, :r]
+                acc = acc + _mm_3xtf32("bijh,bjhp->bihp",
+                                       sc[:, rows, :r] * v[:, None],
+                                       xc[:, :r])
+            acc = acc * torch.exp(cum[:, rows] - cum[:, r:r + 1])[..., None]
+            n = acc.shape[1]
+            below = torch.tril(torch.ones((n, n), dtype=torch.bool))
+            gap = cum[:, rows, None] - cum[:, None, rows]     # (b, i, j, H)
+            decay = torch.exp(torch.where(below[None, :, :, None], gap,
+                                          float("-inf")))
+            m = sc[:, rows, rows] * decay * dtc[:, None, rows]
+            out.append(acc + _mm_3xtf32("bijh,bjhp->bihp", m, xc[:, rows]))
+    return torch.cat(out, 1), s
+
+
+# (b, T, H, G, N, P, chunk): the reference's test_ssd_scan shapes (ragged
+# T, G > 1, one head a group, one chunk), a ragged last chunk at G = 2 and
+# a chunk that is not a multiple of the kernels' 64-row tile, and three
+# row tiles a chunk (the tiles left of the diagonal)
+SSD_SHAPES = [(2, 128, 8, 1, 32, 16, 32), (1, 200, 16, 2, 64, 32, 64),
+              (2, 64, 4, 4, 16, 64, 32), (1, 96, 8, 1, 128, 64, 96),
+              (1, 150, 4, 2, 16, 16, 100), (1, 400, 4, 1, 16, 16, 192)]
+
+
+def _rel(got, want):
+    want = np.asarray(want)
+    return float(np.abs(np.asarray(got) - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_3xtf32_matches_plain_and_reference(shape, with_state):
+    b, T, H, G, N, P, chunk = shape
+    rng = np.random.default_rng(sum(shape) + with_state)
+    x = rng.standard_normal((b, T, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, T, H)))).astype(np.float32)
+    A = -np.exp(0.5 * rng.standard_normal(H)).astype(np.float32)
+    Bm, Cm = ((0.3 * rng.standard_normal((b, T, G, N))).astype(np.float32)
+              for _ in range(2))
+    s0 = (rng.standard_normal((b, H, N, P)).astype(np.float32)
+          if with_state else None)
+    args = [torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)]
+    ts0 = None if s0 is None else torch.from_numpy(s0)
+    y, s = ssd_3xtf32(*args, chunk, init_state=ts0)
+    yp, sp = tssd.ssd_scan_plain(*args, chunk, init_state=ts0)
+    assert max(_rel(y, yp), _rel(s, sp)) <= SSD_TOL
+    jargs = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    js0 = None if s0 is None else jnp.asarray(s0)
+    for wy, ws in (jssd.ssd(*jargs, chunk, init_state=js0,
+                            return_final_state=True, interpret=True),
+                   jm2.ssd_chunked(*jargs, min(chunk, T), init_state=js0,
+                                   return_final_state=True)):
+        assert max(_rel(y, wy), _rel(s, ws)) <= SSD_TOL
+
+
+@pytest.mark.parametrize("shape", [(8, 1024, 32, 1, 128, 64, 256),
+                                   (8, 1024, 64, 1, 64, 64, 256),
+                                   (1, 96, 8, 1, 128, 64, 96),
+                                   (2, 200, 8, 2, 16, 16, 64)])
+def test_ssd_scratch_holds_scores_states_and_prefix_sums(shape):
+    """The wrapper's scratch size: the C.B scores per (batch row, chunk,
+    group) on tiles of 64 rows, the chunk states and the prefix sums
+    (mamba2-370m: ~44 MB, which the H100's 50 MB L2 can hold)."""
+    b, T, H, G, N, P, chunk = shape
+    nc, Qp = -(-T // chunk), -(-chunk // 64) * 64
+    n = tssd.scratch_floats(*shape)
+    assert n == b * nc * G * Qp * Qp + b * nc * H * N * P + b * H * nc * Qp
+    if shape[:2] == (8, 1024) and N == 128:
+        assert 40e6 < 4 * n < 50e6
+
+
+# ---------------------------------------------------------------------------
+# the kernel build key
+
+
+def test_build_key_covers_every_header(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc header: an edit
+    to a shared header (tf32_mma.cuh) names a new library."""
+    for f in list(tbuild.CSRC.glob("*.cu")) + list(tbuild.CSRC.glob(
+            "*.cuh")):
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(tbuild, "CSRC", tmp_path)
+    assert (tmp_path / "tf32_mma.cuh").exists()
+    before = {n: tbuild.lib_path(n) for n in tbuild.SOURCES}
+    (tmp_path / "tf32_mma.cuh").write_text(
+        (tmp_path / "tf32_mma.cuh").read_text() + "\n// edited\n")
+    after = {n: tbuild.lib_path(n) for n in tbuild.SOURCES}
+    assert all(before[n] != after[n] for n in tbuild.SOURCES)
 
 
 # ---------------------------------------------------------------------------

@@ -283,6 +283,17 @@ def test_kernel_matches_plain_on_card(name):
         got = tflash.flash_attention_cuda(q, k, v, causal=True)
         want = tflash.flash_attention_plain(q, k, v, causal=True)
         assert float((got - want).abs().max()) <= 1e-4
+        # every head width the kernel builds, T and S off its 64-row
+        # tiles, S < T, causal and not
+        for Dh in tflash.HEAD_DIMS:
+            q = _t(rng.standard_normal((2, 130, 4, Dh)).astype(
+                np.float32)).to(dev)
+            k, v = (_t(rng.standard_normal((2, 77, 1, Dh)).astype(
+                np.float32)).to(dev) for _ in range(2))
+            for causal in (False, True):
+                got = tflash.flash_attention_cuda(q, k, v, causal=causal)
+                want = tflash.flash_attention_plain(q, k, v, causal=causal)
+                assert float((got - want).abs().max()) <= 1e-4
     elif name == "decode_attention":
         q, k, v = (_t(a).to(dev) for a in _qkv(rng, 2, 256, 4, 2, 64))
         kv_len = torch.tensor([1, 200], dtype=torch.int32, device=dev)
