@@ -26,9 +26,20 @@ Phases; any failure exits non-zero and prints no result:
      the sum of each shape's bound, "by" the kind that bounds most of
      it).  Both print their achieved rates and share of their bound.
      The per-row activation quantization in front of each GEMM is
-     timed on its own.  ``decode_attention`` is checked to 1e-5 at the
-     Qwen3-4B serving shape (its kernels-line row) and at a ragged
-     8192-key cache.  ``flash_attention`` is checked to 1e-4, causal and
+     timed on its own.  ``decode_attention`` is checked to 1e-5 at its
+     kv_len edges (``DECODE_EDGES``), then at the Qwen3-4B serving shape
+     (its kernels-line row), zamba2-1.2b's shared attention (G = 1, Dh =
+     64) and a ragged 8192-key cache, each also timed cold: its launches
+     rotate over enough caches to leave the 50 MB L2 (``cold_us``), as
+     the 36 layers of a decode step do.  ``avg_pool`` is checked at its
+     4-byte, chunked and wide paths (``POOL_CASES``) and must match the
+     plain version exactly at the serving frame, also timed cold over
+     four frames.  Every row's ``ms`` is host-clocked back-to-back
+     relaunches (CUDA events), which the host's launch rate can bound for
+     a short kernel; ``device_us`` is the kernel's own device time per
+     launch from a ``torch.profiler`` trace of twenty relaunches (summed
+     over the shapes for ``int8_matmul``, over the four kernels of a call
+     for ``ssd_scan``).  ``flash_attention`` is checked to 1e-4, causal and
      not, at a causal-GQA T = 1000 and at every head width it builds (16,
      32, 64, 128; T and S off its 64-row tiles, S < T, GQA groups 1 and
      4), then at the ViT shape (its kernels-line row) and the LM prefill's
@@ -155,6 +166,28 @@ SSD_STAGES = ("ssd_scores_kernel", "ssd_states_kernel", "ssd_pass_kernel",
 SSD_REF_SHAPES = ((2, 128, 8, 1, 32, 16, 32), (1, 200, 16, 2, 64, 32, 64),
                   (2, 64, 4, 4, 16, 64, 32), (1, 96, 8, 1, 128, 64, 96))
 POOL_TOL = 1e-6             # mean of four floats, absolute
+# avg_pool's other paths (shape, d, base offset in floats): W * C = 30 and
+# Wo * C = 9 (4-byte copies), a base 4 bytes off 16, a row of three
+# chunks, 1024 channels (80 KB of shared memory), d = 4 at the frame
+POOL_CASES = (((2, 10, 10, 3), 2, 0), ((2, 16, 12, 3), 4, 0),
+              ((2, 64, 64, 3), 2, 1), ((1, 4, 4096, 3), 2, 0),
+              ((1, 16, 16, 1024), 2, 0), ((2, 1024, 1024, 3), 4, 0))
+# decode_attention's phase-2 shapes (B, S, H, KV, Dh) and kv_len: the
+# Qwen3-4B serving step (its kernels-line row), zamba2-1.2b's shared
+# attention (G = 1) a few steps into a wave, and a ragged long cache
+DECODE_SHAPES = {
+    "serving": ((LM_B, LM_MAX_LEN, 32, 8, 128), (LM_T + 1,) * LM_B),
+    "zamba2": ((SSM_B, SSM_T + SSM_NEW, 32, 32, 64), (SSM_T + 8,) * SSM_B),
+    "ragged": ((LM_B, LM_LONG_LENS[0], 32, 8, 128), LM_LONG_LENS)}
+# decode_attention's kv_len edges (B, S, H, KV, Dh), kv_len: no key, one
+# key, a split boundary, kv_len = S, runs wholly past kv_len, G = 1 over
+# four kv heads a block and over one (KV = 6), G = 4 / 8 / 16
+DECODE_EDGES = (((2, 256, 8, 2, 64), (0, 1)), ((2, 256, 8, 2, 64), (64, 256)),
+                ((3, 300, 8, 8, 32), (5, 150, 299)),
+                ((2, 200, 8, 1, 16), (33, 200)),
+                ((2, 300, 16, 1, 32), (0, 300)),
+                ((3, 777, 8, 4, 16), (1, 511, 777)),
+                ((2, 200, 6, 6, 64), (77, 200)))
 E2E_RTOL = 1e-3             # 8-block forward, card vs CPU, relative
 QUANT_E2E_RTOL = 0.05       # 8-block quantized forward, card vs CPU
 QUANT_SPEC = ("int8", "fp32", 1)
@@ -191,6 +224,15 @@ KERNEL_SOURCES = {
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:104"),
 }
+# kernel name -> the fragment of its CUDA kernels' names in a trace (the
+# four kernels of one ssd_scan call share theirs)
+DEVICE_NAMES = {
+    "window_attention": "window_attention_kernel",
+    "flash_attention": "flash_attention_kernel",
+    "pack_pos": "pack_pos_kernel", "restore_gather": "restore_gather_kernel",
+    "avg_pool": "avg_pool_kernel", "nn_upsample": "nn_upsample_kernel",
+    "int8_matmul": "int8_matmul_kernel",
+    "decode_attention": "decode_attention_kernel", "ssd_scan": "ssd_"}
 
 
 class SmokeFailure(Exception):
@@ -285,27 +327,34 @@ def run(torch):
         f"T={T}, D={D}, H={H}x{Dh}, w2={w2}, length bucket {lb})")
     rows = {}
 
-    def measure(kernel, plain_fn, lib_fn, nbytes, nops, peak):
+    def measure(name, kernel, plain_fn, lib_fn, nbytes, nops, peak):
         """Kernel alone (its latest launch relaunched), plain version and
-        library call in ms, and the bound in ms with what sets it."""
+        library call in ms, the bound in ms with what sets it, and the
+        kernel's device microseconds per launch from a trace."""
         k_ms = timed(torch, lambda: kernel.relaunch(1))
         p_ms = timed(torch, plain_fn)
         l_ms = timed(torch, lib_fn) if lib_fn is not None else None
-        return (k_ms, p_ms, l_ms) + bound(nbytes, nops, peak)
+        d_us = device_us(torch, lambda: kernel.relaunch(1),
+                         DEVICE_NAMES[name])
+        return (k_ms, p_ms, l_ms) + bound(nbytes, nops, peak) + (d_us,)
 
     def record(name, err, kernel, plain_fn, lib_fn, nbytes, nops,
-               peak=PEAK_FP32):
-        put(name, err, *measure(kernel, plain_fn, lib_fn, nbytes, nops,
-                                peak))
+               peak=PEAK_FP32, **extra):
+        put(name, err, *measure(name, kernel, plain_fn, lib_fn, nbytes,
+                                nops, peak), **extra)
 
-    def put(name, err, k_ms, p_ms, l_ms, bound_ms, bound_by):
+    def put(name, err, k_ms, p_ms, l_ms, bound_ms, bound_by, d_us, **extra):
+        """One kernels-line row: ``ms`` is host-clocked back-to-back
+        relaunches (CUDA events), ``device_us`` the kernel's own device
+        time per launch (trace); ``extra`` adds keys such as ``cold_us``."""
         rows[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": l_ms}
+                      "library_ms": l_ms, "device_us": d_us, **extra}
         say(f"  {name}: max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.4f} library_ms="
+            f"device_us={d_us:.2f} plain_ms={p_ms:.4f} library_ms="
             f"{'null' if l_ms is None else f'{l_ms:.4f}'} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
+            f"bound_ms={bound_ms:.4f} ({bound_by})"
+            + "".join(f" {k}={v}" for k, v in extra.items()))
 
     def max_err(a, b):
         return float((a - b).abs().max())
@@ -316,15 +365,34 @@ def run(torch):
         say(f"  {name}: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
             f"{nbytes / PEAK_BYTES * 1e3 / ms:.3f} of its byte bound")
 
-    # avg_pool: the raw frame, pooled before the low-resolution embedding
-    x = torch.rand((B, *cfg.vit.img_size, 3), generator=gen, device=dev)
+    # avg_pool: its other paths first (4-byte copies where W * C, Wo * C
+    # or the base is not 16-byte aligned, rows cut into chunks, wide
+    # channels), then the raw frame, pooled before the low-resolution
+    # embedding, which must match the plain version exactly
+    for shape, d, off in POOL_CASES:
+        flat = torch.rand(int(np.prod(shape)) + off, generator=gen,
+                          device=dev)
+        xs = flat[off:].view(shape)
+        err = max_err(pool.avg_pool_cuda(xs, d), pool.avg_pool_plain(xs, d))
+        check(err <= POOL_TOL, f"avg_pool {shape} d={d} offset {off}: max "
+              f"error {err} > {POOL_TOL}")
+    say(f"  avg_pool paths {POOL_CASES}: within {POOL_TOL}")
+    frames = [torch.rand((B, *cfg.vit.img_size, 3), generator=gen,
+                         device=dev) for _ in range(4)]
+    x = frames[0]
     got, want = pool.avg_pool_cuda(x, 2), pool.avg_pool_plain(x, 2)
     err = max_err(got, want)
-    check(err <= POOL_TOL, f"avg_pool: max error {err} > {POOL_TOL}")
+    check(torch.equal(got, want), f"avg_pool: serving frame differs from "
+          f"plain by {err}")
     xc = x.permute(0, 3, 1, 2)
+    cold = cold_us(torch, [lambda f=f: pool.avg_pool_cuda(f, 2)
+                           for f in frames], DEVICE_NAMES["avg_pool"])
+    pool.avg_pool_cuda(x, 2)                  # the row's relaunch is x's
     record("avg_pool", err, pool.KERNEL, lambda: pool.avg_pool_plain(x, 2),
            lambda: F.avg_pool2d(xc, 2),
-           4 * (x.numel() + got.numel()), x.numel() + got.numel())
+           4 * (x.numel() + got.numel()), x.numel() + got.numel(),
+           cold_us=cold)
+    del frames
 
     # pack_pos: window bank + positional bank -> packed sequence
     nbank = nR * dd + nR
@@ -446,7 +514,7 @@ def run(torch):
     put("int8_matmul", 0.0, *(sum(r[k] for r in gemm)
                               for k in ("ms", "plain_ms", "library_ms",
                                         "bound_ms")),
-        max(by, key=by.get))
+        max(by, key=by.get), sum(r["device_us"] for r in gemm))
     del x, got, want
     torch.cuda.empty_cache()
 
@@ -514,7 +582,9 @@ def run(torch):
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
-                    "library_ms": r["library_ms"]})
+                    "library_ms": r["library_ms"],
+                    "device_us": r["device_us"],
+                    **({"cold_us": r["cold_us"]} if "cold_us" in r else {})})
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi.stdout.strip(), "kernels": out, "waves": lat,
          "int8_gemm_shapes": gemm}, indent=1))
@@ -545,6 +615,8 @@ def gemm_checks(torch, i8, qt, dev, gen, n_layers):
             say(f"  int8_matmul {M}x{K}x{N} (ragged): bit-equal")
             continue
         k_ms = timed(torch, lambda: i8.KERNEL.relaunch(1))
+        d_us = device_us(torch, lambda: i8.KERNEL.relaunch(1),
+                         DEVICE_NAMES["int8_matmul"])
         # the other output tile width, checked and timed for the record
         tile = i8.tile_n(N, K)
         chosen = i8.tile_n
@@ -564,7 +636,8 @@ def gemm_checks(torch, i8, qt, dev, gen, n_layers):
         r_ms = timed(torch, lambda: qt._quantize_rows(xf))
         nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
         b_ms, b_by = bound(nbytes, 2 * M * N * K, PEAK_INT8)
-        row = {"M": M, "K": K, "N": N, "ms": k_ms, "plain_ms": p_ms,
+        row = {"M": M, "K": K, "N": N, "ms": k_ms, "device_us": d_us,
+               "plain_ms": p_ms,
                "library_ms": l_ms, "fp32_matmul_ms": f_ms,
                "row_quant_ms": r_ms, "bound_ms": b_ms, "bound_by": b_by,
                "tile_n": tile, f"ms_tile_{tile}": k_ms,
@@ -827,12 +900,11 @@ def serve_quant(torch, cfg, dev, gen, plans, pt, qt):
 # fragments come before the plain "gemm" of the cuBLAS/CUTLASS matmuls.
 FAMILIES = (("window_attention", "window_attention"),
             ("flash_attention", "flash_attention"),
-            ("decode_split_kernel", "decode_attention"),
+            ("decode_attention_kernel", "decode_attention"),
             ("ssd_scores_kernel", "ssd_scan"),
             ("ssd_states_kernel", "ssd_scan"),
             ("ssd_pass_kernel", "ssd_scan"),
             ("ssd_outputs_kernel", "ssd_scan"),
-            ("decode_combine_kernel", "decode_attention"),
             ("pack_pos", "fused_serving"), ("restore_gather", "fused_serving"),
             ("avg_pool_kernel", "avg_pool"),
             ("nn_upsample_kernel", "nn_upsample"),
@@ -972,17 +1044,31 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put):
     H, KV, Dh = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
     extra = {}
 
-    def decode_case(S, lens):
-        q = torch.randn((LM_B, 1, H, Dh), generator=gen, device=dev)
-        k = torch.randn((LM_B, S, KV, Dh), generator=gen, device=dev)
-        v = torch.randn((LM_B, S, KV, Dh), generator=gen, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def decode_case(name):
+        """One of DECODE_SHAPES: checked, timed warm (relaunches: host
+        clock and device time) and cold (rotating over caches that leave
+        the L2), beside the plain version and SDPA."""
+        (b, S, h, kv, dh), lens = DECODE_SHAPES[name]
+        sets = cold_sets(2 * 4 * b * S * kv * dh)
+        q = torch.randn((b, 1, h, dh), generator=gen, device=dev)
         kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        caches = [[torch.randn((b, S, kv, dh), generator=gen, device=dev)
+                   for _ in range(2)] for _ in range(sets)]
+        cold = cold_us(torch, [
+            lambda k=k, v=v: dec.decode_attention_cuda(q, k, v, kl)
+            for k, v in caches], DEVICE_NAMES["decode_attention"])
+        k, v = caches[0]
+        del caches
         got = dec.decode_attention_cuda(q, k, v, kl)
         err = float((got - dec.decode_attention_plain(q, k, v, kl))
                     .abs().max())
-        check(err <= DECODE_TOL, f"decode_attention S={S}: max error {err} "
+        check(err <= DECODE_TOL, f"decode_attention {name}: max error {err} "
               f"> {DECODE_TOL}")
         k_ms = timed(torch, lambda: dec.KERNEL.relaunch(1))
+        d_us = device_us(torch, lambda: dec.KERNEL.relaunch(1),
+                         DEVICE_NAMES["decode_attention"])
         p_ms = timed(torch, lambda: dec.decode_attention_plain(q, k, v, kl))
         qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         mask = (torch.arange(S, device=dev)[None] < kl[:, None])[:, None,
@@ -990,22 +1076,40 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put):
         l_ms = timed(torch, lambda: F.scaled_dot_product_attention(
             qt_, kt, vt, attn_mask=mask, enable_gqa=True))
         keys = sum(min(x, S) for x in lens)       # the rows this run reads
-        nbytes = 4 * (keys * KV * Dh * 2 + 2 * q.numel() + LM_B)
-        b_ms, b_by = bound(nbytes, 4 * keys * H * Dh, PEAK_FP32)
-        return err, k_ms, p_ms, l_ms, b_ms, b_by, \
-            dec.n_splits(LM_B, KV, H // KV, S,
-                         torch.cuda.get_device_properties(dev)
-                         .multi_processor_count)
+        nbytes = 4 * (keys * kv * dh * 2 + 2 * q.numel() + b)
+        b_ms, b_by = bound(nbytes, 4 * keys * h * dh, PEAK_FP32)
+        n, kps = dec.plan(b, kv, h // kv, S, sms)
+        row = {"shape": [b, S, h, kv, dh], "kv_len": list(lens),
+               "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "device_us": d_us, "cold_us": cold, "cold_sets": sets,
+               "splits": n, "keys_per_split": kps}
+        say(f"  decode_attention {name}: {row}")
+        return row
 
-    long = decode_case(LM_LONG_LENS[0], list(LM_LONG_LENS))
-    extra["decode_attention_long"] = dict(zip(
-        ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-         "bound_by", "splits"), long))
-    say(f"  decode_attention (8, 1, 32, 128) vs ragged (8, 8192, 8, 128) "
-        f"kv_len {list(LM_LONG_LENS)}: {extra['decode_attention_long']}")
-    serving = decode_case(LM_MAX_LEN, [LM_T + 1] * LM_B)
-    put("decode_attention", *serving[:6])
-    extra["decode_attention_serving_splits"] = serving[6]
+    # the kv_len edges: no key, one key, a split boundary, kv_len = S,
+    # splits wholly past kv_len, G = 1 / 8 / 16, every head width
+    errs = {}
+    for (b, S, h, kv, dh), lens in DECODE_EDGES:
+        q = torch.randn((b, 1, h, dh), generator=gen, device=dev)
+        k, v = (torch.randn((b, S, kv, dh), generator=gen, device=dev)
+                for _ in range(2))
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        errs[(b, S, h, kv, dh, *lens)] = err = float(
+            (dec.decode_attention_cuda(q, k, v, kl)
+             - dec.decode_attention_plain(q, k, v, kl)).abs().max())
+        check(err <= DECODE_TOL, f"decode_attention {(b, S, h, kv, dh)} "
+              f"kv_len {lens}: max error {err} > {DECODE_TOL}")
+    say(f"  decode_attention kv_len edges, max errors: "
+        f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} } (limit "
+        f"{DECODE_TOL})")
+    for name in ("ragged", "zamba2"):
+        extra[f"decode_attention_{name}"] = decode_case(name)
+    r = decode_case("serving")
+    put("decode_attention", *(r[key] for key in (
+        "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "device_us")), cold_us=r["cold_us"],
+        splits=r["splits"], keys_per_split=r["keys_per_split"])
 
     for T in (LM_T, LM_T - 32):       # plain prefill; mixed at 4 of 8 pooled
         q = torch.randn((LM_B, T, H, Dh), generator=gen, device=dev)
@@ -1017,6 +1121,8 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put):
         check(err <= ATTN_TOL, f"flash_attention causal GQA T={T}: max "
               f"error {err}")
         k_ms = timed(torch, lambda: flash.KERNEL.relaunch(1))
+        d_us = device_us(torch, lambda: flash.KERNEL.relaunch(1),
+                         DEVICE_NAMES["flash_attention"])
         p_ms = timed(torch, lambda: flash.flash_attention_plain(
             q, k, v, causal=True))
         qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1028,7 +1134,7 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put):
                            PEAK_TF32)
         row = {"shape": [LM_B, T, H, KV, Dh], "max_abs_err": err,
                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "bound_ms": b_ms, "bound_by": b_by}
+               "bound_ms": b_ms, "bound_by": b_by, "device_us": d_us}
         extra[f"flash_attention_causal_T{T}"] = row
         say(f"  flash_attention causal GQA {row}")
     return extra
@@ -1515,6 +1621,29 @@ def kernel_breakdown(torch, fn, names, n=20):
     return us
 
 
+def device_us(torch, fn, frag, n=20):
+    """Device microseconds per call of ``fn`` in the kernels whose names
+    hold ``frag`` (a trace of ``n`` calls): the kernel's own time, without
+    the host's launch rate that back-to-back CUDA-event timing can read."""
+    return kernel_breakdown(torch, fn, (frag,), n)[frag]
+
+
+def cold_us(torch, fns, frag, rounds=3):
+    """Device microseconds per call in the kernels named by ``frag`` when
+    the calls rotate over ``fns``, each on inputs of its own, so that the
+    inputs of one call have left the 50 MB L2 before it runs again (as
+    the caches of 36 layers do in one decode step)."""
+    return kernel_breakdown(torch, lambda: [f() for f in fns], (frag,),
+                            rounds)[frag] / len(fns)
+
+
+def cold_sets(pair_bytes):
+    """How many distinct input sets ``cold_us`` rotates over: 36 (a
+    Qwen3-4B decode step's layers) while they fit in 1 GB, and never
+    fewer than two."""
+    return max(2, min(36, 10 ** 9 // pair_bytes))
+
+
 def ssd_kernel_checks(torch, dev, gen, put):
     """Phase 9: ``ssd_scan`` against its plain version on the card, y and
     the final state each within SSD_TOL of the plain version's largest
@@ -1568,7 +1697,7 @@ def ssd_kernel_checks(torch, dev, gen, put):
 
     row = case("mamba2_serving", MAMBA, SSM_B, SSM_T, timed_case=True)
     put("ssd_scan", row["max_abs_err"], row["ms"], row["plain_ms"], None,
-        row["bound_ms"], row["bound_by"])
+        row["bound_ms"], row["bound_by"], sum(row["kernels_us"].values()))
     z = case("zamba2_serving", ZAMBA, SSM_B, SSM_T, timed_case=True)
     say(f"  ssd_scan zamba2 shape: kernel_ms={z['ms']:.4f} plain_ms="
         f"{z['plain_ms']:.4f} bound_ms={z['bound_ms']:.4f} "

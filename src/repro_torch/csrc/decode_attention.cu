@@ -12,32 +12,45 @@
 // q (8, 1, 32, 128) against (8, max_len, 8, 128) caches.
 //
 // Bound on the H100: bytes.  The K and V rows below kv_len are streamed
-// once, B * kv_len * KV * Dh * 8 bytes, at about one flop per byte.
-// Design, simple first: one block of 4 warps per (split of the keys,
-// group of up to 8 query heads of one kv head, batch row), so the G
-// query heads of a kv head share every cache read.  A lane holds a
-// 16-byte slice of each query row; Dh / 4 lanes cover one key row, so a
-// warp reads whole 512-byte rows at Dh = 128 (several rows at smaller
-// Dh).  Each lane group walks its keys four rows at a time (eight loads
-// in flight), reduces the dot products over the group with shuffles,
-// and keeps a running max, sum and output slice per query row (online
-// softmax, plain float32 FMA: TF32 would break parity).  The groups of
-// a warp, then the warps of the block, merge their partial softmaxes;
-// with one split the block writes the output, otherwise it writes its
-// partial (max, sum, output) and a second kernel merges the splits.  The
-// wrapper picks the split count so that a long cache puts about four
-// blocks on every SM, and one split when the cache is short.
+// once, B * kv_len * KV * Dh * 8 bytes, at about one flop per byte.  At
+// the serving shape that is ~8.5 MB, 2.6 us at 3.35 TB/s: the time goes
+// to getting enough bytes in flight, not to arithmetic.
+//
+// Design: one launch, no scratch in device memory, no host read of
+// kv_len (the launch depends on the shapes alone, so a CUDA graph can
+// hold it).  The keys of each (batch row, kv head, group of up to 8 query
+// heads) -- or, where every kv head has one query head, of 4 adjacent kv
+// heads, whose rows of a token lie side by side -- are shared by the
+// n_split <= 8 blocks of one thread-block cluster: the wrapper's plan
+// puts two blocks on every SM for a short cache (splits of ~32 keys at
+// the Qwen3-4B serving shape) and about one an SM, in splits of at most
+// 1,024 keys, for a long one.  On the device each row's kv_len valid
+// keys are cut evenly over the cluster, so no block of it waits idle on
+// another.  A block copies its K and V rows into shared memory with
+// 16-byte cp.async, in tiles of 16 KB each of K and V in a ring of two:
+// at the serving shape a split is one tile, all of it in flight before
+// the first dot product.  Every staged row is read from shared memory
+// once, for all the query heads that share it: each lane holds its
+// slices of those query rows in registers, a few lanes reduce a key's
+// dot products by shuffles, and the warp keeps a running max, sum and
+// output slice per query head (online softmax, plain float32 FMA: TF32
+// would break parity).  The warps of a block, then the blocks of the
+// cluster, merge their partial softmaxes; rank 0 reads the others'
+// through distributed shared memory, all at once, and writes the output.
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include "common.cuh"
+#include "tf32_mma.cuh"  // cp.async copies
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarps = 4, kThreads = 32 * kWarps, kMaxG = 8, kUnroll = 4;
-
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
-}
+constexpr int kWarps = 4, kThreads = 32 * kWarps;
+constexpr int kMaxCluster = 8;   // portable cluster size
+constexpr int kMaxStages = 2;    // ring depth of a long split
+constexpr int kTileFloats = 4096;  // 16 KB of K (and of V) rows per stage
 
 // Merge partial softmax (m2, l2, a2) into (m, l, a): both scaled to the
 // larger max.  A part with no key yet has m == -inf and contributes 0.
@@ -55,223 +68,380 @@ __device__ __forceinline__ void merge(float& m, float& l, float4& a,
   m = mx;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) decode_split_kernel(
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Wait for every cp.async group but the `pending` newest (kMaxStages
+// is 2, so at most one).
+__device__ __forceinline__ void wait_pending(int pending) {
+  if (pending) cp_async_wait<1>();
+  else cp_async_wait<0>();
+}
+
+// Shared-memory slot (in float4s) of float4 c of staged row `row`, RW
+// float4s a row: odd rows swap the 64-byte halves of every 128-byte run
+// (c ^ 4), so the two rows one quarter-warp reads while scoring fall on
+// distinct banks (rows of 16 floats already do).
+template <int RW>
+__device__ __forceinline__ int slot(int row, int c) {
+  return row * RW + (RW >= 8 ? c ^ ((row & 1) << 2) : c);
+}
+
+// One block: split `cluster rank` of the keys of batch row b and either
+// one kv head with a group of up to GT of its query heads (HB = 1), or
+// HB = 4 adjacent kv heads of one query head each (G = 1): one run of
+// 4 * Dh floats a token instead of four short ones.  With HB = 1 each
+// warp serves every head of the group on its KPI-key runs of every tile;
+// with HB = 4 warp w serves kv head w on every key.  Scores: LPS lanes
+// per key, each holding QF float4s of every query row in registers,
+// reduced by shuffles; the warp takes the max of KPI keys at once (more
+// keys, so more independent chains, where the group has few heads).
+// P V: Dh / 4 lanes cover one V row, 32 * 4 / Dh rows at a time, each
+// key's p broadcast by a shuffle.
+template <int DH, int GT, int HB>
+__global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const int* __restrict__ kv_len,
-    float* __restrict__ out, float* __restrict__ part_m,
-    float* __restrict__ part_l, float* __restrict__ part_acc, int S, int H,
-    int KV, int keys_per_split, long long sqb, long long skb, long long skt,
-    long long svb, long long svt, float scale) {
-  constexpr int LPK = DH / 4;      // lanes per key row, 4 floats each
-  constexpr int KPW = 32 / LPK;    // key rows a warp covers per load
-  constexpr int TILE = KPW * kUnroll;
-  __shared__ float sm_m[kWarps][kMaxG], sm_l[kWarps][kMaxG];
-  __shared__ float4 sm_acc[kWarps][kMaxG][LPK];
+    float* __restrict__ out, int S, int H, int KV, int stages,
+    long long sqb, long long skb, long long skt, long long svb,
+    long long svt, float scale) {
+  static_assert(HB == 1 || (HB == kWarps && GT == 1), "HB");
+  constexpr int LPK = DH / 4;      // P V: lanes per V row, 4 floats each
+  constexpr int KPW = 32 / LPK;    // P V: rows a warp covers per step
+  // scores: LPS lanes per key, each holding QF float4s of every head's
+  // query row in registers (at most 16 float4s); KPS keys a sub-run
+  constexpr int LPS0 = GT * DH / 64 > 4 ? GT * DH / 64 : 4;
+  constexpr int LPS = LPS0 < LPK ? LPS0 : LPK;
+  constexpr int KPS = 32 / LPS, QF = LPK / LPS;
+  constexpr int RW = HB * LPK;     // float4s of a staged row
+  constexpr int TK = kTileFloats / (4 * RW);   // key rows per stage
+  constexpr int STAGE = 2 * TK * RW;           // K then V, float4s
+  constexpr int KW = HB == 1 ? kWarps : 1;     // warps across keys
+  // keys a warp takes at once: 8 U, more where the group has few heads
+  // (independent softmax chains), as far as a tile keeps KW warps busy
+  constexpr int U0 = 4 / GT > 1 ? 4 / GT : 1, U1 = TK / (KW * 8);
+  constexpr int KPI = 8 * (U0 < U1 ? U0 : U1), NS = KPI / KPS;
+  static_assert(KPI > 0 && KPS % KPW == 0 && KPI % KPS == 0 &&
+                    TK % (KW * KPI) == 0, "runs");
+  constexpr int NH = HB * GT;      // query heads of the block
+  // stages x STAGE float4s; after the last tile, the warps' partials
+  extern __shared__ float4 smem4[];
+  __shared__ float sm_m[kWarps][GT], sm_l[kWarps][GT];
+  // the block's partial softmax, which the cluster's rank 0 reads
+  __shared__ float blk_m[NH], blk_l[NH];
+  __shared__ float4 blk_acc[NH * LPK];
 
-  const int G = H / KV, n_gc = (G + kMaxG - 1) / kMaxG;
-  const int split = blockIdx.x, b = blockIdx.z;
-  const int kvh = blockIdx.y / n_gc, g0 = (blockIdx.y % n_gc) * kMaxG;
-  const int ng = min(kMaxG, G - g0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.block_rank());
+  const int n_split = static_cast<int>(cluster.num_blocks());
+  const int G = H / KV, n_gc = (G + GT - 1) / GT;
+  const int b = blockIdx.z;
+  const int kvh = blockIdx.y / n_gc * HB, g0 = (blockIdx.y % n_gc) * GT;
+  const int ng = min(GT, G - g0);  // valid heads of each kv head's group
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub = lane / LPK, col = (lane % LPK) * 4;
+  const int kw = HB == 1 ? warp : 0;         // this warp's key runs
+  const int hw = HB == 1 ? 0 : warp;         // ... and kv head
+  const int kq = lane / LPS, r = lane % LPS;     // score lanes
+  const int kg = lane / LPK, c4 = lane % LPK;    // P V lanes
+  // the row's valid keys, in even runs of a multiple of 8 over the
+  // cluster (none longer than the host's keys_per_split, which sized the
+  // ring): a short row keeps no block of its cluster waiting on another
   const int len = min(max(kv_len[b], 0), S);
-  const int s0 = split * keys_per_split;
-  const int s1 = min(s0 + keys_per_split, len);
+  const int run = ((len + n_split - 1) / n_split + 7) / 8 * 8;
+  const int s0 = split * run;
+  const int n_keys = max(0, min(s0 + run, len) - s0);
+  const int n_tiles = (n_keys + TK - 1) / TK;
 
-  float4 qv[kMaxG];
-  const float* qb = q + b * sqb + static_cast<long long>(kvh * G + g0) * DH
-                    + col;
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (g < ng) t = *reinterpret_cast<const float4*>(qb + g * DH);
-    qv[g] = make_float4(t.x * scale, t.y * scale, t.z * scale, t.w * scale);
-  }
-  float m[kMaxG], l[kMaxG];
-  float4 acc[kMaxG];
-#pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.0f;
-    acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  const float* kb = k + b * skb + static_cast<long long>(kvh) * DH + col;
-  const float* vb = v + b * svb + static_cast<long long>(kvh) * DH + col;
-  for (int t0 = s0 + warp * TILE; t0 < s1; t0 += kWarps * TILE) {
-    float4 kr[kUnroll], vr[kUnroll];
-    bool ok[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = t0 + u * KPW + sub;
-      ok[u] = j < s1;
-      kr[u] = ok[u] ? *reinterpret_cast<const float4*>(kb + j * skt)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      vr[u] = ok[u] ? *reinterpret_cast<const float4*>(vb + j * svt)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* kb = k + b * skb + static_cast<long long>(kvh) * DH;
+  const float* vb = v + b * svb + static_cast<long long>(kvh) * DH;
+  auto load = [&](int t) {       // tile t of the split into its stage
+    float4* ks = smem4 + (t % stages) * STAGE;
+    const int r0 = s0 + t * TK, rows = min(TK, n_keys - t * TK);
+    for (int idx = threadIdx.x; idx < rows * RW; idx += kThreads) {
+      const int i = idx / RW, c = idx % RW, dst = slot<RW>(i, c);
+      cp_async16_zfill(reinterpret_cast<float*>(ks + dst),
+                       kb + (r0 + i) * skt + 4 * c, true);
+      cp_async16_zfill(reinterpret_cast<float*>(ks + TK * RW + dst),
+                       vb + (r0 + i) * svt + 4 * c, true);
     }
+  };
+  for (int t = 0; t < stages; ++t) {    // the ring's first tiles, before
+    if (t < n_tiles) load(t);             // anything waits on a load
+    cp_async_commit();
+  }
+
+  // this lane's slices of the query rows of its warp's heads, scaled:
+  // kv head kvh + hw, query heads g0 .. g0 + GT - 1 (zero past ng)
+  float4 qr[GT][QF];
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g) {
-      if (g >= ng) break;
-      float s[kUnroll];
+  for (int h = 0; h < GT; ++h) {
+    const float4* qrow = reinterpret_cast<const float4*>(
+        q + b * sqb + static_cast<long long>((kvh + hw) * G + g0 + h) * DH);
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        s[u] = dot4(qv[g], kr[u]);
+    for (int i = 0; i < QF; ++i) {
+      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (h < ng) t = qrow[r + LPS * i];
+      qr[h][i] = make_float4(t.x * scale, t.y * scale, t.z * scale,
+                             t.w * scale);
+    }
+  }
+  float m[GT], l[GT];            // l: this lane's share of the sum
+  float4 acc[GT];
 #pragma unroll
-        for (int off = LPK / 2; off > 0; off >>= 1)
-          s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+  for (int h = 0; h < GT; ++h) {
+    m[h] = -INFINITY;
+    l[h] = 0.0f;
+    acc[h] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    wait_pending(stages - 1);     // tile t's copies have landed
+    __syncthreads();
+    const float4* ks = smem4 + (t % stages) * STAGE;
+    const float4* vs = ks + TK * RW;
+    const int nv = min(TK, n_keys - t * TK);
+    for (int j0 = kw * KPI; j0 < nv; j0 += KW * KPI) {
+      bool valid[NS];
+      float s[NS][GT];
+#pragma unroll
+      for (int u = 0; u < NS; ++u) {
+        valid[u] = j0 + u * KPS + kq < nv;
+#pragma unroll
+        for (int h = 0; h < GT; ++h) s[u][h] = 0.0f;
       }
-      float mx = m[g];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        if (ok[u]) mx = fmaxf(mx, s[u]);
-      if (mx > -INFINITY) {                 // some key of this group seen
-        const float alpha = expf(m[g] - mx);  // 0 while m[g] is -inf
-        float4 a = acc[g];
-        float lsum = l[g] * alpha;
-        a.x *= alpha; a.y *= alpha; a.z *= alpha; a.w *= alpha;
+      for (int i = 0; i < QF; ++i) {
+        const int c = hw * LPK + r + LPS * i;
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const float p = ok[u] ? expf(s[u] - mx) : 0.0f;
-          lsum += p;
-          a.x = fmaf(p, vr[u].x, a.x);
-          a.y = fmaf(p, vr[u].y, a.y);
-          a.z = fmaf(p, vr[u].z, a.z);
-          a.w = fmaf(p, vr[u].w, a.w);
+        for (int u = 0; u < NS; ++u) {   // rows < TK: TK is a multiple
+          const float4 kf = ks[slot<RW>(j0 + u * KPS + kq, c)];  // of KPI
+#pragma unroll
+          for (int h = 0; h < GT; ++h) {
+            s[u][h] = fmaf(qr[h][i].x, kf.x, s[u][h]);
+            s[u][h] = fmaf(qr[h][i].y, kf.y, s[u][h]);
+            s[u][h] = fmaf(qr[h][i].z, kf.z, s[u][h]);
+            s[u][h] = fmaf(qr[h][i].w, kf.w, s[u][h]);
+          }
         }
-        acc[g] = a;
-        l[g] = lsum;
-        m[g] = mx;
+      }
+      // every head of the group, also those past ng (their q rows are
+      // zero and their outputs never leave the block)
+      float p[NS][GT];
+#pragma unroll
+      for (int h = 0; h < GT; ++h) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          float sc = s[u][h];
+#pragma unroll
+          for (int off = 1; off < LPS; off <<= 1)
+            sc += __shfl_xor_sync(0xffffffffu, sc, off);
+          p[u][h] = valid[u] ? sc : -INFINITY;
+          mx = fmaxf(mx, p[u][h]);
+        }
+#pragma unroll
+        for (int off = LPS; off < 32; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float mn = fmaxf(m[h], mx);    // finite: key j0 is valid
+        const float alpha = expf(m[h] - mn);  // 0 while m[h] is -inf
+        float ps = 0.0f;
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          p[u][h] = valid[u] ? expf(p[u][h] - mn) : 0.0f;
+          ps += p[u][h];
+        }
+        l[h] = fmaf(l[h], alpha, r == 0 ? ps : 0.0f);
+        acc[h].x *= alpha;
+        acc[h].y *= alpha;
+        acc[h].z *= alpha;
+        acc[h].w *= alpha;
+        m[h] = mn;
+      }
+#pragma unroll
+      for (int jj = 0; jj < KPI; jj += KPW) {
+        const int row = j0 + jj + kg, src = (jj % KPS + kg) * LPS;
+        const float4 vf = row < nv ? vs[slot<RW>(row, hw * LPK + c4)]
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < GT; ++h) {
+          const float pj = __shfl_sync(0xffffffffu, p[jj / KPS][h], src);
+          acc[h].x = fmaf(pj, vf.x, acc[h].x);
+          acc[h].y = fmaf(pj, vf.y, acc[h].y);
+          acc[h].z = fmaf(pj, vf.z, acc[h].z);
+          acc[h].w = fmaf(pj, vf.w, acc[h].w);
+        }
       }
     }
+    __syncthreads();              // the stage is free for tile t + stages
+    if (t + stages < n_tiles) load(t + stages);
+    cp_async_commit();
   }
 
-  // merge the KPW lane groups of the warp, then the warps of the block
+  // each warp's partial per head: the lanes' sums, and the KPW row
+  // groups' outputs (one max, so a plain sum); the staging ring is free
+  // now and holds them
+  float4* sm_acc = smem4;         // [kWarps][GT][LPK]
 #pragma unroll
-  for (int g = 0; g < kMaxG; ++g) {
+  for (int h = 0; h < GT; ++h) {
+    const float lw = warp_sum(l[h]);
+    float4 a = acc[h];
 #pragma unroll
     for (int off = LPK; off < 32; off <<= 1) {
-      const float m2 = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float l2 = __shfl_xor_sync(0xffffffffu, l[g], off);
-      float4 a2;
-      a2.x = __shfl_xor_sync(0xffffffffu, acc[g].x, off);
-      a2.y = __shfl_xor_sync(0xffffffffu, acc[g].y, off);
-      a2.z = __shfl_xor_sync(0xffffffffu, acc[g].z, off);
-      a2.w = __shfl_xor_sync(0xffffffffu, acc[g].w, off);
-      merge(m[g], l[g], acc[g], m2, l2, a2);
+      a.x += __shfl_xor_sync(0xffffffffu, a.x, off);
+      a.y += __shfl_xor_sync(0xffffffffu, a.y, off);
+      a.z += __shfl_xor_sync(0xffffffffu, a.z, off);
+      a.w += __shfl_xor_sync(0xffffffffu, a.w, off);
     }
-    if (sub == 0) {
-      sm_acc[warp][g][lane] = acc[g];
-      if (lane == 0) {
-        sm_m[warp][g] = m[g];
-        sm_l[warp][g] = l[g];
-      }
+    if (lane < LPK) sm_acc[(warp * GT + h) * LPK + lane] = a;
+    if (lane == 0) {
+      sm_m[warp][h] = m[h];
+      sm_l[warp][h] = lw;
     }
   }
   __syncthreads();
-
-  const int H0 = kvh * G + g0;
-  for (int idx = threadIdx.x; idx < ng * LPK; idx += kThreads) {
-    const int g = idx / LPK, c = idx % LPK;
+  // the block's partial per query head: the KW warps that served it
+  for (int idx = threadIdx.x; idx < NH * LPK; idx += kThreads) {
+    const int hs = idx / LPK, c = idx % LPK, h = hs % GT;
+    if (h >= ng) continue;
     float mm = -INFINITY, ll = 0.0f;
     float4 aa = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-      merge(mm, ll, aa, sm_m[w][g], sm_l[w][g], sm_acc[w][g][c]);
-    const long long row = static_cast<long long>(b) * H + H0 + g;
-    if (part_acc == nullptr) {             // one split: the final output
+    for (int j = 0; j < KW; ++j) {
+      const int w = HB == 1 ? j : hs / GT;
+      merge(mm, ll, aa, sm_m[w][h], sm_l[w][h],
+            sm_acc[(w * GT + h) * LPK + c]);
+    }
+    blk_acc[idx] = aa;
+    if (c == 0) {
+      blk_m[hs] = mm;
+      blk_l[hs] = ll;
+    }
+  }
+
+  // merge the splits of the cluster: rank 0 reads every block's partial
+  // through distributed shared memory and writes the output; the second
+  // sync keeps every block's shared memory alive until it has
+  cluster.sync();
+  if (split == 0) {
+    for (int idx = threadIdx.x; idx < NH * LPK; idx += kThreads) {
+      const int hs = idx / LPK, c = idx % LPK;
+      if (hs % GT >= ng) continue;
+      float pm[kMaxCluster], pl[kMaxCluster];
+      float4 pa[kMaxCluster];
+#pragma unroll
+      for (int rk = 0; rk < kMaxCluster; ++rk) {   // all loads in flight
+        if (rk < n_split) {
+          pm[rk] = cluster.map_shared_rank(&blk_m[0], rk)[hs];
+          pl[rk] = cluster.map_shared_rank(&blk_l[0], rk)[hs];
+          pa[rk] = cluster.map_shared_rank(&blk_acc[0], rk)[idx];
+        }
+      }
+      float mm = -INFINITY, ll = 0.0f;
+      float4 aa = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int rk = 0; rk < kMaxCluster; ++rk)
+        if (rk < n_split) merge(mm, ll, aa, pm[rk], pl[rk], pa[rk]);
       const float inv = ll > 0.0f ? 1.0f / ll : 0.0f;
+      const long long row = static_cast<long long>(b) * H +
+                            (kvh + hs / GT) * G + g0 + hs % GT;
       reinterpret_cast<float4*>(out + row * DH)[c] =
           make_float4(aa.x * inv, aa.y * inv, aa.z * inv, aa.w * inv);
-    } else {
-      const long long prow = row * gridDim.x + split;
-      reinterpret_cast<float4*>(part_acc + prow * DH)[c] = aa;
-      if (c == 0) {
-        part_m[prow] = mm;
-        part_l[prow] = ll;
-      }
     }
   }
+  cluster.sync();
 }
 
-// Merge the n_split partial softmaxes of every (batch row, query head):
-// one block per row, one thread per output feature.
-__global__ void decode_combine_kernel(const float* __restrict__ part_m,
-                                      const float* __restrict__ part_l,
-                                      const float* __restrict__ part_acc,
-                                      float* __restrict__ out, int n_split,
-                                      int Dh) {
-  const long long row = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* pm = part_m + row * n_split;
-  const float* pl = part_l + row * n_split;
-  float mx = -INFINITY;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, pm[s]);
-  float l = 0.0f, a = 0.0f;
-  if (mx != -INFINITY) {
-    for (int s = 0; s < n_split; ++s) {
-      if (pm[s] == -INFINITY) continue;
-      const float c = expf(pm[s] - mx);
-      l = fmaf(pl[s], c, l);
-      a = fmaf(part_acc[(row * n_split + s) * Dh + d], c, a);
-    }
-  }
-  out[row * Dh + d] = l > 0.0f ? a / l : 0.0f;
-}
-
-template <int DH>
+template <int DH, int GT, int HB>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* kv_len, float* out, float* part_m,
-                   float* part_l, float* part_acc, int B, int S, int H,
-                   int KV, int n_split, long long sqb, long long skb,
-                   long long skt, long long svb, long long svt, float scale,
-                   cudaStream_t stream) {
-  const int G = H / KV, n_gc = (G + kMaxG - 1) / kMaxG;
-  const int keys_per_split = repro_ceil_div(S, n_split);
-  dim3 grid(n_split, KV * n_gc, B);
-  decode_split_kernel<DH><<<grid, kThreads, 0, stream>>>(
-      q, k, v, kv_len, out, n_split > 1 ? part_m : nullptr,
-      n_split > 1 ? part_l : nullptr, n_split > 1 ? part_acc : nullptr, S,
-      H, KV, keys_per_split, sqb, skb, skt, svb, svt, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || n_split == 1) return e;
-  decode_combine_kernel<<<B * H, DH, 0, stream>>>(part_m, part_l, part_acc,
-                                                  out, n_split, DH);
+                   const int* kv_len, float* out, int B, int S, int H,
+                   int KV, int n_split, int keys_per_split, long long sqb,
+                   long long skb, long long skt, long long svb,
+                   long long svt, float scale, cudaStream_t stream) {
+  constexpr int TK = kTileFloats / (HB * DH);
+  const int n_gc = (H / KV + GT - 1) / GT;
+  const int tiles = repro_ceil_div(keys_per_split, TK);
+  const int stages = tiles < kMaxStages ? tiles : kMaxStages;
+  const size_t smem = static_cast<size_t>(stages) * 2 * kTileFloats *
+                      sizeof(float);
+  auto* kernel = decode_attention_kernel<DH, GT, HB>;
+  cudaError_t e = repro_allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, KV / HB * n_gc, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, q, k, v, kv_len, out, S, H, KV,
+                         stages, sqb, skb, skt, svb, svt, scale);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The block's heads: with one query head per kv head and KV a multiple
+// of 4, four kv heads (HB = 4); else one kv head and a group of GT query
+// heads, G rounded up to 1, 2, 4 or 8 (larger groups take several blocks
+// of 8).  ops.py's plan counts blocks the same way.
+template <int DH>
+cudaError_t launch_g(const float* q, const float* k, const float* v,
+                     const int* kv_len, float* out, int B, int S, int H,
+                     int KV, int n_split, int keys_per_split, long long sqb,
+                     long long skb, long long skt, long long svb,
+                     long long svt, float scale, cudaStream_t stream) {
+  const int G = H / KV;
+#define REPRO_DECODE_LAUNCH(GT, HB)                                         \
+  return launch<DH, GT, HB>(q, k, v, kv_len, out, B, S, H, KV, n_split,   \
+                            keys_per_split, sqb, skb, skt, svb, svt,      \
+                            scale, stream)
+  if (G == 1 && KV % kWarps == 0) REPRO_DECODE_LAUNCH(1, kWarps);
+  if (G == 1) REPRO_DECODE_LAUNCH(1, 1);
+  if (G == 2) REPRO_DECODE_LAUNCH(2, 1);
+  if (G <= 4) REPRO_DECODE_LAUNCH(4, 1);
+  REPRO_DECODE_LAUNCH(8, 1);
+#undef REPRO_DECODE_LAUNCH
 }
 
 }  // namespace
 
 // q, out: (B, 1, H, Dh) with dense heads (q's batch stride sqb); k/v:
-// (B, S, KV, Dh) with dense heads, batch and token strides given;
-// part_*: n_split > 1 scratch of B * H * n_split (* Dh) floats.  Every
-// pointer and stride must allow 16-byte loads (the wrapper checks).
+// (B, S, KV, Dh) with dense heads, batch and token strides given.  The
+// keys split into n_split (1..8) runs of keys_per_split, which must
+// cover [0, S) with no run wholly past S.  Every pointer and stride must
+// allow 16-byte loads (the wrapper checks).
 REPRO_EXPORT int decode_attention_f32(
     const float* q, const float* k, const float* v, const int* kv_len,
-    float* out, float* part_m, float* part_l, float* part_acc, int B,
-    int S, int H, int KV, int Dh, int n_split, long long sqb, long long skb,
-    long long skt, long long svb, long long svt, float scale, int device,
-    void* stream) {
+    float* out, int B, int S, int H, int KV, int Dh, int n_split,
+    int keys_per_split, long long sqb, long long skb, long long skt,
+    long long svb, long long svt, float scale, int device, void* stream) {
   cudaError_t e = repro_begin(device);
   if (e != cudaSuccess) return e;
-  if (KV <= 0 || H % KV || n_split < 1 || (n_split > 1 && !part_acc))
+  if (KV <= 0 || H % KV || n_split < 1 || n_split > kMaxCluster ||
+      keys_per_split < 1 ||
+      static_cast<long long>(n_split) * keys_per_split < S ||
+      (S > 0 && static_cast<long long>(n_split - 1) * keys_per_split >= S))
     return cudaErrorInvalidValue;
   if (B == 0 || H == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
-    case 16: return launch<16>(q, k, v, kv_len, out, part_m, part_l,
-                               part_acc, B, S, H, KV, n_split, sqb, skb, skt,
-                               svb, svt, scale, st);
-    case 32: return launch<32>(q, k, v, kv_len, out, part_m, part_l,
-                               part_acc, B, S, H, KV, n_split, sqb, skb, skt,
-                               svb, svt, scale, st);
-    case 64: return launch<64>(q, k, v, kv_len, out, part_m, part_l,
-                               part_acc, B, S, H, KV, n_split, sqb, skb, skt,
-                               svb, svt, scale, st);
-    case 128: return launch<128>(q, k, v, kv_len, out, part_m, part_l,
-                                 part_acc, B, S, H, KV, n_split, sqb, skb,
-                                 skt, svb, svt, scale, st);
+#define REPRO_DECODE_DH(DH)                                                 \
+  case DH:                                                                  \
+    return launch_g<DH>(q, k, v, kv_len, out, B, S, H, KV, n_split,         \
+                        keys_per_split, sqb, skb, skt, svb, svt, scale, st)
+    REPRO_DECODE_DH(16);
+    REPRO_DECODE_DH(32);
+    REPRO_DECODE_DH(64);
+    REPRO_DECODE_DH(128);
+#undef REPRO_DECODE_DH
     default: return cudaErrorInvalidValue;
   }
 }

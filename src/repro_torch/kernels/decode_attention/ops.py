@@ -14,7 +14,7 @@ cache through its batch and token strides, in place.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,25 +24,53 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
     NEG_INF, decode_attention_plain)
 
 KERNEL = CudaKernel("decode_attention", "decode_attention_f32",
-                    [P, P, P, P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L,
-                     F, I, P])
+                    [P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, F, I,
+                     P])
 HEAD_DIMS = (16, 32, 64, 128)
-# split the keys of a (batch row, kv head) over several blocks only when
-# each split keeps at least this many keys; aim at this many blocks per SM
-MIN_KEYS_PER_SPLIT = 256
-BLOCKS_PER_SM = 4
-MAX_GROUP = 8               # query heads one block serves (kMaxG)
+MAX_GROUP = 8               # query heads of one kv head a block serves
+KV_PER_BLOCK = 4            # kv heads a block serves where G = 1
+MAX_CLUSTER = 8             # splits of one group: a portable cluster
+BLOCKS_PER_SM = 2           # a short cache: at least this many blocks an SM
+MIN_KEYS_PER_SPLIT = 32     # no split shorter (rounding aside)
+MAX_KEYS_PER_SPLIT = 1024   # a long cache: no split longer, within 8
+KEY_ALIGN = 8               # splits hold a multiple of this many keys
+SHORT_SPLIT = 64            # a split of at most this many keys: one copy
 
 _SMS: Dict[int, int] = {}
 
 
-def n_splits(B: int, KV: int, G: int, S: int, sms: int) -> int:
-    """How many blocks share the keys of one (batch row, kv head, group
-    of up to MAX_GROUP query heads): enough to put BLOCKS_PER_SM blocks on
-    every SM, but no split shorter than MIN_KEYS_PER_SPLIT keys."""
-    pairs = B * KV * -(-G // MAX_GROUP)
-    want = -(-BLOCKS_PER_SM * sms // max(pairs, 1))
-    return max(1, min(want, -(-S // MIN_KEYS_PER_SPLIT)))
+def plan(B: int, KV: int, G: int, S: int, sms: int) -> Tuple[int, int]:
+    """(n_split, keys_per_split): the size of the thread-block cluster
+    that shares the keys of one (batch row, kv head, group of up to
+    MAX_GROUP query heads) -- or of KV_PER_BLOCK adjacent kv heads where
+    each has one query head -- and the most keys one of its blocks takes.
+
+    A short cache, whose splits then hold at most SHORT_SPLIT keys, is cut
+    until every SM has BLOCKS_PER_SM blocks: the step is one wave of
+    blocks that each copy their keys at once.  A long cache streams
+    through each block's ring of copies,
+    and there one block an SM keeps the memory busiest: as many splits as
+    fill the SMs once, or as keep every split within MAX_KEYS_PER_SPLIT
+    (rows of different kv_len balance better in short splits), whichever
+    is more.  Always at most MAX_CLUSTER splits, none under
+    MIN_KEYS_PER_SPLIT slots.  The runs [i * keys_per_split, (i + 1) *
+    keys_per_split) clipped to S cover the cache; on the device the kernel
+    cuts each row's kv_len valid keys into n_split even runs (multiples of
+    8, none longer than keys_per_split, so the ring sized by it holds
+    them).  The plan depends on the shapes alone and never reads kv_len:
+    a CUDA graph can replay the launch."""
+    if G == 1 and KV % KV_PER_BLOCK == 0:   # csrc: launch_g's HB = 4
+        pairs = B * KV // KV_PER_BLOCK
+    else:
+        pairs = B * KV * -(-G // MAX_GROUP)
+    pairs = max(pairs, 1)
+    n = -(-BLOCKS_PER_SM * sms // pairs)
+    if -(-S // n) > SHORT_SPLIT:
+        n = max(sms // pairs, -(-S // MAX_KEYS_PER_SPLIT))
+    n = max(1, min(MAX_CLUSTER, n, -(-S // MIN_KEYS_PER_SPLIT)))
+    keys = max(1, -(-S // n))
+    keys = -(-keys // KEY_ALIGN) * KEY_ALIGN
+    return max(1, -(-S // keys)), keys
 
 
 def _aligned(t: torch.Tensor, *strides: int) -> bool:
@@ -79,17 +107,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sms is None:
         sms = _SMS[dev.index] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    n = n_splits(B, KV, H // KV, S, sms)
+    n, keys = plan(B, KV, H // KV, S, sms)
     out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=dev)
-    if n > 1:
-        rows = B * H * n          # partial (max, sum, output) per split
-        part = torch.empty(rows * (Dh + 2), dtype=torch.float32, device=dev)
-        parts = (part[rows * Dh:rows * (Dh + 1)], part[rows * (Dh + 1):],
-                 part[:rows * Dh])
-    else:
-        parts = (0, 0, 0)
     scale = Dh ** -0.5 if scale is None else scale
-    KERNEL(q, k, v, kv_len, out, *parts, B, S, H, KV, Dh, n, q.stride(0),
+    KERNEL(q, k, v, kv_len, out, B, S, H, KV, Dh, n, keys, q.stride(0),
            k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
            dev.index, stream_of(q))
     return out

@@ -9,6 +9,8 @@ unit-normal inputs (the reference's own decode tests use 2e-5).  On the
 card the kernel is held to 1e-5 absolute (``chip_smoke.py`` runs the
 same check at the full-width shapes).
 """
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from repro.kernels.decode_attention import decode_attention as jdecode
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.decode_attention import ops as tdec
+from repro_torch.kernels.decode_attention import ref as tref
 from repro_torch.models import attention as tattn
 
 torch.set_num_threads(2)
@@ -95,13 +98,67 @@ def test_decode_plain_empty_row_is_zero_like_the_pallas_kernel():
                                rtol=1e-5, atol=1e-5)
 
 
-def test_n_splits_short_and_long_caches():
-    """One split per (row, kv head) at the serving cache; a long cache
-    puts about four blocks on every SM, no split under 256 keys."""
-    assert tdec.n_splits(8, 8, 4, 152, 132) == 1
-    n = tdec.n_splits(8, 8, 4, 8192, 132)
-    assert 8 * 8 * n >= 4 * 132 and -(-8192 // n) >= 256
-    assert tdec.n_splits(1, 1, 16, 300, 132) == 2      # two groups of 8
+@pytest.mark.parametrize("shape", [
+    (8, 8, 4, 152),        # Qwen3-4B serving: 64 groups, ~32-key splits
+    (8, 32, 1, 1040),      # zamba2-1.2b shared attention (G = 1)
+    (8, 8, 4, 8192),       # the ragged long cache: 8 splits of 1,024
+    (1, 1, 1, 1), (1, 1, 1, 0), (8, 8, 4, 33), (1, 1, 16, 300),
+    (2, 2, 4, 256), (64, 8, 4, 4096), (4, 8, 8, 100000),
+])
+def test_split_plan(shape):
+    """The cluster plan: splits of a multiple of KEY_ALIGN keys cover
+    [0, S) without overlap and with none wholly past S, at most one
+    portable cluster of 8 of them; the serving shape puts at least two
+    blocks on every SM of the H100's 132; the ragged cache gets the
+    8 splits of 1,024; and the plan is a function of the shapes alone
+    (no kv_len argument, so a CUDA graph can replay it)."""
+    B, KV, G, S = shape
+    n, keys = tdec.plan(B, KV, G, S, 132)
+    assert 1 <= n <= tdec.MAX_CLUSTER and keys % tdec.KEY_ALIGN == 0
+    bounds = [(i * keys, min((i + 1) * keys, S)) for i in range(n)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == S
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert S == 0 or all(lo < hi for lo, hi in bounds)
+    blocks = B * KV * -(-G // tdec.MAX_GROUP) * n
+    if shape == (8, 8, 4, 152):
+        assert blocks >= 2 * 132 and keys <= 32
+    if shape == (8, 8, 4, 8192):
+        assert (n, keys) == (8, 1024)
+    assert list(inspect.signature(tdec.plan).parameters) == \
+        ["B", "KV", "G", "S", "sms"]
+
+
+@pytest.mark.parametrize("shape,lens", [
+    ((2, 256, 8, 2, 64), [0, 1]),            # no key; one key
+    ((2, 256, 8, 2, 64), [64, 256]),         # a split boundary; kv_len = S
+    ((3, 300, 8, 8, 32), [5, 150, 299]),     # G = 1; splits past kv_len
+    ((2, 200, 8, 1, 16), [33, 200]),         # G = 8, Dh = 16
+    ((2, 152, 32, 8, 128), [129, 96]),       # serving widths; boundary
+    ((1, 1040, 4, 4, 64), [1032]),           # zamba2's G = 1, Dh = 64
+    ((2, 40, 16, 1, 32), [0, 40]),           # two groups of 8 heads
+    ((2, 200, 6, 6, 64), [77, 200]),         # G = 1, KV not a multiple of 4
+])
+def test_split_merge_matches_reference(shape, lens):
+    """The kernel's split -> partial (m, l, acc) -> merge path in plain
+    torch (``ref.decode_attention_split``: each row's valid keys cut into
+    the cluster size the wrapper would launch on 132 SMs) against the reference's Pallas kernel in interpret
+    mode, its dense oracle and the port's plain version, to TOL.  A row
+    with kv_len 0 is zeros, as the Pallas kernel gives (the dense oracle's
+    finite NEG_INF gives the mean of V there, so it is left out)."""
+    B, S, H, KV, Dh = shape
+    q, k, v, kv_len = _inputs(sum(shape), *shape, lens)
+    n, keys = tdec.plan(B, KV, H // KV, S, 132)
+    runs = (-(-kv_len // n) + 7) // 8 * 8    # the kernel's run per row
+    assert (runs <= keys).all()                # the ring sized by the plan
+    got = tref.decode_attention_split(
+        *(torch.from_numpy(a) for a in (q, k, v, kv_len)), n).numpy()
+    pallas, ref = _both_refs(q, k, v, kv_len)
+    live = kv_len > 0
+    assert not got[~live].any()
+    np.testing.assert_allclose(got, pallas, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got[live], ref[live], rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, _plain(q, k, v, kv_len), rtol=TOL,
+                               atol=TOL)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -171,6 +228,12 @@ def test_dense_causal_offset_matches_reference():
     ((8, 8192, 32, 8, 128), [8192, 6000, 4097, 2048, 513, 64, 1, 8192]),
     ((2, 300, 16, 1, 32), [0, 300]),
     ((3, 777, 8, 4, 16), [1, 511, 777]),
+    ((8, 1040, 32, 32, 64), [1032] * 8),     # zamba2: G = 1, Dh = 64
+    ((2, 256, 8, 2, 64), [0, 1]),            # no key; one key
+    ((2, 256, 8, 2, 64), [64, 256]),         # a split boundary; kv_len = S
+    ((3, 300, 8, 8, 32), [5, 150, 299]),     # splits wholly past kv_len
+    ((2, 200, 8, 1, 16), [33, 200]),         # G = 8, Dh = 16
+    ((2, 200, 6, 6, 64), [77, 200]),         # G = 1, KV not a multiple of 4
 ])
 def test_decode_kernel_matches_plain_on_card(shape, lens):
     if not torch.cuda.is_available():

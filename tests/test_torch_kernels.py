@@ -99,7 +99,9 @@ def test_upsample_token_maps_match_reference(window, d):
 
 
 @pytest.mark.parametrize("shape,d", [((2, 64, 64, 3), 2), ((1, 32, 48, 8), 2),
-                                     ((1, 24, 24, 5), 3)])
+                                     ((1, 24, 24, 5), 3),
+                                     ((2, 10, 10, 3), 2),
+                                     ((2, 16, 12, 3), 4)])
 def test_avg_pool_plain_matches_reference(shape, d):
     x = np.random.default_rng(2).uniform(0, 1, shape).astype(np.float32)
     got = tpool.avg_pool_plain(_t(x), d)
@@ -349,3 +351,31 @@ def test_kernel_matches_plain_on_card(name):
         assert torch.equal(
             tfused.restore_gather_cuda(*args, 8, 2, tiles.to(dev)),
             tfused.restore_gather_plain(*args, 8, 2, tiles.to(dev)))
+
+
+# the pooling kernel's own paths: 16-byte copies of whole rows, the 4-byte
+# path where W * C, Wo * C or the base is not 16-byte aligned, rows cut
+# into chunks, and wide channels that opt in to more shared memory
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,d,offset", [
+    ((2, 1024, 1024, 3), 2, 0),    # the serving frame: 0 error
+    ((2, 1024, 1024, 3), 4, 0),
+    ((2, 10, 10, 3), 2, 0),        # W * C = 30, not a multiple of 4
+    ((2, 16, 12, 3), 4, 0),        # Wo * C = 9
+    ((2, 64, 64, 3), 2, 1),        # a base 4 bytes off 16
+    ((1, 4, 4096, 3), 2, 0),       # three chunks, the last one short
+    ((1, 16, 16, 1024), 2, 0),     # 80 KB of shared memory
+])
+def test_avg_pool_kernel_paths_on_card(shape, d, offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (chip_smoke.py runs this "
+                    "check on the H100)")
+    n = int(np.prod(shape))
+    flat = _t(np.random.default_rng(11).uniform(0, 1, n + offset).astype(
+        np.float32)).cuda()
+    x = flat[offset:].view(shape)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    got, want = tpool.avg_pool_cuda(x, d), tpool.avg_pool_plain(x, d)
+    assert float((got - want).abs().max()) <= 1e-6
+    if shape == (2, 1024, 1024, 3) and d == 2:
+        assert torch.equal(got, want)
