@@ -112,16 +112,37 @@ Phases; any failure exits non-zero and prints no result:
      5 runs the shared block) on the card and, through the plain
      versions, on the CPU, at B = 2 and T = 512 (two chunks): prefill
      logits and 8 teacher-forced decode steps, and the mamba2's
-     ``mixed_forward_ssm`` at beta 2, agree to 1e-3 relative.
+     ``mixed_forward_ssm`` at beta 2, agree to 1e-3 relative;
+ 13. the single-client offloading system (paper §VI) on a full-width
+     ViTDet-L server as ``launch/offload.py`` makes it (weights from
+     seed 0, top-k 32, score threshold 0, B = 1, warmed over the plan
+     space the policies can reach): anchor the inference-delay model to
+     the card's median full-resolution ``infer``, profile ``walkS`` (8
+     frames, the first 2 warm the motion model, x the 21 sample
+     configs), fit the size and
+     accuracy ``MLPEstimator``s on the card, then run ``Simulation`` for
+     TrackB2B, ViTMAlis and ViTMAlis+Reuse on ``cycleS`` and
+     ViTMAlis+Reuse on ``parkS`` (30 frames each, the 4G trace).  Per
+     run: offloads, the server's wall time per offload, the modelled
+     Eq. (2) terms, F1, payload size, REUSE offloads, client host ms per
+     frame and launches per kernel.  No key may first run after warmup,
+     every kernel of the offloads' plans must launch, ``parkS`` must
+     reuse at least once, and TrackB2B on ``cycleS`` and ViTMAlis+Reuse
+     on ``parkS`` (whose decisions follow the detections, with LOW and
+     REUSE offloads at B = 1) through an 8-block full-width model on the
+     card and on the CPU must make the same decisions with the same
+     payloads and delay terms, detections equal as sets to 1e-3.
+     Phase 2 also holds pack_pos, restore_gather and avg_pool exactly
+     against their plain versions at this phase's B = 1 layouts.
 
 Each serving path resets the launch counts just before it and reads them
 just after.  The line before the last is a JSON object with every
 kernel's numbers: its ``launches`` is the sum over the serving paths
 that ran it, and ``launches_by_path`` gives each path's count (the
 ViTDet-L waves of phase 3, its beta-0 wave, the int8 waves of phase 5,
-the two Qwen3-4B waves of phase 7, one wave of each SSM model, and the
-``mixed_forward_ssm`` forward).  The last line is ``{"ok": true,
-"device": {...}}``.
+the two Qwen3-4B waves of phase 7, one wave of each SSM model, the
+``mixed_forward_ssm`` forward, and each simulation of phase 13).  The
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -189,6 +210,15 @@ DECODE_EDGES = (((2, 256, 8, 2, 64), (0, 1)), ((2, 256, 8, 2, 64), (64, 256)),
                 ((3, 777, 8, 4, 16), (1, 511, 777)),
                 ((2, 200, 6, 6, 64), (77, 200)))
 E2E_RTOL = 1e-3             # 8-block forward, card vs CPU, relative
+OFFLOAD_FRAMES = 30         # frames of each phase-13 simulation
+# phase 13's simulations: (policy, video), each against the 4G trace
+OFFLOAD_RUNS = (("TrackB2B", "cycleS"), ("ViTMAlis", "cycleS"),
+                ("ViTMAlis+Reuse", "cycleS"), ("ViTMAlis+Reuse", "parkS"))
+# phase 13's card-vs-CPU simulations, (policy, video), and their frames
+# (TrackB2B: two offloads in 24)
+CROSS_RUNS = (("TrackB2B", "cycleS"), ("ViTMAlis+Reuse", "parkS"))
+SIM_CROSS_FRAMES = 24
+DET_RTOL = 1e-3             # its detections, card vs CPU, relative
 QUANT_E2E_RTOL = 0.05       # 8-block quantized forward, card vs CPU
 QUANT_SPEC = ("int8", "fp32", 1)
 # the GEMMs of the quantized full-width model, (K, N): patch embed,
@@ -392,7 +422,10 @@ def run(torch):
            lambda: F.avg_pool2d(xc, 2),
            4 * (x.numel() + got.numel()), x.numel() + got.numel(),
            cold_us=cold)
-    del frames
+    x1 = x[:1]                          # phase 13's single-client frame
+    check(torch.equal(pool.avg_pool_cuda(x1, 2), pool.avg_pool_plain(x1, 2)),
+          "avg_pool: B=1 serving frame differs from plain")
+    del frames, x1
 
     # pack_pos: window bank + positional bank -> packed sequence
     nbank = nR * dd + nR
@@ -428,6 +461,27 @@ def run(torch):
               + 4 * (out_src.size * 2 + (dd + 1) * w2))
     record("restore_gather", err, fused.RESTORE,
            lambda: fused.restore_gather_plain(*args), None, nbytes, 0)
+
+    # phase 13's single-client layouts (B = 1, twelve LOW regions, with
+    # and without REUSE tiles spliced in), exact as above
+    edges = pt.length_bucket_set(part)
+    for one in single_plans(pt, nR):
+        lb1 = pt.length_bucket(pt.plan_n_windows(one, part), edges)
+        a1, _ = pt.stack_plan_layouts([pt.plan_layout(one.states, lb1,
+                                                      part)])
+        l1 = {k: torch.as_tensor(v, device=dev) for k, v in a1.items()}
+        p_args = (bank[:1], pos_bank, l1["win_src"], l1["nw"])
+        r_args = (torch.randn((1, lb1, w2, D), generator=gen, device=dev),
+                  l1["out_src"], l1["out_map"], part.window,
+                  part.downsample, tiles[:1] if one.n_reuse else None)
+        check(torch.equal(fused.pack_pos_cuda(*p_args),
+                          fused.pack_pos_plain(*p_args))
+              and torch.equal(fused.restore_gather_cuda(*r_args),
+                              fused.restore_gather_plain(*r_args)),
+              f"pack_pos / restore_gather at B=1, plan {one.states} "
+              f"(length bucket {lb1}): kernel differs from plain")
+    say(f"  pack_pos, restore_gather, avg_pool at B=1 (phase 13's "
+        f"layouts, {len(single_plans(pt, nR))} plans): equal to plain")
 
     # window attention: column views of a fused QKV product, as the
     # blocks hand them over; the padded shape with win_valid first
@@ -570,6 +624,9 @@ def run(torch):
         c.name: lm_cross_check(torch, c, dev, phase=12, T=2 * 256)
         for c in (MAMBA.replace(n_layers=4), ZAMBA.replace(n_layers=6))}
 
+    # phase 13 ------------------------------------------------------------
+    lat["offload"] = serve_offload(torch, cfg, dev, count)
+
     out = []
     for name in KERNEL_SOURCES:
         src, replaces = KERNEL_SOURCES[name]
@@ -676,6 +733,19 @@ def mixed_plans(pt, nR):
     b[[0, 5, 10, 15]] = pt.REUSE
     b[[3, 4, 11, 13]] = pt.FULL
     return [pt.RegionPlan(a), pt.RegionPlan(b)]
+
+
+def single_plans(pt, nR):
+    """One client's plans as the offloading policies send them at
+    ViTDet-L's 16 regions: twelve LOW regions beside four FULL, two FULL
+    and two REUSE, and four REUSE."""
+    out = []
+    for reuse in ((), (0, 5), (0, 5, 10, 15)):
+        states = np.full(nR, pt.LOW, np.int8)
+        states[[0, 5, 10, 15]] = pt.FULL
+        states[list(reuse)] = pt.REUSE
+        out.append(pt.RegionPlan(states))
+    return out
 
 
 def timed(torch, fn, target_ms: float = 100.0) -> float:
@@ -1028,6 +1098,232 @@ def compare_on_cpu(torch, cfg, dev, gen, p_gpu, plans, pt, vb, rtol,
             f"{rel:.3g} (limit {rtol})")
         check(rel <= rtol, f"{what}: card vs CPU {rel} > {rtol}")
     say(f"  CPU forward {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# the single-client offloading system (Simulation on the ViTDet-L server)
+
+
+def serve_offload(torch, cfg, dev, count):
+    """Phase 13: a full-width server of the launcher's make, profile, fit
+    the estimators and run the four simulations; then the card-vs-CPU
+    simulation checks."""
+    from repro_torch.data.network_traces import make_trace
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import offload as lo
+    from repro_torch.offload.simulator import SIZE_SCALE
+
+    t_phase = time.perf_counter()
+    say(f"phase 13: offloading Simulation on {cfg.name} {cfg.n_layers} "
+        f"blocks D={cfg.d_model}, {cfg.vit.img_size[0]}px frames")
+    t0 = time.perf_counter()
+    srv = lo.make_server(cfg, dev)
+    part, patch = srv.part, cfg.vit.patch_size
+    say(f"  init + warmup of the policies' {srv.stats.compiles} grid keys "
+        f"(B=1, top-k 32, score threshold 0) {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    clips = {v: lo.video_with_gt(srv, v, OFFLOAD_FRAMES)
+             for v in sorted({v for _, v in OFFLOAD_RUNS})}
+    t_gt = time.perf_counter() - t0
+    anchor = lo.median_infer_s(srv, clips["cycleS"][0][0])
+    inf_delay = lo.delay_model(cfg, anchor)
+    say(f"  clips + ground truth {t_gt:.1f} s; full-res B=1 infer median "
+        f"{anchor * 1e3:.2f} ms (the delay model's anchor)")
+    t0 = time.perf_counter()
+    data = lo.build_profile_dataset(srv, part, patch)
+    t_prof = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    size_e, acc_e, metrics = lo.fit_estimators(data, dev)
+    t_fit = time.perf_counter() - t0
+    check(size_e.device.type == "cuda", "estimators not on the card")
+    say(f"  profile: {len(data['X'])} samples in {t_prof:.1f} s; MLP fit "
+        f"on the card {t_fit:.1f} s; held-out R2 size "
+        f"{metrics['size']['R2']:.4f} acc {metrics['acc']['R2']:.4f}")
+    trace = make_trace("4g", 0, duration_s=OFFLOAD_FRAMES // lo.FPS + 60)
+    out = {"anchor_ms": anchor * 1e3,
+           "profile_samples": len(data["X"]), "profile_s": t_prof,
+           "fit_s": t_fit, "estimator_metrics": metrics, "runs": {}}
+    for policy, video in OFFLOAD_RUNS:
+        frames, gt = clips[video]
+        pol = lo.make_policy(policy, size_e, acc_e, part, inf_delay)
+        t0 = time.perf_counter()
+        dispatch.reset_launch_counts()      # this simulation starts here
+        sim, res = lo.run_policy(srv, frames, gt, trace, pol, part, patch,
+                                 inf_delay, video)
+        launches = dispatch.launch_counts()  # ... and ends here
+        wall = time.perf_counter() - t0
+        name = f"offload {policy} {video}"
+        count(name, launches)
+        jobs = sim.jobs
+        check(len(jobs) > 0, f"{name}: no offload")
+        check_offload_kernels(name, jobs, launches)
+        sw = np.array([j["server_wall"] for j in jobs]) * 1e3
+        s = res.summary()
+        n = len(frames)
+        rec = {
+            "offloads": len(jobs), "wall_s": wall,
+            "server_ms_median": float(np.median(sw)),
+            "server_ms_p95": float(np.percentile(sw, 95)),
+            # the server calls' share of the run's wall: at most the
+            # card's busy share (the calls hold host decode too)
+            "server_share": float(sw.sum()) / 1e3 / wall,
+            "e2e_ms_median": s["median_e2e_latency"] * 1e3,
+            "net_ms_median": s["median_net_delay"] * 1e3,
+            "inf_ms_median": s["median_inf_delay"] * 1e3,
+            "rendering_f1_median": s["median_rendering_f1"],
+            "rendering_f1_mean": s["mean_rendering_f1"],
+            "inference_f1_mean": s["mean_inference_f1"],
+            "payload_kb_median": float(np.median(res.sizes)) / 1e3,
+            "reuse_offloads": sum(1 for j in jobs if j["n_r"] > 0),
+            "betas": sorted({j["beta"] for j in jobs}),
+            "host_ms_per_frame": {
+                k: sum(res.overhead.get(f"{k}_wall", [])) / n * 1e3
+                for k in ("motion", "codec", "tracker")},
+            "launches": {k: v for k, v in launches.items() if v}}
+        out["runs"][name] = rec
+        say(f"  {policy} on {video}: {rec['offloads']} offloads (betas "
+            f"{rec['betas']}, {rec['reuse_offloads']} with REUSE), server "
+            f"{rec['server_ms_median']:.2f} ms median / "
+            f"{rec['server_ms_p95']:.2f} p95 a offload, "
+            f"{rec['server_share']:.3f} of the run's wall; modelled e2e "
+            f"{rec['e2e_ms_median']:.1f} net {rec['net_ms_median']:.1f} "
+            f"inf {rec['inf_ms_median']:.1f} ms (medians); rendering F1 "
+            f"{rec['rendering_f1_median']:.3f} median "
+            f"{rec['rendering_f1_mean']:.3f} mean, inference F1 "
+            f"{rec['inference_f1_mean']:.3f}; payload "
+            f"{rec['payload_kb_median']:.1f} kB median (x{SIZE_SCALE:.2f} "
+            "of the codec's bytes); host ms/frame " + ", ".join(
+                f"{k} {v:.2f}" for k, v in rec["host_ms_per_frame"].items())
+            + f"; {wall:.1f} s")
+        say(f"    launches {json.dumps(rec['launches'])}")
+        if not any(j["beta"] == 0 and j["n_d"] for j in jobs):
+            say("    nn_upsample: not reached (no LOW region at beta 0)")
+    check(srv.stats.steady_compiles == 0,
+          f"steady-state first uses: {srv.stats.steady_compile_keys}")
+    park = out["runs"]["offload ViTMAlis+Reuse parkS"]
+    check(park["reuse_offloads"] > 0, "REUSE never fired on parkS")
+    steady = srv.stats.steady_compiles
+    del srv
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = offload_cross_check(
+        torch, cfg.replace(n_layers=8), dev, clips, inf_delay, size_e, acc_e)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 13: {out['phase_s']:.1f} s; steady first uses {steady}")
+    return out
+
+
+def check_offload_kernels(name, jobs, launches):
+    """Every kernel the offloads' plans run launched in the run: the
+    attention kernels always, the packed lane's three at beta >= 1 with
+    LOW or REUSE regions, the restore-at-input pair at beta 0 with LOW
+    regions."""
+    mixed = [j for j in jobs if j["n_d"] or j["n_r"]]
+    want = {"window_attention", "flash_attention"}
+    if any(j["beta"] >= 1 for j in mixed):
+        want |= set(FP32_PATH)
+    if any(j["beta"] == 0 for j in mixed):
+        want |= set(BETA0_PATH)
+    check(all(launches[k] > 0 for k in want),
+          f"{name}: a kernel of its offloads never launched: {launches}")
+
+
+def offload_cross_check(torch, cfg, dev, clips, inf_delay, size_e, acc_e):
+    """Each of CROSS_RUNS through an 8-block full-width server on the card
+    and on the CPU (plain versions), on the same parameters, frames,
+    ground truth (the card's), trace and estimators: the same offloads,
+    decisions (mask, beta, plan states, capture point), payloads and
+    Eq. (2) terms; detections equal as sets to DET_RTOL.  ViTMAlis+Reuse
+    on parkS decides from the detections (the tracker's rho) and sends
+    LOW and REUSE offloads at B=1, so the kernels of the simulations'
+    mixed offloads are held against their plain versions here."""
+    from repro_torch import convert
+    from repro_torch.data.network_traces import make_trace
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import offload as lo
+    from repro_torch.offload.simulator import ServerModel, to_device
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    params = convert.init_vitdet_params(cfg, gen, device=dev)
+    kw = dict(top_k=32, score_thresh=0.0, b_buckets=(1,))
+    gpu = ServerModel(cfg, params, device=dev, **kw)
+    cpu = ServerModel(cfg, to_device(params, torch.device("cpu")),
+                      device="cpu", **kw)
+    part, patch = gpu.part, cfg.vit.patch_size
+    trace = make_trace("4g", 0, duration_s=60)
+    out = {}
+    for policy, video in CROSS_RUNS:
+        frames = clips[video][0][:SIM_CROSS_FRAMES]
+        say(f"  card vs CPU: {policy} on {video}, {cfg.n_layers}-block "
+            f"full-width model, {len(frames)} frames")
+        gt = [gpu.infer(f) for f in frames]
+        t0 = time.perf_counter()
+        dispatch.reset_launch_counts()
+        sg = lo.run_policy(gpu, frames, gt, trace, lo.make_policy(
+            policy, size_e, acc_e, part, inf_delay), part, patch,
+            inf_delay, video)[0]
+        launches = dispatch.launch_counts()
+        sc = lo.run_policy(cpu, frames, gt, trace, lo.make_policy(
+            policy, size_e, acc_e, part, inf_delay), part, patch,
+            inf_delay, video)[0]
+        t_run = time.perf_counter() - t0
+        jg, jc = sg.jobs, sc.jobs
+        check(len(jg) == len(jc) > 0, f"offloads {len(jg)} vs {len(jc)}")
+        check_offload_kernels(f"card vs CPU {policy}", jg, launches)
+        worst = 0.0
+        for a, b in zip(jg, jc):
+            for k in ("frame", "n_d", "beta", "n_r", "capture_beta", "size",
+                      "t_enc", "t_up", "t_dec", "t_inf", "rtt", "e2e",
+                      "parts"):
+                check(a[k] == b[k], f"{policy} offload at frame "
+                      f"{a['frame']}: {k} {a[k]} vs {b[k]}")
+            check(np.array_equal(a["mask"], b["mask"])
+                  and np.array_equal(a["plan"].states, b["plan"].states),
+                  f"{policy} offload at frame {a['frame']}: plans differ")
+            worst = max(worst, match_dets(a["dets"], b["dets"]))
+        n_reuse = sum(1 for j in jg if j["n_r"] > 0)
+        if "Reuse" in policy:
+            check(n_reuse > 0, f"card vs CPU {policy}: REUSE never fired")
+        shown = [(j["frame"], j["n_d"], j["n_r"], j["beta"]) for j in jg]
+        say(f"    {len(jg)} offloads (frame, n_low, n_reuse, beta) {shown}: "
+            f"decisions, payloads and delay terms equal; detections within "
+            f"{worst:.3g} relative (limit {DET_RTOL}); card launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}; both "
+            f"runs {t_run:.1f} s")
+        out[f"{policy} {video}"] = {
+            "offloads": len(jg), "reuse_offloads": n_reuse,
+            "det_rel_err": worst, "s": t_run}
+    del gpu, cpu, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def match_dets(got, want) -> float:
+    """Greedy set match of two top-k detection lists: box coordinates
+    within DET_RTOL of max(|coordinate|, 1 px), scores within DET_RTOL
+    relative.  Unmatched detections must lie at the top-k cut (a near-tie
+    there may swap).  Returns the largest matched difference."""
+    check(len(got) == len(want), f"{len(got)} vs {len(want)} detections")
+    left, worst, extra = list(want), 0.0, []
+    for g in got:
+        hit = None
+        for w in left:
+            a = np.array([*g["box"], g["score"]])
+            b = np.array([*w["box"], w["score"]])
+            scale = np.maximum(np.abs(b), [1.0] * 4 + [1e-12])
+            err = float((np.abs(a - b) / scale).max())
+            if w["cls"] == g["cls"] and err <= DET_RTOL:
+                hit = (w, err)
+                break
+        if hit is None:
+            extra.append(g)
+        else:
+            left.remove(hit[0])
+            worst = max(worst, hit[1])
+    cut = min(d["score"] for d in want)
+    for d in extra + left:
+        check(abs(d["score"] - cut) <= DET_RTOL * cut,
+              f"unmatched detection {d} away from the top-k cut {cut}")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1599,26 +1895,38 @@ def ssd_cost(b, T, H, G, N, P, chunk, init_state=False):
     return nbytes, ops
 
 
+TRACE_TRIES = 3   # traces kernel_breakdown takes before a kernel is untraced
+
+
 def kernel_breakdown(torch, fn, names, n=20):
     """Device microseconds per call of ``fn`` spent in each kernel whose
-    name holds one of ``names`` (a trace of ``n`` calls)."""
+    name holds one of ``names`` (a trace of ``n`` calls).  CUPTI now and
+    then returns a trace that lacks the device activity of a kernel that
+    did run (the launches are counted and checked elsewhere), so a trace
+    in which a kernel reads 0 is taken again, up to TRACE_TRIES traces;
+    the check fails only if no trace sees every kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = dict.fromkeys(names, 0.0)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = next((k for k in names if k in e.name), None)
-            if key:
-                us[key] += e.time_range.elapsed_us() / n
-    check(all(us.values()), f"kernel_breakdown: untraced kernels in {us}")
-    return us
+    for attempt in range(1, TRACE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys(names, 0.0)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                key = next((k for k in names if k in e.name), None)
+                if key:
+                    us[key] += e.time_range.elapsed_us() / n
+        if all(us.values()):
+            return us
+        say(f"  kernel_breakdown: trace {attempt} of {TRACE_TRIES} lacks "
+            f"device time in {us}")
+    check(False, f"kernel_breakdown: untraced kernels in {us} after "
+          f"{TRACE_TRIES} traces")
 
 
 def device_us(torch, fn, frag, n=20):

@@ -1,7 +1,8 @@
 """Parameters for the port: conversion of ViTDet, dense-LM, SSM-LM and
 hybrid trees from the reference (the LMs' scan-stacked layers become
-per-layer lists), and a seeded PyTorch init of ViTDet with the
-reference's shapes and distributions (the LMs' are in ``models``).
+per-layer lists) and of the offload estimator's MLP, and a seeded
+PyTorch init of ViTDet with the reference's shapes and distributions
+(the LMs' are in ``models``).
 
 Port layout (plain dicts of tensors):
 
@@ -26,7 +27,7 @@ quantized.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -233,3 +234,10 @@ def hybrid_params_from_jax(tree: Mapping, cfg: ModelConfig,
               "ln2": _tensors(sh["ln2"], device),
               "ffn": _tensors(sh["ffn"], device)}
     return dict(ssm_params_from_jax(tree, cfg, device), shared=shared)
+
+
+def mlp_params_from_jax(params, device: str = "cuda") -> List[Dict]:
+    """The reference ``MLPEstimator.params`` (a list of {w (in, out),
+    b (out,)}) -> the same layers as tensors, for
+    ``offload.estimator.MLPEstimator.load_params``."""
+    return [{k: _t(p[k], device) for k in ("w", "b")} for p in params]

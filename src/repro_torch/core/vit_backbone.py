@@ -21,16 +21,21 @@ global attention.  Two lanes:
 
 Every linear weight may be a ``quant.qtensor.QuantTensor`` (the int8
 lane): the GEMMs route through ``qtensor.matmul``.
+
+``backbone_flops`` / ``backbone_flops_windows`` are the reference's
+analytic cost model (plain arithmetic), behind
+``offload.estimator.InferenceDelayModel.fit_from_flops``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.core import det_head as dh
 from repro_torch.core import mixed_res as mr
-from repro_torch.core.partition import Partition, make_partition
+from repro_torch.core.partition import (Partition, length_bucket as
+                                        pt_length_bucket, make_partition)
 from repro_torch.kernels import dispatch
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -199,3 +204,77 @@ def forward_det(cfg: ModelConfig, params, image: torch.Tensor,
         feats, tiles = feats
         return dh.det_head_forward(cfg, params["head"], feats), tiles
     return dh.det_head_forward(cfg, params["head"], feats)
+
+
+# ---------------------------------------------------------------------------
+# FLOP accounting (used by the latency model and Fig. 5 benchmark)
+
+
+def backbone_flops_windows(cfg: ModelConfig, n_windows: int,
+                           beta: int) -> float:
+    """Analytic attention+MLP FLOPs with the PRE-restoration sequence
+    pinned to ``n_windows`` windows (``n_windows * w^2`` tokens) — the
+    cost of a length-bucketed padded forward, where pad windows are
+    masked but still computed.  ``beta == 0`` or a full-length
+    ``n_windows`` degenerates to the plain full-resolution cost.
+    """
+    part = vit_partition(cfg)
+    D, F = cfg.d_model, cfg.d_ff
+    M = blocks_per_subset(cfg)
+    N = cfg.vit.n_subsets
+    w2 = part.window * part.window
+
+    n_mixed = n_windows * w2
+    n_full = part.grid_h * part.grid_w
+    nw_full = part.n_regions * part.windows_per_full_region
+
+    def block_flops(n_tok, n_win):
+        proj = 4 * 2 * n_tok * D * D                     # qkvo projections
+        if n_win:                                        # window attention
+            att = 2 * 2 * n_win * w2 * w2 * D
+        else:                                            # global attention
+            att = 2 * 2 * n_tok * n_tok * D
+        mlp = 2 * 2 * n_tok * D * F
+        return proj + att + mlp
+
+    total = 0.0
+    restored = beta <= 0
+    for s in range(N):
+        for m in range(M):
+            is_global = m == M - 1
+            if is_global and not restored and beta == s + 1:
+                restored = True
+            if restored:
+                total += block_flops(n_full, 0 if is_global else nw_full)
+            else:
+                total += block_flops(n_mixed, 0 if is_global else n_windows)
+    return total
+
+
+def backbone_flops(cfg: ModelConfig, n_low: int, beta: int,
+                   n_reuse: int = 0,
+                   length_edges: Optional[Sequence[int]] = None) -> float:
+    """Analytic attention+MLP FLOPs of the backbone for a given config.
+
+    Mirrors forward_features' block schedule; used to parameterise the
+    inference-delay linear models LM^inf_beta(N_d, N_r) (paper §IV-D,
+    extended with the temporal-reuse term: reused regions contribute NO
+    tokens before the restoration point).
+
+    ``length_edges``: cost the PADDED length bucket the serving hot path
+    actually runs (partition.length_bucket_set) instead of the exact
+    mixed length — what LM^inf must model once executables are keyed on
+    length buckets rather than (n_low, n_reuse).
+    """
+    part = vit_partition(cfg)
+    mixed = (n_low > 0 or n_reuse > 0) and beta > 0
+    if not mixed:
+        return backbone_flops_windows(
+            cfg, part.n_regions * part.windows_per_full_region, 0)
+    nw = part.n_windows(n_low, n_reuse)
+    if length_edges is not None:
+        # the degenerate all-reuse point (0 transmitted windows) is not
+        # servable (policies keep >= 1 transmitted region) but delay-
+        # model fits probe it — cost it at the smallest bucket
+        nw = pt_length_bucket(max(nw, 1), length_edges)
+    return backbone_flops_windows(cfg, nw, beta)

@@ -1,5 +1,15 @@
-"""The edge server's detector: ``ServerModel``, the length-bucketed
-serving path of ``repro.offload.simulator`` ported to PyTorch.
+"""The event-driven end-to-end offloading simulator (paper §VI) and the
+edge server's detector, ``ServerModel``: ``repro.offload.simulator``
+ported to PyTorch.
+
+:class:`Simulation` replays a video at a fixed FPS against a network
+trace.  The client side (region motion analysis, the LK tracker,
+Algorithm 1 over the estimators, the mixed-resolution codec) is the
+reference's numpy code; the server side runs ``ServerModel`` on the
+codec-decoded frame; delays follow Eq. (2) with the inference term from
+an ``InferenceDelayModel``.  Rendering accuracy is the F1 between what
+the user sees (cache or tracker output) and the ground truth of the
+current frame, where ground truth is the full-resolution model's output.
 
 EVERY inference (solo N=1 or a batched multi-client wave) runs through
 one code path, :meth:`ServerModel.infer_wave`: padded plan layouts
@@ -22,15 +32,16 @@ not change.  Mixed waves at ``beta == 0`` restore at input (key
 ``(lb, 0, 0, B bucket)``): no restoration point, so no REUSE plans and
 no capture.
 
-Not ported yet: ``stage_frames``, ``infer_speculative``, ``restart``, the
-host-resident cache mode, the kernel autotuner, the half-precision
-quantized lanes (fp16/bf16 weights or activations) and calibration
-(``quant/calibrate.py``).
+Not ported yet: ``stage_frames``, ``infer_speculative`` with
+``predict_canvas`` / ``region_divergence`` / ``build_patch_plan`` (the
+continuous multi-client scheduler's), the host-resident cache mode, the
+kernel autotuner, the half-precision quantized lanes (fp16/bf16 weights
+or activations) and calibration (``quant/calibrate.py``).
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,14 +51,25 @@ from repro_torch.core import det_head as dh
 from repro_torch.core import mixed_res as mr
 from repro_torch.core import partition as pt
 from repro_torch.core import vit_backbone as vb
-from repro_torch.core.partition import RegionPlan
+from repro_torch.core.partition import LOW, Partition, RegionPlan
 from repro_torch.kernels import dispatch
 from repro_torch.models.config import ModelConfig
 from repro_torch.offload import detection as det
+from repro_torch.offload import motion as mo
+from repro_torch.offload.codec import CodecDelayModel, MixedResCodec
+from repro_torch.offload.estimator import ThroughputEstimator
+from repro_torch.offload.faults import (DegradationLadder, FaultInjector,
+                                        RobustConfig, fresh_rstats)
+from repro_torch.offload.optimizer import SystemState
+from repro_torch.offload.tracker import LKTracker
 from repro_torch.quant import ptq
 from repro_torch.quant import qtensor as qt
 from repro_torch.serve.request import (FeatureCache, ServingStats,
                                        StaleCacheEpoch)
+from repro_torch.serve.scheduler import SoloScheduler
+
+# payload scale: our 512x512 luma codec vs the paper's 1080p YUV frames
+SIZE_SCALE = (1920 * 1080) / (512 * 512)
 
 # the PlanLayout arrays the padded forwards read: the fused lane at
 # beta >= 1 (win_src, nw, out_src, out_map) and the restore-at-input lane
@@ -136,6 +158,24 @@ class ServerModel:
         self._zero_tiles: Dict[int, torch.Tensor] = {}
         self.stats = ServingStats()
         self.epoch = 0
+
+    def restart(self, preserve_executables: bool = False) -> int:
+        """Crash-restart this replica.
+
+        Bumps the cache epoch, so any REUSE plan still carrying tiles
+        captured before this moment is refused (StaleCacheEpoch), and,
+        unless ``preserve_executables`` (the outage modelled in sim time
+        only), drops the warm grid: the next use of every key counts as a
+        first use of a new process, not a steady-state stall, until
+        :meth:`warmup` runs again.  Returns the new epoch.
+        """
+        self.epoch += 1
+        self.stats.restarts += 1
+        if not preserve_executables:
+            self._keys.clear()
+            self._zero_tiles.clear()
+            self.stats.warmed = False
+        return self.epoch
 
     def batch_bucket(self, b: int) -> int:
         return pt.batch_bucket(b, self.b_buckets)
@@ -440,3 +480,423 @@ class ServerModel:
             frame[None], [plan], beta,
             caches=None if cache is None else [cache],
             frame_ids=[frame_idx], capture_beta=capture_beta)[0]
+
+
+# ---------------------------------------------------------------------------
+# the single-client simulation
+
+
+class Policy:
+    """Decides the offload configuration for each frame to be offloaded.
+
+    Returns dict(mask (n_regions,), quality, beta, use_tracker: bool).
+    Temporal-reuse policies additionally return a three-state ``plan``
+    (partition.RegionPlan, bucket-exact in n_reuse) and may return
+    ``capture_beta`` (the restoration point full-res offloads capture
+    feature tiles at); they must set ``reuse_k`` (the staleness bound K)
+    so the Simulation provisions a per-client FeatureCache.
+    """
+    name = "policy"
+    use_tracker = True
+    reuse_k = 0                 # K > 0 enables the per-client FeatureCache
+
+    def decide(self, sim: "Simulation", frame_idx: int) -> Dict:
+        raise NotImplementedError
+
+    def observe_completion(self, e2e_latency: float) -> None:
+        pass
+
+
+@dataclass
+class SimResult:
+    policy: str
+    video: str
+    trace: str
+    rendering_f1: List[float] = field(default_factory=list)
+    inference_f1: List[float] = field(default_factory=list)
+    e2e_latency: List[float] = field(default_factory=list)
+    offload_interval: List[int] = field(default_factory=list)
+    delay_parts: List[Dict] = field(default_factory=list)
+    overhead: Dict[str, List[float]] = field(default_factory=dict)
+    sizes: List[float] = field(default_factory=list)
+
+    def summary(self) -> Dict:
+        def med(x):
+            return float(np.median(x)) if len(x) else float("nan")
+        return {
+            "policy": self.policy, "video": self.video, "trace": self.trace,
+            "median_rendering_f1": med(self.rendering_f1),
+            "mean_rendering_f1": (float(np.mean(self.rendering_f1))
+                                  if self.rendering_f1 else float("nan")),
+            "mean_inference_f1": (float(np.mean(self.inference_f1))
+                                  if self.inference_f1 else float("nan")),
+            "median_e2e_latency": med(self.e2e_latency),
+            "median_interval": med(self.offload_interval),
+            "median_net_delay": med([d["net"] for d in self.delay_parts]),
+            "median_inf_delay": med([d["inf"] for d in self.delay_parts]),
+            "median_codec_delay": med([d["enc"] + d["dec"]
+                                       for d in self.delay_parts]),
+            "median_queue_delay": med([d.get("queue", 0.0)
+                                       for d in self.delay_parts]),
+        }
+
+
+class Simulation:
+    """One (video, trace, policy) run."""
+
+    def __init__(self, frames: np.ndarray, gt_dets: List[List[Dict]],
+                 trace, policy: Policy, server: ServerModel,
+                 part: Partition, patch_px: int, fps: int = 10,
+                 delay_model: Optional[CodecDelayModel] = None,
+                 inf_delay=None,
+                 faults: Optional[FaultInjector] = None,
+                 robust: Optional[RobustConfig] = None):
+        self.frames = frames
+        self.gt_dets = gt_dets            # full-res model outputs per frame
+        self.trace = trace
+        self.policy = policy
+        self.server = server
+        self.part = part
+        self.fps = fps
+        self.dt = 1.0 / fps
+        self.codec = MixedResCodec(part, patch_px, part.downsample)
+        self.delay_model = delay_model or CodecDelayModel()
+        self.inf_delay = inf_delay        # InferenceDelayModel
+        self.analyzer = mo.RegionMotionAnalyzer(part, patch_px)
+        self.tracker = LKTracker()
+        self.net_est = ThroughputEstimator()
+        self.state = SystemState()
+        # temporal-reuse session state: one FeatureCache per client
+        # stream, provisioned only for reuse-capable policies (reuse_k =
+        # the staleness bound K)
+        self.feature_cache: Optional[FeatureCache] = (
+            FeatureCache(part.n_regions, max_age=policy.reuse_k)
+            if policy.reuse_k > 0 else None)
+
+        # failure model: fault schedule + the deadline/retry/backoff
+        # state machine (both optional — None keeps the legacy
+        # fault-free, deadline-free lifecycle byte-identical)
+        self.faults = faults
+        self.robust = robust
+        self.ladder = (DegradationLadder(robust) if robust is not None
+                       else None)
+        self.rstats = fresh_rstats()
+        self.offload_seq = 0
+        # the N=1 scheduling plane: immediate dedicated execution with
+        # the shared stale-epoch NACK + crash-restart semantics
+        # (serve/scheduler.py — the multi-client engine swaps in a
+        # WaveScheduler over the same per-frame step methods)
+        self.scheduler = SoloScheduler(self)
+
+        # runtime state
+        self.cache_dets: List[Dict] = []
+        self.cache_frame = -1
+        self.tracker_frame = -1           # frame the tracker state is at
+        self.inflight: Optional[Dict] = None
+        self.last_offload_frame = -10 ** 9
+        self.m = np.zeros((part.n_regions,), np.float32)
+        self.m_f = 0.0
+
+    # ------------------------------------------------------------------
+    # per-frame steps.  Single-client ``run`` below and the multi-client
+    # engine (serve/edge.py) drive the SAME methods; the engine replaces
+    # the synchronous server call in _start_offload with batched waves.
+
+    def rho(self) -> np.ndarray:
+        return mo.region_density(self.tracker.boxes(), self.part,
+                                 self.analyzer.patch_px)
+
+    def _motion_tick(self, frame_idx: int, res: SimResult) -> None:
+        t0 = time.perf_counter()
+        self.m, self.m_f = self.analyzer.update(self.frames[frame_idx])
+        res.overhead.setdefault("motion_wall", []).append(
+            time.perf_counter() - t0)
+
+    def _should_offload(self, frame_idx: int) -> bool:
+        """Back-to-back: a new offload starts as soon as none is in
+        flight (frame 0 is skipped — the motion model needs a delta).
+        After a failure, the ladder's exponential backoff additionally
+        holds the retry until ``retry_at`` — while it holds (and at shed
+        level), rendering rides the LK tracker."""
+        if self.inflight is not None or frame_idx <= 0:
+            return False
+        if self.ladder is not None \
+                and frame_idx * self.dt < self.ladder.retry_at:
+            return False
+        return True
+
+    def _note_offload_gap(self, frame_idx: int, res: SimResult) -> None:
+        if self.last_offload_frame >= 0:
+            # the first offload has no predecessor: recording its warm-up
+            # gap as an inter-offload interval would bias the median
+            res.offload_interval.append(frame_idx - self.last_offload_frame)
+        self.state.eta = frame_idx - max(self.last_offload_frame, 0)
+        self.state.kappa = self.tracker.retention
+
+    def _inf_delay_s(self, beta: int, n_d: int, n_r: int) -> float:
+        """Inference-delay estimate; tolerates legacy 2-arg models."""
+        if self.inf_delay is None:
+            return 0.05
+        try:
+            return self.inf_delay(beta, n_d, n_r)
+        except TypeError:
+            return self.inf_delay(beta, n_d)
+
+    def _prepare_offload(self, frame_idx: int, now: float,
+                         res: SimResult) -> Dict:
+        """Device side of an offload: policy decision, codec encode, and
+        the device-computable Eq. (2) delay terms.  Marks the client busy
+        (``inflight``) but does NOT run server inference — the caller
+        finishes the job via :meth:`_finish_offload` (immediately for the
+        single-client path, at wave time for the batched edge)."""
+        decision = self.policy.decide(self, frame_idx)
+        if self.ladder is not None:
+            # retries after failures go out degraded: FULL regions
+            # promoted to LOW (lowest motion first), quality dropped
+            decision = self.ladder.degrade(decision, self.m)
+        quality = decision["quality"]
+        beta = decision["beta"]
+        plan: Optional[RegionPlan] = decision.get("plan")
+        if plan is None:
+            plan = RegionPlan.from_mask(decision["mask"])
+        mask = plan.low_mask()
+        n_r = plan.n_reuse
+        reuse_mask = plan.reuse_mask() if n_r > 0 else None
+
+        frame = self.frames[frame_idx]
+        if decision.get("blank") is not None:       # RoI masking baselines
+            frame = frame.copy()
+            rpx = self.part.region * self.analyzer.patch_px
+            nRw = self.part.regions_w
+            for j in np.nonzero(decision["blank"])[0]:
+                ry, rx = divmod(int(j), nRw)
+                frame[ry * rpx:(ry + 1) * rpx, rx * rpx:(rx + 1) * rpx] = 0.5
+        t0 = time.perf_counter()
+        enc, decoded = self.codec.encode(frame, mask, quality,
+                                         reuse_mask=reuse_mask)
+        res.overhead.setdefault("codec_wall", []).append(
+            time.perf_counter() - t0)
+        size = enc.payload_bytes * SIZE_SCALE
+        n_d = int(mask.sum())
+        beta_eff = beta if (n_d > 0 or n_r > 0) else 0
+
+        tput, rtt = self.trace.at(now)
+        if self.faults is not None:
+            tput, rtt = self.faults.net(now, tput, rtt)
+        job = {
+            "frame": frame_idx, "submit": now, "decoded": decoded,
+            "mask": mask, "n_d": n_d, "beta": beta_eff,
+            "plan": plan, "n_r": n_r,
+            "capture_beta": decision.get("capture_beta", 0),
+            "tput": tput, "rtt": rtt, "size": size,
+            "t_enc": self.delay_model.encode_delay(self.part, n_d, quality,
+                                                   n_reuse=n_r),
+            "t_up": size * 8.0 / tput,
+            "t_dec": self.delay_model.decode_delay(self.part, n_d,
+                                                   n_reuse=n_r),
+            "t_inf": self._inf_delay_s(beta_eff, n_d, n_r),
+            "done_at": float("inf"), "dets": None,
+            "seq": self.offload_seq,
+            # plan-header metadata (ships ahead of the payload; the
+            # continuous scheduler's speculative-REUSE admission reads
+            # it before the LOW/FULL windows land): the REUSE +
+            # predicted-still-LOW fraction of the plan, and the motion
+            # analyzer's confidence that the previous decoded frame
+            # predicts the in-flight regions
+            "spec_frac": (plan.n_reuse
+                          + int(((plan.states == LOW)
+                                 & (self.m * self.m_f < 1e-3)).sum()))
+            / self.part.n_regions,
+            "spec_conf": mo.prediction_confidence(self.m, plan.states,
+                                                  m_f=self.m_f),
+            # SLO-derived deadline: past it the client abandons the
+            # offload and the LK tracker covers the gap
+            "deadline": (now + self.robust.slo_s
+                         if self.robust is not None else float("inf")),
+        }
+        self.offload_seq += 1
+        if decision.get("degraded"):
+            job["degraded"] = decision["degraded"]
+            job["demoted"] = decision.get("demoted")
+            self.rstats["degraded_offloads"] += 1
+        self.inflight = job
+        self.last_offload_frame = frame_idx
+        return job
+
+    def _finish_offload(self, job: Dict, dets: List[Dict],
+                        queue_delay: float = 0.0,
+                        t_dec: Optional[float] = None,
+                        t_inf: Optional[float] = None) -> None:
+        """Server side of an offload: attach detections and finalise the
+        Eq. (2) end-to-end latency.  ``queue_delay`` (and wave-amortised
+        ``t_dec``/``t_inf`` overrides) come from the edge scheduler.
+        The fault schedule hooks in here: edge stalls stretch the
+        service time, and a dropped response (or one arriving at a
+        crashed replica) marks the job LOST — its result never comes
+        back, only the client-side deadline reaps it."""
+        t_dec = job["t_dec"] if t_dec is None else t_dec
+        t_inf = job["t_inf"] if t_inf is None else t_inf
+        arrival = job["submit"] + job["t_enc"] + job["t_up"]
+        if self.faults is not None:
+            t_inf = t_inf + self.faults.stall_extra(arrival + queue_delay)
+        e2e = (job["t_enc"] + job["t_up"] + queue_delay + t_dec + t_inf
+               + job["rtt"])
+        job["dets"] = dets
+        job["inf_f1"] = det.frame_f1(dets, self.gt_dets[job["frame"]])
+        job["e2e"] = e2e
+        job["done_at"] = job["submit"] + e2e
+        job["parts"] = {"enc": job["t_enc"], "net": job["t_up"] + job["rtt"],
+                        "dec": t_dec, "inf": t_inf, "queue": queue_delay}
+        if self.faults is not None:
+            if self.faults.response_dropped(job["seq"]) \
+                    or self.faults.edge_down(arrival):
+                job["lost"] = True
+                job["done_at"] = float("inf")
+            elif self.faults.response_duplicated(job["seq"]):
+                job["dup"] = True
+
+    def _start_offload(self, frame_idx: int, now: float, res: SimResult):
+        """Single-client path: prepare, then hand to the scheduling
+        plane (immediate dedicated inference for N=1)."""
+        job = self._prepare_offload(frame_idx, now, res)
+        self.scheduler.submit(job, now)
+
+    def _complete_offload(self, res: SimResult, now_frame: int) -> Dict:
+        fl = self.inflight
+        self.inflight = None
+        if fl.get("stale_epoch"):
+            # the edge refused the splice (tiles from a dead replica):
+            # drop the dead cache and bootstrap FULL next offload — no
+            # backoff, the edge is healthy, just a new generation
+            self.rstats["stale_epoch_nacks"] += 1
+            if self.feature_cache is not None:
+                self.feature_cache.invalidate()
+            return fl
+        if fl.get("rejected"):
+            # edge admission shed: REJECTED response — track locally,
+            # retry degraded after backoff
+            self.rstats["rejected"] += 1
+            if self.ladder is not None:
+                self.ladder.on_failure(fl["done_at"])
+                self.rstats["max_ladder_level"] = max(
+                    self.rstats["max_ladder_level"], self.ladder.level)
+            return fl
+        if fl["frame"] <= self.cache_frame:
+            # stale response: older than the rendered head — discarded,
+            # never rendered
+            self.rstats["stale_discards"] += 1
+            return fl
+        if fl.get("dup"):
+            # the duplicate copy arrives later, behind the (advanced)
+            # rendered head, and dies on the staleness guard above
+            self.rstats["dup_discards"] += 1
+        res.e2e_latency.append(fl["e2e"])
+        res.inference_f1.append(fl["inf_f1"])
+        res.delay_parts.append(fl["parts"])
+        res.sizes.append(fl["size"])
+        self.net_est.observe(fl["tput"], fl["rtt"], t=fl["done_at"])
+        self.policy.observe_completion(fl["e2e"])
+        if self.ladder is not None:
+            self.ladder.on_success()
+
+        if self.feature_cache is not None \
+                and fl.get("demoted") is not None and len(fl["demoted"]):
+            # ladder-demoted regions went out LOW: their freshly captured
+            # tiles are low-fidelity stopgaps, so expire them from the
+            # reuse-eligible set rather than letting one degraded offload
+            # poison the next K splices
+            self.feature_cache.expire(fl["demoted"])
+        self.cache_dets = fl["dets"]
+        self.cache_frame = fl["frame"]
+        if self.policy.use_tracker:
+            # reinit at the offloaded frame, catch up to the present
+            self.tracker.reinit(self.frames[fl["frame"]], fl["dets"])
+            for fi in range(fl["frame"] + 1, now_frame):
+                self.tracker.step(self.frames[fi])
+            self.tracker_frame = max(now_frame - 1, fl["frame"])
+        return fl
+
+    def _poll_inflight(self, now: float, now_frame: int,
+                       res: SimResult) -> Optional[Dict]:
+        """Deadline-bounded completion check: deliver a response due by
+        ``now`` unless its deadline passed first — a LOST job (response
+        never coming) or a LATE one (arriving past the deadline, behind
+        the rendered head) is abandoned and the tracker covers the gap.
+        Returns the job on delivery, else None."""
+        job = self.inflight
+        if job is None:
+            return None
+        deadline = job.get("deadline", float("inf"))
+        if np.isfinite(job["done_at"]) \
+                and job["done_at"] <= min(now, deadline):
+            return self._complete_offload(res, now_frame)
+        if now >= deadline:
+            self._abandon_offload(job, min(now, job["deadline"]))
+        return None
+
+    def _abandon_offload(self, job: Dict, now: float) -> None:
+        """Client-side timeout: give up on the offload, climb the
+        degradation ladder, and back off before retrying."""
+        self.inflight = None
+        job["abandoned"] = True
+        if job.get("lost"):
+            self.rstats["lost_responses"] += 1
+        else:
+            self.rstats["timeouts"] += 1
+            if np.isfinite(job["done_at"]):
+                # the response does arrive eventually — after the
+                # deadline — and is discarded, never rendered
+                self.rstats["late_discards"] += 1
+        if self.ladder is not None:
+            self.ladder.on_failure(now)
+            self.rstats["max_ladder_level"] = max(
+                self.rstats["max_ladder_level"], self.ladder.level)
+
+    def _edge_fault_tick(self, prev: float, now: float) -> None:
+        """Single-client path owns its replica: crash-restarts apply
+        through the shared scheduling plane (the multi-client engine
+        drives the shared replica's restarts through the same
+        ``edge_restart_tick`` helper)."""
+        self.scheduler.fault_tick(prev, now)
+
+    def _render_tick(self, frame_idx: int, res: SimResult) -> None:
+        # rendering for this frame: exact cache hit, else tracker
+        if frame_idx == self.cache_frame or not self.policy.use_tracker:
+            rendered = self.cache_dets
+        else:
+            t0 = time.perf_counter()
+            if self.tracker_frame < frame_idx:
+                self.tracker.step(self.frames[frame_idx])
+                self.tracker_frame = frame_idx
+            rendered = self.tracker.boxes()
+            self.rstats["tracker_frames"] += 1
+            res.overhead.setdefault("tracker_wall", []).append(
+                time.perf_counter() - t0)
+        res.rendering_f1.append(det.frame_f1(rendered,
+                                             self.gt_dets[frame_idx]))
+
+    # ------------------------------------------------------------------
+    def run(self, video_name: str = "video") -> SimResult:
+        res = SimResult(policy=self.policy.name, video=video_name,
+                        trace=getattr(self.trace, "name", "trace"))
+        n = len(self.frames)
+        prev = -1.0
+        for fi in range(n):
+            now = fi * self.dt
+
+            self._edge_fault_tick(prev, now)
+            self._motion_tick(fi, res)
+            # completions due by now (deadline-bounded)
+            self._poll_inflight(now, fi, res)
+            # schedule next offload (back-to-back upon completion,
+            # backed off after failures)
+            if self._should_offload(fi):
+                self._note_offload_gap(fi, res)
+                self._start_offload(fi, now, res)
+            self._render_tick(fi, res)
+            prev = now
+        # flush the final in-flight offload: its latency / delay parts /
+        # inference F1 belong in the result even though the clip ended
+        # (unless its deadline already reaped it)
+        self._poll_inflight(float("inf"), n, res)
+        return res

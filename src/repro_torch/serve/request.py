@@ -45,6 +45,10 @@ class ServingStats:
     warmed: bool = False
     warmup_wall_s: float = 0.0
     offloads: int = 0
+    # crash-restarts of this replica (ServerModel.restart), reuse splices
+    # served, and splices refused because the client's tiles came from a
+    # pre-restart epoch (StaleCacheEpoch)
+    restarts: int = 0
     reuse_splices: int = 0
     stale_epoch_rejects: int = 0
 
@@ -102,6 +106,23 @@ class FeatureCache:
         assert self.tiles is not None, "cache holds no tiles yet"
         return mr.gather_tiles(self.tiles, torch.as_tensor(
             np.asarray(reuse_ids, np.int64), device=self.tiles.device))
+
+    def expire(self, ids) -> None:
+        """Force regions out of the reuse-eligible set (age pinned to
+        ``max_age``) without dropping their tiles: used for regions the
+        degradation ladder transmitted at LOW fidelity.  They re-enter
+        reuse only after a FULL re-transmission resets their age."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        self.age[ids] = self.max_age
+
+    def invalidate(self) -> None:
+        """Drop every cached tile and the warm flag (the edge replied
+        StaleCacheEpoch); the next offload must be a FULL bootstrap."""
+        self.tiles = None
+        self.age = np.zeros((self.n_regions,), np.int32)
+        self.beta = -1
+        self.frame = -1
+        self.warm = False
 
     def note(self, reuse_ids: np.ndarray, beta: int, frame: int,
              epoch: Optional[int] = None) -> None:

@@ -36,7 +36,14 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.configs.mamba2_370m",
             "repro_torch.configs.zamba2_1p2b",
             "repro_torch.kernels.ssd_scan.ops", "repro_torch.models.mamba2",
-            "repro_torch.models.hybrid", "repro_torch.models.ssm_lm")
+            "repro_torch.models.hybrid", "repro_torch.models.ssm_lm",
+            "repro_torch.data.network_traces",
+            "repro_torch.data.synthetic_video",
+            "repro_torch.offload.detection", "repro_torch.offload.motion",
+            "repro_torch.offload.tracker", "repro_torch.offload.codec",
+            "repro_torch.optim.adam", "repro_torch.offload.estimator",
+            "repro_torch.offload.optimizer", "repro_torch.offload.faults",
+            "repro_torch.offload.baselines", "repro_torch.launch.offload")
 
 
 def test_every_port_module_imports_without_jax():
