@@ -133,7 +133,39 @@ Phases; any failure exits non-zero and prints no result:
      card and on the CPU must make the same decisions with the same
      payloads and delay terms, detections equal as sets to 1e-3.
      Phase 2 also holds pack_pos, restore_gather and avg_pool exactly
-     against their plain versions at this phase's B = 1 layouts.
+     against their plain versions at this phase's B = 1 layouts;
+ 14. the multi-client edge (``repro_torch.serve.edge``) on a full-width
+     ``BatchedServerModel`` of its own (seed 0, top-k 32, score 0, B
+     buckets 1 / 2 / 4, warmed once over every plan its runs reach),
+     the delay model anchored as in phase 13.  Run A: four clients of
+     bench_multiclient's ``RotatingMaskPolicy`` (4 LOW regions at
+     offsets 0 / 4 / 8 / 12, beta 2) on ``walkS``, ``cycleS``,
+     ``driveN``, ``walkB`` and 4G traces 0-3, ``MC_FRAMES`` frames,
+     sequential, barrier and continuous with ``stage_ahead``.  Run B:
+     ``ReuseRotatingPolicy`` on three ``parkS`` and a ``driveN`` over a
+     slow uplink (``MC_SLOW_WINDOWS`` compounded bufferbloat windows),
+     ``MC_SLOW_FRAMES`` frames, barrier, continuous and continuous +
+     ``speculate``.  Per run: offloads, waves, modelled e2e / queue /
+     admission / slot percentiles, ``device_idle_frac``,
+     ``decode_hidden_s``, speculation counts, wall, the server calls'
+     host seconds in dispatch, ``PendingWave.wait`` and ``stage_frames``
+     and their wall by B, and launches; every run must launch the fused
+     lane's kernels.  Then: run A's modes agree on the detections of a
+     (client, frame) served in several; burst waves (the four clients'
+     first payloads landing at once: B = 4, and three of them padded to
+     4) through the barrier and continuous schedulers match the B = 1
+     detections to DET_RTOL; ``infer_batch`` is timed at B = 1, 2, 4 for
+     the measured alpha beside ``EdgeConfig.batch_alpha``; a direct
+     ``infer_speculative`` on a ``parkS`` canvas equals ``infer_plan``
+     on a copy of the cache and leaves the live tiles byte-identical;
+     run B must splice REUSE and speculate; no key may first run after
+     warmup; peak device memory is printed; and run A's barrier and run
+     B's continuous + speculate modes through an 8-block full-width model
+     on the card and on the CPU must give equal ``EdgeStats``, decisions
+     and Eq. (2) terms, detections within DET_RTOL.  Phase 2 also holds
+     pack_pos, restore_gather and avg_pool exactly against their plain
+     versions at the B = 4 rotating wave and a B = 3 wave padded to 4
+     with REUSE rows from three tile banks.
 
 Each serving path resets the launch counts just before it and reads them
 just after.  The line before the last is a JSON object with every
@@ -141,7 +173,8 @@ kernel's numbers: its ``launches`` is the sum over the serving paths
 that ran it, and ``launches_by_path`` gives each path's count (the
 ViTDet-L waves of phase 3, its beta-0 wave, the int8 waves of phase 5,
 the two Qwen3-4B waves of phase 7, one wave of each SSM model, the
-``mixed_forward_ssm`` forward, and each simulation of phase 13).  The
+``mixed_forward_ssm`` forward, each simulation of phase 13, and each
+multi-client run and burst wave of phase 14, named ``mc ...``).  The
 last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -155,6 +188,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -219,6 +253,22 @@ OFFLOAD_RUNS = (("TrackB2B", "cycleS"), ("ViTMAlis", "cycleS"),
 CROSS_RUNS = (("TrackB2B", "cycleS"), ("ViTMAlis+Reuse", "parkS"))
 SIM_CROSS_FRAMES = 24
 DET_RTOL = 1e-3             # its detections, card vs CPU, relative
+# phase 14, the multi-client edge: run A's clients (video, 4G trace index
+# = position), run B's slow-uplink clients, their frames, the server's
+# B buckets and the clips' seed (bench_multiclient's)
+MC_VIDEOS = ("walkS", "cycleS", "driveN", "walkB")
+MC_SLOW_VIDEOS = ("parkS", "parkS", "parkS", "driveN")
+MC_FRAMES, MC_SLOW_FRAMES = 16, 20
+MC_B_BUCKETS = (1, 2, 4)
+MC_SEED = 17
+# run B's uplink: bench_multiclient's SLOW_UPLINK compounds ten
+# bufferbloat windows (each 70% of the throughput, 1.15x the RTT) over
+# 256 px SIM frames; these 1024 px frames ship 16x the bytes, so two
+# windows (0.7^2 = 49% of the uplink) give its payloads the transit time
+# the ten (0.7^10 = 2.8%) give the SIM ones (16 x 2.8% = 45%)
+MC_SLOW_WINDOWS = 2
+MC_CROSS_CLIENTS, MC_CROSS_FRAMES = 2, 12   # phase 14's card-vs-CPU runs
+ALPHA_REPS = 5              # timed waves per B behind the measured alpha
 QUANT_E2E_RTOL = 0.05       # 8-block quantized forward, card vs CPU
 QUANT_SPEC = ("int8", "fp32", 1)
 # the GEMMs of the quantized full-width model, (K, N): patch embed,
@@ -482,6 +532,8 @@ def run(torch):
               f"(length bucket {lb1}): kernel differs from plain")
     say(f"  pack_pos, restore_gather, avg_pool at B=1 (phase 13's "
         f"layouts, {len(single_plans(pt, nR))} plans): equal to plain")
+    mc_kernel_checks(torch, pt, part, fused, pool, dev, gen, D,
+                     cfg.vit.img_size)
 
     # window attention: column views of a fused QKV product, as the
     # blocks hand them over; the padded shape with win_valid first
@@ -627,6 +679,9 @@ def run(torch):
     # phase 13 ------------------------------------------------------------
     lat["offload"] = serve_offload(torch, cfg, dev, count)
 
+    # phase 14 ------------------------------------------------------------
+    lat["multiclient"] = serve_multiclient(torch, cfg, dev, count)
+
     out = []
     for name in KERNEL_SOURCES:
         src, replaces = KERNEL_SOURCES[name]
@@ -746,6 +801,93 @@ def single_plans(pt, nR):
         states[list(reuse)] = pt.REUSE
         out.append(pt.RegionPlan(states))
     return out
+
+
+def rotating_plans(pt, nR):
+    """Phase 14's run-A layouts: client i sends ``nR // 4`` LOW regions
+    from offset ``i * nR // 4`` (bench_multiclient's RotatingMaskPolicy),
+    the rest FULL: four distinct layouts of one length bucket."""
+    n_low = nR // 4
+    out = []
+    for i in range(4):
+        states = np.zeros(nR, np.int8)
+        states[[(i * n_low + k) % nR for k in range(n_low)]] = pt.LOW
+        out.append(pt.RegionPlan(states))
+    return out
+
+
+def reuse_wave_plans(pt, nR):
+    """Three clients' FULL/LOW/REUSE plans as run B's sessions send them
+    once their caches are warm: 4 LOW + 8 REUSE, 2 LOW + 12 REUSE and
+    12 REUSE (20, 10 and 16 transmitted windows, one length bucket)."""
+    q = nR // 4
+    a = np.zeros(nR, np.int8)
+    a[:q] = pt.LOW
+    a[2 * q:] = pt.REUSE
+    b = np.zeros(nR, np.int8)
+    b[q:q + q // 2] = pt.LOW
+    b[:q] = pt.REUSE
+    b[2 * q:] = pt.REUSE
+    c = np.full(nR, pt.REUSE, np.int8)
+    c[3 * q:] = pt.FULL
+    return [pt.RegionPlan(a), pt.RegionPlan(b), pt.RegionPlan(c)]
+
+
+def mc_kernel_checks(torch, pt, part, fused, pool, dev, gen, D, img_size):
+    """Phase 2 for phase 14: pack_pos, restore_gather and avg_pool exactly
+    equal to their plain versions at the multi-client waves' inputs: the
+    B=4 wave of the four rotating layouts (64-window bucket, no REUSE),
+    and a B=3 wave padded to 4 whose REUSE rows come from three different
+    clients' tile banks (pad row = a copy of sample 0, as
+    ``ServerModel.infer_wave`` pads)."""
+    nR, dd, w2 = part.n_regions, part.windows_per_full_region, \
+        part.window ** 2
+    edges = pt.length_bucket_set(part)
+    nbank = nR * dd + nR
+    pos_bank = torch.randn((nbank, w2, D), generator=gen, device=dev)
+    img = (4, *img_size, 3)
+    for name, plans in (("B=4 rotating", rotating_plans(pt, nR)),
+                        ("B=3 padded to 4, REUSE from three banks",
+                         reuse_wave_plans(pt, nR))):
+        lb = pt.length_bucket(max(pt.plan_n_windows(p, part)
+                                  for p in plans), edges)
+        layouts = [pt.plan_layout(p.states, lb, part) for p in plans]
+        arrays, _ = pt.stack_plan_layouts(layouts)
+        npad = 4 - len(plans)
+        lay = {k: torch.as_tensor(np.concatenate(
+            [v, np.repeat(v[:1], npad, axis=0)]) if npad else v,
+            device=dev) for k, v in arrays.items()}
+        tiles = None
+        if any(l.n_reuse for l in layouts):
+            banks = [torch.randn((nR, dd, w2, D), generator=gen, device=dev)
+                     for _ in layouts]
+            rows = [bk.index_select(0, torch.as_tensor(
+                np.where(l.reuse_ids < nR, l.reuse_ids, 0), device=dev,
+                dtype=torch.long)) for bk, l in zip(banks, layouts)]
+            tiles = torch.stack(rows + rows[:1] * npad)
+        bank = torch.randn((4, nbank, w2, D), generator=gen, device=dev)
+        p_args = (bank, pos_bank, lay["win_src"], lay["nw"])
+        r_args = (torch.randn((4, lb, w2, D), generator=gen, device=dev),
+                  lay["out_src"], lay["out_map"], part.window,
+                  part.downsample, tiles)
+        frames = torch.rand(img, generator=gen, device=dev)
+        if npad:
+            frames[len(plans):] = frames[:1]
+        check(torch.equal(fused.pack_pos_cuda(*p_args),
+                          fused.pack_pos_plain(*p_args)),
+              f"pack_pos at the {name} wave: kernel differs from plain")
+        check(torch.equal(fused.restore_gather_cuda(*r_args),
+                          fused.restore_gather_plain(*r_args)),
+              f"restore_gather at the {name} wave: kernel differs from "
+              f"plain")
+        check(torch.equal(pool.avg_pool_cuda(frames, part.downsample),
+                          pool.avg_pool_plain(frames, part.downsample)),
+              f"avg_pool at the {name} wave: kernel differs from plain")
+        say(f"  pack_pos, restore_gather, avg_pool at phase 14's {name} "
+            f"wave (length bucket {lb}, n_low "
+            f"{[l.n_low for l in layouts]}, n_reuse "
+            f"{[l.n_reuse for l in layouts]}): equal to plain")
+        del bank, frames, tiles, r_args, p_args
 
 
 def timed(torch, fn, target_ms: float = 100.0) -> float:
@@ -1324,6 +1466,515 @@ def match_dets(got, want) -> float:
         check(abs(d["score"] - cut) <= DET_RTOL * cut,
               f"unmatched detection {d} away from the top-k cut {cut}")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# the multi-client edge (MultiClientSimulation on a BatchedServerModel)
+
+
+def mc_policies(sim, opt):
+    """bench_multiclient's two policies (``benchmarks/bench_multiclient.py``,
+    which this round does not port), over the port's ``Policy``."""
+    class RotatingMaskPolicy(sim.Policy):
+        """Deterministic per-client layout: ``n_low`` LOW regions from
+        ``offset``, distinct across clients, one length bucket."""
+        name = "rotating"
+        use_tracker = True
+
+        def __init__(self, offset, n_low, n_regions, beta=2):
+            self.offset, self.n_low = offset, n_low
+            self.n_regions, self.beta = n_regions, beta
+
+        def decide(self, s, frame_idx):
+            mask = np.zeros(self.n_regions, np.int32)
+            for k in range(self.n_low):
+                mask[(self.offset + k) % self.n_regions] = 1
+            return {"mask": mask, "quality": 85, "beta": self.beta}
+
+    class ReuseRotatingPolicy(RotatingMaskPolicy):
+        """Rotating LOW mask + the motion-gated REUSE lift (K = 4): the
+        reuse-heavy workload the speculative lane targets."""
+        name = "reuse-rotating"
+        reuse_k = 4
+
+        def decide(self, s, frame_idx):
+            d = super().decide(s, frame_idx)
+            cache = s.feature_cache
+            elig = (cache.eligible(self.beta) if cache is not None
+                    else np.zeros(self.n_regions, bool))
+            d["plan"] = opt.build_reuse_plan(s.part, d["mask"], s.m, elig)
+            d["capture_beta"] = self.beta
+            return d
+
+    return RotatingMaskPolicy, ReuseRotatingPolicy
+
+
+def mc_plan_space(part, beta):
+    """Every (n_low, n_reuse, beta, capture) the two policies can send
+    (and the speculative lane's patch plans: fewer transmitted regions),
+    plus the full-resolution ground truth."""
+    nR = part.n_regions
+    return [(0, 0, 0, 0)] + [
+        (n_low, n_reuse, beta, beta) for n_low in range(nR + 1)
+        for n_reuse in range(nR - n_low + 1)
+        if (n_low or n_reuse) and n_reuse < nR]
+
+
+class CallClock:
+    """Host clock around a server's calls: every ``infer_wave`` (real rows,
+    wall, seconds spent inside ``PendingWave.wait`` during it, deferred
+    or not), the seconds in ``stage_frames`` and in every
+    ``PendingWave.wait``.  Dispatch seconds are a call's wall less the
+    wait inside it."""
+
+    def __init__(self, srv, sim):
+        self.srv, self.sim = srv, sim
+        self._wait = sim.PendingWave.wait
+        self.reset()
+        infer, stage, wait = srv.infer_wave, srv.stage_frames, self._wait
+
+        def timed_wait(pw):
+            t0 = time.perf_counter()
+            out = wait(pw)
+            self.wait_s += time.perf_counter() - t0
+            return out
+
+        def timed_infer(frames, plans, *a, **kw):
+            w0, t0 = self.wait_s, time.perf_counter()
+            out = infer(frames, plans, *a, **kw)
+            self.calls.append((len(plans), time.perf_counter() - t0,
+                               self.wait_s - w0, bool(kw.get("defer"))))
+            return out
+
+        def timed_stage(frames):
+            t0 = time.perf_counter()
+            out = stage(frames)
+            self.stage_s += time.perf_counter() - t0
+            return out
+
+        srv.infer_wave, srv.stage_frames = timed_infer, timed_stage
+        sim.PendingWave.wait = timed_wait
+
+    def reset(self):
+        self.calls, self.wait_s, self.stage_s = [], 0.0, 0.0
+
+    def close(self):
+        del self.srv.infer_wave, self.srv.stage_frames
+        self.sim.PendingWave.wait = self._wait
+
+    def summary(self):
+        """Dispatch / wait / stage seconds and, per real B, the median
+        wall of the synchronous calls (detections decoded inside) and of
+        the deferred calls' dispatch."""
+        sync, deferred = {}, {}
+        for b, wall, waited, defer in self.calls:
+            (deferred if defer else sync).setdefault(b, []).append(
+                wall - waited if defer else wall)
+        med = lambda d: {b: statistics.median(v) * 1e3
+                         for b, v in sorted(d.items())}
+        return {"calls": len(self.calls),
+                "dispatch_s": sum(w - x for _, w, x, _ in self.calls),
+                "wait_s": self.wait_s, "stage_s": self.stage_s,
+                "sync_wall_ms_by_B": med(sync),
+                "deferred_dispatch_ms_by_B": med(deferred)}
+
+
+def alpha(walls):
+    """Measured batch_alpha: (wall(B) / wall(1) - 1) / (B - 1) per B."""
+    return {b: (w / walls[1] - 1.0) / (b - 1)
+            for b, w in walls.items() if b > 1 and 1 in walls}
+
+
+def serve_multiclient(torch, cfg, dev, count):
+    """Phase 14: four clients' offloads on one full-width ViTDet-L replica
+    through ``MultiClientSimulation`` (run A: sequential, barrier,
+    continuous with stage_ahead; run B on a slow uplink: barrier,
+    continuous, continuous + speculate), burst waves of B = 4 and 3,
+    the measured batch alpha, a direct ``infer_speculative``, and the
+    card-vs-CPU check on an 8-block copy."""
+    from repro_torch import convert
+    from repro_torch.core import partition as pt
+    from repro_torch.data import synthetic_video as sv
+    from repro_torch.data.network_traces import make_trace
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import offload as lo
+    from repro_torch.offload import optimizer as opt
+    from repro_torch.offload import simulator as sim
+    from repro_torch.offload.faults import (FaultInjector, FaultSpec,
+                                            FaultyTrace)
+    from repro_torch.serve.edge import (BatchedServerModel, EdgeConfig,
+                                        MultiClientSimulation)
+    from repro_torch.serve.request import FeatureCache
+    from repro_torch.serve.scheduler import make_scheduler
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    say(f"phase 14: multi-client edge on {cfg.name} {cfg.n_layers} blocks "
+        f"D={cfg.d_model}, {cfg.vit.img_size[0]}px frames, B buckets "
+        f"{MC_B_BUCKETS}")
+    t0 = time.perf_counter()
+    params = convert.init_vitdet_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    srv = BatchedServerModel(cfg, params, top_k=32, score_thresh=0.0,
+                             b_buckets=MC_B_BUCKETS, device=dev)
+    part, patch = srv.part, cfg.vit.patch_size
+    n_keys = srv.warmup(mc_plan_space(part, BETA), MC_B_BUCKETS)
+    say(f"  init + warmup of {n_keys} grid keys (length buckets "
+        f"{srv.length_edges}, beta {BETA}, B {MC_B_BUCKETS}) "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    need = dict.fromkeys(MC_VIDEOS, MC_FRAMES)
+    for v in MC_SLOW_VIDEOS:
+        need[v] = max(need.get(v, 0), MC_SLOW_FRAMES)
+    clips = {}
+    for v, n in need.items():
+        frames, _ = sv.make_clip(v, n, size=cfg.vit.img_size[0],
+                                 seed=MC_SEED)
+        clips[v] = (frames, [srv.infer(f) for f in frames])
+    anchor = lo.median_infer_s(srv, clips["walkS"][0][0])
+    inf_delay = lo.delay_model(cfg, anchor)
+    say(f"  clips + ground truth {time.perf_counter() - t0:.1f} s; "
+        f"full-res B=1 infer median {anchor * 1e3:.2f} ms (the delay "
+        f"model's anchor)")
+    Rotating, ReuseRotating = mc_policies(sim, opt)
+    nR, n_low = part.n_regions, part.n_regions // 4
+    slow = FaultSpec(bufferbloat=tuple((0.0, 3600.0, 1.15)
+                                       for _ in range(MC_SLOW_WINDOWS)))
+
+    def clients_a(server, videos=MC_VIDEOS, n=MC_FRAMES, gt=None):
+        out = []
+        for i, v in enumerate(videos):
+            frames, g = clips[v][0][:n], (gt or clips)[v][1][:n]
+            out.append(sim.Simulation(
+                frames, g, make_trace("4g", i, duration_s=120),
+                Rotating(i * n_low, n_low, nR, BETA), server, part, patch,
+                fps=lo.FPS, inf_delay=inf_delay))
+        return out
+
+    def clients_b(server, videos=MC_SLOW_VIDEOS, n=MC_SLOW_FRAMES,
+                  gt=None):
+        out = []
+        for i, v in enumerate(videos):
+            frames, g = clips[v][0][:n], (gt or clips)[v][1][:n]
+            trace = FaultyTrace(make_trace("4g", i, duration_s=240),
+                                FaultInjector(slow))
+            out.append(sim.Simulation(
+                frames, g, trace, ReuseRotating(i * n_low, n_low, nR, BETA),
+                server, part, patch, fps=lo.FPS, inf_delay=inf_delay))
+        return out
+
+    def drive(server, clients, ec):
+        """One MultiClientSimulation run: its jobs in arrival order at the
+        edge, results, stats and launches (counts reset just before the
+        run and read just after)."""
+        mc = MultiClientSimulation(clients, server, EdgeConfig(
+            max_batch=max(MC_B_BUCKETS), **ec))
+        jobs = []
+        enqueue = mc.scheduler.enqueue
+
+        def tap(ci, job):
+            jobs.append(job)
+            enqueue(ci, job)
+        mc.scheduler.enqueue = tap
+        splices = server.stats.reuse_splices
+        t = time.perf_counter()
+        dispatch.reset_launch_counts()       # this run starts here
+        results = mc.run()
+        launches = dispatch.launch_counts()  # ... and ends here
+        return SimpleNamespace(mc=mc, jobs=jobs, results=results,
+                               wall=time.perf_counter() - t,
+                               launches=launches,
+                               splices=server.stats.reuse_splices - splices)
+
+    def pct(x, q):
+        return float(np.percentile(x, q)) * 1e3 if len(x) else 0.0
+
+    clock = CallClock(srv, sim)
+    out = {"anchor_ms": anchor * 1e3, "keys": n_keys, "runs": {}}
+    runs = {}
+    modes = (("A", "sequential", dict(batched=False), clients_a),
+             ("A", "barrier", {}, clients_a),
+             ("A", "continuous+stage_ahead",
+              dict(scheduler="continuous", stage_ahead=True), clients_a),
+             ("B", "barrier", {}, clients_b),
+             ("B", "continuous", dict(scheduler="continuous"), clients_b),
+             ("B", "continuous+speculate",
+              dict(scheduler="continuous", speculate=True), clients_b))
+    for run_name, mode, ec, make in modes:
+        name = f"mc {run_name} {mode}"
+        clock.reset()
+        r = drive(srv, make(srv), ec)
+        runs[name] = r
+        count(name, r.launches)
+        st = r.mc.stats
+        e2e = [x for res in r.results for x in res.e2e_latency]
+        cs = clock.summary()
+        walls = cs["sync_wall_ms_by_B"]
+        n_cf = sum(len(c.frames) for c in r.mc.clients)
+        host = {k: sum(sum(res.overhead.get(f"{k}_wall", []))
+                       for res in r.results) / n_cf * 1e3
+                for k in ("motion", "codec", "tracker")}
+        rec = {
+            "offloads": len(r.jobs), "waves": len(st.wave_sizes),
+            "wave_sizes": {b: st.wave_sizes.count(b)
+                           for b in sorted(set(st.wave_sizes))},
+            "mean_wave": st.mean_wave_size,
+            "mixed_n_low_waves": st.mixed_plan_waves,
+            "e2e_ms_p50": pct(e2e, 50), "e2e_ms_p95": pct(e2e, 95),
+            "queue_ms_p50": pct(st.queue_delays, 50),
+            "queue_ms_p95": pct(st.queue_delays, 95),
+            "admit_ms_p50": pct(st.queue_admit, 50),
+            "admit_ms_p95": pct(st.queue_admit, 95),
+            "slot_ms_p50": pct(st.queue_slot, 50),
+            "slot_ms_p95": pct(st.queue_slot, 95),
+            "device_idle_frac": st.device_idle_frac,
+            "decode_hidden_s": st.decode_hidden_s,
+            "spec": {"launched": st.spec_launched,
+                     "patched": st.spec_patched,
+                     "discarded": st.spec_discarded,
+                     "hidden_s": st.spec_hidden_s},
+            "reuse_splices": r.splices,
+            "reuse_offloads": sum(1 for j in r.jobs if j["n_r"] > 0),
+            "wall_s": r.wall, "host_ms_per_client_frame": host,
+            "server": cs, "alpha_from_run": alpha(walls),
+            "launches": {k: v for k, v in r.launches.items() if v}}
+        out["runs"][name] = rec
+        say(f"  run {run_name} {mode}: {rec['offloads']} offloads in "
+            f"{rec['waves']} waves (sizes {rec['wave_sizes']}, mean "
+            f"{rec['mean_wave']:.2f}, {rec['mixed_n_low_waves']} with >1 "
+            f"n_low), {rec['reuse_offloads']} with REUSE ({r.splices} "
+            f"splices); modelled e2e p50/p95 {rec['e2e_ms_p50']:.1f}/"
+            f"{rec['e2e_ms_p95']:.1f} ms, queue {rec['queue_ms_p50']:.1f}/"
+            f"{rec['queue_ms_p95']:.1f} (admit {rec['admit_ms_p50']:.1f}/"
+            f"{rec['admit_ms_p95']:.1f}, slot {rec['slot_ms_p50']:.1f}/"
+            f"{rec['slot_ms_p95']:.1f}); device_idle_frac "
+            f"{rec['device_idle_frac']:.3f}, decode_hidden_s "
+            f"{rec['decode_hidden_s']:.4f}; spec launched/patched/"
+            f"discarded {st.spec_launched}/{st.spec_patched}/"
+            f"{st.spec_discarded}, hidden {st.spec_hidden_s:.3f} s; "
+            f"wall {r.wall:.1f} s")
+        say(f"    server calls {cs['calls']}: host s in dispatch "
+            f"{cs['dispatch_s']:.3f}, in PendingWave.wait "
+            f"{cs['wait_s']:.3f}, in stage_frames {cs['stage_s']:.3f}; "
+            f"sync wall ms by B "
+            f"{ {b: round(w, 2) for b, w in walls.items()} }, deferred "
+            f"dispatch ms by B "
+            f"{ {b: round(w, 2) for b, w in cs['deferred_dispatch_ms_by_B'].items()} }; "
+            f"alpha from the run {rec['alpha_from_run']}; host ms a "
+            f"client-frame " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in host.items()))
+        say(f"    launches {json.dumps(rec['launches'])}")
+        check(all(r.launches[k] > 0 for k in FP32_PATH),
+              f"{name}: a kernel of the fused lane never launched: "
+              f"{r.launches}")
+    clock.close()
+
+    # the same (client, frame) served in several run-A modes gets the same
+    # detections whatever wave it rode in
+    seen, worst, pairs = {}, 0.0, 0
+    for name, r in runs.items():
+        if not name.startswith("mc A"):
+            continue
+        for j in r.jobs:
+            if j.get("dets") is None or j.get("lost"):
+                continue
+            key = (j["_client"], j["frame"])
+            if key in seen:
+                worst = max(worst, match_dets(j["dets"], seen[key]))
+                pairs += 1
+            else:
+                seen[key] = j["dets"]
+    say(f"  run A across modes: {pairs} (client, frame) pairs served in "
+        f"two modes agree within {worst:.3g} relative (limit {DET_RTOL})")
+    b_runs = [r for n, r in runs.items() if n.startswith("mc B")]
+    check(sum(r.splices for r in b_runs) > 0, "run B: no REUSE splice")
+    spec = runs["mc B continuous+speculate"].mc.stats
+    check(spec.spec_launched >= 1, "run B continuous+speculate launched no "
+          "speculation")
+
+    # burst waves: the four clients' first payloads landing at once (a
+    # closed loop of four clients, each with one offload in flight, never
+    # queues all four behind a busy replica); B = 4 and B = 3 padded to 4,
+    # barrier (synchronous) and continuous (stage_frames + deferred decode)
+    seq = runs["mc A sequential"]
+    first = {}
+    for j in seq.jobs:
+        first.setdefault(j["_client"], j)
+    keep = ("frame", "_client", "decoded", "plan", "mask", "n_d", "beta",
+            "n_r", "capture_beta", "submit", "t_enc", "t_up", "t_dec",
+            "t_inf", "rtt", "tput", "size", "seq", "deadline")
+    bursts, worst_b = {}, 0.0
+    for members in (4, 3):
+        for mode, ec in (("barrier", {}),
+                         ("continuous+stage_ahead",
+                          dict(scheduler="continuous", stage_ahead=True))):
+            jobs = [{k: first[ci][k] for k in keep} for ci in range(members)]
+            t_land = max(first[ci]["arrival"] for ci in range(members))
+            sched = make_scheduler(srv, seq.mc.clients, EdgeConfig(
+                max_batch=max(MC_B_BUCKETS), **ec))
+            for j in jobs:
+                j["arrival"] = t_land
+                sched.enqueue(j["_client"], j)
+            t = time.perf_counter()
+            dispatch.reset_launch_counts()
+            sched.drain(float("inf"))
+            launches = dispatch.launch_counts()
+            wall = time.perf_counter() - t
+            name = f"mc A burst B={members} {mode}"
+            count(name, launches)
+            check(sched.stats.wave_sizes == [members],
+                  f"{name}: waves {sched.stats.wave_sizes}")
+            check(len({j["plan"].states.tobytes() for j in jobs}) == members,
+                  f"{name}: layouts not distinct")
+            check(all(launches[k] > 0 for k in FP32_PATH),
+                  f"{name}: a kernel of the fused lane never launched: "
+                  f"{launches}")
+            for j in jobs:
+                worst_b = max(worst_b, match_dets(j["dets"],
+                                                  first[j["_client"]]["dets"]))
+            bursts[name] = {"wall_ms": wall * 1e3,
+                            "launches": {k: v for k, v in launches.items()
+                                         if v}}
+    say(f"  burst waves of the four rotating layouts (B=4) and of three "
+        f"(B=3 padded to 4), barrier and continuous+stage_ahead: one wave "
+        f"each, detections within {worst_b:.3g} relative of the B=1 "
+        f"sequential ones (limit {DET_RTOL}); wall ms "
+        f"{ {k[5:]: round(v['wall_ms'], 2) for k, v in bursts.items()} }")
+    out["bursts"] = bursts
+
+    # measured alpha: the same four decoded frames and masks at B = 1, 2, 4
+    frames = np.stack([first[ci]["decoded"] for ci in range(4)])
+    masks = [first[ci]["mask"] for ci in range(4)]
+    walls = {}
+    for b in MC_B_BUCKETS:
+        srv.infer_batch(frames[:b], masks[:b], beta=BETA)
+        ts = []
+        for _ in range(ALPHA_REPS):
+            t = time.perf_counter()
+            srv.infer_batch(frames[:b], masks[:b], beta=BETA)
+            ts.append(time.perf_counter() - t)
+        walls[b] = statistics.median(ts) * 1e3
+    measured = alpha(walls)
+    out["alpha"] = {"wall_ms_by_B": walls, "measured": measured,
+                    "modelled": EdgeConfig().batch_alpha}
+    say(f"  infer_batch wall ms by B (median of {ALPHA_REPS}, 64-window "
+        f"bucket, detections decoded): "
+        f"{ {b: round(w, 2) for b, w in walls.items()} }; measured alpha "
+        f"{ {b: round(a, 4) for b, a in measured.items()} } against "
+        f"EdgeConfig.batch_alpha {EdgeConfig().batch_alpha}")
+
+    # a direct speculative forward on a parkS canvas: equal to the same
+    # plan served on a copy of the cache, the live tiles byte-identical
+    pframes = clips["parkS"][0]
+    live = FeatureCache(nR, max_age=4)
+    warm_plan = pt.RegionPlan.from_mask(masks[0])
+    srv.infer_plan(pframes[0], warm_plan, beta=BETA, cache=live, frame_idx=0)
+    live.note_pred(pframes[0], 0, srv.epoch)
+    states = np.zeros(nR, np.int8)
+    states[:n_low] = pt.LOW
+    states[2 * n_low:] = pt.REUSE
+    plan = pt.RegionPlan(states)
+    canvas = sim.predict_canvas(part, part.region * patch, pframes[1], plan)
+    copy = FeatureCache(nR, max_age=4, beta=live.beta,
+                        tiles=live.tiles.clone(), age=live.age.copy(),
+                        frame=live.frame, warm=live.warm, epoch=live.epoch)
+    before = live.tiles.clone()
+    dets_s, clone = srv.infer_speculative(canvas, plan, BETA, live, 1)
+    dets_r = srv.infer_plan(canvas, plan, beta=BETA, cache=copy,
+                            frame_idx=1)
+    check(torch.equal(live.tiles, before),
+          "infer_speculative wrote the live session's tiles")
+    err_t = float((clone.tiles - copy.tiles).abs().max()
+                  / copy.tiles.abs().max().clamp_min(1e-30))
+    check(err_t <= DET_RTOL, f"speculative capture differs from the plan "
+          f"served on a copy by {err_t} of the largest tile value")
+    err_s = match_dets(dets_s, dets_r)
+    say(f"  infer_speculative on a parkS canvas ({plan.n_low} LOW, "
+        f"{plan.n_reuse} REUSE): detections within {err_s:.3g} and tiles "
+        f"within {err_t:.3g} of infer_plan on a copy of the cache (limit "
+        f"{DET_RTOL}); live tiles byte-identical")
+    check(srv.stats.steady_compiles == 0,
+          f"steady-state first uses: {srv.stats.steady_compile_keys}")
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    steady = srv.stats.steady_compiles
+    say(f"  steady first uses {steady}; max_memory_allocated "
+        f"{out['peak_mem_gb']:.2f} GB")
+    del srv, params, runs, seq
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = mc_cross_check(
+        torch, cfg.replace(n_layers=8), dev, clips, inf_delay,
+        clients_a, clients_b, drive)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 14: {out['phase_s']:.1f} s; steady first uses {steady}")
+    return out
+
+
+MC_JOB_KEYS = ("frame", "_client", "n_d", "beta", "n_r", "capture_beta",
+               "size", "t_enc", "t_up", "t_dec", "t_inf", "rtt", "arrival",
+               "e2e", "done_at", "parts", "speculation", "stale_epoch",
+               "lost", "rejected", "abandoned", "spec_frac", "spec_conf")
+
+
+def mc_cross_check(torch, cfg, dev, clips, inf_delay, clients_a, clients_b,
+                   drive):
+    """Run A's barrier mode and run B's continuous + speculate mode, with
+    MC_CROSS_CLIENTS clients of MC_CROSS_FRAMES frames, through an
+    8-block full-width server on the card and on the CPU (plain versions),
+    on the same parameters, frames and ground truth (the card's): equal
+    EdgeStats, per-job decisions and Eq. (2) terms, detections within
+    DET_RTOL.  The timeline is modelled, so no wall clock decides."""
+    import dataclasses
+
+    from repro_torch import convert
+    from repro_torch.offload.simulator import to_device
+    from repro_torch.serve.edge import BatchedServerModel
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    params = convert.init_vitdet_params(cfg, gen, device=dev)
+    kw = dict(top_k=32, score_thresh=0.0, b_buckets=MC_B_BUCKETS)
+    gpu = BatchedServerModel(cfg, params, device=dev, **kw)
+    cpu = BatchedServerModel(cfg, to_device(params, torch.device("cpu")),
+                             device="cpu", **kw)
+    out = {}
+    for name, make, videos, ec in (
+            ("A barrier", clients_a, MC_VIDEOS, {}),
+            ("B continuous+speculate", clients_b, MC_SLOW_VIDEOS,
+             dict(scheduler="continuous", speculate=True))):
+        videos = videos[:MC_CROSS_CLIENTS]
+        gt = {v: (None, [gpu.infer(f)
+                         for f in clips[v][0][:MC_CROSS_FRAMES]])
+              for v in set(videos)}
+        say(f"  card vs CPU: run {name}, {cfg.n_layers}-block full-width "
+            f"model, {len(videos)} clients x {MC_CROSS_FRAMES} frames")
+        t0 = time.perf_counter()
+        rg = drive(gpu, make(gpu, videos, MC_CROSS_FRAMES, gt), ec)
+        rc = drive(cpu, make(cpu, videos, MC_CROSS_FRAMES, gt), ec)
+        t_run = time.perf_counter() - t0
+        check(len(rg.jobs) == len(rc.jobs) > 0,
+              f"{name}: offloads {len(rg.jobs)} vs {len(rc.jobs)}")
+        sg, sc = (dataclasses.asdict(r.mc.stats) for r in (rg, rc))
+        check(sg == sc, f"{name}: EdgeStats differ: {sg} vs {sc}")
+        worst = 0.0
+        for a, b in zip(rg.jobs, rc.jobs):
+            for k in MC_JOB_KEYS:
+                check(a.get(k) == b.get(k), f"{name} client {a['_client']} "
+                      f"frame {a['frame']}: {k} {a.get(k)} vs {b.get(k)}")
+            check(np.array_equal(a["plan"].states, b["plan"].states),
+                  f"{name}: plans differ at frame {a['frame']}")
+            if a.get("dets") is not None:
+                worst = max(worst, match_dets(a["dets"], b["dets"]))
+        st = rg.mc.stats
+        say(f"    {len(rg.jobs)} offloads, waves {st.wave_sizes}, spec "
+            f"{st.spec_launched}/{st.spec_patched}/{st.spec_discarded}: "
+            f"EdgeStats, decisions and delay terms equal; detections "
+            f"within {worst:.3g} relative (limit {DET_RTOL}); card "
+            f"launches {json.dumps({k: v for k, v in rg.launches.items() if v})}"
+            f"; both runs {t_run:.1f} s")
+        out[name] = {"offloads": len(rg.jobs), "waves": st.wave_sizes,
+                     "det_rel_err": worst, "s": t_run}
+    del gpu, cpu, params
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------

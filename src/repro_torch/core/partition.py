@@ -220,6 +220,83 @@ class RegionPlan:
 
 
 # ---------------------------------------------------------------------------
+# mask/plan <-> region-id packing helpers (host-side, numpy: these produce
+# the *data* gather indices; shapes depend only on the static buckets)
+
+
+def _static_select(ids: np.ndarray, n: int) -> Tuple[np.ndarray, set]:
+    """First ``n`` ids with static size; pads by repeating the last entry
+    (or 0 when empty).  Returns (kept ids, the set actually selected)."""
+    if len(ids) >= n:
+        kept = ids[:n]
+        return kept, set(kept.tolist())
+    pad = np.full((n - len(ids),), ids[-1] if len(ids) else 0,
+                  dtype=np.int64)
+    kept = np.concatenate([ids, pad]) if len(ids) else pad
+    return kept, set(ids.tolist())
+
+
+def plan_to_region_ids(states: np.ndarray, n_low: int, n_reuse: int = 0
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Split plan states into (full_ids, low_ids, reuse_ids), static
+    sizes ``(n_regions - n_low - n_reuse, n_low, n_reuse)``.
+
+    ``n_low`` / ``n_reuse`` are the static buckets: extra LOW/REUSE
+    selections beyond them revert to FULL.  When the plan selects FEWER
+    than the bucket, ids are padded by repeating the last entry.
+    """
+    states = np.asarray(states).reshape(-1)
+    n_regions = states.shape[0]
+    low = np.nonzero(states == LOW)[0]
+    reuse = np.nonzero(states == REUSE)[0]
+    kept_low, low_set = _static_select(low, n_low)
+    kept_reuse, reuse_set = _static_select(reuse, n_reuse)
+    drop = low_set | reuse_set
+    full = np.array([i for i in range(n_regions) if i not in drop],
+                    dtype=np.int64)
+    # static size: if the plan had fewer lows/reuses than the buckets,
+    # trim extras from the tail (they are covered by the padded dups)
+    full = full[:n_regions - n_low - n_reuse]
+    return (full.astype(np.int32), kept_low.astype(np.int32),
+            kept_reuse.astype(np.int32))
+
+
+def mask_to_region_ids(mask: np.ndarray, n_low: int) -> Tuple[np.ndarray,
+                                                              np.ndarray]:
+    """Split region ids into (full_ids, low_ids) with static sizes;
+    ``mask``: (n_regions,) binary, 1 = downsample.  The two-state case of
+    :func:`plan_to_region_ids`."""
+    mask = np.asarray(mask).reshape(-1)
+    full, low, _ = plan_to_region_ids(
+        np.where(mask != 0, LOW, FULL).astype(np.int8), n_low, 0)
+    return full, low
+
+
+def region_ids_to_mask(low_ids: np.ndarray, n_regions: int) -> np.ndarray:
+    m = np.zeros((n_regions,), np.int32)
+    m[np.asarray(low_ids, np.int64)] = 1
+    return m
+
+
+def stack_region_ids(masks: Sequence[np.ndarray], n_low: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-sample (B, nF) / (B, nL) region ids for a same-bucket wave;
+    every sample keeps its OWN layout, only the bucket is shared."""
+    ids = [mask_to_region_ids(m, n_low) for m in masks]
+    return (np.stack([f for f, _ in ids]).astype(np.int32),
+            np.stack([l for _, l in ids]).astype(np.int32))
+
+
+def stack_plan_ids(plans: Sequence["RegionPlan"], n_low: int, n_reuse: int
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-sample (B, nF) / (B, nL) / (B, nR) ids for a same-bucket wave."""
+    ids = [plan_to_region_ids(p.states, n_low, n_reuse) for p in plans]
+    return (np.stack([f for f, _, _ in ids]).astype(np.int32),
+            np.stack([l for _, l, _ in ids]).astype(np.int32),
+            np.stack([r for _, _, r in ids]).astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
 # padded plan layouts (host-side): the mask-traced description of ONE
 # RegionPlan inside a length bucket.  All shapes depend only on the
 # bucket (``nw_pad``) and the partition — (n_low, n_reuse) are runtime

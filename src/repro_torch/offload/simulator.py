@@ -32,11 +32,19 @@ not change.  Mixed waves at ``beta == 0`` restore at input (key
 ``(lb, 0, 0, B bucket)``): no restoration point, so no REUSE plans and
 no capture.
 
-Not ported yet: ``stage_frames``, ``infer_speculative`` with
-``predict_canvas`` / ``region_divergence`` / ``build_patch_plan`` (the
-continuous multi-client scheduler's), the host-resident cache mode, the
-kernel autotuner, the half-precision quantized lanes (fp16/bf16 weights
-or activations) and calibration (``quant/calibrate.py``).
+The multi-client edge (``serve/edge.py``, ``serve/scheduler.py``) drives
+the same entry point: :meth:`ServerModel.stage_frames` copies a wave's
+frames to the card from pinned host memory on a side stream ahead of its
+forward, ``infer_wave(defer=True)`` returns a :class:`PendingWave` whose
+blocking decode the continuous scheduler runs under the next wave's
+compute, and :meth:`ServerModel.infer_speculative` with
+:func:`predict_canvas` / :func:`region_divergence` /
+:func:`build_patch_plan` serves its speculative REUSE lane.
+
+Not ported yet: the host-resident cache mode (and its
+``ServingStats.tile_bytes*``), the kernel autotuner, the half-precision
+quantized lanes (fp16/bf16 weights or activations) and calibration
+(``quant/calibrate.py``).
 """
 from __future__ import annotations
 
@@ -51,7 +59,7 @@ from repro_torch.core import det_head as dh
 from repro_torch.core import mixed_res as mr
 from repro_torch.core import partition as pt
 from repro_torch.core import vit_backbone as vb
-from repro_torch.core.partition import LOW, Partition, RegionPlan
+from repro_torch.core.partition import LOW, REUSE, Partition, RegionPlan
 from repro_torch.kernels import dispatch
 from repro_torch.models.config import ModelConfig
 from repro_torch.offload import detection as det
@@ -88,6 +96,18 @@ def to_device(tree, device: torch.device):
     if isinstance(tree, list):
         return [to_device(v, device) for v in tree]
     return tree
+
+
+@dataclass
+class StagedWave:
+    """A wave's decoded frames, padded to their B bucket and copied toward
+    the server's device (:meth:`ServerModel.stage_frames`).  On the card
+    the copy runs from pinned host memory on a side stream; ``ready`` is
+    the event recorded after it, which the compute stream waits on before
+    the forward reads ``imgs``."""
+    B: int                   # real rows; imgs carries Bp >= B
+    imgs: torch.Tensor
+    ready: Optional["torch.cuda.Event"] = None
 
 
 @dataclass
@@ -158,6 +178,7 @@ class ServerModel:
         self._zero_tiles: Dict[int, torch.Tensor] = {}
         self.stats = ServingStats()
         self.epoch = 0
+        self._stage_stream = None     # side stream of stage_frames (cuda)
 
     def restart(self, preserve_executables: bool = False) -> int:
         """Crash-restart this replica.
@@ -319,6 +340,43 @@ class ServerModel:
             return self.full_capture
         return want
 
+    def _h2d(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the server's device.  On the card the copy
+        goes through pinned memory without blocking the host, so it never
+        waits for the forwards already queued on the stream."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(a, device=self.device)
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+            self.device, non_blocking=True)
+
+    def stage_frames(self, frames) -> StagedWave:
+        """Stage a wave's decoded frames ahead of its forward.
+
+        Pads up to the B bucket on the host.  On a CUDA server the frames
+        are copied into a pinned host buffer and on to the card with a
+        non-blocking copy on a side stream, so called while the previous
+        wave computes, the transfer overlaps it; the result's ``ready``
+        event orders the forward after the copy.  A server built with
+        ``device="cpu"`` stages a CPU tensor.  The result feeds
+        :meth:`infer_wave` in place of the frames.
+        """
+        frames = np.asarray(frames, np.float32)
+        B = frames.shape[0]
+        npad = self.batch_bucket(B) - B
+        if npad:
+            frames = np.concatenate(
+                [frames, np.repeat(frames[:1], npad, axis=0)])
+        if self.device.type != "cuda":
+            return StagedWave(B=B, imgs=torch.from_numpy(frames.copy()))
+        host = torch.from_numpy(np.ascontiguousarray(frames)).pin_memory()
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(device=self.device)
+        with torch.cuda.stream(self._stage_stream):
+            imgs = host.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._stage_stream)
+        return StagedWave(B=B, imgs=imgs, ready=ready)
+
     def infer_wave(self, frames, plans: Sequence[RegionPlan],
                    beta: int = 0,
                    caches: Optional[Sequence[Optional[FeatureCache]]] = None,
@@ -327,7 +385,7 @@ class ServerModel:
                    lb_override: Optional[int] = None,
                    defer: bool = False):
         """Serve one wave (B >= 1 frames, (B, H, W, 3) float32 numpy or
-        tensor) through the collapsed grid.
+        tensor, or a :class:`StagedWave`) through the collapsed grid.
 
         The wave runs at the length bucket of its LONGEST plan, or at
         ``lb_override``, which may only pad further (a length edge that
@@ -339,9 +397,13 @@ class ServerModel:
         from and refreshes its OWN cache.  The wave is padded up to the next batch bucket
         with copies of sample 0; padded rows are dropped from the
         detections and never touch a cache.  ``defer=True`` returns a
-        :class:`PendingWave` instead of decoded detections.
+        :class:`PendingWave` instead of decoded detections.  A
+        :class:`StagedWave` from :meth:`stage_frames` arrives already
+        padded; together with ``defer`` it is the continuous scheduler's
+        overlapped path.
         """
-        B = len(frames)
+        staged = frames if isinstance(frames, StagedWave) else None
+        B = staged.B if staged is not None else len(frames)
         assert len(plans) == B and B >= 1
         if caches is not None:
             assert len(caches) == B
@@ -373,10 +435,21 @@ class ServerModel:
                 return a
             return np.concatenate([a, np.repeat(a[:1], npad, axis=0)])
 
-        imgs = torch.as_tensor(frames, dtype=torch.float32,
-                               device=self.device)
-        if npad:
-            imgs = torch.cat([imgs, imgs[:1].expand(npad, *imgs.shape[1:])])
+        if staged is not None:
+            imgs = staged.imgs
+            assert imgs.shape[0] == Bp and imgs.device == self.device, \
+                f"staged wave of {imgs.shape[0]} rows on {imgs.device}, " \
+                f"but the B bucket is {Bp} on {self.device}"
+            if staged.ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(staged.ready)
+                imgs.record_stream(stream)
+        else:
+            imgs = torch.as_tensor(frames, dtype=torch.float32,
+                                   device=self.device)
+            if npad:
+                imgs = torch.cat([imgs,
+                                  imgs[:1].expand(npad, *imgs.shape[1:])])
         layouts: Optional[List[pt.PlanLayout]] = None
         if full_res and lb_override is None:
             store_cap = capture_beta if caches is not None else 0
@@ -393,8 +466,7 @@ class ServerModel:
             layouts = [pt.plan_layout(p.states, lb, self.part)
                        for p in plans]
             arrays, _ = pt.stack_plan_layouts(layouts)
-            layout = {k: torch.as_tensor(pad_rows(arrays[k]),
-                                         device=self.device)
+            layout = {k: self._h2d(pad_rows(arrays[k]))
                       for k in _LAYOUT_ARGS}
             tiles_in = self._wave_tiles(layouts, caches, npad)
             # mixed keys always capture at their restoration point;
@@ -442,7 +514,8 @@ class ServerModel:
             if l.n_reuse == 0 or c is None or c.tiles is None:
                 rows.append(zero)
                 continue
-            rows.append(c.gather(np.where(l.reuse_ids < nR, l.reuse_ids, 0)))
+            rows.append(c.gather(self._h2d(
+                np.where(l.reuse_ids < nR, l.reuse_ids, 0).astype(np.int64))))
         rows += [rows[0]] * npad
         return torch.stack(rows)
 
@@ -459,6 +532,32 @@ class ServerModel:
                 continue
             c.update(mr.take_sample_tiles(tiles_out, i), reuse_rows[i], cap,
                      frame_ids[i], epoch=self.epoch)
+
+    # ------------------------------------------------------------------
+    # speculative REUSE execution (the spliced forward starts before the
+    # payload lands; serve/scheduler.py owns admission and resolution)
+
+    def infer_speculative(self, pred_canvas: np.ndarray, plan: RegionPlan,
+                          beta: int, cache: FeatureCache,
+                          frame_idx: int) -> Tuple[List[Dict],
+                                                   FeatureCache]:
+        """Run a plan's spliced forward on a PREDICTED canvas.
+
+        The canvas substitutes the in-flight LOW/FULL regions' pixels
+        with the session's prediction source (:func:`predict_canvas`);
+        REUSE regions splice from the cache as the real forward would.
+        Same plan, same length bucket, B=1: the warmed ``(lb, beta, beta,
+        1)`` key, so speculation adds no grid key.  Capture goes into a
+        :meth:`FeatureCache.speculative_clone`, never the live session,
+        so a discarded speculation leaves the live tiles byte-identical;
+        the epoch guard applies to the clone as to a real splice.
+        Returns ``(dets, clone)``; the scheduler commits the clone only
+        when the speculation resolves.
+        """
+        clone = cache.speculative_clone()
+        dets = self.infer_wave(pred_canvas[None], [plan], beta,
+                               caches=[clone], frame_ids=[frame_idx])
+        return dets[0], clone
 
     # ------------------------------------------------------------------
     # N=1 conveniences (thin wrappers over infer_wave)
@@ -480,6 +579,58 @@ class ServerModel:
             frame[None], [plan], beta,
             caches=None if cache is None else [cache],
             frame_ids=[frame_idx], capture_beta=capture_beta)[0]
+
+
+# ---------------------------------------------------------------------------
+# speculative-prediction helpers (host-side numpy; the scheduler drives
+# them around ServerModel.infer_speculative)
+
+
+def predict_canvas(part: Partition, region_px: int,
+                   pred_frame: np.ndarray,
+                   plan: RegionPlan) -> np.ndarray:
+    """The speculative forward's input: the session's prediction source
+    standing in for the in-flight LOW/FULL regions, REUSE regions filled
+    0.5 gray as the codec fills them in a real decoded canvas."""
+    canvas = np.asarray(pred_frame, np.float32).copy()
+    nRw = part.regions_w
+    for j in np.nonzero(np.asarray(plan.states) == REUSE)[0]:
+        ry, rx = divmod(int(j), nRw)
+        canvas[ry * region_px:(ry + 1) * region_px,
+               rx * region_px:(rx + 1) * region_px] = 0.5
+    return canvas
+
+
+def region_divergence(part: Partition, region_px: int,
+                      decoded: np.ndarray, predicted: np.ndarray,
+                      plan: RegionPlan) -> np.ndarray:
+    """(n_regions,) mean |decoded - predicted| per TRANSMITTED region
+    (REUSE rows stay 0: nothing was predicted there)."""
+    div = np.zeros((part.n_regions,), np.float32)
+    states = np.asarray(plan.states).reshape(-1)
+    nRw = part.regions_w
+    for j in np.nonzero(states != REUSE)[0]:
+        ry, rx = divmod(int(j), nRw)
+        sl = (slice(ry * region_px, (ry + 1) * region_px),
+              slice(rx * region_px, (rx + 1) * region_px))
+        div[j] = float(np.abs(np.asarray(decoded, np.float32)[sl]
+                              - predicted[sl]).mean())
+    return div
+
+
+def build_patch_plan(plan: RegionPlan,
+                     diverged: np.ndarray) -> RegionPlan:
+    """The patch pass's plan: transmitted regions that CONVERGED flip to
+    REUSE (splicing the speculative forward's captured tiles) and only
+    diverged regions stay LOW/FULL, so the patch runs at an equal or
+    smaller length bucket of the warmed grid.  At least one region must
+    have diverged (callers serve the all-converged case without a
+    patch)."""
+    states = np.asarray(plan.states).copy()
+    diverged = np.asarray(diverged, bool).reshape(-1)
+    assert diverged.any(), "all-converged speculations need no patch"
+    states[(states != REUSE) & ~diverged] = REUSE
+    return RegionPlan(states.astype(np.int8))
 
 
 # ---------------------------------------------------------------------------

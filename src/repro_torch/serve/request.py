@@ -8,7 +8,8 @@ tiles captured at the restoration point of that client's previous
 offload, plus the bookkeeping that bounds staleness — a region may be
 reused at most ``max_age`` (K) CONSECUTIVE offloads before it must be
 transmitted again.  Tiles stay on the card: reuse gathers are device
-index ops and a refresh overwrites the cached buffer in place.  The LM
+index ops and a refresh overwrites the cached buffer in place, unless the
+cache is a speculative clone that shares the live session's buffer.  The LM
 engine (``serve/engine.py``) uses the same bookkeeping without tiles to
 gate and bucket reuse spans.
 """
@@ -78,6 +79,14 @@ class FeatureCache:
     captured at — reuse is only valid at the SAME point.  ``age[j]``:
     consecutive offloads region j has been reused.  ``epoch``: the
     replica generation the tiles were captured under.
+
+    Speculative REUSE execution also keeps a **prediction source** per
+    session: the last payload the edge decoded for this client
+    (``pred_frame`` at ``pred_frame_idx``, decoded under ``pred_epoch``).
+    A speculative forward substitutes the in-flight LOW/FULL regions'
+    pixels with this frame's; :meth:`pred_ok` gates it on the same
+    staleness bound K (``max_age``, counted in offloads by ``pred_age``)
+    and on the epoch.
     """
     n_regions: int
     max_age: int = 4
@@ -87,6 +96,16 @@ class FeatureCache:
     frame: int = -1
     warm: bool = False
     epoch: int = 0
+    # speculative-prediction source (edge side): the last decoded canvas
+    # served for this session and the replica generation that decoded it
+    pred_frame: Optional[np.ndarray] = None
+    pred_frame_idx: int = -1
+    pred_age: int = 0
+    pred_epoch: int = -1
+    # False on speculative clones: ``tiles`` is the live session's buffer,
+    # so update() must not overwrite it in place (the clone owns a buffer
+    # again after its first refresh)
+    owns_tiles: bool = True
 
     def __post_init__(self):
         if self.age is None:
@@ -100,12 +119,12 @@ class FeatureCache:
             return np.zeros((self.n_regions,), bool)
         return self.age < self.max_age
 
-    def gather(self, reuse_ids: np.ndarray) -> torch.Tensor:
+    def gather(self, reuse_ids: torch.Tensor) -> torch.Tensor:
         """(n_reuse, d^2, w^2, D) tiles of the plan's reuse set, gathered
-        on the card."""
+        on the card; ``reuse_ids`` is an index tensor on the tiles'
+        device (the server copies it there without blocking)."""
         assert self.tiles is not None, "cache holds no tiles yet"
-        return mr.gather_tiles(self.tiles, torch.as_tensor(
-            np.asarray(reuse_ids, np.int64), device=self.tiles.device))
+        return mr.gather_tiles(self.tiles, reuse_ids)
 
     def expire(self, ids) -> None:
         """Force regions out of the reuse-eligible set (age pinned to
@@ -123,11 +142,59 @@ class FeatureCache:
         self.beta = -1
         self.frame = -1
         self.warm = False
+        self.pred_frame = None
+        self.pred_frame_idx = -1
+        self.pred_age = 0
+        self.pred_epoch = -1
 
+    # ------------------------------------------------------------------
+    # speculative-prediction source
+
+    def note_pred(self, frame: np.ndarray, frame_idx: int,
+                  epoch: int) -> None:
+        """Record a served offload's decoded canvas as the session's
+        prediction source (resets the prediction-staleness clock)."""
+        self.pred_frame = frame
+        self.pred_frame_idx = int(frame_idx)
+        self.pred_age = 0
+        self.pred_epoch = int(epoch)
+
+    def pred_ok(self, epoch: int) -> bool:
+        """May the prediction source seed a speculative forward?  It must
+        exist, be younger than K (``max_age``) offloads, and come from
+        the live replica generation."""
+        return (self.pred_frame is not None
+                and self.pred_age < self.max_age
+                and self.pred_epoch == int(epoch))
+
+    def speculative_clone(self) -> "FeatureCache":
+        """A session clone for a speculative forward to capture into.
+        It shares the tile buffer (gathers never write it) but does not
+        own it, so its first refresh takes a copy and a discarded
+        speculation leaves the live session byte-identical.  Commit with
+        :meth:`commit_speculative`."""
+        return FeatureCache(self.n_regions, max_age=self.max_age,
+                            beta=self.beta, tiles=self.tiles,
+                            age=self.age.copy(), frame=self.frame,
+                            warm=self.warm, epoch=self.epoch,
+                            owns_tiles=False)
+
+    def commit_speculative(self, clone: "FeatureCache",
+                           reuse_ids: np.ndarray, beta: int, frame: int,
+                           epoch: int) -> None:
+        """Adopt a resolved speculation's tiles into the live session.
+        ``reuse_ids``: the regions whose content derives from reuse or the
+        converged prediction; they age by one from this cache's own
+        pre-speculation ages, so K still forces a re-transmission."""
+        self.tiles = clone.tiles
+        self.note(reuse_ids, beta, frame, epoch=epoch)
+
+    # ------------------------------------------------------------------
     def note(self, reuse_ids: np.ndarray, beta: int, frame: int,
              epoch: Optional[int] = None) -> None:
         """Bookkeeping refresh: regions in ``reuse_ids`` were reused this
-        offload (age + 1), every other region was transmitted (age 0)."""
+        offload (age + 1), every other region was transmitted (age 0).
+        The prediction source, if any, ages by one offload."""
         ids = np.asarray(reuse_ids, np.int64).reshape(-1)
         new_age = np.zeros((self.n_regions,), np.int32)
         new_age[ids] = self.age[ids] + 1
@@ -137,19 +204,25 @@ class FeatureCache:
         self.warm = True
         if epoch is not None:
             self.epoch = int(epoch)
+        if self.pred_frame is not None:
+            self.pred_age += 1
 
     def update(self, tiles: torch.Tensor, reuse_ids: np.ndarray, beta: int,
                frame: int, epoch: Optional[int] = None) -> None:
-        """Full refresh after a forward that captured tiles.  A cached
-        buffer of the same shape, type and device is overwritten in
-        place; otherwise the cache takes its own copy, so it never pins
-        the whole wave's capture."""
-        if (self.tiles is not None and self.tiles.shape == tiles.shape
+        """Full refresh after a forward that captured tiles.  A buffer
+        this cache owns, of the same shape, type and device, is
+        overwritten in place; otherwise (first capture, or a speculative
+        clone still sharing the live session's buffer) the cache takes
+        its own copy, so it never pins the whole wave's capture and never
+        writes a buffer it shares."""
+        if (self.owns_tiles and self.tiles is not None
+                and self.tiles.shape == tiles.shape
                 and self.tiles.dtype == tiles.dtype
                 and self.tiles.device == tiles.device):
             mr.refresh_tiles(self.tiles, tiles)
         else:
             self.tiles = tiles.clone()
+        self.owns_tiles = True
         self.note(reuse_ids, beta, frame, epoch=epoch)
 
 

@@ -43,7 +43,8 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.offload.tracker", "repro_torch.offload.codec",
             "repro_torch.optim.adam", "repro_torch.offload.estimator",
             "repro_torch.offload.optimizer", "repro_torch.offload.faults",
-            "repro_torch.offload.baselines", "repro_torch.launch.offload")
+            "repro_torch.offload.baselines", "repro_torch.launch.offload",
+            "repro_torch.serve.edge")
 
 
 def test_every_port_module_imports_without_jax():
