@@ -165,7 +165,40 @@ Phases; any failure exits non-zero and prints no result:
      and Eq. (2) terms, detections within DET_RTOL.  Phase 2 also holds
      pack_pos, restore_gather and avg_pool exactly against their plain
      versions at the B = 4 rotating wave and a B = 3 wave padded to 4
-     with REUSE rows from three tile banks.
+     with REUSE rows from three tile banks;
+ 15. training (``repro_torch.train.server``).  The kernels' autograd
+     Functions (forward: the kernel; backward: the reference's analytic
+     VJP) against autograd through the plain versions on the card:
+     window attention at the full-width shape with and without a padded
+     ``win_valid``, flash at the ViT shape and causal GQA at (8, 128,
+     32/8, 128), dq / dk / dv to GRAD_TOL of each gradient's largest
+     magnitude; ``avg_pool``'s adjoint equal, ``nn_upsample``'s (a d x d
+     block sum, another order of four terms) to POOL_TOL.  Then
+     ``TRAIN_STEPS`` steps of
+     ``train_server_params`` on full-width ViTDet-L (seed 0, B = 2,
+     1024 px ``make_clip`` frames and targets): every loss finite, 20
+     window and 4 flash launches a step's forward, the step wall, peak
+     memory, one step's forward / backward / AdamW device ms (CUDA
+     events) and a traced step's kernel families and busy share; the
+     first step's gradients against the same step through the plain
+     versions at the kernels' forward values (autograd through the
+     plain versions for the backward), each leaf to TRAIN_GRAD_TOL of its
+     largest magnitude; the kernels' error on the step's own attention
+     inputs (printed); the same step through the plain versions end to
+     end taking the kernel route's branch at every kink of the head and
+     loss (ReLU masks, L1 signs), every leaf to TRAIN_GRAD_TOL, and
+     taking its own branches, every leaf to TRAIN_GRAD_TOL but the head
+     convs in front of a ReLU and ``pos_emb`` (``kink_leaf``), which go
+     to KINK_GRAD_TOL, with the count of kink positions whose branch
+     differs; a 2-block full-width model at B = 1,
+     card vs CPU: loss to TRAIN_LOSS_RTOL, every leaf's gradient the
+     same two ways.  Last,
+     the reference's SIM recipe (1800 steps, peak lr 5e-4, B = 2): the
+     loss every 200 steps and the wall, the mean of the last 100 losses
+     below that of the first 50, the trained server's frame F1 against
+     the ground-truth boxes of held-out clips (and of the training clips)
+     beside the seed-0 model's,
+     and a bit-equal checkpoint round trip.
 
 Each serving path resets the launch counts just before it and reads them
 just after.  The line before the last is a JSON object with every
@@ -174,14 +207,18 @@ that ran it, and ``launches_by_path`` gives each path's count (the
 ViTDet-L waves of phase 3, its beta-0 wave, the int8 waves of phase 5,
 the two Qwen3-4B waves of phase 7, one wave of each SSM model, the
 ``mixed_forward_ssm`` forward, each simulation of phase 13, and each
-multi-client run and burst wave of phase 14, named ``mc ...``).  The
-last line is ``{"ok": true, "device": {...}}``.
+multi-client run and burst wave of phase 14, named ``mc ...``, and the
+two training runs of phase 15, ``train ...``).  The last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import bisect
+import contextlib
+import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -270,6 +307,24 @@ MC_SLOW_WINDOWS = 2
 MC_CROSS_CLIENTS, MC_CROSS_FRAMES = 2, 12   # phase 14's card-vs-CPU runs
 ALPHA_REPS = 5              # timed waves per B behind the measured alpha
 QUANT_E2E_RTOL = 0.05       # 8-block quantized forward, card vs CPU
+# phase 15, training
+TRAIN_STEPS = 10            # full-width ViTDet-L steps
+GRAD_TOL = 1e-4             # Function vs plain autograd, of the largest grad
+TRAIN_GRAD_TOL = 1e-3       # analytic vs autograd backward, of a leaf's max
+# A step in other float32 arithmetic (the plain versions, the CPU) takes
+# the other branch at a few ReLU positions of the head whose input is
+# within its rounding of 0, and each such position adds or drops its one
+# term of the gradient of every leaf in front of that ReLU.  That weighs
+# where a leaf's gradient sums few terms: the head's convs in front of
+# its ReLUs (one level's positions; 1024 a frame at stride 32) and
+# pos_emb (one token a row).  These leaves (``kink_leaf``) are held to
+# KINK_GRAD_TOL when each route takes its own branches, and every leaf
+# to TRAIN_GRAD_TOL when both take the same ones.
+KINK_GRAD_TOL = 1e-2
+TRAIN_LOSS_RTOL = 1e-4      # the 2-block model's loss, card vs CPU
+SIM_STEPS, SIM_PEAK_LR = 1800, 5e-4   # benchmarks/common.py's SIM recipe
+F1_VIDEOS, F1_FRAMES, F1_SEED = ("walkS", "walkB", "cycleS"), 16, 23
+BWD_MARKS = ("window_attention_bwd", "flash_attention_bwd")
 QUANT_SPEC = ("int8", "fp32", 1)
 # the GEMMs of the quantized full-width model, (K, N): patch embed,
 # fused QKV, w_o, MLP up, MLP down (15 heads of 64 after pruning)
@@ -681,6 +736,9 @@ def run(torch):
 
     # phase 14 ------------------------------------------------------------
     lat["multiclient"] = serve_multiclient(torch, cfg, dev, count)
+
+    # phase 15 ------------------------------------------------------------
+    lat["train"] = train_phase(torch, cfg, dev, gen, count)
 
     out = []
     for name in KERNEL_SOURCES:
@@ -1979,6 +2037,563 @@ def mc_cross_check(torch, cfg, dev, clips, inf_delay, clients_a, clients_b,
 
 # ---------------------------------------------------------------------------
 # the LM serving lane (Qwen3-4B through ServeEngine)
+
+
+# ---------------------------------------------------------------------------
+# training (phase 15)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over the largest |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def plain_route(dispatch, win, flash):
+    """The window and flash routes of ``dispatch`` replaced by autograd
+    through the plain versions: what a training step is held against on
+    the card."""
+    saved = dispatch.window_attention, dispatch.flash_attention
+    dispatch.window_attention = (
+        lambda q, k, v, window, win_valid=None:
+        win.window_attention_plain(q, k, v, window, win_valid))
+    dispatch.flash_attention = (
+        lambda q, k, v, *, causal=False:
+        flash.flash_attention_plain(q, k, v, causal))
+    try:
+        yield
+    finally:
+        dispatch.window_attention, dispatch.flash_attention = saved
+
+
+@contextlib.contextmanager
+def kink_branches(dh, replay=None):
+    """``det_head``'s ``torch`` with ``relu`` (the head's ReLUs) and
+    ``abs`` (the loss's L1) recording the branch each element takes (the
+    mask, the sign), in call order, into the yielded list; with
+    ``replay`` (branches recorded on another route) each takes the
+    replayed branch instead: the same step through the same kink
+    branches."""
+    import torch
+    rec = []
+
+    def branch(x, taken, plain):
+        rec.append(taken)
+        if replay is None:
+            return plain(x)
+        return x * replay[len(rec) - 1].to(x.device, x.dtype)
+
+    class Branches:
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def relu(x):
+            return branch(x, x > 0, torch.relu)
+
+        @staticmethod
+        def abs(x):
+            return branch(x, torch.sign(x), torch.abs)
+
+    real = dh.torch
+    dh.torch = Branches()
+    try:
+        yield rec
+    finally:
+        dh.torch = real
+
+
+def branch_flips(a, b, tgt):
+    """Positions whose branch differs between two recordings of a step,
+    per kink: each level's smooth and tower ReLU, then each level's L1 at
+    its positives."""
+    n = len(tgt)
+    names = [f"s{8 << i} {w}" for i in range(n) for w in ("smooth", "tower")]
+    names += [f"s{8 << i} L1" for i in range(n)]
+    flips = {}
+    for i, name in enumerate(names):
+        d = a[i].cpu() != b[i].cpu()
+        if i >= 2 * n:
+            d &= tgt[i - 2 * n]["pos"].cpu() > 0
+        flips[name] = int(d.sum())
+    return flips
+
+
+@contextlib.contextmanager
+def kernel_errors(dispatch, win, flash):
+    """The window and flash routes of ``dispatch`` also run the plain
+    versions on the kernels' own inputs and record each call's error, of
+    the plain output's largest."""
+    errs = {"window_attention": [], "flash_attention": []}
+    saved = dispatch.window_attention, dispatch.flash_attention
+
+    def window(q, k, v, window, win_valid=None):
+        o = saved[0](q, k, v, window, win_valid)
+        errs["window_attention"].append(rel_err(
+            o, win.window_attention_plain(q, k, v, window, win_valid)))
+        return o
+
+    def flash_(q, k, v, *, causal=False):
+        o = saved[1](q, k, v, causal=causal)
+        errs["flash_attention"].append(rel_err(
+            o, flash.flash_attention_plain(q, k, v, causal)))
+        return o
+
+    dispatch.window_attention, dispatch.flash_attention = window, flash_
+    try:
+        yield errs
+    finally:
+        dispatch.window_attention, dispatch.flash_attention = saved
+
+
+def kink_leaf(name: str) -> bool:
+    return name == "pos_emb" or name.split("/")[:2] in (
+        ["head", "lateral"], ["head", "smooth"], ["head", "tower"])
+
+
+def route_vs_plain(what, got, want, replayed, flips, out):
+    """Check a step's leaf gradients against the plain route's: every leaf
+    to TRAIN_GRAD_TOL with the kink branches replayed; with each route's
+    own branches, the ``kink_leaf`` leaves to KINK_GRAD_TOL and the rest
+    to TRAIN_GRAD_TOL.  Prints the worst leaves and the flipped branches."""
+    own = {k: rel_err(got[k].to(want[k].device), want[k]) for k in want}
+    kinks = sorted(k for k in own if kink_leaf(k))
+    same = {k: rel_err(got[k].to(want[k].device), replayed[k])
+            for k in want}
+    top = sorted(own, key=own.get, reverse=True)[:6]
+    worst_same = max(same, key=same.get)
+    rest = {k: e for k, e in own.items() if not kink_leaf(k)}
+    worst_rest = max(rest, key=rest.get)
+    out.update({
+        "flipped_branches": flips,
+        "own_branches": {k: own[k] for k in top},
+        "own_over_train_tol": sorted(k for k, e in own.items()
+                                     if e > TRAIN_GRAD_TOL),
+        "same_branches_worst": {worst_same: same[worst_same]}})
+    say(f"  {what}: kink positions taking another branch "
+        + ", ".join(f"{k} {n}" for k, n in flips.items()))
+    say(f"  {what}, each route its own branches: worst leaves "
+        + ", ".join(f"{k} {own[k]:.3g}" for k in top)
+        + f"; above {TRAIN_GRAD_TOL}: {out['own_over_train_tol']} (limit "
+        f"{KINK_GRAD_TOL} for the {len(kinks)} leaves in front of a kink, "
+        f"{TRAIN_GRAD_TOL} for the other {len(rest)})")
+    say(f"  {what}, the plain route taking the kernel route's branches: "
+        f"worst leaf {worst_same} {same[worst_same]:.3g} (limit "
+        f"{TRAIN_GRAD_TOL}); {len(same)} leaves")
+    check(same[worst_same] <= TRAIN_GRAD_TOL,
+          f"{what}: gradient {worst_same} {same[worst_same]} with the same "
+          f"kink branches")
+    check(rest[worst_rest] <= TRAIN_GRAD_TOL,
+          f"{what}: gradient {worst_rest} {rest[worst_rest]}")
+    check(all(own[k] <= KINK_GRAD_TOL for k in kinks),
+          f"{what}: a leaf in front of a kink above {KINK_GRAD_TOL}: "
+          f"{ {k: own[k] for k in kinks if own[k] > KINK_GRAD_TOL} }")
+
+
+@contextlib.contextmanager
+def autograd_backward(dispatch, win, flash):
+    """The window and flash routes of ``dispatch`` with the kernels'
+    forward and, for the backward, autograd through the plain versions at
+    the saved inputs: the analytic backward's comparison at the same
+    forward values."""
+    import torch
+
+    def plain_vjp(plain, saved, g, *args):
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(True) for t in saved]
+            return torch.autograd.grad(plain(*xs, *args), xs, g)
+
+    class Window(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, window, win_valid):
+            ctx.save_for_backward(q, k, v)
+            ctx.args = (window, win_valid)
+            return win.window_attention_cuda(q, k, v, window, win_valid)
+
+        @staticmethod
+        def backward(ctx, g):
+            return plain_vjp(win.window_attention_plain, ctx.saved_tensors,
+                             g, *ctx.args) + (None, None)
+
+    class Flash(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal):
+            ctx.save_for_backward(q, k, v)
+            ctx.causal = causal
+            return flash.flash_attention_cuda(q, k, v, causal)
+
+        @staticmethod
+        def backward(ctx, g):
+            return plain_vjp(flash.flash_attention_plain, ctx.saved_tensors,
+                             g, ctx.causal) + (None,)
+
+    saved = dispatch.window_attention, dispatch.flash_attention
+    dispatch.window_attention = (
+        lambda q, k, v, window, win_valid=None:
+        Window.apply(q, k, v, window, win_valid))
+    dispatch.flash_attention = (
+        lambda q, k, v, *, causal=False: Flash.apply(q, k, v, causal))
+    try:
+        yield
+    finally:
+        dispatch.window_attention, dispatch.flash_attention = saved
+
+
+def function_grad_checks(torch, cfg, dev, gen):
+    """The Functions' gradients against autograd through the plain
+    versions at the training shapes, and the analytic backward timed
+    alone at the ViT shape (ms a call)."""
+    from repro_torch.core import vit_backbone as vb
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.mixed_res_pool import ops as pool
+    from repro_torch.kernels.window_attention import ops as win
+
+    part = vb.vit_partition(cfg)
+    w2, T = part.window ** 2, part.grid_h * part.grid_w
+    H, Dh = cfg.n_heads, cfg.head_dim
+
+    def grads(fn, xs, g):
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        return torch.autograd.grad(fn(*xs), xs, g)
+
+    def compare(name, route, plain, xs, tol=GRAD_TOL):
+        """``tol`` 0: bit-equal."""
+        g = torch.randn(route(*xs).shape, generator=gen, device=dev)
+        dispatch.reset_launch_counts()
+        got = grads(route, xs, g)
+        check(sum(dispatch.launch_counts().values()) == 1,
+              f"{name}: the Function launched {dispatch.launch_counts()}")
+        want = grads(plain, xs, g)
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        say(f"  {name}: grads vs autograd through plain, of the largest: "
+            + ", ".join(f"{e:.3g}" for e in errs) + f" (limit {tol})")
+        check(max(errs) <= tol and (tol or all(
+            torch.equal(a, b) for a, b in zip(got, want))),
+            f"{name}: gradient error {errs}")
+        return max(errs)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    out = {}
+    q, k, v = rand(B, T, H, Dh), rand(B, T, H, Dh), rand(B, T, H, Dh)
+    wv = torch.tensor([T // w2 - 16, T // w2 - 24], dtype=torch.int32,
+                      device=dev)
+    out["window"] = compare(
+        f"window_attention ({B}, {T}, {H}, {Dh}) w2={w2}",
+        lambda *a: dispatch.window_attention(*a, w2),
+        lambda *a: win.window_attention_plain(*a, w2), (q, k, v))
+    out["window_win_valid"] = compare(
+        f"window_attention win_valid {wv.tolist()}",
+        lambda *a: dispatch.window_attention(*a, w2, wv),
+        lambda *a: win.window_attention_plain(*a, w2, wv), (q, k, v))
+    out["flash"] = compare(
+        f"flash_attention ({B}, {T}, {H}, {Dh})", dispatch.flash_attention,
+        flash.flash_attention_plain, (q, k, v))
+    g = rand(B, T, H, Dh)
+    out["window_bwd_ms"] = timed(torch, lambda: win.window_attention_bwd(
+        q, k, v, g, w2))
+    out["flash_bwd_ms"] = timed(torch, lambda: flash.flash_attention_bwd(
+        q, k, v, g))
+    say(f"  analytic backward alone: window {out['window_bwd_ms']:.3f} ms, "
+        f"flash {out['flash_bwd_ms']:.3f} ms a layer")
+    del q, k, v, g
+    qc, kc, vc = rand(8, 128, 32, 128), rand(8, 128, 8, 128), \
+        rand(8, 128, 8, 128)
+    out["flash_causal_gqa"] = compare(
+        "flash_attention causal (8, 128, 32/8, 128)",
+        lambda *a: dispatch.flash_attention(*a, causal=True),
+        lambda *a: flash.flash_attention_plain(*a, True), (qc, kc, vc))
+    frame = torch.rand((B, *cfg.vit.img_size, 3), generator=gen, device=dev)
+    compare("avg_pool frame d=2", lambda x: dispatch.avg_pool(x, 2),
+            lambda x: pool.avg_pool_plain(x, 2), (frame,), tol=0.0)
+    # the block sum adds d^2 terms in another order than autograd's
+    # scatter through repeat_interleave
+    lows = rand(B * part.n_regions, part.window, part.window, cfg.d_model)
+    compare("nn_upsample LOW windows d=2",
+            lambda x: dispatch.nn_upsample(x, 2),
+            lambda x: pool.nn_upsample_plain(x, 2), (lows,), tol=POOL_TOL)
+    return out
+
+
+def stage_ms(torch, cfg, flat, like, img, tgt):
+    """One training step's forward, backward and AdamW device ms: CUDA
+    events between the stages on the one stream they share."""
+    from repro_torch.optim import adam
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import server as ts
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+    ev[0].record()
+    loss, _ = ts.loss_fn(cfg, ckpt.unflatten(leaves, like), img, tgt)
+    ev[1].record()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    ev[2].record()
+    adam.adam_update(dict(zip(leaves, grads)), adam.init_adam(flat), flat,
+                     lr=1e-4, grad_clip=1.0)
+    ev[3].record()
+    ev[3].synchronize()
+    return {name: ev[i].elapsed_time(ev[i + 1])
+            for i, name in enumerate(("forward", "backward", "adamw"))}
+
+
+def profile_train(torch, step, wall_s):
+    """Trace one training step: device ms by kernel family (kernels inside
+    the analytic backward's ranges count as ``attention_bwd`` where the
+    trace carries those ranges) and the device's busy share of the
+    untraced step's wall ``wall_s``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    (OUT_DIR / "profile_train.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=60))
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = [(e.time_range.start, e.time_range.end) for e in dev
+             if e.name in BWD_MARKS]
+    fam: dict = {}
+    for e in dev:
+        if e.name in BWD_MARKS or getattr(e, "is_user_annotation", False):
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        if ms <= 0:
+            continue
+        if any(a <= e.time_range.start and e.time_range.end <= b
+               for a, b in spans):
+            key = "attention_bwd"
+        else:
+            key = next((f for frag, f in FAMILIES if frag in e.name), "other")
+        fam[key] = fam.get(key, 0.0) + ms
+    busy = sum(fam.values())
+    check(busy > 0, "profile train: no device time traced")
+    out = {"device_ms": busy, "busy_share": busy / (wall_s * 1e3),
+           "bwd_spans_traced": len(spans),
+           "families_ms": dict(sorted(fam.items(), key=lambda kv: -kv[1]))}
+    say(f"  profile train step: device {busy:.2f} ms of {wall_s * 1e3:.2f} "
+        f"ms wall (busy {out['busy_share']:.3f}); " + ", ".join(
+            f"{k} {v:.2f}" for k, v in out["families_ms"].items())
+        + ("" if spans else "; the trace has no analytic-backward ranges, "
+           "so its kernels count in their own families"))
+    return out
+
+
+def leaf_errors(got, want):
+    """Each leaf's max error over its largest magnitude; (worst, name)."""
+    errs = {k: rel_err(got[k].cpu(), want[k].cpu()) for k in want}
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+def train_phase(torch, cfg, dev, gen, count):
+    """Phase 15: the Functions' gradients, full-width training steps,
+    their gradients against the plain route and a 2-block model against
+    the CPU, then the reference's SIM recipe, its F1 and a checkpoint."""
+    from repro_torch.configs.vitdet_l import SIM
+    from repro_torch.core import det_head as dh
+    from repro_torch.core import vit_backbone as vb
+    from repro_torch.data import synthetic_video as sv
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.window_attention import ops as win
+    from repro_torch.offload import detection as det
+    from repro_torch.offload.simulator import ServerModel
+    from repro_torch.optim import adam
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import server as ts
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    say(f"phase 15: training {cfg.name} ({cfg.n_layers} blocks, D="
+        f"{cfg.d_model}, {cfg.vit.img_size[0]} px, B={B}) and the SIM "
+        f"recipe")
+    out = {"functions": function_grad_checks(torch, cfg, dev, gen)}
+
+    # full-width steps through the kernels
+    params = ts.seed0_params(cfg, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # the weights, earlier phases'
+    dispatch.reset_launch_counts()
+    _, m = ts.train_server_params(cfg, steps=TRAIN_STEPS, batch=B,
+                                  params=params, device=dev, log_every=0)
+    launches = dispatch.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    count("train vitdet-l", launches)
+    n_glob = cfg.vit.n_subsets
+    check(all(np.isfinite(m["losses"])), f"non-finite loss: {m['losses']}")
+    check(launches["window_attention"] == (cfg.n_layers - n_glob)
+          * TRAIN_STEPS and launches["flash_attention"] == n_glob
+          * TRAIN_STEPS, f"launches over {TRAIN_STEPS} steps: {launches}")
+    step_s = statistics.median(m["step_s"][1:])
+    out["full_width"] = {
+        "losses": m["losses"], "step_s": m["step_s"],
+        "step_median_ms": step_s * 1e3, "peak_gb": peak / 1e9,
+        "held_before_gb": held / 1e9,
+        "launches": {k: n for k, n in launches.items() if n}}
+    say(f"  {TRAIN_STEPS} steps: losses " + " ".join(
+        f"{x:.3f}" for x in m["losses"]) + f"; step median "
+        f"{step_s * 1e3:.1f} ms (first {m['step_s'][0] * 1e3:.1f}); peak "
+        f"memory {peak / 1e9:.2f} GB ({held / 1e9:.2f} GB allocated before "
+        f"the run, the seed-0 weights included); launches "
+        f"{out['full_width']['launches']} "
+        f"({cfg.n_layers - n_glob} window + {n_glob} flash a step)")
+
+    frames, targets = ts.training_pool(cfg)
+    idx = np.random.default_rng(0).integers(0, len(frames), B)
+    img, tgt = ts.make_batch(frames, targets, idx, dev)
+    del frames, targets
+    like = vb.strip_derived(params)
+    flat = ckpt.flatten(like)
+    stage_ms(torch, cfg, flat, like, img, tgt)          # warm-up
+    stages = stage_ms(torch, cfg, flat, like, img, tgt)
+    out["full_width"]["stages_ms"] = stages
+    say("  one step on the device: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in stages.items()))
+    opt = adam.init_adam(flat)
+
+    def step():
+        _, grads = ts.value_and_grad(cfg, flat, like, img, tgt)
+        adam.adam_update(grads, opt, flat, lr=1e-4, grad_clip=1.0)
+        torch.cuda.synchronize()
+
+    out["full_width"]["profile"] = profile_train(torch, step, step_s)
+    del opt
+
+    with kink_branches(dh) as br_k:
+        loss_k, g_k = ts.value_and_grad(cfg, flat, like, img, tgt)
+    check(abs(float(loss_k) - m["losses"][0]) <= 1e-5 * abs(m["losses"][0]),
+          f"first step's loss {float(loss_k)} vs the run's "
+          f"{m['losses'][0]}")
+    with autograd_backward(dispatch, win, flash):
+        _, g_a = ts.value_and_grad(cfg, flat, like, img, tgt)
+    worst, name = leaf_errors(g_k, g_a)
+    out["full_width"]["vs_autograd"] = {"worst_leaf": name, "grad_err": worst}
+    say(f"  first step, analytic backward vs autograd through the plain "
+        f"versions at the kernels' forward values: worst leaf {name} "
+        f"{worst:.3g} of its largest (limit {TRAIN_GRAD_TOL}); {len(g_k)} "
+        f"leaves")
+    check(worst <= TRAIN_GRAD_TOL, f"gradient {name}: {worst} vs autograd")
+    del g_a
+    # the forward's part: the kernels against their plain versions on the
+    # step's own attention inputs
+    with torch.no_grad(), kernel_errors(dispatch, win, flash) as kerr:
+        ts.loss_fn(cfg, ckpt.unflatten(flat, like), img, tgt)
+    out["full_width"]["kernel_err_on_step"] = {k: max(v)
+                                               for k, v in kerr.items()}
+    say("  the first step's attention calls, kernel vs plain on the same "
+        "inputs, worst of the largest: " + ", ".join(
+            f"{k} {max(v):.3g} ({len(v)} calls)" for k, v in kerr.items()))
+    dispatch.reset_launch_counts()
+    with plain_route(dispatch, win, flash):
+        with kink_branches(dh) as br_p:
+            loss_p, g_p = ts.value_and_grad(cfg, flat, like, img, tgt)
+        with kink_branches(dh, replay=br_k):
+            _, g_r = ts.value_and_grad(cfg, flat, like, img, tgt)
+    check(not any(dispatch.launch_counts().values()),
+          f"the plain route launched {dispatch.launch_counts()}")
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    out["full_width"]["vs_plain"] = {"loss_rel": loss_rel}
+    say(f"  first step vs the plain route on the card: loss rel "
+        f"{loss_rel:.3g}")
+    route_vs_plain("first step vs the plain route", g_k, g_p, g_r,
+                   branch_flips(br_k, br_p, tgt), out["full_width"]["vs_plain"])
+    del g_k, g_p, g_r, br_k, br_p, params, like, flat
+    torch.cuda.empty_cache()
+
+    # a 2-block full-width model, card vs CPU
+    small = cfg.replace(n_layers=2,
+                        vit=dataclasses.replace(cfg.vit, n_subsets=1))
+    like2 = vb.strip_derived(ts.seed0_params(small, dev))
+    flat2 = ckpt.flatten(like2)
+    img1, tgt1 = img[:1], [{k: v[:1] for k, v in t.items()} for t in tgt]
+    with kink_branches(dh) as br_c:
+        loss_c, g_c = ts.value_and_grad(small, flat2, like2, img1, tgt1)
+    torch.set_num_threads(os.cpu_count() or 1)
+    t0 = time.perf_counter()
+    flat_h = {k: v.cpu() for k, v in flat2.items()}
+    host = (small, flat_h, ckpt.unflatten(flat_h, like2), img1.cpu(),
+            [{k: v.cpu() for k, v in t.items()} for t in tgt1])
+    with kink_branches(dh) as br_h:
+        loss_h, g_h = ts.value_and_grad(*host)
+    with kink_branches(dh, replay=br_c):
+        _, g_hr = ts.value_and_grad(*host)
+    loss_rel = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    out["card_vs_cpu"] = {"loss_rel": loss_rel,
+                          "cpu_s": time.perf_counter() - t0}
+    say(f"  2-block model, B=1, card vs CPU: loss rel {loss_rel:.3g} "
+        f"(limit {TRAIN_LOSS_RTOL}); CPU {out['card_vs_cpu']['cpu_s']:.1f} "
+        f"s for two steps")
+    check(loss_rel <= TRAIN_LOSS_RTOL, "2-block training step: card vs CPU "
+          f"loss {loss_rel}")
+    route_vs_plain("2-block card vs CPU", g_c, g_h, g_hr,
+                   branch_flips(br_c, br_h, tgt1), out["card_vs_cpu"])
+    del g_c, g_h, g_hr, br_c, br_h, host, flat2, flat_h, like2, img, tgt
+    torch.cuda.empty_cache()
+
+    # the reference's SIM recipe
+    dispatch.reset_launch_counts()
+    trained, ms = ts.train_server_params(
+        SIM, steps=SIM_STEPS, peak_lr=SIM_PEAK_LR, batch=2, log_every=200,
+        device=dev, log=lambda line: say("  " + line))
+    sim_launches = dispatch.launch_counts()
+    count("train SIM", sim_launches)
+    first, last = (statistics.mean(ms["losses"][:50]),
+                   statistics.mean(ms["losses"][-100:]))
+    size = SIM.vit.img_size[0]
+    # frame F1 against the ground-truth boxes: held-out clips (another
+    # seed) and, for scale, the training clips themselves
+    f1 = {}
+    for what, p in (("trained", trained),
+                    ("seed 0", ts.seed0_params(SIM, dev))):
+        server = ServerModel(SIM, p, top_k=32, score_thresh=0.4, device=dev)
+        like = vb.strip_derived(p)
+        for clips, seed in (("held-out", F1_SEED), ("training", ts.CLIP_SEED)):
+            scores, losses, n_det, n_gt = [], [], 0, 0
+            for name in F1_VIDEOS:
+                clip, gts = sv.make_clip(name, F1_FRAMES, size=size,
+                                         seed=seed)
+                tg = [sv.render_targets(g, size, n_classes=SIM.vit.n_classes)
+                      for g in gts]
+                for i, (f, gt) in enumerate(zip(clip, gts)):
+                    dets = server.infer(f)
+                    scores.append(det.frame_f1(dets, gt))
+                    n_det, n_gt = n_det + len(dets), n_gt + len(gt)
+                    with torch.no_grad():
+                        losses.append(float(ts.loss_fn(
+                            SIM, like, *ts.make_batch(clip, tg, [i], dev))[0]))
+            f1[f"{what} {clips}"] = {"f1": statistics.mean(scores),
+                                     "detections": n_det, "boxes": n_gt,
+                                     "loss": statistics.mean(losses)}
+    out["sim"] = {"wall_s": ms["wall_s"], "losses": ms["losses"],
+                  "first50_mean": first, "last100_mean": last, "f1": f1,
+                  "step_median_ms": statistics.median(ms["step_s"]) * 1e3,
+                  "launches": {k: n for k, n in sim_launches.items() if n}}
+    say(f"  SIM recipe: {SIM_STEPS} steps in {ms['wall_s']:.1f} s (step "
+        f"median {out['sim']['step_median_ms']:.2f} ms); mean loss first 50 "
+        f"{first:.4f}, last 100 {last:.4f}; frame F1 vs ground truth, "
+        f"{len(F1_VIDEOS)} clips x {F1_FRAMES} frames at score 0.4: "
+        + ", ".join(f"{k} {v['f1']:.3f} ({v['detections']} detections, "
+                    f"{v['boxes']} boxes, mean loss {v['loss']:.3f})"
+                    for k, v in f1.items()))
+    check(last < first, f"SIM loss did not fall: {first} -> {last}")
+
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    tree = vb.strip_derived(trained)
+    ckpt.save(tree, str(d), step=SIM_STEPS)
+    back = ckpt.flatten(ckpt.restore(tree, str(d)))
+    check(all(torch.equal(back[k], v) and back[k].device == v.device
+              for k, v in ckpt.flatten(tree).items()),
+          "checkpoint round trip is not bit-equal")
+    shutil.rmtree(d)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  checkpoint save/restore: {len(back)} leaves bit-equal; "
+        f"phase 15: {out['phase_s']:.1f} s")
+    return out
 
 
 def lm_kernel_checks(torch, F, flash, dev, gen, put):

@@ -1,5 +1,6 @@
-"""Dense prediction head (simple ViTDet feature pyramid + FCOS-lite head)
-and the top-k decode; port of ``repro.core.det_head`` forward and decode.
+"""Dense prediction head (simple ViTDet feature pyramid + FCOS-lite
+head), the FCOS-lite training loss and the top-k decode; port of
+``repro.core.det_head``.
 
 The pyramid is built from the backbone's stride-16 map: stride 8 by 2x
 nearest upsample, stride 16 identity, stride 32 by 2x average pool, each
@@ -55,6 +56,50 @@ def det_head_forward(cfg: ModelConfig, p, feats: torch.Tensor
             "stride": STRIDES[i],
         })
     return outs
+
+
+# ---------------------------------------------------------------------------
+# loss (FCOS-lite): focal BCE on class, L1 on ltrb at positives, BCE ctr
+
+
+def _focal_bce(logits: torch.Tensor, targets: torch.Tensor,
+               alpha: float = 0.25, gamma: float = 2.0) -> torch.Tensor:
+    # stable form: log-sigmoid everywhere and pt = exp(-ce); the naive
+    # log(p + eps) form is finite in value but its backward gives NaN
+    # for saturated logits (0 * inf in the chain rule)
+    x = logits.float()
+    log_p = F.logsigmoid(x)
+    log_1mp = F.logsigmoid(-x)
+    ce = -(targets * log_p + (1 - targets) * log_1mp)
+    pt = torch.exp(-ce)
+    w = (targets * alpha + (1 - targets) * (1 - alpha)) * (1 - pt) ** gamma
+    return w * ce
+
+
+def det_loss(cfg: ModelConfig, outputs, targets
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Per-level head outputs and targets -> (loss, metrics).  targets:
+    per-level dicts ``{"cls": (B,H,W,nc), "box": (B,H,W,4), "pos":
+    (B,H,W,1)}`` (``data.synthetic_video.render_targets``, stacked);
+    an optional ``"ctr"`` replaces ``pos`` as the centerness target."""
+    total_cls = total_box = total_ctr = 0.0
+    n_pos = 0.0
+    for out, tgt in zip(outputs, targets):
+        total_cls = total_cls + torch.sum(_focal_bce(out["cls"], tgt["cls"]))
+        pos = tgt["pos"].float()
+        n_pos = n_pos + torch.sum(pos)
+        total_box = total_box + torch.sum(
+            torch.abs(out["box"] - tgt["box"]) * pos)
+        ctr_t = tgt.get("ctr", pos)
+        total_ctr = total_ctr + torch.sum(
+            _focal_bce(out["ctr"], ctr_t, alpha=0.5, gamma=0.0) * pos)
+    # clamp the normaliser at 1: a frame whose objects all fall outside
+    # the stride bands has no positives, and dividing by ~0 explodes the
+    # focal term (one such frame poisons the step with NaN gradients)
+    n_pos = torch.clamp(n_pos, min=1.0)
+    loss = (total_cls + total_box + total_ctr) / n_pos
+    return loss, {"cls": total_cls / n_pos, "box": total_box / n_pos,
+                  "n_pos": n_pos}
 
 
 def decode_detections(cfg: ModelConfig, outputs, top_k: int = 64,

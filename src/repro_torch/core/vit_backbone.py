@@ -64,11 +64,18 @@ def add_position_banks(cfg: ModelConfig, params: Dict) -> Dict:
     sequence, and ``pos_bank``, the (nR*d^2 + nR, w^2, D) window bank that
     the fused pack gathers from (LOW windows get the mean embedding of
     their d x d patch groups).  A quantized grid is dequantized first."""
-    part = vit_partition(cfg)
-    pos = qt.asarray(params["pos_emb"])[None]
-    params["pos_seq"] = mr.grid_to_full_seq(pos, part)[0]
-    params["pos_bank"] = mr.window_bank(pos, part)[0]
+    pos = qt.asarray(params["pos_emb"])
+    params["pos_seq"] = position_seq(cfg, pos)
+    params["pos_bank"] = mr.window_bank(pos[None], vit_partition(cfg))[0]
     return params
+
+
+def position_seq(cfg: ModelConfig, pos_emb: torch.Tensor) -> torch.Tensor:
+    """The full-resolution window-blocked layout of the (Hp, Wp, D)
+    positional grid, the only layout the full-resolution lane reads.  A
+    training loss derives it from ``pos_emb`` inside the autograd graph
+    (``train.server.loss_fn``), so the grid gets its gradient."""
+    return mr.grid_to_full_seq(pos_emb[None], vit_partition(cfg))[0]
 
 
 def strip_derived(params: Dict) -> Dict:

@@ -3,7 +3,10 @@
 A CUDA tensor launches the op's hand-written kernel (``csrc/``); a CPU
 tensor takes the op's plain PyTorch version; any other device raises.
 There is no backend knob, and a kernel that fails to build or launch
-raises rather than falling back.
+raises rather than falling back.  Window and flash attention and the two
+pools go through their ``torch.autograd.Function``s on both devices, so
+serving and training share one route and the CPU runs the same analytic
+backward as the card.
 
 The quant plane (``resolve_quant``) chooses how a ``QuantTensor`` weight
 multiplies (``quant.qtensor.matmul``): ``"native"`` runs the int8 GEMM
@@ -66,6 +69,17 @@ def on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel route for device {x.device}")
+
+
+def _no_vjp(name: str, *xs: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would differentiate through a kernel that
+    has no backward (the reference gives it no VJP either): on the card
+    its output would carry no gradient, silently."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs):
+        raise RuntimeError(f"{name} has no backward: call it on tensors "
+                           f"that do not require grad, or under "
+                           f"torch.no_grad()")
 
 
 def launch_counts() -> Dict[str, int]:
@@ -140,23 +154,22 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      win_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, T, H, Dh); k/v: (B, T, KV, Dh); ``window`` tokens per
     window; ``win_valid`` (B,) valid-window counts (pad windows -> 0)."""
-    if on_card(q):
-        return _win.window_attention_cuda(q, k, v, window, win_valid)
-    return _win.window_attention_plain(q, k, v, window, win_valid)
+    on_card(q)                      # any other device raises
+    return _win.WindowAttention.apply(q, k, v, window, win_valid)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False) -> torch.Tensor:
     """q: (B, T, H, Dh); k/v: (B, S, KV, Dh)."""
-    if on_card(q):
-        return _flash.flash_attention_cuda(q, k, v, causal)
-    return _flash.flash_attention_plain(q, k, v, causal)
+    on_card(q)                      # any other device raises
+    return _flash.FlashAttention.apply(q, k, v, causal)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
     """One-token decode: q (B, 1, H, Dh) against a (B, S, KV, Dh) cache
     with (B,) int32 valid lengths ``kv_len``."""
+    _no_vjp("decode_attention", q, k, v)
     if on_card(q):
         return _decode.decode_attention_cuda(q, k, v, kv_len)
     return _decode.decode_attention_plain(q, k, v, kv_len)
@@ -169,6 +182,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba-2 SSD chunked scan: x (b, T, H, P), dt (b, T, H), A (H,),
     B/C (b, T, G, N), chunk length ``chunk``, optional initial state
     (b, H, N, P).  Returns (y (b, T, H, P), final state (b, H, N, P))."""
+    _no_vjp("ssd_scan", x, dt, A, Bm, Cm, init_state)
     if on_card(x):
         return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk, init_state)
     return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, init_state)
@@ -178,18 +192,16 @@ def avg_pool(x: torch.Tensor, d: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/d, W/d, C) mean pool."""
     if d == 1:
         return x
-    if on_card(x):
-        return _pool.avg_pool_cuda(x, d)
-    return _pool.avg_pool_plain(x, d)
+    on_card(x)                      # any other device raises
+    return _pool.AvgPool.apply(x, d)
 
 
 def nn_upsample(x: torch.Tensor, d: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H*d, W*d, C) nearest-neighbour upsample."""
     if d == 1:
         return x
-    if on_card(x):
-        return _pool.nn_upsample_cuda(x, d)
-    return _pool.nn_upsample_plain(x, d)
+    on_card(x)                      # any other device raises
+    return _pool.NNUpsample.apply(x, d)
 
 
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
@@ -198,6 +210,7 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     """Quantized GEMM: xq (M, K) int8 row-quantized activations, wq
     (K, N) int8 per-output-channel codes (K-contiguous, as
     ``QuantTensor`` keeps them), sx (M,) / sw (N,) float32 scales."""
+    _no_vjp("int8_matmul", sx, sw)
     if on_card(xq):
         return _int8.int8_matmul_cuda(xq, wq, sx, sw, out_dtype)
     return _int8.int8_matmul_plain(xq, wq, sx, sw, out_dtype)
@@ -207,6 +220,7 @@ def pack_pos(bank: torch.Tensor, pos_bank: torch.Tensor,
              win_src: torch.Tensor, nw: torch.Tensor) -> torch.Tensor:
     """Fused serving prologue: window-bank gather + positional add +
     pad-window zeroing.  Returns packed tokens (B, nw_pad * w2, C)."""
+    _no_vjp("pack_pos", bank, pos_bank)
     if on_card(bank):
         return _fused.pack_pos_cuda(bank, pos_bank, win_src, nw)
     return _fused.pack_pos_plain(bank, pos_bank, win_src, nw)
@@ -219,6 +233,7 @@ def restore_gather(windows: torch.Tensor, out_src: torch.Tensor,
     """Fused serving epilogue: destination-major restoration gather
     (window un-pack + LOW upsample + REUSE splice).  ``windows``: packed
     activations (B, nw_pad, w2, D).  Returns (B, nout * w2, D)."""
+    _no_vjp("restore_gather", windows, reuse_tiles)
     if on_card(windows):
         return _fused.restore_gather_cuda(windows, out_src, out_map, window,
                                           downsample, reuse_tiles)

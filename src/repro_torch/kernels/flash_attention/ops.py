@@ -9,6 +9,13 @@ function in plain PyTorch: dense float32 softmax attention, taken
 q: (B, T, H, Dh); k/v: (B, S, KV, Dh) with H = KV * G.  ``causal``: query
 t sees keys s <= t.  A row that no key reaches outputs zeros.  The
 kernel reads q, k and v through their batch and token strides.
+
+``FlashAttention`` is the differentiable entry (``kernels.dispatch``
+routes through it on both devices): its forward is the kernel on the
+card and the plain version on the CPU, its backward the reference's
+dense analytic gradient (``flash_attention_bwd``), plain PyTorch as the
+reference's is plain jnp outside its Pallas call
+(``repro/kernels/flash_attention/ops.py:_vjp_bwd``).
 """
 from __future__ import annotations
 
@@ -49,3 +56,62 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            v.stride(0), v.stride(1), float(scale), int(bool(causal)),
            q.device.index, stream_of(q))
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        g: torch.Tensor, causal: bool = False):
+    """Dense analytic softmax-attention backward in float32: recomputes
+    p (causal keys masked at the reference's finite ``NEG_INF``) and
+    returns (dq, dk, dv); kv head h // G serves query head h.  Softmax
+    is per query row, so the rows go ``Q_CHUNK`` at a time and dk / dv
+    sum over the chunks: each chunk's s, p, dp and ds are (B, KV, G,
+    Q_CHUNK, S) and are freed as soon as they are used."""
+    B, T, H, Dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = Dh ** -0.5
+    kf, vf = k.float(), v.float()
+    dk = torch.zeros((B, S, KV, Dh), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for t0 in range(0, T, Q_CHUNK):
+        qc = q[:, t0:t0 + Q_CHUNK]
+        Tc = qc.shape[1]
+        qg = qc.reshape(B, Tc, KV, G, Dh).float()
+        gg = g[:, t0:t0 + Q_CHUNK].reshape(B, Tc, KV, G, Dh).float()
+        p = torch.einsum("btkgd,bskd->bkgts", qg, kf) * scale
+        if causal:
+            seen = (torch.arange(Tc, device=q.device)[:, None] + t0
+                    >= torch.arange(S, device=q.device)[None, :])
+            p = p.masked_fill_(~seen, NEG_INF)
+        p = torch.softmax(p, dim=-1)
+        dv += torch.einsum("bkgts,btkgd->bskd", p, gg)
+        ds = torch.einsum("btkgd,bskd->bkgts", gg, vf)
+        ds = ds.sub_(torch.sum(ds * p, dim=-1, keepdim=True)).mul_(p)
+        del p
+        dqs.append(torch.einsum("bkgts,bskd->btkgd", ds, kf)
+                   .reshape(B, Tc, H, Dh) * scale)
+        dk += torch.einsum("bkgts,btkgd->bskd", ds, qg)
+        del ds
+    dq = torch.cat(dqs, dim=1)
+    return dq.to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the reference's dense analytic backward.  A
+    CUDA input launches the kernel, a CPU input takes the plain
+    version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = False):
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return fwd(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_bwd"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, g, ctx.causal)
+        return dq, dk, dv, None

@@ -7,8 +7,12 @@ d x d nearest-neighbour upsample (restoration at beta = 0, §III-B).
 ``:nn_upsample_kernel``; the ``*_plain`` functions (``ref.py``,
 re-exported here) are the same ops in plain PyTorch, which the CPU path
 and the tests use.
-``kernels.dispatch.avg_pool`` / ``nn_upsample`` pick between them by
-device.
+``AvgPool`` / ``NNUpsample`` are the differentiable entries
+(``kernels.dispatch`` routes through them on both devices): the kernel
+on the card, the plain version on the CPU, and the reference's
+closed-form adjoints (``repro/kernels/mixed_res_pool/ops.py``): a mean
+pool's is a d x d repeat over d^2, a nearest-neighbour upsample's a
+d x d block sum.
 """
 from __future__ import annotations
 
@@ -51,3 +55,35 @@ def nn_upsample_cuda(x: torch.Tensor, d: int) -> torch.Tensor:
     out = torch.empty((B, H * d, W * d, C), dtype=x.dtype, device=x.device)
     UPSAMPLE(x, out, B, H, W, C, d, x.device.index, stream_of(x))
     return out
+
+
+class AvgPool(torch.autograd.Function):
+    """d x d mean pool; its adjoint repeats each pooled cotangent over
+    its block, divided by d^2."""
+
+    @staticmethod
+    def forward(ctx, x, d: int):
+        ctx.d = d
+        return avg_pool_cuda(x, d) if x.is_cuda else avg_pool_plain(x, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.d
+        dx = g.repeat_interleave(d, dim=1).repeat_interleave(d, dim=2)
+        return dx / (d * d), None
+
+
+class NNUpsample(torch.autograd.Function):
+    """d x d nearest-neighbour upsample; its adjoint sums each d x d
+    block of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, d: int):
+        ctx.d = d
+        return nn_upsample_cuda(x, d) if x.is_cuda else nn_upsample_plain(x, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.d
+        B, H, W, C = g.shape
+        return g.reshape(B, H // d, d, W // d, d, C).sum(dim=(2, 4)), None

@@ -13,6 +13,13 @@ strides, so the three column slices of the fused QKV product go in
 without a copy.  It computes both products on the TF32 tensor cores in
 the 3xTF32 scheme (each operand split into two TF32 parts, three
 products kept), which stays within ~1e-5 of float32 here.
+
+``WindowAttention`` is the differentiable entry (``kernels.dispatch``
+routes through it on both devices): its forward is the kernel on the
+card and the plain version on the CPU, its backward the reference's
+analytic per-window gradient (``window_attention_bwd``), plain PyTorch
+as the reference's is plain jnp outside its Pallas call
+(``repro/kernels/window_attention/ops.py:_vjp_bwd``).
 """
 from __future__ import annotations
 
@@ -63,3 +70,60 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
            q.device.index, stream_of(q))
     return out
+
+
+def window_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         g: torch.Tensor, window: int,
+                         win_valid: Optional[torch.Tensor] = None):
+    """Analytic per-window softmax-attention backward: recomputes the
+    scores of each window in float32 and returns (dq, dk, dv).
+
+    dv = p^T g;  dp = g v^T;  ds = p * (dp - sum_s(dp * p));
+    dq = ds k * scale;  dk = ds^T q * scale.  Pad windows (beyond
+    ``win_valid``) output constant zeros, so their cotangent is masked
+    off first; query head h reads kv head h // G, so dk and dv sum over
+    the G heads of a group."""
+    B, T, H, Dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    W = T // window
+    scale = Dh ** -0.5
+    qw = q.reshape(B, W, window, KV, G, Dh).float()
+    kw = k.reshape(B, W, window, KV, Dh).float()
+    vw = v.reshape(B, W, window, KV, Dh).float()
+    gw = g.reshape(B, W, window, KV, G, Dh).float()
+    if win_valid is not None:
+        keep = (torch.arange(W, device=q.device)[None, :]
+                < win_valid.reshape(-1, 1).to(q.device))
+        gw = gw * keep[:, :, None, None, None, None].float()
+    p = torch.softmax(torch.einsum("bwtkgd,bwskd->bwkgts", qw, kw) * scale,
+                      dim=-1)
+    dv = torch.einsum("bwkgts,bwtkgd->bwskd", p, gw)
+    ds = torch.einsum("bwtkgd,bwskd->bwkgts", gw, vw)
+    ds = p * (ds - torch.sum(ds * p, dim=-1, keepdim=True))
+    dq = torch.einsum("bwkgts,bwskd->bwtkgd", ds, kw) * scale
+    dk = torch.einsum("bwkgts,bwtkgd->bwskd", ds, qw) * scale
+    return (dq.reshape(B, T, H, Dh).to(q.dtype),
+            dk.reshape(B, T, KV, Dh).to(k.dtype),
+            dv.reshape(B, T, KV, Dh).to(v.dtype))
+
+
+class WindowAttention(torch.autograd.Function):
+    """Window attention with the reference's analytic backward.  A CUDA
+    input launches the kernel, a CPU input takes the plain version;
+    ``win_valid`` gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, win_valid=None):
+        fwd = window_attention_cuda if q.is_cuda else window_attention_plain
+        ctx.window = window
+        ctx.save_for_backward(q, k, v, win_valid)
+        return fwd(q, k, v, window, win_valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, win_valid = ctx.saved_tensors
+        with torch.profiler.record_function("window_attention_bwd"):
+            dq, dk, dv = window_attention_bwd(q, k, v, g, ctx.window,
+                                              win_valid)
+        return dq, dk, dv, None, None

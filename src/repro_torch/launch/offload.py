@@ -5,13 +5,18 @@ trace, the port of ``examples/offload_simulation.py``.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.offload [--video cycleS]
       [--trace 4g] [--frames 40] [--policies TrackB2B,ViTMAlis,...]
-      [--device cpu] [--sim]
+      [--device cpu] [--sim [--train-steps N [--ckpt-dir DIR]]]
 
 The server is ViTDet-L at full width (``--sim``: the SIM config) with
-weights drawn from seed 0; no trained checkpoint is used, so every F1
-here measures what LOW regions, REUSE and tracking lose against the
-same model at full resolution (the ground truth), not detection
-quality.  Before the simulations the launcher does, in a few lines each,
+weights drawn from seed 0, decoding at score 0: every F1 then measures
+what LOW regions, REUSE and tracking lose against the same model at
+full resolution (the ground truth), not detection quality.  With
+``--sim --train-steps N`` the server is the SIM detector trained by the
+reference's recipe (``train.server.get_server``: restored from
+``--ckpt-dir`` if it holds step N, else trained for N steps and saved
+there; by default ``build/sim_server`` in the checkout) and decodes at
+score 0.4, as the reference's ``examples/offload_simulation.py`` serves
+it.  Before the simulations the launcher does, in a few lines each,
 what the reference benchmarks' shared code does (without its disk
 cache): it profiles (features, payload size, F1) over sample configs,
 fits the size and accuracy MLP estimators, builds Algorithm 1's
@@ -30,6 +35,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +59,7 @@ from repro_torch.offload.estimator import (InferenceDelayModel, MLPEstimator,
 from repro_torch.offload.optimizer import (DelayModels, OffloadOptimizer,
                                            candidate_configs)
 from repro_torch.offload.simulator import ServerModel, Simulation
+from repro_torch.train.server import get_server
 
 FPS = 10
 POLICIES = ("TrackB2B", "ViTMAlis", "ViTMAlis+Reuse")
@@ -67,6 +74,8 @@ PROFILE_SEED = 11                 # the profiling clips' seed
 GT_SEED = 23                      # the simulated clips' seed
 FIT_STEPS = 1500                  # MLP estimator training steps
 ANCHOR_REPS = 9                   # timed infers behind the delay anchor
+# where --train-steps keeps the trained SIM server (gitignored)
+CKPT_DIR = Path(__file__).resolve().parents[3] / "build" / "sim_server"
 
 
 def make_server(cfg: ModelConfig, dev: torch.device) -> ServerModel:
@@ -268,16 +277,29 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--sim", action="store_true",
                     help="serve the SIM config (256x256, 8 blocks, D=64)")
+    ap.add_argument("--train-steps", type=int, default=0,
+                    help="with --sim: serve the SIM detector trained for "
+                         "this many steps (the reference's recipe)")
+    ap.add_argument("--ckpt-dir", default=str(CKPT_DIR),
+                    help="checkpoint directory of --train-steps")
     args = ap.parse_args(argv)
     policies = args.policies.split(",")
     if not set(policies) <= set(POLICIES):
         ap.error(f"--policies: choose from {','.join(POLICIES)}")
+    if args.train_steps and not args.sim:
+        ap.error("--train-steps trains the SIM server: add --sim")
 
     cfg = SIM if args.sim else CONFIG
     dev = torch.device(args.device)
     part = vb.vit_partition(cfg)
     patch = cfg.vit.patch_size
-    server = make_server(cfg, dev)
+    if args.train_steps:
+        server = get_server(args.ckpt_dir, args.train_steps, device=dev)
+        server.warmup(reachable_plan_space(server.part), (1,))
+        print(f"trained SIM server: {args.train_steps} steps "
+              f"({args.ckpt_dir}), score threshold {server.score_thresh}")
+    else:
+        server = make_server(cfg, dev)
     n_keys = server.stats.compiles
 
     frames, gt = video_with_gt(server, args.video, args.frames)

@@ -44,7 +44,8 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.optim.adam", "repro_torch.offload.estimator",
             "repro_torch.offload.optimizer", "repro_torch.offload.faults",
             "repro_torch.offload.baselines", "repro_torch.launch.offload",
-            "repro_torch.serve.edge")
+            "repro_torch.serve.edge", "repro_torch.optim.schedules",
+            "repro_torch.train.checkpoint", "repro_torch.train.server")
 
 
 def test_every_port_module_imports_without_jax():
