@@ -103,7 +103,7 @@ Phases; any failure exits non-zero and prints no result:
      (median of three), prefill and decode-step times, one traced wave;
      then ``mixed_forward_ssm`` at beta 2 with half the spans pooled
      (layers 0-23 at T_mix = 768; 48 ``ssd_scan`` launches) beside the
-     plain ``forward_hidden``, both timed;
+     plain ``prefill``, both timed;
  11. the same for full-width zamba2-1.2b (38 mamba layers, D=2048, one
      shared attention + SwiGLU block applied 6 times): 38 ``ssd_scan``
      and 6 ``flash_attention`` launches a prefill, 6 ``decode_attention``
@@ -198,7 +198,29 @@ Phases; any failure exits non-zero and prints no result:
      below that of the first 50, the trained server's frame F1 against
      the ground-truth boxes of held-out clips (and of the training clips)
      beside the seed-0 model's,
-     and a bit-equal checkpoint round trip.
+     and a bit-equal checkpoint round trip.  The first step's flash calls
+     are also held against the plain version in float64: the kernel's
+     error and the float32 plain version's are printed;
+ 16. LM training: the flash Function, causal GQA at Qwen3-4B's (1, 1024,
+     32/8, 128) and the ~100M config's (4, 256, 10/2, 64) shapes, forward
+     and gradients against autograd through the plain version to
+     GRAD_TOL, and the forward's error against float64 beside the plain
+     version's; the ~100M qwen3-family run of ``examples/train_lm_100m.py``
+     through ``launch.train.train`` (300 steps at B = 4, T = 256; the
+     mean of the last 10 losses 0.1 below the first), its last
+     checkpoint restored bit-equal (``AdamState.step`` and moments) and a
+     10-step resumed run; full-width Qwen3-4B (seed-0 weights, remat):
+     the first step's gradients against the plain route on the card and
+     flash's float64 error on the step's own inputs, 3 steps at B = 1,
+     T = 1024 and one at B = 2 over two microbatches (72 flash launches a
+     microbatch: 36 forward, 36 in the remat recompute), step wall, peak
+     memory below the card's, the forward / backward / AdamW device ms
+     and a traced step's families (``profile_lm_train_qwen3.txt``);
+     full-width mamba2-370m and zamba2-1.2b steps at B = 2 (no
+     ``ssd_scan`` launch: the scans train through ``ssd_chunked``; 12
+     flash launches a zamba2 step); 2-layer Qwen3, 2-layer mamba2 and
+     6-layer zamba2 full-width steps card against CPU (loss to
+     TRAIN_LOSS_RTOL, every leaf to LM_GRAD_TOL of its largest).
 
 Each serving path resets the launch counts just before it and reads them
 just after.  The line before the last is a JSON object with every
@@ -207,8 +229,9 @@ that ran it, and ``launches_by_path`` gives each path's count (the
 ViTDet-L waves of phase 3, its beta-0 wave, the int8 waves of phase 5,
 the two Qwen3-4B waves of phase 7, one wave of each SSM model, the
 ``mixed_forward_ssm`` forward, each simulation of phase 13, and each
-multi-client run and burst wave of phase 14, named ``mc ...``, and the
-two training runs of phase 15, ``train ...``).  The last line is
+multi-client run and burst wave of phase 14, named ``mc ...``, the
+two training runs of phase 15, ``train ...``, and the LM training runs
+of phase 16, ``lm_train ...``).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -319,12 +342,29 @@ TRAIN_GRAD_TOL = 1e-3       # analytic vs autograd backward, of a leaf's max
 # its ReLUs (one level's positions; 1024 a frame at stride 32) and
 # pos_emb (one token a row).  These leaves (``kink_leaf``) are held to
 # KINK_GRAD_TOL when each route takes its own branches, and every leaf
-# to TRAIN_GRAD_TOL when both take the same ones.
-KINK_GRAD_TOL = 1e-2
+# to TRAIN_GRAD_TOL when both take the same ones.  On an H100 the first
+# full-width step flips 14 positions against the plain route and its
+# worst kink leaf reads 3.5e-3 (pos_emb, card vs CPU; 2.0e-3 against the
+# plain route): the bound sits just above that.
+KINK_GRAD_TOL = 5e-3
 TRAIN_LOSS_RTOL = 1e-4      # the 2-block model's loss, card vs CPU
 SIM_STEPS, SIM_PEAK_LR = 1800, 5e-4   # benchmarks/common.py's SIM recipe
 F1_VIDEOS, F1_FRAMES, F1_SEED = ("walkS", "walkB", "cycleS"), 16, 23
 BWD_MARKS = ("window_attention_bwd", "flash_attention_bwd")
+# phase 16, LM training: causal GQA flash at Qwen3-4B's and the ~100M
+# config's training shapes, (B, T, H, KV, Dh)
+LM_FLASH_SHAPES = ((1, 1024, 32, 8, 128), (4, 256, 10, 2, 64))
+# examples/train_lm_100m.py:33-43: qwen3-4b scaled to ~100M parameters
+LM_100M = dict(name="qwen3-100m", n_layers=12, d_model=640, n_heads=10,
+               n_kv_heads=2, head_dim=64, d_ff=2048, vocab_size=32768,
+               max_seq_len=4096)
+LM_100M_STEPS, LM_100M_B, LM_100M_T = 300, 4, 256   # the example's run
+LM_100M_RESUME = 10         # steps of the resumed run
+LM_TRAIN_T = 1024           # full-width LM steps' sequence length
+LM_TRAIN_STEPS = 3          # full-width Qwen3-4B steps at B = 1
+SSM_TRAIN_STEPS, SSM_TRAIN_B = 2, 2   # full-width mamba2 / zamba2 steps
+LM_CROSS_T = 128            # the few-layer card-vs-CPU steps
+LM_GRAD_TOL = 1e-3          # LM step gradients, of each leaf's largest
 QUANT_SPEC = ("int8", "fp32", 1)
 # the GEMMs of the quantized full-width model, (K, N): patch embed,
 # fused QKV, w_o, MLP up, MLP down (15 heads of 64 after pruning)
@@ -739,6 +779,9 @@ def run(torch):
 
     # phase 15 ------------------------------------------------------------
     lat["train"] = train_phase(torch, cfg, dev, gen, count)
+
+    # phase 16 ------------------------------------------------------------
+    lat["lm_train"] = lm_train_phase(torch, dev, count)
 
     out = []
     for name in KERNEL_SOURCES:
@@ -2119,12 +2162,25 @@ def branch_flips(a, b, tgt):
     return flips
 
 
+def flash_f64_errors(flash, o, q, k, v, causal):
+    """The flash kernel's output ``o`` and the float32 plain version's,
+    each against the plain version in float64 on the same q, k, v: (the
+    kernel's error, the plain version's), of the float64 output's
+    largest."""
+    ref = flash.flash_attention_plain(q.double(), k.double(), v.double(),
+                                      causal)
+    plain = flash.flash_attention_plain(q, k, v, causal)
+    return rel_err(o.double(), ref), rel_err(plain.double(), ref)
+
+
 @contextlib.contextmanager
 def kernel_errors(dispatch, win, flash):
     """The window and flash routes of ``dispatch`` also run the plain
     versions on the kernels' own inputs and record each call's error, of
-    the plain output's largest."""
-    errs = {"window_attention": [], "flash_attention": []}
+    the plain output's largest; for flash also the kernel's and the
+    float32 plain version's error against float64 (``flash_f64_errors``)."""
+    errs = {"window_attention": [], "flash_attention": [],
+            "flash_attention vs float64": [], "flash plain vs float64": []}
     saved = dispatch.window_attention, dispatch.flash_attention
 
     def window(q, k, v, window, win_valid=None):
@@ -2137,6 +2193,9 @@ def kernel_errors(dispatch, win, flash):
         o = saved[1](q, k, v, causal=causal)
         errs["flash_attention"].append(rel_err(
             o, flash.flash_attention_plain(q, k, v, causal)))
+        e_k, e_p = flash_f64_errors(flash, o, q, k, v, causal)
+        errs["flash_attention vs float64"].append(e_k)
+        errs["flash plain vs float64"].append(e_p)
         return o
 
     dispatch.window_attention, dispatch.flash_attention = window, flash_
@@ -2239,6 +2298,30 @@ def autograd_backward(dispatch, win, flash):
         dispatch.window_attention, dispatch.flash_attention = saved
 
 
+def grad_vs_plain(torch, gen, name, route, plain, xs, tol=GRAD_TOL):
+    """The gradients of a Function's ``route`` (one kernel launch) against
+    autograd through its ``plain`` version, for a random cotangent; each
+    to ``tol`` of its largest (``tol`` 0: bit-equal).  Returns the worst."""
+    def grads(fn, g):
+        ts = [x.detach().requires_grad_(True) for x in xs]
+        return torch.autograd.grad(fn(*ts), ts, g)
+
+    from repro_torch.kernels import dispatch
+    g = torch.randn(route(*xs).shape, generator=gen, device=xs[0].device)
+    dispatch.reset_launch_counts()
+    got = grads(route, g)
+    check(sum(dispatch.launch_counts().values()) == 1,
+          f"{name}: the Function launched {dispatch.launch_counts()}")
+    want = grads(plain, g)
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    say(f"  {name}: grads vs autograd through plain, of the largest: "
+        + ", ".join(f"{e:.3g}" for e in errs) + f" (limit {tol})")
+    check(max(errs) <= tol and (tol or all(
+        torch.equal(a, b) for a, b in zip(got, want))),
+        f"{name}: gradient error {errs}")
+    return max(errs)
+
+
 def function_grad_checks(torch, cfg, dev, gen):
     """The Functions' gradients against autograd through the plain
     versions at the training shapes, and the analytic backward timed
@@ -2253,25 +2336,8 @@ def function_grad_checks(torch, cfg, dev, gen):
     w2, T = part.window ** 2, part.grid_h * part.grid_w
     H, Dh = cfg.n_heads, cfg.head_dim
 
-    def grads(fn, xs, g):
-        xs = [x.detach().requires_grad_(True) for x in xs]
-        return torch.autograd.grad(fn(*xs), xs, g)
-
     def compare(name, route, plain, xs, tol=GRAD_TOL):
-        """``tol`` 0: bit-equal."""
-        g = torch.randn(route(*xs).shape, generator=gen, device=dev)
-        dispatch.reset_launch_counts()
-        got = grads(route, xs, g)
-        check(sum(dispatch.launch_counts().values()) == 1,
-              f"{name}: the Function launched {dispatch.launch_counts()}")
-        want = grads(plain, xs, g)
-        errs = [rel_err(a, b) for a, b in zip(got, want)]
-        say(f"  {name}: grads vs autograd through plain, of the largest: "
-            + ", ".join(f"{e:.3g}" for e in errs) + f" (limit {tol})")
-        check(max(errs) <= tol and (tol or all(
-            torch.equal(a, b) for a, b in zip(got, want))),
-            f"{name}: gradient error {errs}")
-        return max(errs)
+        return grad_vs_plain(torch, gen, name, route, plain, xs, tol)
 
     def rand(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -2326,12 +2392,13 @@ def stage_ms(torch, cfg, flat, like, img, tgt):
 
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+    copy = {k: v.clone() for k, v in flat.items()}   # AdamW updates in place
     ev[0].record()
     loss, _ = ts.loss_fn(cfg, ckpt.unflatten(leaves, like), img, tgt)
     ev[1].record()
     grads = torch.autograd.grad(loss, list(leaves.values()))
     ev[2].record()
-    adam.adam_update(dict(zip(leaves, grads)), adam.init_adam(flat), flat,
+    adam.adam_update(dict(zip(leaves, grads)), adam.init_adam(copy), copy,
                      lr=1e-4, grad_clip=1.0)
     ev[3].record()
     ev[3].synchronize()
@@ -2453,15 +2520,16 @@ def train_phase(torch, cfg, dev, gen, count):
     out["full_width"]["stages_ms"] = stages
     say("  one step on the device: " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in stages.items()))
-    opt = adam.init_adam(flat)
+    copy = {k: v.clone() for k, v in flat.items()}   # AdamW updates in place
+    opt = adam.init_adam(copy)
 
     def step():
         _, grads = ts.value_and_grad(cfg, flat, like, img, tgt)
-        adam.adam_update(grads, opt, flat, lr=1e-4, grad_clip=1.0)
+        adam.adam_update(grads, opt, copy, lr=1e-4, grad_clip=1.0)
         torch.cuda.synchronize()
 
     out["full_width"]["profile"] = profile_train(torch, step, step_s)
-    del opt
+    del opt, copy
 
     with kink_branches(dh) as br_k:
         loss_k, g_k = ts.value_and_grad(cfg, flat, like, img, tgt)
@@ -2593,6 +2661,370 @@ def train_phase(torch, cfg, dev, gen, count):
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"  checkpoint save/restore: {len(back)} leaves bit-equal; "
         f"phase 15: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# LM training (phase 16)
+
+
+def lm_grads(torch, registry, ckpt, cfg, params, batch, remat=True):
+    """The loss and every leaf's gradient of one ``lm_loss`` (the train
+    step's forward and backward), the leaves' ``.grad`` cleared after."""
+    flat = ckpt.flatten(params)
+    for p in flat.values():
+        p.requires_grad_(True)
+        p.grad = None
+    loss, _ = registry.lm_loss(cfg, params, batch, remat)
+    loss.backward()
+    grads = {k: p.grad for k, p in flat.items()}
+    for p in flat.values():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def lm_leaves_close(what, got, want, out):
+    """Every leaf's gradient to LM_GRAD_TOL of its largest (the LM has no
+    ReLU: no kink tolerance applies); prints the worst leaves."""
+    errs = {k: rel_err(got[k].to(want[k].device), want[k]) for k in want}
+    top = sorted(errs, key=errs.get, reverse=True)[:4]
+    out[what] = {k: errs[k] for k in top}
+    say(f"  {what}: worst leaves " + ", ".join(
+        f"{k} {errs[k]:.3g}" for k in top) + f" of their largest (limit "
+        f"{LM_GRAD_TOL}); {len(errs)} leaves")
+    check(errs[top[0]] <= LM_GRAD_TOL, f"{what}: {top[0]} {errs[top[0]]}")
+
+
+def lm_function_checks(torch, dev):
+    """The flash Function, causal GQA at the LM training shapes: forward
+    and dq / dk / dv against autograd through the plain version, and the
+    forward's error against float64 beside the plain version's."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import ops as flash
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    out = {}
+    for B_, T_, H_, KV_, Dh_ in LM_FLASH_SHAPES:
+        name = f"flash causal ({B_}, {T_}, {H_}/{KV_}, {Dh_})"
+        q = torch.randn((B_, T_, H_, Dh_), generator=gen, device=dev)
+        k, v = (torch.randn((B_, T_, KV_, Dh_), generator=gen, device=dev)
+                for _ in range(2))
+        o = flash.flash_attention_cuda(q, k, v, True)
+        fwd = rel_err(o, flash.flash_attention_plain(q, k, v, True))
+        e_k, e_p = flash_f64_errors(flash, o, q, k, v, True)
+        grad = grad_vs_plain(
+            torch, gen, name, lambda *a: dispatch.flash_attention(
+                *a, causal=True),
+            lambda *a: flash.flash_attention_plain(*a, True), (q, k, v))
+        out[name] = {"forward": fwd, "grad": grad, "kernel_vs_f64": e_k,
+                     "plain_vs_f64": e_p}
+        say(f"  {name}: forward vs plain {fwd:.3g} (limit {GRAD_TOL}); "
+            f"against float64: kernel {e_k:.3g}, float32 plain {e_p:.3g}")
+        check(fwd <= GRAD_TOL, f"{name}: forward {fwd}")
+    return out
+
+
+def lm_100m_run(torch, dev, count):
+    """``examples/train_lm_100m.py`` through ``launch.train.train``: the
+    loss must fall by 0.1 (its criterion); the checkpoint of the last
+    step restores bit-equal, and a resumed run goes on from it."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as lt
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = get_config("qwen3-4b").replace(**LM_100M)
+    steps, n = LM_100M_STEPS, cfg.param_count()
+    say(f"  {cfg.name}: {n / 1e6:.1f}M parameters ({cfg.n_layers} layers, "
+        f"D={cfg.d_model}, GQA {cfg.n_heads}/{cfg.n_kv_heads}), {steps} "
+        f"steps at B={LM_100M_B}, T={LM_100M_T}")
+    with tempfile.TemporaryDirectory() as d:
+        dispatch.reset_launch_counts()
+        r = lt.train(cfg, steps, LM_100M_B, LM_100M_T, ckpt_dir=d,
+                     save_every=steps // 2, log_every=50, device=dev,
+                     log=lambda line: say("    " + line))
+        launches = dispatch.launch_counts()
+        count("lm_train qwen3-100m", launches)
+        losses = r["losses"]
+        med = statistics.median(r["step_s"][1:]) * 1e3
+        # the loss of a model that knows only which tokens the stream draws
+        unigram = float(np.log(min(cfg.vocab_size, 4096)))
+        out = {"params": n, "first_loss": r["first_loss"],
+               "mean_last10": r["mean_last10"], "unigram_level": unigram,
+               "wall_s": r["wall_s"], "step_median_ms": med,
+               "losses_every_50": losses[::50],
+               "launches": {k: v for k, v in launches.items() if v}}
+        say(f"  {cfg.name}: loss {r['first_loss']:.4f} -> mean of the last "
+            f"10 {r['mean_last10']:.4f} (the stream's unigram level "
+            f"{unigram:.4f}); step median {med:.1f} ms; wall "
+            f"{r['wall_s']:.1f} s; launches {out['launches']}")
+        check(all(np.isfinite(losses)), f"{cfg.name}: a loss is not finite")
+        check(r["mean_last10"] < r["first_loss"] - 0.1,
+              f"{cfg.name}: the loss did not fall by 0.1")
+        check(launches["flash_attention"] == cfg.n_layers * steps,
+              f"{cfg.name}: launches {launches}")
+        params, opt = r.pop("state")
+        back_p, back_o = ckpt.restore((params, opt), d)
+        saved = ckpt.flatten((params, opt))
+        same = (type(back_o.step) is int and back_o.step == opt.step == steps
+                and all(torch.equal(v, saved[k].detach()) for k, v in
+                        ckpt.flatten((back_p, back_o)).items()
+                        if k != "1/step"))
+        check(same, f"{cfg.name}: the step-{steps} checkpoint does not "
+              f"restore bit-equal")
+        del params, opt, back_p, back_o
+        r2 = lt.train(cfg, steps + LM_100M_RESUME, LM_100M_B, LM_100M_T,
+                      ckpt_dir=d, resume=True, log_every=0, device=dev,
+                      log=lambda line: say("    " + line))
+        r2.pop("state")
+        check(r2["start_step"] == steps
+              and len(r2["losses"]) == LM_100M_RESUME
+              and all(np.isfinite(r2["losses"])),
+              f"{cfg.name}: resume {r2['start_step']}, {r2['losses']}")
+        out["resume"] = {"start_step": r2["start_step"],
+                         "losses": r2["losses"]}
+        say(f"  {cfg.name}: the step-{steps} checkpoint (params, AdamState "
+            f"step {steps}, moments) restores bit-equal; resumed for "
+            f"{LM_100M_RESUME} steps, losses " + " ".join(
+                f"{x:.3f}" for x in r2["losses"]))
+    return out
+
+
+def lm_stage_ms(torch, registry, adam, ckpt, cfg, params, opt, batch):
+    """One train step's forward (``lm_loss``), backward and AdamW device
+    ms: CUDA events between the stages on their one stream."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    flat = ckpt.flatten(params)
+    for p in flat.values():
+        p.requires_grad_(True)
+    ev[0].record()
+    loss, _ = registry.lm_loss(cfg, params, batch, True)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    with torch.no_grad():
+        adam.adam_update({k: p.grad for k, p in flat.items()}, opt, flat,
+                         lr=1e-6, weight_decay=0.1, grad_clip=1.0)
+    ev[3].record()
+    ev[3].synchronize()
+    for p in flat.values():
+        p.grad = None
+    return {name: ev[i].elapsed_time(ev[i + 1])
+            for i, name in enumerate(("forward", "backward", "adamw"))}
+
+
+def lm_full_width(torch, cfg, dev, count):
+    """Full-width Qwen3-4B, seed-0 weights: the first step's gradients
+    against the plain route, flash's error on the step's own inputs, then
+    LM_TRAIN_STEPS steps at B = 1 and one at B = 2 over two microbatches,
+    with remat: launches, step wall, peak memory, the forward / backward /
+    AdamW split and a traced step."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.window_attention import ops as win
+    from repro_torch.launch import train as lt
+    from repro_torch.models import registry
+    from repro_torch.optim import adam
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import trainer as tr
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    params = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    data = lt.synthetic_batches(cfg, 2, LM_TRAIN_T, seed=SEED)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                next(data).items()} for _ in range(LM_TRAIN_STEPS)]
+    b1 = [{k: v[:1] for k, v in b.items()} for b in batches]
+    say(f"  {cfg.name}: {cfg.param_count() / 1e9:.3f}B parameters, "
+        f"{held / 1e9:.2f} GB allocated before the weights")
+    out = {"held_before_gb": held / 1e9}
+
+    loss_k, g_k = lm_grads(torch, registry, ckpt, cfg, params, b1[0])
+    dispatch.reset_launch_counts()
+    with plain_route(dispatch, win, flash):
+        loss_p, g_p = lm_grads(torch, registry, ckpt, cfg, params, b1[0])
+    check(not any(dispatch.launch_counts().values()),
+          f"the plain route launched {dispatch.launch_counts()}")
+    rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    out["vs_plain"] = {"loss_rel": rel}
+    say(f"  first step vs the plain route on the card: loss rel {rel:.3g}")
+    lm_leaves_close("first step vs the plain route", g_k, g_p,
+                    out["vs_plain"])
+    del g_k, g_p
+    with torch.no_grad(), kernel_errors(dispatch, win, flash) as kerr:
+        registry.lm_loss(cfg, params, b1[0])
+    out["kernel_err_on_step"] = {k: max(v) for k, v in kerr.items() if v}
+    say("  the first step's flash calls on their own inputs, worst of the "
+        "largest: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                out["kernel_err_on_step"].items())
+        + f" ({len(kerr['flash_attention'])} calls)")
+
+    opt = adam.init_adam(ckpt.flatten(params))
+    step = tr.make_train_step(cfg, tr.TrainConfig(remat=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launch_counts()
+    losses, walls = [], []
+    for b in b1:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    launches = dispatch.launch_counts()
+    count("lm_train qwen3-4b", launches)
+    check(abs(losses[0] - float(loss_k)) <= 1e-5 * abs(losses[0]),
+          f"first step's loss {losses[0]} vs {float(loss_k)}")
+    per_step = 2 * cfg.n_layers                 # forward + remat recompute
+    check(all(np.isfinite(losses)) and launches["flash_attention"]
+          == per_step * LM_TRAIN_STEPS and sum(launches.values())
+          == launches["flash_attention"],
+          f"{LM_TRAIN_STEPS} steps: losses {losses}, launches {launches}")
+    step2 = tr.make_train_step(cfg, tr.TrainConfig(remat=True,
+                                                   accum_steps=2))
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, opt, m = step2(params, opt, batches[0])
+    loss2, wall2 = float(m["loss"]), time.perf_counter() - t0
+    launches2 = dispatch.launch_counts()
+    count("lm_train qwen3-4b accum 2", launches2)
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(np.isfinite(loss2) and launches2["flash_attention"]
+          == 2 * per_step, f"B=2 accum 2: loss {loss2}, {launches2}")
+    check(peak < total, f"peak {peak} of {total} bytes")
+    wall = statistics.median(walls[1:])
+    out.update({"losses": losses, "step_s": walls, "step_median_ms":
+                wall * 1e3, "accum2": {"loss": loss2, "wall_ms": wall2 * 1e3,
+                                       "launches": launches2},
+                "peak_gb": peak / 1e9, "card_gb": total / 1e9,
+                "launches": launches})
+    say(f"  {LM_TRAIN_STEPS} steps at B=1, T={LM_TRAIN_T}, remat: losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f"; step median "
+        f"{wall * 1e3:.1f} ms (first {walls[0] * 1e3:.1f}); {per_step} "
+        f"flash launches a step; B=2 over 2 microbatches: loss {loss2:.4f}, "
+        f"{wall2 * 1e3:.1f} ms, {launches2['flash_attention']} launches; "
+        f"peak memory {peak / 1e9:.2f} GB of {total / 1e9:.2f} GB")
+    lm_stage_ms(torch, registry, adam, ckpt, cfg, params, opt, b1[0])
+    out["stages_ms"] = lm_stage_ms(torch, registry, adam, ckpt, cfg, params,
+                                   opt, b1[0])
+    say("  one step on the device: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in out["stages_ms"].items()))
+
+    def traced():
+        step(params, opt, b1[0])
+        torch.cuda.synchronize()
+
+    out["profile"] = profile_wave(torch, "lm_train_qwen3", traced, wall,
+                                  marks=("flash_attention_bwd", "adamw"))
+    del params, opt, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_train_steps(torch, cfg, dev, count):
+    """Full-width steps of an SSM / hybrid model, remat on: the scans take
+    the training route (no ``ssd_scan`` launch); zamba2's shared block
+    launches flash n_shared_calls times a forward, twice under remat."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as lt
+    from repro_torch.models import hybrid as hyb
+    from repro_torch.models import registry
+    from repro_torch.train import trainer as tr
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = tr.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    step = tr.make_train_step(cfg, tr.TrainConfig(remat=True))
+    data = lt.synthetic_batches(cfg, SSM_TRAIN_B, LM_TRAIN_T, seed=SEED)
+    dispatch.reset_launch_counts()
+    losses, walls = [], []
+    for _ in range(SSM_TRAIN_STEPS):
+        b = {k: torch.as_tensor(v, device=dev) for k, v in next(data).items()}
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    launches = dispatch.launch_counts()
+    count(f"lm_train {cfg.name}", launches)
+    peak = torch.cuda.max_memory_allocated()
+    n_flash = (2 * hyb.n_shared_calls(cfg) if cfg.family == "hybrid" else 0)
+    out = {"losses": losses, "step_s": walls, "peak_gb": peak / 1e9,
+           "launches": {k: v for k, v in launches.items() if v}}
+    say(f"  {cfg.name} ({cfg.family}, {cfg.param_count() / 1e9:.3f}B), "
+        f"B={SSM_TRAIN_B}, T={LM_TRAIN_T}: losses " + " ".join(
+            f"{x:.4f}" for x in losses) + ", step ms " + " ".join(
+            f"{w * 1e3:.1f}" for w in walls) + f"; peak {peak / 1e9:.2f} GB; "
+        f"launches {out['launches']} ({n_flash} flash a step)")
+    check(all(np.isfinite(losses)), f"{cfg.name}: losses {losses}")
+    check(launches["ssd_scan"] == 0 and launches["flash_attention"]
+          == n_flash * SSM_TRAIN_STEPS, f"{cfg.name}: launches {launches}")
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_card_vs_cpu(torch, cfg, dev):
+    """One training step's loss and gradients of a few full-width layers,
+    card against CPU (the plain versions): loss to TRAIN_LOSS_RTOL, every
+    leaf to LM_GRAD_TOL of its largest."""
+    from repro_torch.models import registry
+    from repro_torch.offload.simulator import to_device
+    from repro_torch.train import checkpoint as ckpt
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    p_gpu = registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 5), dev)
+    p_cpu = to_device(p_gpu, torch.device("cpu"))
+    toks = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (1, LM_CROSS_T))
+    t0 = time.perf_counter()
+    loss_c, g_c = lm_grads(torch, registry, ckpt, cfg, p_gpu,
+                           {"tokens": torch.as_tensor(toks, device=dev)})
+    loss_h, g_h = lm_grads(torch, registry, ckpt, cfg, p_cpu,
+                           {"tokens": torch.as_tensor(toks)})
+    rel = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+    what = f"{cfg.n_layers}-layer {cfg.name} card vs CPU"
+    out = {"loss_rel": rel, "s": time.perf_counter() - t0}
+    say(f"  {what}, B=1, T={LM_CROSS_T}: loss rel {rel:.3g} (limit "
+        f"{TRAIN_LOSS_RTOL}); {out['s']:.1f} s")
+    check(rel <= TRAIN_LOSS_RTOL, f"{what}: loss {rel}")
+    lm_leaves_close(what, g_c, g_h, out)
+    del p_gpu, p_cpu, g_c, g_h
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_phase(torch, dev, count):
+    """Phase 16: the flash Function at the LM shapes, the ~100M run with
+    its checkpoint and resume, full-width Qwen3-4B, mamba2-370m and
+    zamba2-1.2b steps, and few-layer steps card against CPU."""
+    import gc
+
+    from repro_torch.configs.mamba2_370m import CONFIG as MAMBA
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    from repro_torch.configs.zamba2_1p2b import CONFIG as ZAMBA
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("phase 16: LM training (registry.lm_loss, train.trainer, "
+        "launch.train)")
+    out = {"functions": lm_function_checks(torch, dev),
+           "qwen3-100m": lm_100m_run(torch, dev, count)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out[QWEN.name] = lm_full_width(torch, QWEN, dev, count)
+    for c in (MAMBA, ZAMBA):
+        out[c.name] = ssm_train_steps(torch, c, dev, count)
+    out["card_vs_cpu"] = {c.name: lm_card_vs_cpu(torch, c, dev) for c in (
+        QWEN.replace(n_layers=2), MAMBA.replace(n_layers=2),
+        ZAMBA.replace(n_layers=6))}
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 16: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2997,7 +3429,7 @@ def serve_ssm(torch, cfg, dev, phase):
     step; no key may first run after warmup.  Wall time (median of
     three), prefill and decode-step times, one traced wave.  For the SSM
     LM also one ``mixed_forward_ssm`` at beta 2 with half the spans
-    pooled beside the plain ``forward_hidden``, both timed."""
+    pooled beside the plain ``prefill``, both timed."""
     from repro_torch.core import seq_mixed_res as smr
     from repro_torch.kernels import dispatch
     from repro_torch.models import hybrid as hyb
@@ -3079,13 +3511,14 @@ def serve_ssm(torch, cfg, dev, phase):
                 for k, v in smr.build_seq_pack(mask, n_low, part).items()}
         toks = torch.as_tensor(np.stack(prompts).astype(np.int64),
                                device=dev)
+        states = hyb.init_stacked_states(cfg, SSM_B, device=dev)
 
         def fwd(mixed):
             with torch.no_grad():
                 if mixed:
                     return smr.mixed_forward_ssm(cfg, params, toks, pack,
                                                  BETA)[0]
-                return ssm_lm.forward_hidden(cfg, params, toks)[0]
+                return ssm_lm.prefill(cfg, params, toks, states)[0]
 
         dispatch.reset_launch_counts()      # the mixed forward starts here
         h = fwd(True)

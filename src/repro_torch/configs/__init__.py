@@ -3,7 +3,7 @@
 ``get_config(name)`` returns the full published config and
 ``get_reduced(name)`` the CPU smoke-test variant, as in
 ``repro.configs``.  Archs the port does not serve yet raise; their order
-of porting is in ``ROADMAP.md`` (Queue 1, item 9).
+of porting is in ``ROADMAP.md`` (Queue 1, "the other LM families").
 """
 from __future__ import annotations
 

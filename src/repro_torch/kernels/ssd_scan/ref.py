@@ -1,9 +1,12 @@
-"""Plain PyTorch oracle of ``csrc/ssd_scan.cu``: the port of
-``repro.models.mamba2.ssd_chunked`` (the function the reference's serving
-prefill computes), with the ``ssd_ops.ssd`` arguments."""
+"""Plain PyTorch oracle of ``csrc/ssd_scan.cu``, and the Mamba-2 training
+route: ``ssd_chunked`` is the port of ``repro.models.mamba2.ssd_chunked``
+(the function the reference trains through and its serving prefill
+computes), differentiable by autograd; ``models.mamba2`` re-exports it.
+``ssd_scan_plain`` is the same function with the ``ssd_ops.ssd``
+arguments."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -13,10 +16,22 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
                    init_state: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return ssd_chunked(x, dt, A, Bm, Cm, min(chunk, x.shape[1]), init_state,
+                       return_final_state=True)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+                init_state: Optional[torch.Tensor] = None,
+                return_final_state: bool = False
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """SSD over a full sequence.  x: (b, T, H, P); dt: (b, T, H)
+    post-softplus step sizes; A: (H,) negative decay rates; Bm/Cm:
+    (b, T, G, N).  Returns y (b, T, H, P) and, with
+    ``return_final_state``, the final state (b, H, N, P)."""
     b, T, H, Pd = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     hpg = H // G
-    chunk = min(chunk, T)
     T0 = T
     if T % chunk:
         # zero-pad to a chunk multiple: dt = 0 rows are state-neutral
@@ -63,4 +78,5 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     Y = Y + torch.einsum("bnihd,bnhdp->bnihp",
                          Ch * torch.exp(cum)[..., None], s_prevs)
-    return Y.reshape(b, T, H, Pd)[:, :T0], s
+    Y = Y.reshape(b, T, H, Pd)[:, :T0]
+    return (Y, s) if return_final_state else Y

@@ -1,8 +1,8 @@
 """Unified model configuration (copy of ``repro.models.config``).
 
 One frozen dataclass covers every architecture family of the JAX
-package; the port uses the ViT fields.  Kept field for field so a config
-built here describes the same model as its JAX twin.
+package, with its analytic parameter counts.  Kept field for field so a
+config built here describes the same model as its JAX twin.
 """
 from __future__ import annotations
 
@@ -127,6 +127,15 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (total, incl. all experts)."""
+        from repro_torch.models.registry import count_params_analytic
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.registry import count_params_analytic
+        return count_params_analytic(self, active_only=True)
 
 
 def reduced(cfg: ModelConfig, **extra) -> ModelConfig:

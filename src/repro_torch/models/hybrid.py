@@ -13,9 +13,11 @@ in place: ``{"ssm": {"conv": (L, B, K-1, C), "ssm": (L, B, H, N, P)},
 
 On the card every mamba layer's prefill runs the ``ssd_scan`` kernel;
 the shared block's prefill runs ``flash_attention`` (causal) and its
-decode ``decode_attention``.  As in the reference, the shared block
-consumes the hidden state directly (no concat with the embedding, no
-per-call LoRA).
+decode ``decode_attention``.  ``forward_hidden`` (training) runs the
+scans through ``mamba2.ssd_chunked`` and the shared block's causal
+flash through its ``autograd.Function``.  As in the reference, the
+shared block consumes the hidden state directly (no concat with the
+embedding, no per-call LoRA).
 """
 from __future__ import annotations
 
@@ -93,9 +95,7 @@ def _shared_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope,
     one decode step at ``pos`` (the dense family's ``block_forward``)."""
     if cache is not None:
         return tfm.block_forward(cfg, p, x, rope, cache, pos, kv_len)
-    h = L.apply_norm(cfg, p["ln1"], x)
-    x = x + attn.attention_forward(cfg, p["attn"], h, rope=rope, causal=True)
-    return x + L.apply_mlp(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+    return tfm.train_block(cfg, p, x, rope)
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):
@@ -116,16 +116,26 @@ def _store(states: Dict[str, torch.Tensor], idx: int,
         states[k][idx].copy_(v)
 
 
-def forward_hidden(cfg: ModelConfig, params: Dict,
-                   tokens: torch.Tensor) -> Tuple[torch.Tensor, float]:
+def _layer(cfg: ModelConfig, p: Dict, shared: Optional[Dict],
+           x: torch.Tensor, rope) -> torch.Tensor:
+    """One mamba layer on the training route, then the shared block where
+    ``shared`` is given."""
+    x = x + m2.mamba2_forward(cfg, p["mamba"], L.apply_norm(cfg, p["ln"], x),
+                              train=True)
+    return x if shared is None else _shared_block(cfg, shared, x, rope)
+
+
+def forward_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+                   remat: bool = False) -> Tuple[torch.Tensor, float]:
+    """Final hidden states (B, T, D) and aux (0), as ``ssm_lm``'s: the
+    scans on the training route; ``remat`` recomputes each layer (its
+    shared block included) in the backward."""
     x = L.embed_tokens(params["embed"], tokens)
     B, T, _ = x.shape
     rope = _rope(cfg, torch.arange(T, device=x.device).expand(B, T))
     for idx, p in enumerate(params["mamba_blocks"]):
-        x = x + m2.mamba2_forward(cfg, p["mamba"],
-                                  L.apply_norm(cfg, p["ln"], x))
-        if _is_shared(idx):
-            x = _shared_block(cfg, params["shared"], x, rope)
+        shared = params["shared"] if _is_shared(idx) else None
+        x = L.remat(_layer, remat, cfg, p, shared, x, rope)
     return L.apply_norm(cfg, params["final_norm"], x), 0.0
 
 

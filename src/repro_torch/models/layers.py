@@ -1,5 +1,5 @@
-"""Norms, rotary embeddings, MLPs and the token embedding (the
-``repro.models.layers`` subset the ViT and dense-LM serving paths run).
+"""Norms, rotary embeddings, MLPs, the token embedding and ``remat`` (the
+``repro.models.layers`` subset the ViT and LM paths run).
 Parameters are plain dicts of tensors; projection weights may be int8
 ``QuantTensor``s (``quant.qtensor.matmul``).
 """
@@ -10,6 +10,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant import qtensor as qt
@@ -174,3 +175,14 @@ def lm_logits(cfg: ModelConfig, head_p: Dict[str, torch.Tensor],
     if cfg.tied_embeddings:
         return x @ embed_p["tok"].T
     return x @ head_p["w"]
+
+
+def remat(fn, on: bool, *args):
+    """``fn(*args)``; when ``on`` (and autograd records), its activations
+    are dropped after the forward and recomputed in the backward
+    (``torch.utils.checkpoint``, the port of the reference's
+    ``jax.checkpoint`` around a layer)."""
+    if on and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)

@@ -1,11 +1,14 @@
 """Mamba-2 block (state-space duality / SSD, arXiv:2405.21060): the port
 of ``repro.models.mamba2``.
 
-The full-sequence block runs the chunked SSD scan through
-``kernels.dispatch.ssd_scan`` (the CUDA kernel on the card, its plain
-version on the CPU; the reference's ``use_kernel`` flag has no
-counterpart).  Decode is the O(1) recurrent state update, in plain
-PyTorch as in the reference.  All SSD math in float32.
+The full-sequence block has two routes.  Serving runs the chunked SSD
+scan through ``kernels.dispatch.ssd_scan`` (the CUDA kernel on the card,
+its plain version on the CPU), which has no backward.  Training
+(``mamba2_forward(..., train=True)``) runs :func:`ssd_chunked` in plain
+PyTorch on either device, differentiable by autograd: the reference
+trains through its jnp ``ssd_chunked`` too (its ``use_kernel=False``
+default), outside any Pallas call.  Decode is the O(1) recurrent state
+update, in plain PyTorch as in the reference.  All SSD math in float32.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -146,13 +150,18 @@ def _gated_out(cfg: ModelConfig, p: Dict[str, torch.Tensor], y, xs, z,
 
 
 def mamba2_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor],
-                   x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence Mamba-2 block.  x: (B, T, D) -> (B, T, D)."""
+                   x: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    """Full-sequence Mamba-2 block.  x: (B, T, D) -> (B, T, D).
+    ``train``: the scan is :func:`ssd_chunked` (autograd), else the
+    ``ssd_scan`` route (no backward)."""
     z, xBC, dt_raw = _split_proj(cfg, x @ p["w_in"])
     xBC = F.silu(causal_conv1d(xBC, p["conv_w"], p["conv_b"]))
     xs, dt, A, Bm, Cm = _scan_inputs(cfg, p, xBC, dt_raw)
     chunk = min(cfg.ssm.chunk_size, x.shape[1])
-    y, _ = dispatch.ssd_scan(xs, dt, A, Bm, Cm, chunk)
+    if train:
+        y = ssd_chunked(xs, dt, A, Bm, Cm, chunk)
+    else:
+        y, _ = dispatch.ssd_scan(xs, dt, A, Bm, Cm, chunk)
     return _gated_out(cfg, p, y, xs, z, x.dtype)
 
 

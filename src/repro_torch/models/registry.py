@@ -1,21 +1,24 @@
 """Architecture registry: the dispatch surface over model families (the
-``repro.models.registry`` serving entry points).
+port of ``repro.models.registry``).
 
   init_params(cfg, generator, device)
+  forward_hidden(cfg, params, batch, remat)    -> (hidden, aux)   training
+  lm_loss(cfg, params, batch, remat)           -> (loss, {"ce", "aux"})
   init_decode_state(cfg, batch, max_len, dtype, device)
   prefill(cfg, params, batch, state)           -> (hidden, state, aux)
   decode_step(cfg, params, token, pos, state)  -> (logits, state)
+  count_params_analytic(cfg)                   analytic N (6 N D FLOPs)
 
 The dense decoder (``models.transformer``), the pure SSM LM
 (``models.ssm_lm``), the Mamba-2 + shared-attention hybrid
 (``models.hybrid``) and the ViT's parameters
 (``convert.init_vitdet_params``) are ported; MoE, MLA, VLM and
 encoder-decoder configs raise, in the order ``ROADMAP.md`` gives for
-their port.
+their port (the parameter counts cover every family: arithmetic only).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -23,6 +26,7 @@ from repro_torch.models import hybrid as hyb
 from repro_torch.models import ssm_lm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.mamba2 import ssm_dims
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -35,6 +39,77 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.family == "hybrid":
         return hyb.init_hybrid_params(cfg, generator, device)
     return tfm.init_lm_params(cfg, generator, device)
+
+
+# ---------------------------------------------------------------------------
+# training forward and loss
+
+
+def forward_hidden(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
+                   remat: bool = False) -> Tuple[torch.Tensor, Any]:
+    """batch: {"tokens": (B, T)}.  The SSM and hybrid families run their
+    scans on the training route (``mamba2.ssd_chunked``)."""
+    if cfg.family == "ssm":
+        return ssm_lm.forward_hidden(cfg, params, batch["tokens"],
+                                     remat=remat)
+    if cfg.family == "hybrid":
+        return hyb.forward_hidden(cfg, params, batch["tokens"], remat=remat)
+    tfm.check_dense(cfg)                 # encdec, vlm, moe, mla raise
+    return tfm.forward_hidden(cfg, params, batch["tokens"], remat=remat)
+
+
+CE_CHUNK_ELEMS = 64 * 2 ** 20      # chunk the CE when T*V exceeds this
+
+
+def _ce_nll_dense(logits: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL, logsumexp minus the target's logit, in float32."""
+    logits32 = logits.to(torch.float32)
+    picked = logits32.gather(-1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits32, dim=-1) - picked
+
+
+def _ce_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL (B, T), taken over time chunks of a power of two
+    that divides T when the logits exceed ``CE_CHUNK_ELEMS`` a row, by
+    the reference's rule."""
+    B, T, V = logits.shape
+    chunk = max(CE_CHUNK_ELEMS // max(V, 1), 128)
+    chunk = 1 << (chunk.bit_length() - 1)       # floor to a power of two
+    while chunk > 128 and T % chunk:            # ...that divides T
+        chunk //= 2
+    if T <= chunk or T % chunk:
+        return _ce_nll_dense(logits, targets)
+    return torch.cat([_ce_nll_dense(logits[:, t:t + chunk],
+                                    targets[:, t:t + chunk])
+                      for t in range(0, T, chunk)], dim=1)
+
+
+def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
+            remat: bool = False
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (+ the MoE aux term, 0 for the ported
+    families).  ``batch``: "tokens" (B, T), optional "labels" (B, T)
+    (default: the tokens shifted left, a 0 last) and "loss_mask" (B, T).
+    Returns (loss, {"ce", "aux"})."""
+    hidden, aux = forward_hidden(cfg, params, batch, remat)
+    logits = tfm.logits_from_hidden(cfg, params, hidden)
+    tokens = batch["tokens"]
+    targets = batch.get("labels")
+    if targets is None:
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                            dim=1)
+    nll = _ce_nll(logits, targets)
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    aux_coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
+    return loss + aux_coef * aux, {"ce": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# serving
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
@@ -63,3 +138,70 @@ def decode_step(cfg: ModelConfig, params: Dict, token: torch.Tensor,
         return hyb.decode_step(cfg, params, token, pos, state)
     tfm.check_dense(cfg)
     return tfm.decode_step(cfg, params, token, pos, state)
+
+
+# ---------------------------------------------------------------------------
+# analytic parameter counts (for MODEL_FLOPS = 6 N D rooflines)
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return (cfg.d_model * m.q_lora_rank
+                + m.q_lora_rank * cfg.n_heads * qk_head
+                + cfg.d_model * (m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * cfg.n_heads * m.qk_nope_head_dim
+                + m.kv_lora_rank * cfg.n_heads * m.v_head_dim
+                + cfg.n_heads * m.v_head_dim * cfg.d_model)
+    return cfg.d_model * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * cfg.d_model
+
+
+def _mlp_params(cfg: ModelConfig, d_ff: int) -> int:
+    if cfg.activation == "silu":
+        return 3 * cfg.d_model * d_ff
+    return 2 * cfg.d_model * d_ff
+
+
+def _mamba_params(cfg: ModelConfig) -> int:
+    s = cfg.ssm
+    d_inner, H, conv_ch = ssm_dims(cfg)
+    proj_out = 2 * d_inner + 2 * s.n_groups * s.d_state + H
+    return (cfg.d_model * proj_out + s.d_conv * conv_ch + conv_ch
+            + 3 * H + d_inner + d_inner * cfg.d_model)
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The reference's analytic count: embeddings (and an untied head),
+    then the family's layers; MoE counts every expert, or ``top_k`` of
+    them with ``active_only``."""
+    D = cfg.d_model
+    total = cfg.vocab_size * D
+    if not cfg.tied_embeddings:
+        total += D * cfg.vocab_size
+    if cfg.family == "ssm":
+        return total + cfg.n_layers * _mamba_params(cfg)
+    if cfg.family == "hybrid":
+        shared = _attn_params(cfg) + _mlp_params(cfg, cfg.d_ff)
+        return total + cfg.n_layers * _mamba_params(cfg) + shared
+    if cfg.family == "encdec":
+        enc = cfg.encdec.n_encoder_layers * (
+            _attn_params(cfg) + _mlp_params(cfg, cfg.d_ff))
+        dec = cfg.n_layers * (2 * _attn_params(cfg) +
+                              _mlp_params(cfg, cfg.d_ff))
+        return total + enc + dec + cfg.max_seq_len * D
+    attn_p = _attn_params(cfg)                  # dense / moe / vlm decoder
+    if cfg.moe is None:
+        return total + cfg.n_layers * (attn_p + _mlp_params(cfg, cfg.d_ff))
+    m = cfg.moe
+    n_dense = m.first_dense_layers
+    n_moe = cfg.n_layers - n_dense
+    dense_ffn = _mlp_params(cfg, m.d_ff_dense or cfg.d_ff)
+    expert_ffn = _mlp_params(cfg, m.d_ff_expert)
+    shared_ffn = (_mlp_params(cfg, m.d_ff_expert * m.n_shared_experts)
+                  if m.n_shared_experts else 0)
+    n_eff = m.top_k if active_only else m.n_experts
+    total += n_dense * (attn_p + dense_ffn)
+    total += n_moe * (attn_p + D * m.n_experts + n_eff * expert_ffn
+                      + shared_ffn)
+    return total

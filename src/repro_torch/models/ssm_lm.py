@@ -6,7 +6,8 @@ keep the reference's stacked layout, ``{"conv": (L, B, K-1, C), "ssm":
 (L, B, H, N, P)}`` (``hybrid.init_stacked_states``, which the reference
 calls ``ssm_lm.init_states``), written in place by ``prefill`` and
 ``decode_step``.
-On the card every layer's prefill runs the ``ssd_scan`` kernel.
+On the card every layer's prefill runs the ``ssd_scan`` kernel;
+``forward_hidden`` (training) runs ``mamba2.ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -31,12 +32,21 @@ def init_ssm_params(cfg: ModelConfig, generator: torch.Generator,
             "lm_head": L.init_lm_head(cfg, generator, device)}
 
 
-def forward_hidden(cfg: ModelConfig, params: Dict,
-                   tokens: torch.Tensor) -> Tuple[torch.Tensor, float]:
+def _block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    return x + m2.mamba2_forward(cfg, p["mamba"],
+                                 L.apply_norm(cfg, p["ln"], x), train=True)
+
+
+def forward_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+                   remat: bool = False) -> Tuple[torch.Tensor, float]:
+    """Final hidden states (B, T, D) and aux (0), the scans on the
+    training route (``mamba2.ssd_chunked``, differentiable); ``remat``:
+    each layer's activations are recomputed in the backward
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
+    its scan body)."""
     x = L.embed_tokens(params["embed"], tokens)
     for p in params["mamba_blocks"]:
-        x = x + m2.mamba2_forward(cfg, p["mamba"],
-                                  L.apply_norm(cfg, p["ln"], x))
+        x = L.remat(_block, remat, cfg, p, x)
     return L.apply_norm(cfg, params["final_norm"], x), 0.0
 
 

@@ -7,10 +7,11 @@ Python loop runs them.  Caches keep the reference's stacked layout,
 ``{"dense_blocks": {"k": (L, B, S, KV, Dh), "v": ...}}``; a layer writes
 its slice of them in place.
 
-Entry points: ``init_lm_params`` / ``embed_inputs`` /
-``logits_from_hidden`` / ``init_caches`` / ``prefill`` / ``decode_step``
-and ``run_blocks``, which runs an arbitrary [start, end) layer slice (the
-mixed-granularity prefill splits the backbone at its restoration point).
+Entry points: ``init_lm_params`` / ``embed_inputs`` / ``forward_hidden``
+(training) / ``logits_from_hidden`` / ``init_caches`` / ``prefill`` /
+``decode_step`` and ``run_blocks``, which runs an arbitrary [start, end)
+layer slice (the mixed-granularity prefill splits the backbone at its
+restoration point).
 MoE, MLA and VLM configs raise: their port follows in the order
 ``ROADMAP.md`` gives.
 """
@@ -31,8 +32,8 @@ def check_dense(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} (moe={cfg.moe is not None}, "
             f"mla={cfg.mla is not None}, vlm={cfg.vlm is not None}) is not "
-            f"ported to repro_torch; ROADMAP.md (Queue 1, item 9) lists the "
-            f"order in which the LM families follow")
+            f"ported to repro_torch; ROADMAP.md (Queue 1, \"the other LM "
+            f"families\") lists the order in which they follow")
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +80,34 @@ def block_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope,
                                   kv_len=kv_len)
     x = x + a
     return x + L.apply_mlp(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+
+
+def train_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
+                rope) -> torch.Tensor:
+    """Pre-norm block without a cache: causal attention through
+    ``dispatch.flash_attention`` (the kernel's ``autograd.Function`` on
+    the card), then the MLP."""
+    h = L.apply_norm(cfg, p["ln1"], x)
+    x = x + attn.attention_forward(cfg, p["attn"], h, rope=rope, causal=True)
+    return x + L.apply_mlp(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+
+
+def forward_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
+                   remat: bool = False) -> Tuple[torch.Tensor, float]:
+    """Training / eval forward: the final hidden states (B, T, D) and aux
+    (0 for the dense family).  ``remat``: each block's activations are
+    recomputed in the backward (``layers.remat``; the reference's
+    ``jax.checkpoint`` of its scan body), so its flash forward runs
+    twice a step."""
+    check_dense(cfg)
+    x = embed_inputs(cfg, params, tokens)
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    rope = L.rope_table(positions, cfg.head_dim, cfg.rope_theta,
+                        cfg.partial_rotary_factor)
+    for p in params["blocks"]:
+        x = L.remat(train_block, remat, cfg, p, x, rope)
+    return L.apply_norm(cfg, params["final_norm"], x), 0.0
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict,

@@ -107,13 +107,10 @@ class MLPEstimator(nn.Module):
                 device=self.device)
             loss = torch.mean(torch.square(self(Xn[idx]) - yn[idx]))
             grads = torch.autograd.grad(loss, list(params.values()))
-            new, state, _ = adam.adam_update(
+            _, state, _ = adam.adam_update(       # in place
                 dict(zip(params, grads)), state,
                 {k: p.detach() for k, p in params.items()},
                 lr=lr * (0.1 ** (s / steps)))
-            with torch.no_grad():
-                for k, p in params.items():
-                    p.copy_(new[k])
 
     def predict(self, X: np.ndarray) -> np.ndarray:
         Xn = (np.asarray(X, np.float32) - self.x_mean) / self.x_std

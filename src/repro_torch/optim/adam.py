@@ -2,19 +2,33 @@
 
 The reference's update, kept as it is: b2 = 0.95 by default, a
 global-norm gradient clip (1.0 by default) fused into the moment
-updates, fp32 moments whatever the parameters' dtype, and a non-finite
-gradient norm skips the step (the moments see zero gradients).  It is a
-function, as the reference's is: it returns new parameters and a new
-state and changes neither input.  ``torch.optim.Adam`` has other
-defaults and no clip.
+updates, fp32 moments, and a non-finite gradient norm skips the step
+(the moments see zero gradients).  The port's parameters are float32
+(the reference also casts other dtypes; here they raise).
+``torch.optim.Adam`` has other defaults and no clip.
+
+The reference's update is a function that builds new trees; here
+``adam_update`` writes the live parameters and moments in place
+(``torch._foreach_*_``) and returns the same dicts, since new trees
+beside the old ones would hold about seven fp32 copies of the parameters
+at their peak (113 GB for Qwen3-4B).  The gradients are not changed.
+The leaves go in groups whose fp32 bytes stay under ``GROUP_BYTES``, so
+each of the update's temporaries (the scaled gradients and their
+squares, the bias-corrected moments, the decay term; at most two alive
+at once) is at most one group; a leaf larger than the budget forms a
+group of its own.  Each product is rounded on its own, as in the
+reference's expressions, so the result equals the functional form's.
+The clip's scale and the finite check stay device tensors: the update
+makes no host sync.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 
 Tree = Dict[str, torch.Tensor]
+GROUP_BYTES = 1 << 30
 
 
 class AdamState(NamedTuple):
@@ -30,13 +44,33 @@ def init_adam(params: Tree) -> AdamState:
     return AdamState(step=0, m=zeros(), v=zeros())
 
 
+def groups(params: Tree) -> Iterator[List[str]]:
+    """The keys of ``params`` in order, cut into runs whose fp32 bytes
+    stay under ``GROUP_BYTES`` (a larger leaf is a run of its own)."""
+    run: List[str] = []
+    size = 0
+    for k, p in params.items():
+        n = 4 * p.numel()
+        if run and size + n > GROUP_BYTES:
+            yield run
+            run, size = [], 0
+        run.append(k)
+        size += n
+    if run:
+        yield run
+
+
 def adam_update(grads: Tree, state: AdamState, params: Tree, *,
                 lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
                 eps: float = 1e-8, weight_decay: float = 0.0,
                 grad_clip: Optional[float] = 1.0
                 ) -> Tuple[Tree, AdamState, Dict[str, torch.Tensor]]:
+    """One AdamW step, in place on ``params``, ``state.m`` and
+    ``state.v``; returns (params, the state with its step advanced,
+    {"grad_norm"})."""
+    if any(p.dtype != torch.float32 for p in params.values()):
+        raise ValueError("adam_update: float32 parameters only")
     step = state.step + 1
-
     gnorm = global_norm(grads)
     if grad_clip is not None:
         scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
@@ -49,20 +83,39 @@ def adam_update(grads: Tree, state: AdamState, params: Tree, *,
 
     bc1 = 1.0 - b1 ** step
     bc2 = 1.0 - b2 ** step
-    new_m, new_v, new_p = {}, {}, {}
-    for k, p in params.items():
-        g = grads[k].to(torch.float32)
-        g = torch.where(ok, g, torch.zeros_like(g)) * scale
-        m = b1 * state.m[k] + (1 - b1) * g
-        v = b2 * state.v[k] + (1 - b2) * torch.square(g)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+    zero = torch.zeros((), device=gnorm.device)
+    for keys in groups(params):
+        ps = [params[k] for k in keys]
+        ms = [state.m[k] for k in keys]
+        vs = [state.v[k] for k in keys]
+        gs = [torch.where(ok, grads[k].to(torch.float32), zero)
+              for k in keys]
+        torch._foreach_mul_(gs, scale)
+        sq = torch._foreach_mul(gs, gs)
+        torch._foreach_mul_(sq, 1 - b2)
+        torch._foreach_mul_(vs, b2)
+        torch._foreach_add_(vs, sq)        # not addcmul_: it rounds once
+        del sq
+        torch._foreach_mul_(gs, 1 - b1)
+        torch._foreach_mul_(ms, b1)
+        torch._foreach_add_(ms, gs)              # m = b1 m + (1-b1) g
+        del gs
+        den = torch._foreach_div(vs, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        delta = torch._foreach_div(ms, bc1)
+        torch._foreach_div_(delta, den)
+        del den
         if weight_decay:
-            delta = delta + weight_decay * p.to(torch.float32)
-        new_m[k], new_v[k] = m, v
-        new_p[k] = (p.to(torch.float32) - lr * delta).to(p.dtype)
-    return new_p, AdamState(step, new_m, new_v), {"grad_norm": gnorm}
+            torch._foreach_add_(delta, torch._foreach_mul(ps, weight_decay))
+        torch._foreach_mul_(delta, lr)
+        torch._foreach_sub_(ps, delta)
+    return params, AdamState(step, state.m, state.v), {"grad_norm": gnorm}
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum over the leaves, in order, of each leaf's sum of
+    squares: the reference's summation order (``torch._foreach_norm``
+    rounds each leaf's norm before squaring it again)."""
     return torch.sqrt(sum(torch.sum(torch.square(t.to(torch.float32)))
                           for t in tree.values()))

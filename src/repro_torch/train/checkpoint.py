@@ -18,10 +18,13 @@ The reference also reshards at restore, onto the target mesh of an
 elastic restart; one card has no mesh, so ``restore`` takes no
 shardings and puts each leaf on the device of the leaf it replaces.
 
-A tree is nested dicts and lists of tensors (the port's ViTDet tree,
-``convert``); :func:`flatten` names each leaf by its "/"-joined path, as
-the reference's ``_tree_paths`` does (dict keys sorted, list indices),
-and :func:`unflatten` puts a flat dict back into a tree's structure.
+A tree is nested dicts, lists, tuples and named tuples of tensors (the
+port's parameter trees, ``convert``; ``(params, optim.adam.AdamState)``);
+:func:`flatten` names each leaf by its "/"-joined path, as the
+reference's ``_tree_paths`` does (dict keys sorted, list indices, named
+tuple fields by name), and :func:`unflatten` puts a flat dict back into
+a tree's structure.  A Python int or float leaf (``AdamState.step``) is
+saved as a 0-d array and restored as the Python number it replaces.
 The optimiser (``optim.adam``) runs over the flat view.
 """
 from __future__ import annotations
@@ -47,6 +50,8 @@ def flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
     order."""
     if isinstance(tree, dict):
         items = sorted(tree.items())
+    elif hasattr(tree, "_fields"):                    # a named tuple
+        items = list(zip(tree._fields, tree))
     elif isinstance(tree, (list, tuple)):
         items = list(enumerate(tree))
     else:
@@ -63,6 +68,10 @@ def unflatten(flat: Dict[str, Any], like: Any, prefix: str = "") -> Any:
     if isinstance(like, dict):
         return {k: unflatten(flat, v, f"{prefix}/{k}" if prefix else str(k))
                 for k, v in like.items()}
+    if hasattr(like, "_fields"):                      # a named tuple
+        return type(like)(*(unflatten(flat, v, f"{prefix}/{k}" if prefix
+                                      else k)
+                            for k, v in zip(like._fields, like)))
     if isinstance(like, (list, tuple)):
         return type(like)(unflatten(flat, v, f"{prefix}/{i}" if prefix
                                     else str(i))
@@ -73,8 +82,8 @@ def unflatten(flat: Dict[str, Any], like: Any, prefix: str = "") -> Any:
 def _to_host(leaf) -> np.ndarray:
     """A tensor or array leaf -> a numpy copy (integer view for dtypes
     numpy lacks), with its dtype name."""
-    if isinstance(leaf, np.ndarray):
-        return leaf
+    if not isinstance(leaf, torch.Tensor):
+        return np.asarray(leaf)
     t = leaf.detach().cpu()
     if t.dtype in _VIEW_AS:
         return t.view(_VIEW_AS[t.dtype][0]).numpy().view(_VIEW_AS[t.dtype][1])
@@ -84,7 +93,7 @@ def _to_host(leaf) -> np.ndarray:
 def _dtype_name(leaf) -> str:
     if isinstance(leaf, torch.Tensor):
         return str(leaf.dtype).replace("torch.", "")
-    return str(leaf.dtype)
+    return str(np.asarray(leaf).dtype)
 
 
 def _sha(arr: np.ndarray) -> str:
@@ -181,8 +190,11 @@ def restore(tree_like: Any, directory: str, step: Optional[int] = None,
             t = torch.from_numpy(np.array(arr))
             if dtype in _VIEW_AS:
                 t = t.view(_VIEW_AS[dtype][0]).view(dtype)
-            out[name] = t.to(like.device if isinstance(like, torch.Tensor)
-                             else "cpu")
+            if isinstance(like, (int, float)):
+                out[name] = type(like)(t.item())
+            else:
+                out[name] = t.to(like.device if isinstance(
+                    like, torch.Tensor) else "cpu")
     finally:
         for f in shards.values():
             f.close()

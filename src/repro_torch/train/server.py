@@ -8,8 +8,9 @@ with analytic targets (``data.synthetic_video.render_targets``) from
 16-frame ``make_clip(name, 16, size, seed=7)`` clips of ``walkS``,
 ``walkB`` and ``cycleS``; ``np.random.default_rng(0)`` draws each batch;
 ``forward_det`` -> ``det_loss`` -> gradients (the attention kernels'
-analytic backward, ``kernels/*/ops.py``) -> AdamW (``grad_clip`` 1.0)
-at ``warmup_cosine`` (warmup 50 steps).  The same function trains the
+analytic backward, ``kernels/*/ops.py``) -> AdamW (``grad_clip`` 1.0,
+in place on a copy of the weights) at ``warmup_cosine`` (warmup 50
+steps).  The same function trains the
 full-width ViTDet-L given ``CONFIG``: the frames are drawn at the
 config's ``img_size`` and the targets carry its classes.
 
@@ -114,7 +115,8 @@ def train_server_params(cfg: ModelConfig = SIM, steps: int = 1800,
     if params is None:
         params = seed0_params(cfg, dev)
     like = vb.strip_derived(params)
-    flat = ckpt.flatten(like)
+    # AdamW updates in place: train a copy, leave ``params`` as it is
+    flat = {k: v.detach().clone() for k, v in ckpt.flatten(like).items()}
     opt = adam.init_adam(flat)
     frames, targets = training_pool(cfg)
     rng = np.random.default_rng(0)
@@ -128,8 +130,8 @@ def train_server_params(cfg: ModelConfig = SIM, steps: int = 1800,
         loss, grads = value_and_grad(cfg, flat, like, img, tgt)
         lr = warmup_cosine(s, peak_lr=peak_lr, warmup_steps=WARMUP_STEPS,
                            total_steps=steps)
-        flat, opt, _ = adam.adam_update(grads, opt, flat, lr=lr,
-                                        grad_clip=1.0)
+        _, opt, _ = adam.adam_update(grads, opt, flat, lr=lr,
+                                     grad_clip=1.0)
         del grads
         losses.append(float(loss))
         step_s.append(time.perf_counter() - t0)

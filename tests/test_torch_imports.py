@@ -45,7 +45,10 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.offload.optimizer", "repro_torch.offload.faults",
             "repro_torch.offload.baselines", "repro_torch.launch.offload",
             "repro_torch.serve.edge", "repro_torch.optim.schedules",
-            "repro_torch.train.checkpoint", "repro_torch.train.server")
+            "repro_torch.train.checkpoint", "repro_torch.train.server",
+            "repro_torch.train.trainer", "repro_torch.train.straggler",
+            "repro_torch.train.elastic", "repro_torch.launch.train",
+            "repro_torch.optim.grad_compression")
 
 
 def test_every_port_module_imports_without_jax():

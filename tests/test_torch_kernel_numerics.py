@@ -13,7 +13,8 @@ reference's dense oracle, on unit-normal inputs.
 ``flash_attention`` and ``ssd_scan`` compute their products in the
 same scheme.  Their emulations below follow the kernels' decomposition:
 flash's online softmax in base 2 over 64-key tiles, rescaled per tile,
-P split as it leaves the scores; the SSD scan's chunk-parallel split into
+P split as it leaves the scores, each tile's P V from zero (a model of
+the tensor cores' truncating accumulation shows why); the SSD scan's chunk-parallel split into
 per-group C.B scores, chunk-local states (the decay weights folded into
 B before the split), sequential state passing and per-chunk outputs with
 the decay evaluated only at or below the diagonal.  Flash is held to
@@ -213,6 +214,73 @@ def test_flash_3xtf32_row_no_key_reaches_is_zero():
     want = tflash.flash_attention_plain(q, k, k, causal=True)
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= TOL
+
+
+def _toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> float32, rounded toward zero."""
+    t = x.to(torch.float32)
+    over = t.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(t, torch.zeros_like(t)), t)
+
+
+def _mma_3xtf32(c, a, b, eq):
+    """c + a b as a run of mma.sync m16n8k8 forms it: each k-step's 8
+    products (of TF32 parts, exact) and c summed, then rounded toward
+    zero (the tensor cores' accumulation); the three 3xTF32 products in
+    the kernel's order.  a: (..., K) rows, b: (K, N)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+        for k0 in range(0, a.shape[-1], 8):
+            c = _toward_zero(c.double() + torch.einsum(
+                eq, x[..., k0:k0 + 8].double(), y[k0:k0 + 8].double()))
+    return c
+
+
+def _flash_truncating(q, k, v, tile_local):
+    """One head of the flash kernel with truncating accumulation: S per
+    64-key tile from zero, and P V either from zero per tile and joined
+    to O by one rounded FMA (``tile_local``, the kernel's design) or
+    accumulated into the rescaled running O (its former design)."""
+    T, Dh = q.shape
+    m = torch.full((T,), float("-inf"))
+    lsum, o = torch.zeros(T), torch.zeros(T, Dh)
+    for k0 in range(0, k.shape[0], 64):
+        kt, vt = k[k0:k0 + 64], v[k0:k0 + 64]
+        s = _mma_3xtf32(torch.zeros(T, 64), q, kt.T.contiguous(),
+                        "td,ds->ts") * (Dh ** -0.5 * LOG2E)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[:, None])
+        lsum = lsum * alpha + p.sum(-1)
+        if tile_local:
+            pv = _mma_3xtf32(torch.zeros(T, Dh), p, vt, "ts,sd->td")
+            o = (o.double() * alpha[:, None].double() + pv.double()).float()
+        else:
+            o = _mma_3xtf32(o * alpha[:, None], p, vt, "ts,sd->td")
+        m = m_new
+    return o / lsum[:, None]
+
+
+def test_flash_tile_local_pv_keeps_float32_accuracy():
+    """Why each key tile's P V accumulates from zero: on near-uniform
+    attention over 2048 keys whose values nearly cancel (a ViT global
+    block's case), truncating mma sums into the running O drift ~50x
+    past the float32 plain version's error against float64; per tile,
+    the kernel stays within 4x of it."""
+    g = torch.Generator().manual_seed(3)
+    q, k = (0.05 * torch.randn((n, 64), generator=g) for n in (16, 2048))
+    v = torch.randn((2048, 64), generator=g)
+
+    def err(o):
+        ref = tflash.flash_attention_plain(*(x.double()[None, :, None]
+                                             for x in (q, k, v)))[0, :, 0]
+        return float((o.double() - ref).abs().max() / ref.abs().max())
+
+    plain = err(tflash.flash_attention_plain(
+        q[None, :, None], k[None, :, None], v[None, :, None])[0, :, 0])
+    assert err(_flash_truncating(q, k, v, tile_local=True)) <= 4 * plain
+    assert err(_flash_truncating(q, k, v, tile_local=False)) >= 10 * plain
 
 
 # ---------------------------------------------------------------------------
