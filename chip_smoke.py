@@ -220,7 +220,46 @@ Phases; any failure exits non-zero and prints no result:
      ``ssd_scan`` launch: the scans train through ``ssd_chunked``; 12
      flash launches a zamba2 step); 2-layer Qwen3, 2-layer mamba2 and
      6-layer zamba2 full-width steps card against CPU (loss to
-     TRAIN_LOSS_RTOL, every leaf to LM_GRAD_TOL of its largest).
+     TRAIN_LOSS_RTOL, every leaf to LM_GRAD_TOL of its largest);
+ 17. the exact-shape mixed-resolution lane (``forward_features`` on
+     region ids, ``mixed_res.pack_mixed`` / ``restore_full``) on
+     full-width ViTDet-L at B = 2 (seeded weights): beta 0..4 with 8 of
+     16 regions LOW (T = 2560 before restoring), then 4 REUSE regions at
+     beta 2 spliced from tiles a full-resolution forward captured.
+     ``avg_pool``, ``window_attention`` (no pad flags), ``flash_attention``
+     (unmasked, at T = 2560) and ``nn_upsample`` must launch, the padded
+     lane's two kernels must not.  Each beta's features and the REUSE
+     forward's features and tiles against the padded lane on the same
+     plans, and beta 0 and the REUSE wave of an 8-block model card vs CPU,
+     to E2E_RTOL; a wave's ms (``forward_det``, CUDA events) in each lane
+     at each beta;
+ 18. run inside phase 13, on its server: ViTMAlis+Reuse on ``parkS`` with
+     the server's FeatureCache host-resident (``device_cache=False``) and
+     device-resident.  The same offloads with equal detections; tile
+     bytes an offload above 0 in host mode and 0 in device mode; the
+     server's ms an offload in each;
+ 19. the int8 LM lane: ``int8_matmul`` bit-equal to its plain version at
+     Qwen3-4B's five projection GEMMs at decode M = 8 and prefill
+     M = 1024, the decode shapes' device us beside their bound (summed
+     over a decode step's 36 blocks); full-width Qwen3-4B (phase 7's
+     seed-0 weights) through ``quant.ptq.quantize_lm_params`` (weight GB
+     before and after) served by ``ServeEngine`` in plain waves of 8 x
+     128 + 16 tokens: 5 ``int8_matmul`` launches a block in the prefill
+     and in each decode step, no steady-state first use, wall, prefill
+     and decode-step ms beside phase 7's fp32 engine, greedy agreement
+     with its tokens (printed, not gated); a 2-layer full-width int8
+     Qwen3 on the card and on the CPU: both engines' greedy tokens
+     (agreement printed), and the logits teacher-forced on the CPU's
+     tokens to QUANT_E2E_RTOL with the same greedy token wherever the
+     CPU's top-2 margin exceeds twice the routes' difference; full-width
+     zamba2-1.2b served once through the lane (its shared block's five
+     GEMMs a call);
+ 20. the calibration gate (``quant.calibrate``) on full-width ViTDet-L
+     (seed 0): the default ladder raises (its half rungs); then
+     int8 + fp32 with and without one pruned head, ``parkS`` / ``driveN``,
+     CALIB_FRAMES frames, top-k 32 at score 0: each candidate's bytes and
+     F1 deltas, the shipped spec and the wall.  On seeded weights this
+     measures agreement with the float32 model, not accuracy.
 
 Each serving path resets the launch counts just before it and reads them
 just after.  The line before the last is a JSON object with every
@@ -230,8 +269,11 @@ ViTDet-L waves of phase 3, its beta-0 wave, the int8 waves of phase 5,
 the two Qwen3-4B waves of phase 7, one wave of each SSM model, the
 ``mixed_forward_ssm`` forward, each simulation of phase 13, and each
 multi-client run and burst wave of phase 14, named ``mc ...``, the
-two training runs of phase 15, ``train ...``, and the LM training runs
-of phase 16, ``lm_train ...``).  The last line is
+two training runs of phase 15, ``train ...``, the LM training runs
+of phase 16, ``lm_train ...``, the exact lane of phase 17, the host- and
+device-cache simulations of phase 18, the int8 LM waves of phase 19 and
+the calibration of phase 20); the ``int8_matmul`` row also gives phase
+19's decode-step device us and bound.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -365,6 +407,7 @@ LM_TRAIN_STEPS = 3          # full-width Qwen3-4B steps at B = 1
 SSM_TRAIN_STEPS, SSM_TRAIN_B = 2, 2   # full-width mamba2 / zamba2 steps
 LM_CROSS_T = 128            # the few-layer card-vs-CPU steps
 LM_GRAD_TOL = 1e-3          # LM step gradients, of each leaf's largest
+CALIB_FRAMES = 8            # phase 20's frames a scenario
 QUANT_SPEC = ("int8", "fp32", 1)
 # the GEMMs of the quantized full-width model, (K, N): patch embed,
 # fused QKV, w_o, MLP up, MLP down (15 heads of 64 after pruning)
@@ -783,6 +826,19 @@ def run(torch):
     # phase 16 ------------------------------------------------------------
     lat["lm_train"] = lm_train_phase(torch, dev, count)
 
+    # phase 17 ------------------------------------------------------------
+    lat["exact_lane"] = exact_lane(torch, cfg, dev, count)
+
+    # phase 19 (phase 18 runs inside phase 13) ----------------------------
+    lat["lm_int8"] = lm_int8(torch, QWEN, dev, lat["lm"], count)
+    rows["int8_matmul"]["decode_step_device_us"] = \
+        lat["lm_int8"]["gemms"]["decode_step_device_us"]
+    rows["int8_matmul"]["decode_step_bound_us"] = \
+        lat["lm_int8"]["gemms"]["decode_step_bound_us"]
+
+    # phase 20 ------------------------------------------------------------
+    lat["calibrate"] = calibrate_phase(torch, cfg, dev, count)
+
     out = []
     for name in KERNEL_SOURCES:
         src, replaces = KERNEL_SOURCES[name]
@@ -797,7 +853,8 @@ def run(torch):
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
                     "device_us": r["device_us"],
-                    **({"cold_us": r["cold_us"]} if "cold_us" in r else {})})
+                    **{k: r[k] for k in ("cold_us", "decode_step_device_us",
+                                         "decode_step_bound_us") if k in r}})
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi.stdout.strip(), "kernels": out, "waves": lat,
          "int8_gemm_shapes": gemm}, indent=1))
@@ -1445,6 +1502,10 @@ def serve_offload(torch, cfg, dev, count):
           f"steady-state first uses: {srv.stats.steady_compile_keys}")
     park = out["runs"]["offload ViTMAlis+Reuse parkS"]
     check(park["reuse_offloads"] > 0, "REUSE never fired on parkS")
+    out["host_cache"] = host_cache_runs(torch, srv, lo, clips, trace, size_e,
+                                        acc_e, inf_delay, count)
+    check(srv.stats.steady_compiles == 0,
+          f"steady-state first uses: {srv.stats.steady_compile_keys}")
     steady = srv.stats.steady_compiles
     del srv
     torch.cuda.empty_cache()
@@ -3214,7 +3275,7 @@ def serve_lm(torch, cfg, dev):
             launches_total[name] += n
         walls = [wave(mixed)[0] for _ in range(3)]
         rec = {"first_s": first, "median_s": statistics.median(walls),
-               "launches": launches, "tokens_0": tokens[0]}
+               "launches": launches, "tokens": tokens}
         rec["tokens_per_s"] = LM_B * LM_NEW / rec["median_s"]
         rec.update(lm_phase_times(torch, eng, cfg, prompts, mask, mixed))
         out[kind] = rec
@@ -3626,6 +3687,561 @@ def kernel_breakdown(torch, fn, names, n=20):
             f"device time in {us}")
     check(False, f"kernel_breakdown: untraced kernels in {us} after "
           f"{TRACE_TRIES} traces")
+
+
+# ---------------------------------------------------------------------------
+# the exact-shape mixed-resolution lane (phase 17)
+
+
+def exact_plans(pt, nR):
+    """Two clients' plans for the exact lane: 8 of the 16 regions LOW
+    (other regions each), and the same with 4 of the FULL regions
+    REUSE."""
+    low = (np.zeros(nR, np.int8), np.zeros(nR, np.int8))
+    low[0][[0, 2, 5, 7, 8, 10, 13, 15]] = pt.LOW
+    low[1][[1, 3, 4, 6, 9, 11, 12, 14]] = pt.LOW
+    reuse = (low[0].copy(), low[1].copy())
+    reuse[0][[1, 3, 4, 6]] = pt.REUSE
+    reuse[1][[0, 2, 5, 7]] = pt.REUSE
+    return ([pt.RegionPlan(s) for s in low],
+            [pt.RegionPlan(s) for s in reuse])
+
+
+def lane_inputs(torch, pt, part, plans, dev):
+    """Per-sample exact-lane ids and the padded lane's layout of the same
+    plans (at their length bucket)."""
+    n_low, n_reuse = plans[0].n_low, plans[0].n_reuse
+    ids = [torch.as_tensor(a, device=dev)
+           for a in pt.stack_plan_ids(plans, n_low, n_reuse)]
+    lb = pt.length_bucket(part.n_windows(n_low, n_reuse),
+                          pt.length_bucket_set(part))
+    arrays, _ = pt.stack_plan_layouts([pt.plan_layout(p.states, lb, part)
+                                       for p in plans])
+    return ids, {k: torch.as_tensor(v, device=dev)
+                 for k, v in arrays.items()}, lb
+
+
+def rel_max(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def exact_lane(torch, cfg, dev, count):
+    """Phase 17: ``forward_features`` / ``forward_det`` on region ids at
+    full width, B = 2: beta 0..4 with 8 of 16 regions LOW, then 4 REUSE
+    regions at beta 2 spliced from tiles a full-resolution forward
+    captured; the four kernels of the lane must launch.  Each beta's
+    features (and the REUSE forward's tiles) against the padded lane on
+    the card, and an 8-block model card vs CPU, to E2E_RTOL; a wave's
+    ms (``forward_det``, CUDA events) in each lane at each beta."""
+    from repro_torch import convert
+    from repro_torch.core import partition as pt
+    from repro_torch.core import vit_backbone as vb
+    from repro_torch.kernels import dispatch
+
+    t_phase = time.perf_counter()
+    part = vb.vit_partition(cfg)
+    nR, N = part.n_regions, cfg.vit.n_subsets
+    low_plans, reuse_plans = exact_plans(pt, nR)
+    say(f"phase 17: the exact-shape mixed-resolution lane, {cfg.name} "
+        f"{cfg.n_layers} blocks D={cfg.d_model}, B={B}, {low_plans[0].n_low}"
+        f" of {nR} regions LOW (T = {part.n_tokens(low_plans[0].n_low)}), "
+        f"beta 0..{N}; {reuse_plans[0].n_reuse} REUSE at beta {BETA}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    params = convert.init_vitdet_params(cfg, gen, device=dev)
+    img = torch.rand((B, *cfg.vit.img_size, 3), generator=gen, device=dev)
+    prev = torch.rand((B, *cfg.vit.img_size, 3), generator=gen, device=dev)
+    (fi, li, _), layout, lb = lane_inputs(torch, pt, part, low_plans, dev)
+    (rfi, rli, rri), rlayout, rlb = lane_inputs(torch, pt, part, reuse_plans,
+                                                dev)
+    rows = torch.arange(B, device=dev)[:, None]
+    with torch.no_grad():
+        _, captured = vb.forward_features(cfg, params, prev,
+                                          capture_beta=BETA)
+        tiles = captured[rows, rri.long()]
+        tiles_pad = torch.zeros_like(captured)
+        tiles_pad[:, :rri.shape[1]] = tiles
+
+        def exact(beta, **kw):
+            return vb.forward_features(cfg, params, img, fi, li, beta, **kw)
+
+        def spliced():
+            return vb.forward_features(cfg, params, img, rfi, rli, BETA,
+                                       reuse_ids=rri, reuse_tiles=tiles,
+                                       capture_beta=BETA)
+
+        dispatch.reset_launch_counts()      # the exact lane starts here
+        feats = {beta: exact(beta) for beta in range(N + 1)}
+        reuse_out = spliced()
+        launches = dispatch.launch_counts()  # ... and ends here
+        count("vitdet-l exact", launches)
+        say(f"  launches {json.dumps(launches)}")
+        check(all(launches[k] > 0 for k in BETA0_PATH),
+              f"a kernel of the exact lane never launched: {launches}")
+        check(launches["pack_pos"] == 0 and launches["restore_gather"] == 0,
+              "the exact lane ran the padded lane's kernels")
+        out = {"B": B, "n_low": low_plans[0].n_low, "length_bucket": lb,
+               "launches": {k: v for k, v in launches.items() if v},
+               "betas": {}}
+        for beta in range(N + 1):
+            f = feats[beta]
+            check(bool(torch.isfinite(f).all()),
+                  f"beta {beta}: non-finite features")
+            pad = vb.forward_features(cfg, params, img, beta=beta,
+                                      layout=layout)
+            err = rel_max(f, pad)
+            e_ms = timed(torch, lambda: vb.forward_det(
+                cfg, params, img, fi, li, beta), target_ms=300)
+            p_ms = timed(torch, lambda: vb.forward_det(
+                cfg, params, img, beta=beta, layout=layout), target_ms=300)
+            out["betas"][beta] = {"exact_ms": e_ms, "padded_ms": p_ms,
+                                  "vs_padded_rel": err}
+            say(f"  beta {beta}: wave {e_ms:.3f} ms exact (T = "
+                f"{part.n_tokens(low_plans[0].n_low)} before restoring), "
+                f"{p_ms:.3f} ms padded (bucket {lb} windows); features vs "
+                f"the padded lane max relative error {err:.3g} (limit "
+                f"{E2E_RTOL})")
+            check(err <= E2E_RTOL, f"beta {beta}: exact vs padded {err}")
+        del feats
+        pad_f, pad_t = vb.forward_features(
+            cfg, params, img, beta=BETA, layout=rlayout,
+            reuse_tiles=tiles_pad, capture_beta=BETA)
+        errs = (rel_max(reuse_out[0], pad_f), rel_max(reuse_out[1], pad_t))
+        say(f"  REUSE at beta {BETA} (bucket {rlb}): features / tiles vs the "
+            f"padded lane max relative error {errs[0]:.3g} / {errs[1]:.3g} "
+            f"(limit {E2E_RTOL})")
+        check(max(errs) <= E2E_RTOL, f"REUSE wave: exact vs padded {errs}")
+        out["reuse_vs_padded_rel"] = errs
+        del params, captured, tiles_pad, reuse_out, pad_f, pad_t
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = exact_lane_cpu(torch, cfg.replace(n_layers=8), dev,
+                                        low_plans, reuse_plans)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 17: {out['phase_s']:.1f} s")
+    return out
+
+
+def exact_lane_cpu(torch, cfg, dev, low_plans, reuse_plans):
+    """Sample 0 of phase 17's plans through an 8-block full-width model on
+    the card and, through the plain versions, on the CPU: beta 0 and the
+    REUSE wave at beta 2 (tiles captured on the card), to E2E_RTOL."""
+    from repro_torch import convert
+    from repro_torch.core import partition as pt
+    from repro_torch.core import vit_backbone as vb
+    from repro_torch.offload.simulator import to_device
+
+    torch.set_num_threads(os.cpu_count() or 1)
+    part = vb.vit_partition(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    p_gpu = convert.init_vitdet_params(cfg, gen, device=dev)
+    p_cpu = to_device(p_gpu, torch.device("cpu"))
+    img = torch.rand((1, *cfg.vit.img_size, 3), generator=gen, device=dev)
+    out = {}
+    with torch.no_grad():
+        _, captured = vb.forward_features(cfg, p_gpu, img, capture_beta=BETA)
+        for name, plan, beta in (("beta 0", low_plans[0], 0),
+                                 (f"REUSE beta {BETA}", reuse_plans[0],
+                                  BETA)):
+            fi, li, ri = pt.plan_to_region_ids(plan.states, plan.n_low,
+                                               plan.n_reuse)
+            kw = {}
+            if plan.n_reuse:
+                kw = dict(reuse_ids=ri, capture_beta=beta,
+                          reuse_tiles=captured[:, torch.as_tensor(
+                              ri, dtype=torch.long, device=dev)])
+            t0 = time.perf_counter()
+            got = vb.forward_features(cfg, p_gpu, img, fi, li, beta, **kw)
+            kw = {k: (v.cpu() if torch.is_tensor(v) else v)
+                  for k, v in kw.items()}
+            want = vb.forward_features(cfg, p_cpu, img.cpu(), fi, li, beta,
+                                       **kw)
+            got, want = ((got, want) if plan.n_reuse
+                         else ((got,), (want,)))
+            errs = [rel_max(g.cpu(), w) for g, w in zip(got, want)]
+            out[name] = errs
+            say(f"  {cfg.n_layers}-block card vs CPU, {name}: features"
+                + (" / tiles" if len(errs) > 1 else "")
+                + " max relative error " + " / ".join(f"{e:.3g}"
+                                                     for e in errs)
+                + f" (limit {E2E_RTOL}); {time.perf_counter() - t0:.1f} s")
+            check(max(errs) <= E2E_RTOL, f"{name}: card vs CPU {errs}")
+    del p_gpu, p_cpu, captured
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the host-resident tile cache (phase 18, on phase 13's server)
+
+
+def host_cache_runs(torch, srv, lo, clips, trace, size_e, acc_e, inf_delay,
+                    count):
+    """Phase 18: ViTMAlis+Reuse on parkS with the server's FeatureCache
+    host-resident (``device_cache=False``) and device-resident: the same
+    offloads with equal detections, tile bytes an offload above 0 in host
+    mode and 0 in device mode, and the server's ms an offload in each."""
+    from repro_torch.kernels import dispatch
+    policy, video = "ViTMAlis+Reuse", "parkS"
+    say(f"phase 18 (on phase 13's server): {policy} on {video}, "
+        f"{OFFLOAD_FRAMES} frames, FeatureCache host-resident and "
+        f"device-resident")
+    frames, gt = clips[video]
+    part, patch = srv.part, srv.cfg.vit.patch_size
+    out, jobs = {}, {}
+    for mode, flag in (("host", False), ("device", True)):
+        srv.device_cache = flag
+        pol = lo.make_policy(policy, size_e, acc_e, part, inf_delay)
+        st = srv.stats
+        before = (st.tile_bytes_d2h, st.tile_bytes_h2d, st.offloads)
+        dispatch.reset_launch_counts()      # this simulation starts here
+        sim, _ = lo.run_policy(srv, frames, gt, trace, pol, part, patch,
+                               inf_delay, video)
+        launches = dispatch.launch_counts()  # ... and ends here
+        count(f"offload {mode} cache {policy} {video}", launches)
+        jobs[mode] = sim.jobs
+        d2h, h2d = st.tile_bytes_d2h - before[0], st.tile_bytes_h2d - before[1]
+        n = st.offloads - before[2]
+        sw = np.array([j["server_wall"] for j in sim.jobs]) * 1e3
+        reuse = [j for j in sim.jobs if j["n_r"] > 0]
+        out[mode] = {
+            "offloads": n, "reuse_offloads": len(reuse),
+            "tile_bytes_d2h": d2h, "tile_bytes_h2d": h2d,
+            "tile_bytes_per_offload": (d2h + h2d) / max(n, 1),
+            "server_ms_median": float(np.median(sw)),
+            "server_ms_mean": float(sw.mean()),
+            "server_ms_reuse_mean": float(np.mean(
+                [j["server_wall"] for j in reuse]) * 1e3) if reuse else None,
+            "launches": {k: v for k, v in launches.items() if v}}
+        r = out[mode]
+        say(f"  {mode} cache: {n} offloads ({len(reuse)} with REUSE), tile "
+            f"bytes d2h {d2h} h2d {h2d} ({r['tile_bytes_per_offload']:.0f} "
+            f"an offload); server {r['server_ms_median']:.2f} ms median, "
+            f"{r['server_ms_mean']:.2f} mean a offload"
+            + (f", {r['server_ms_reuse_mean']:.2f} mean a REUSE offload"
+               if reuse else ""))
+    srv.device_cache = True
+
+    def decisions(js):
+        return [(j["frame"], j["n_d"], j["n_r"], j["beta"]) for j in js]
+
+    check(decisions(jobs["host"]) == decisions(jobs["device"]),
+          "host and device cache made different offloads")
+    check(all(a["dets"] == b["dets"]
+              for a, b in zip(jobs["host"], jobs["device"])),
+          "host and device cache gave different detections")
+    check(out["host"]["reuse_offloads"] > 0, "phase 18: REUSE never fired")
+    check(out["host"]["tile_bytes_per_offload"] > 0,
+          "host cache moved no tile bytes")
+    check(out["device"]["tile_bytes_per_offload"] == 0,
+          "device cache moved tile bytes")
+    say(f"  detections equal over {len(jobs['host'])} offloads")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the int8 LM lane (phase 19)
+
+
+def lm_gemms(cfg):
+    """(name, K, N) of the five projection GEMMs of a dense block."""
+    D, F_ = cfg.d_model, cfg.d_ff
+    return (("qkv", D, cfg.q_dim + 2 * cfg.kv_dim), ("o", cfg.q_dim, D),
+            ("gate", D, F_), ("up", D, F_), ("down", F_, D))
+
+
+def lm_int8_gemm_checks(torch, cfg, dev):
+    """``int8_matmul`` against its plain version, bit-equal, at the int8
+    LM's shapes: decode M = LM_B and prefill M = LM_B * LM_T.  The decode
+    shapes are timed (device us a launch) beside their bound, summed over
+    a decode step's ``n_layers`` blocks."""
+    from repro_torch.kernels.int8_matmul import ops as i8
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    rows, step_us, step_bound = [], 0.0, 0.0
+    for name, K, N in lm_gemms(cfg):
+        for M in (LM_B, LM_B * LM_T):
+            xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8)
+            wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
+                               dtype=torch.int32).to(torch.int8).t()
+            sx = torch.rand(M, generator=gen, device=dev) * 0.02 + 1e-3
+            sw = torch.rand(N, generator=gen, device=dev) * 0.02 + 1e-3
+            got = i8.int8_matmul_cuda(xq, wq, sx, sw)
+            check(torch.equal(got, i8.int8_matmul_plain(xq, wq, sx, sw)),
+                  f"int8_matmul {M}x{K}x{N}: kernel differs from plain")
+            if M != LM_B:
+                continue
+            d_us = device_us(torch, lambda: i8.KERNEL.relaunch(1),
+                             DEVICE_NAMES["int8_matmul"])
+            nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
+            b_ms, b_by = bound(nbytes, 2 * M * N * K, PEAK_INT8)
+            rows.append({"gemm": name, "M": M, "K": K, "N": N,
+                         "device_us": d_us, "bound_us": b_ms * 1e3,
+                         "bound_by": b_by})
+            step_us += d_us * cfg.n_layers
+            step_bound += b_ms * 1e3 * cfg.n_layers
+            say(f"  int8_matmul {name} {M}x{K}x{N}: bit-equal (and at M = "
+                f"{LM_B * LM_T}); device {d_us:.2f} us, bound "
+                f"{b_ms * 1e3:.2f} us ({b_by}), {b_ms * 1e3 / d_us:.3f} of "
+                f"its bound")
+    say(f"  int8_matmul a decode step ({cfg.n_layers} blocks x 5): device "
+        f"{step_us:.1f} us against its bound {step_bound:.1f} us")
+    return {"decode_gemms": rows, "decode_step_device_us": step_us,
+            "decode_step_bound_us": step_bound}
+
+
+def lm_int8(torch, cfg, dev, fp32, count):
+    """Phase 19: full-width Qwen3-4B (seed 0, phase 7's weights) served
+    through ``ServeEngine`` on its ``quantize_lm_params`` tree, plain
+    waves of LM_B x LM_T + LM_NEW tokens: weight bytes before and after,
+    5 ``int8_matmul`` launches a block each prefill and decode step,
+    wall, prefill and decode-step ms beside phase 7's fp32 engine, greedy
+    agreement with its tokens (printed, not gated); a 2-layer full-width
+    int8 Qwen3 on the card and on the CPU (``lm_int8_cpu``); zamba2-1.2b
+    served once through the lane."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry
+    from repro_torch.quant import qtensor as qt
+    from repro_torch.quant.ptq import quantize_lm_params
+
+    t_phase = time.perf_counter()
+    say(f"phase 19: the int8 LM lane, {cfg.name} {cfg.n_layers} layers "
+        f"D={cfg.d_model}, waves of {LM_B} x {LM_T} + {LM_NEW} tokens")
+    out = {"gemms": lm_int8_gemm_checks(torch, cfg, dev)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = registry.init_params(cfg, gen, device=dev)
+    bytes0 = qt.tree_bytes(params)
+    params = quantize_lm_params(params)
+    torch.cuda.synchronize()
+    bytes1 = qt.tree_bytes(params)
+    proj = sum(leaf.q.numel() for leaf in qt._leaves(params)
+               if isinstance(leaf, qt.QuantTensor))
+    out.update(weight_gb_fp32=bytes0 / 1e9, weight_gb_int8=bytes1 / 1e9,
+               int8_projection_gb=proj / 1e9)
+    say(f"  weights {bytes0 / 1e9:.3f} GB -> {bytes1 / 1e9:.3f} GB "
+        f"({proj / 1e9:.3f} GB of int8 projection codes)")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, LM_T).astype(np.int32)
+               for _ in range(LM_B)]
+    eng, n_keys = lm_engine(torch, cfg, params, dev)
+    steps = LM_NEW - 1
+    dispatch.reset_launch_counts()          # the int8 LM path starts here
+    first, tokens = lm_wave(eng, cfg, prompts)
+    launches = dispatch.launch_counts()     # ... and ends here
+    count("qwen3-4b int8", launches)
+    say(f"  warmup of {n_keys} keys; wave launches {json.dumps(launches)}")
+    want = {"int8_matmul": 5 * cfg.n_layers * (1 + steps),
+            "flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * steps}
+    check(all(launches[k] == n for k, n in want.items()),
+          f"int8 wave launches {launches}, want {want}")
+    walls = [lm_wave(eng, cfg, prompts)[0] for _ in range(3)]
+    times = lm_phase_times(torch, eng, cfg, prompts, None, False)
+    check(eng.stats.steady_compiles == 0,
+          f"int8 LM steady-state first uses: {eng.stats.steady_compile_keys}")
+    ref = fp32["plain"]
+    same = sum(a == b for g, w in zip(tokens, ref["tokens"])
+               for a, b in zip(g, w))
+    agree = same / (LM_B * LM_NEW)
+    out.update(first_s=first, median_s=statistics.median(walls),
+               launches={k: v for k, v in launches.items() if v},
+               token_agreement_with_fp32=agree, **times)
+    say(f"  int8 wave: first {first:.4f} s, median {out['median_s']:.4f} s "
+        f"(fp32 {ref['median_s']:.4f}); prefill {times['prefill_ms']:.3f} "
+        f"ms (fp32 {ref['prefill_ms']:.3f}), decode "
+        f"{times['decode_step_ms']:.3f} ms/step (fp32 "
+        f"{ref['decode_step_ms']:.3f}); greedy tokens equal to fp32's "
+        f"{same} of {LM_B * LM_NEW} ({agree:.3f}, not gated)")
+    del eng, params
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = lm_int8_cpu(torch, cfg.replace(n_layers=2), dev,
+                                     prompts)
+    from repro_torch.configs.zamba2_1p2b import CONFIG as ZAMBA
+    out[ZAMBA.name] = lm_int8_hybrid(torch, ZAMBA, dev, count)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 19: {out['phase_s']:.1f} s")
+    return out
+
+
+def lm_engine(torch, cfg, params, dev, new=LM_NEW):
+    """A ServeEngine for plain waves of LM_B x LM_T + ``new``, warmed."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_batch=LM_B, max_len=LM_T + new + 8, buckets=(LM_T,),
+        device=str(dev)))
+    return eng, eng.warmup()
+
+
+def lm_wave(eng, cfg, prompts, new=LM_NEW):
+    """One plain wave; returns (host wall s, each request's tokens)."""
+    from repro_torch.serve.request import Request
+    for rid, p in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=new))
+    t = time.perf_counter()
+    resp = sorted(eng.run(), key=lambda r: r.rid)
+    wall = time.perf_counter() - t
+    check(len(resp) == len(prompts)
+          and all(r.n_tokens == new for r in resp),
+          f"LM wave: {[r.n_tokens for r in resp]} tokens, want {new} each")
+    check(all(0 <= x < cfg.vocab_size for r in resp for x in r.tokens),
+          "LM wave: token out of the vocabulary")
+    return wall, [r.tokens for r in resp]
+
+
+def lm_int8_cpu(torch, cfg, dev, prompts):
+    """A few-layer full-width int8 model served on the card and, through
+    the plain versions, on the CPU: both engines' greedy tokens (their
+    agreement printed), then both routes' logits teacher-forced on the
+    CPU's tokens: each step to QUANT_E2E_RTOL of its largest magnitude,
+    and the same greedy token wherever the CPU's top-2 margin exceeds
+    twice the two routes' largest difference in that row.  Each GEMM
+    quantizes its input rows on the fly, so a one-ulp difference upstream
+    can flip an int8 code at a rounding tie and move a logit by a
+    quantization step: on seeded weights, whose logits hold near-ties,
+    one flipped greedy token changes every later one."""
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.quant import qtensor as qt
+    from repro_torch.quant.ptq import quantize_lm_params
+    torch.set_num_threads(os.cpu_count() or 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    p_gpu = quantize_lm_params(registry.init_params(cfg, gen, device=dev))
+    p_cpu = qt.to_device(p_gpu, "cpu")
+    t0 = time.perf_counter()
+    got = lm_wave(lm_engine(torch, cfg, p_gpu, dev)[0], cfg, prompts)[1]
+    want = lm_wave(lm_engine(torch, cfg, p_cpu, torch.device("cpu"))[0],
+                   cfg, prompts)[1]
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    toks = torch.as_tensor(np.concatenate(
+        [np.stack(prompts), np.asarray(want)[:, :-1]], axis=1))
+
+    def forced(device, params):
+        T = len(prompts[0])
+        state = registry.init_decode_state(cfg, len(prompts),
+                                           T + LM_NEW + 8, device=device)
+        with torch.no_grad():
+            h, state, _ = registry.prefill(
+                cfg, params, {"tokens": toks[:, :T].to(device)}, state)
+            out = [tfm.logits_from_hidden(cfg, params, h[:, -1:])]
+            for i in range(LM_NEW - 1):
+                lg, state = registry.decode_step(
+                    cfg, params, toks[:, T + i:T + i + 1].to(device), T + i,
+                    state)
+                out.append(lg)
+        return torch.stack([o[:, -1].float().cpu() for o in out])
+
+    g, c = forced(dev, p_gpu), forced("cpu", p_cpu)      # (steps, B, V)
+    rel = float(((g - c).abs().amax(dim=(1, 2))
+                 / c.abs().amax(dim=(1, 2))).max())
+    top2 = c.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    flips = g.argmax(-1) != c.argmax(-1)
+    ties = margin <= 2 * (g - c).abs().amax(dim=-1)
+    say(f"  {cfg.n_layers}-layer int8 {cfg.name} card vs CPU: engine greedy "
+        f"tokens equal {same} of {LM_B * LM_NEW} (not gated); teacher-forced "
+        f"logits max relative error {rel:.3g} (limit {QUANT_E2E_RTOL}), "
+        f"{int(flips.sum())} of {flips.numel()} greedy tokens differ, "
+        f"{int((flips & ties).sum())} of them at a near-tie; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(rel <= QUANT_E2E_RTOL, f"int8 LM: card vs CPU logits {rel}")
+    check(not bool((flips & ~ties).any()),
+          "int8 LM: a greedy token differs card vs CPU beyond a near-tie")
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return {"engine_tokens_equal": same, "tokens": LM_B * LM_NEW,
+            "forced_logits_rel": rel, "forced_flips": int(flips.sum()),
+            "forced_flips_at_ties": int((flips & ties).sum())}
+
+
+def lm_int8_hybrid(torch, cfg, dev, count):
+    """zamba2-1.2b (full width, seed 0) served once through the int8 lane:
+    its shared block's projections run ``int8_matmul``."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry
+    from repro_torch.quant import qtensor as qt
+    from repro_torch.quant.ptq import quantize_lm_params
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = registry.init_params(cfg, gen, device=dev)
+    bytes0 = qt.tree_bytes(params)
+    params = quantize_lm_params(params)
+    bytes1 = qt.tree_bytes(params)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, LM_T).astype(np.int32)
+               for _ in range(LM_B)]
+    eng, _ = lm_engine(torch, cfg, params, dev)
+    dispatch.reset_launch_counts()          # the zamba2 int8 path starts
+    wall, _ = lm_wave(eng, cfg, prompts)
+    launches = dispatch.launch_counts()     # ... and ends here
+    count(f"{cfg.name} int8", launches)
+    calls = cfg.n_layers // 6                # shared-block calls
+    check(launches["int8_matmul"] == 5 * calls * LM_NEW,
+          f"{cfg.name} int8: {launches['int8_matmul']} int8_matmul launches,"
+          f" want {5 * calls * LM_NEW}")
+    check(eng.stats.steady_compiles == 0, f"{cfg.name} int8: steady first use")
+    say(f"  {cfg.name} int8: {bytes0 / 1e9:.3f} GB -> {bytes1 / 1e9:.3f} GB;"
+        f" wave of {LM_B} x {LM_T} + {LM_NEW} in {wall:.3f} s; launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return {"weight_gb_fp32": bytes0 / 1e9, "weight_gb_int8": bytes1 / 1e9,
+            "wall_s": wall,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+# ---------------------------------------------------------------------------
+# the calibration gate (phase 20)
+
+
+def calibrate_phase(torch, cfg, dev, count):
+    """Phase 20: ``quant.calibrate`` on full-width ViTDet-L (seed 0) with
+    the int8 + fp32 rungs with and without one pruned head, ``parkS`` /
+    ``driveN``, CALIB_FRAMES frames, top-k 32 at score 0: the deltas, the
+    shipped spec and the wall.  The default ladder's half rungs raise."""
+    from repro_torch import convert
+    from repro_torch.kernels import dispatch
+    from repro_torch.quant import calibrate as cal
+    from repro_torch.quant.ptq import QuantSpec
+
+    say(f"phase 20: calibration gate, {cfg.name} {cfg.n_layers} blocks, "
+        f"{CALIB_FRAMES} frames of {cal.SCENARIOS}, candidates "
+        f"int8+fp32 p0 / p1, top-k 32, score threshold 0")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = convert.init_vitdet_params(cfg, gen, device=dev)
+    kw = dict(device=str(dev), top_k=32, score_thresh=0.0)
+    try:
+        cal.calibrate(cfg, params, n_frames=2, server_kw=kw)
+    except NotImplementedError as e:
+        say(f"  default ladder refused: {e}")
+    else:
+        raise SmokeFailure("calibrate ran the default ladder's half rungs")
+    t0 = time.perf_counter()
+    dispatch.reset_launch_counts()          # the calibration starts here
+    rep = cal.calibrate(cfg, params,
+                        candidates=[QuantSpec("int8", "fp32", p)
+                                    for p in (0, 1)],
+                        n_frames=CALIB_FRAMES, server_kw=kw)
+    launches = dispatch.launch_counts()     # ... and ends here
+    wall = time.perf_counter() - t0
+    count("calibrate vitdet-l", launches)
+    check(launches["int8_matmul"] > 0, "calibrate ran no int8 GEMM")
+    points = []
+    for p in rep.points:
+        check(all(np.isfinite(d) for d in p.deltas.values()),
+              f"{p.spec.name}: non-finite delta")
+        points.append({"spec": p.spec.name, "bytes": p.bytes,
+                       "ratio": p.ratio, "deltas": p.deltas,
+                       "passed": p.passed})
+        say(f"  {p.spec.name}: {p.bytes} bytes (ratio {p.ratio:.4f}); F1 "
+            f"deltas " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                   p.deltas.items())
+            + f" (bound {rep.bound}): {'pass' if p.passed else 'fail'}")
+    shipped = rep.shipped.name if rep.shipped else None
+    say(f"  shipped {shipped}; {wall:.1f} s.  On seeded weights this "
+        f"measures agreement with the fp32 model's detections, not "
+        f"accuracy")
+    del params
+    torch.cuda.empty_cache()
+    return {"points": points, "shipped": shipped, "bound": rep.bound,
+            "bytes_fp32": rep.bytes_fp32, "wall_s": wall,
+            "launches": {k: v for k, v in launches.items() if v}}
 
 
 def device_us(torch, fn, frag, n=20):

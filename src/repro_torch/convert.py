@@ -17,7 +17,10 @@ The reference keeps q, k and v weights apart and concatenates them on
 every call; here they are concatenated once.  Its conv weights are HWIO;
 ``F.conv2d`` takes OIHW.
 
-A compressed reference tree (``repro.quant.ptq.compress``) converts too:
+An int8 LM tree (``repro.quant.ptq.quantize_lm_params``: stacked
+QuantTensors with per-(layer, column) scales) converts into per-layer
+QuantTensors.  A compressed reference ViTDet tree
+(``repro.quant.ptq.compress``) converts too:
 its QuantTensor leaves are read by duck typing (``.q``, ``.scale``,
 ``.out_dtype``) into the port's ``quant.qtensor.QuantTensor``; q/k/v
 fuse with ``concat_out`` semantics, conv codes turn HWIO -> OIHW with
@@ -27,6 +30,7 @@ quantized.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Dict, List, Mapping
 
 import numpy as np
@@ -164,9 +168,17 @@ def init_vitdet_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _layer(stack: Mapping, i: int) -> Dict:
-    """Layer ``i`` of a scan-stacked subtree (leading (L, ...) axis)."""
-    return {k: (_layer(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
-            for k, v in stack.items()}
+    """Layer ``i`` of a scan-stacked subtree (leading (L, ...) axis); a
+    stacked QuantTensor gives layer i's codes and (1, N) scales."""
+    def take(v):
+        if isinstance(v, Mapping):
+            return _layer(v, i)
+        if _is_quant(v):
+            return SimpleNamespace(q=np.asarray(v.q)[i],
+                                   scale=np.asarray(v.scale)[i],
+                                   out_dtype=v.out_dtype)
+        return np.asarray(v)[i]
+    return {k: take(v) for k, v in stack.items()}
 
 
 def _tensors(tree: Mapping, device) -> Dict:
@@ -176,10 +188,14 @@ def _tensors(tree: Mapping, device) -> Dict:
 
 def _fused_attn(a: Mapping, device) -> Dict:
     """Reference LM attention weights -> the port's, ``w_q | w_k | w_v``
-    (and their biases) fused into ``w_qkv`` (``b_qkv``)."""
-    attn = {"w_qkv": _t(np.concatenate([a["w_q"], a["w_k"], a["w_v"]],
-                                       axis=1), device),
-            "w_o": _t(a["w_o"], device)}
+    (and their biases) fused into ``w_qkv`` (``b_qkv``); int8 weights
+    (``quantize_lm_params``) fuse as ``qtensor.concat_out`` fuses them."""
+    qkv = ("w_q", "w_k", "w_v")
+    if _is_quant(a["w_q"]):         # codes and scales concatenate as is
+        w_qkv = qt.concat_out([_t(a[n], device) for n in qkv])
+    else:
+        w_qkv = _t(np.concatenate([a[n] for n in qkv], axis=1), device)
+    attn = {"w_qkv": w_qkv, "w_o": _t(a["w_o"], device)}
     for k in ("q_norm", "k_norm", "b_o"):
         if k in a:
             attn[k] = _t(a[k], device)

@@ -1,19 +1,29 @@
 """Mixed-resolution tokenization and restoration (paper §III): the
-layout ops of ``repro.core.mixed_res`` that the length-bucketed serving
-path runs.
+layout ops of ``repro.core.mixed_res``.
 
 Layout (window-blocked, see core.partition): a sequence of whole
-windows, each flattened row-major to ``w*w`` tokens.  The padded serving
-lane packs from a window bank [every full-res window | one LOW window
-per region] through ``kernels.dispatch.pack_pos`` and restores through
-``kernels.dispatch.restore_gather``.  At beta == 0 (restore at input) it
-packs with the plain gather :func:`pack_padded` and restores with
-:func:`restore_padded`, whose LOW windows go through
-``kernels.dispatch.nn_upsample``.
+windows, each flattened row-major to ``w*w`` tokens.  Two lanes:
+
+  exact    :func:`pack_mixed` packs [full-region windows | one LOW window
+           per LOW region] at the plan's exact length from region ids
+           (``partition.plan_to_region_ids``), (n,) shared or (B, n) per
+           sample; :func:`restore_full` restores it, splicing REUSE tiles.
+  padded   the length-bucketed serving lane packs from a window bank
+           [every full-res window | one LOW window per region] through
+           ``kernels.dispatch.pack_pos`` and restores through
+           ``kernels.dispatch.restore_gather``.  At beta == 0 (restore at
+           input) it packs with the plain gather :func:`pack_padded` and
+           restores with :func:`restore_padded`.
+
+Both lanes upsample LOW windows through ``kernels.dispatch.nn_upsample``
+and pool through ``kernels.dispatch.avg_pool``.  Padded region ids
+repeat an id; every restoration writes each destination once (a
+repeated LOW or REUSE id goes to a sentinel row that is dropped), so no
+result depends on the order of a scatter's writes.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,6 +70,70 @@ def downsample_grid(x: torch.Tensor, d: int) -> torch.Tensor:
     return dispatch.avg_pool(x, d)
 
 
+def _ids(ids, device) -> torch.Tensor:
+    """Region ids (numpy or tensor) as a long tensor on ``device``."""
+    return torch.as_tensor(ids, device=device).to(torch.long)
+
+
+def _take_regions(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of axis 1 of ``x``: (n,) ids shared by the batch or
+    (B, n) ids per sample."""
+    if ids.dim() == 2:
+        b = torch.arange(x.shape[0], device=x.device)[:, None]
+        return x[b, ids]
+    return x.index_select(1, ids)
+
+
+def pack_mixed(x_grid: torch.Tensor, part: Partition, full_ids, low_ids,
+               x_low_grid: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact-length mixed-resolution window sequence.
+
+    x_grid: (B, Hp, Wp, C) full-res patch grid; x_low_grid: the
+    (B, Hp/d, Wp/d, C) low-res grid, pooled from x_grid when omitted (and
+    not read at all when there is no LOW region).  full_ids / low_ids:
+    (n,) shared or (B, n) per sample.  Returns (tokens (B, n_tokens, C),
+    windows (B, n_windows, w^2, C) view)."""
+    w2 = part.window * part.window
+    regions = grid_to_region_windows(x_grid, part)        # B,nR,d^2,w^2,C
+    B, C = regions.shape[0], regions.shape[-1]
+    full_part = _take_regions(regions, _ids(full_ids, x_grid.device))
+    if low_ids.shape[-1] > 0:
+        if x_low_grid is None:
+            x_low_grid = downsample_grid(x_grid, part.downsample)
+        low_part = _take_regions(low_grid_to_windows(x_low_grid, part),
+                                 _ids(low_ids, x_grid.device))
+    else:           # no LOW region: the pooled grid is never read
+        low_part = regions.new_zeros((B, 0, w2, C))
+    windows = torch.cat([full_part.reshape(B, -1, w2, C), low_part], dim=1)
+    return windows.reshape(B, -1, C), windows
+
+
+def exact_window_src(part: Partition, full_ids, low_ids,
+                     device=None) -> torch.Tensor:
+    """The window-bank rows (:func:`window_bank`) that :func:`pack_mixed`
+    packs, in order: each FULL region's d^2 windows, then each LOW
+    region's window.  (n,) ids give (n_windows,), (B, n) ids
+    (B, n_windows)."""
+    dd, nR = part.windows_per_full_region, part.n_regions
+    full = _ids(full_ids, device)
+    low = _ids(low_ids, device)
+    win = full[..., :, None] * dd + torch.arange(dd, device=full.device)
+    return torch.cat([win.flatten(-2), nR * dd + low], dim=-1)
+
+
+def pack_positions(pos_grid: torch.Tensor, part: Partition, full_ids,
+                   low_ids) -> torch.Tensor:
+    """Positional embeddings of the exact mixed sequence: pos_grid
+    (Hp, Wp, D) packed as :func:`pack_mixed` packs a frame, LOW tokens
+    getting the mean embedding of the d x d patches they stand for.
+    (n,) ids give (n_tokens, D); (B, n) ids a (B, n_tokens, D) batch."""
+    if torch.as_tensor(full_ids).dim() == 2:
+        grid = pos_grid[None].expand(len(full_ids), *pos_grid.shape)
+        return pack_mixed(grid, part, full_ids, low_ids)[0]
+    return pack_mixed(pos_grid[None], part, full_ids, low_ids)[0][0]
+
+
 def window_bank(x_grid: torch.Tensor, part: Partition,
                 x_low_grid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, Hp, Wp, C) -> (B, nR*d^2 + nR, w^2, C) window bank: every
@@ -86,6 +160,18 @@ def pack_padded(x_grid: torch.Tensor, part: Partition, win_src: torch.Tensor,
     else:
         windows = bank[:, src]
     return windows.reshape(bank.shape[0], -1, bank.shape[-1])
+
+
+def pack_positions_padded(pos_grid: torch.Tensor, part: Partition,
+                          win_src: torch.Tensor) -> torch.Tensor:
+    """Positional embeddings of the padded sequence (LOW windows get the
+    mean embedding of their d x d patch groups, as in
+    :func:`pack_positions`); (nw_pad,) win_src gives (nw_pad * w^2, D),
+    (B, nw_pad) a batch."""
+    if win_src.dim() == 2:
+        grid = pos_grid[None].expand(win_src.shape[0], *pos_grid.shape)
+        return pack_padded(grid, part, win_src)
+    return pack_padded(pos_grid[None], part, win_src)[0]
 
 
 def _per_sample(ids: torch.Tensor, B: int) -> torch.Tensor:
@@ -136,6 +222,64 @@ def _upsample_low_windows(low_part: torch.Tensor, part: Partition
     up = dispatch.nn_upsample(low_part.reshape(B * nL, w, w, D), d)
     up = up.reshape(B, nL, d, w, d, w, D)
     return up.permute(0, 1, 2, 4, 3, 5, 6).reshape(B, nL, d * d, w * w, D)
+
+
+def _dups_to_sentinel(ids: torch.Tensor, sentinel: int) -> torch.Tensor:
+    """Map every repeat of an id (an equal id at an EARLIER position) to
+    ``sentinel``, so only each id's first occurrence writes."""
+    n = ids.shape[-1]
+    if n <= 1:
+        return ids
+    eq = ids[..., :, None] == ids[..., None, :]           # (..., n, n)
+    earlier = torch.ones((n, n), dtype=torch.bool,
+                         device=ids.device).tril(-1)
+    dup = (eq & earlier).any(dim=-1)
+    return torch.where(dup, torch.full_like(ids, sentinel), ids)
+
+
+def restore_full(tokens: torch.Tensor, part: Partition, full_ids, low_ids,
+                 reuse_ids=None,
+                 reuse_tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Restore the full-resolution window-blocked sequence from an exact
+    mixed one (:func:`pack_mixed`).
+
+    LOW windows are upsampled nearest-neighbour (the ``nn_upsample``
+    kernel on the card); REUSE regions, absent from ``tokens``, splice
+    ``reuse_tiles`` ((B, n_reuse, d^2, w^2, D)) at ``reuse_ids``.  Ids are
+    (n,) shared or (B, n) per sample.  The writes keep the reference's
+    order (FULL, then LOW, then REUSE; within LOW or REUSE a repeated id's
+    first occurrence), resolved on small index tensors; the activations
+    then move once, by one gather.  Output: (B, Hp*Wp, D)."""
+    B, _, D = tokens.shape
+    w, d, dd = part.window, part.downsample, part.windows_per_full_region
+    nR, w2 = part.n_regions, w * w
+    dev = tokens.device
+    full = _ids(full_ids, dev)
+    nF = full.shape[-1]
+    n_full_tok = nF * part.tokens_full_region
+    src = [tokens[:, :n_full_tok].reshape(B, nF, dd, w2, D)]
+    low_part = tokens[:, n_full_tok:].reshape(B, -1, w, w, D)
+    nL = low_part.shape[1]
+    # idx[b, r]: the row of ``src`` that destination region r takes (-1:
+    # unwritten, the zero row); column nR is the sentinel
+    idx = torch.full((B, nR + 1), -1, dtype=torch.long, device=dev)
+    b = torch.arange(B, device=dev)[:, None]
+    idx[b, _per_sample(full, B)] = torch.arange(nF, device=dev)
+    n_src = nF
+    if nL:
+        src.append(_upsample_low_windows(low_part, part))
+        low = _dups_to_sentinel(_per_sample(_ids(low_ids, dev), B), nR)
+        idx[b, low] = n_src + torch.arange(nL, device=dev)
+        n_src += nL
+    if reuse_ids is not None and reuse_ids.shape[-1]:
+        reuse = _dups_to_sentinel(_per_sample(_ids(reuse_ids, dev), B), nR)
+        src.append(reuse_tiles.to(tokens.dtype))
+        idx[b, reuse] = n_src + torch.arange(reuse.shape[-1], device=dev)
+        n_src += reuse.shape[-1]
+    src.append(tokens.new_zeros((B, 1, dd, w2, D)))
+    idx = torch.where(idx < 0, n_src, idx)[:, :nR]
+    out = torch.cat(src, dim=1)[b, idx]
+    return out.reshape(B, part.grid_h * part.grid_w, D)
 
 
 def full_seq_to_grid(tokens: torch.Tensor, part: Partition) -> torch.Tensor:

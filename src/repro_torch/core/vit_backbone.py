@@ -1,12 +1,20 @@
 """ViTDet-style backbone with dynamic mixed-resolution inference (paper
-§III); port of the serving lanes of ``repro.core.vit_backbone``.
+§III); port of ``repro.core.vit_backbone``.
 
 ``n_layers`` pre-norm ViT blocks split into N subsets of M blocks;
 within a subset the first M-1 blocks use window attention and the last
-global attention.  Two lanes:
+global attention.  Lanes:
 
   full resolution   the frame's whole window-blocked sequence, with or
                     without capturing restoration-point tiles;
+  exact (ids)       the reference's unpadded form of the paper's C1:
+                    region ids (``full_ids`` / ``low_ids`` /
+                    ``reuse_ids``, core.partition) -> ``mixed_res.
+                    pack_mixed`` at the plan's exact length -> blocks
+                    with no pad mask -> ``mixed_res.restore_full``
+                    (LOW windows through ``nn_upsample``, REUSE tiles
+                    spliced) inside subset ``beta``; at beta 0 it
+                    restores at the input;
   padded (beta>=1)  the length-bucketed mixed sequence of a PlanLayout:
                     window bank -> ``pack_pos`` kernel -> blocks with
                     ``win_valid`` / ``kv_len`` -> ``restore_gather``
@@ -18,6 +26,10 @@ global attention.  Two lanes:
                     the full-resolution positions, then every block at
                     full length; no REUSE tiles (they are
                     restoration-point features).
+
+Positions come from the two layouts ``add_position_banks`` derives once
+per parameter tree (:func:`packed_positions` gathers every lane's from
+them), so no forward re-packs the positional grid.
 
 Every linear weight may be a ``quant.qtensor.QuantTensor`` (the int8
 lane): the GEMMs route through ``qtensor.matmul``.
@@ -66,8 +78,29 @@ def add_position_banks(cfg: ModelConfig, params: Dict) -> Dict:
     their d x d patch groups).  A quantized grid is dequantized first."""
     pos = qt.asarray(params["pos_emb"])
     params["pos_seq"] = position_seq(cfg, pos)
-    params["pos_bank"] = mr.window_bank(pos[None], vit_partition(cfg))[0]
+    params["pos_bank"] = pos_window_bank(pos, vit_partition(cfg))
     return params
+
+
+def pos_window_bank(pos: torch.Tensor, part: Partition) -> torch.Tensor:
+    """The (nR*d^2 + nR, w^2, D) window bank of the (Hp, Wp, D)
+    positional grid: every full-res window, then every region's LOW
+    window (the mean embedding of its d x d patch groups)."""
+    return mr.window_bank(pos[None], part)[0]
+
+
+def packed_positions(params: Dict, part: Partition, full_ids=None,
+                     low_ids=None) -> torch.Tensor:
+    """Positional embeddings of a layout, gathered from the tree's
+    derived ``pos_bank`` / ``pos_seq``: the bytes
+    ``mixed_res.pack_positions`` computes from the grid.  Region ids
+    give the exact lane's ((n,) ids (n_tokens, D), (B, n) ids a batch);
+    no ids the full-resolution sequence."""
+    if low_ids is None:
+        return params["pos_seq"]
+    bank = params["pos_bank"]
+    src = mr.exact_window_src(part, full_ids, low_ids, bank.device)
+    return bank[src].flatten(-3, -2)
 
 
 def position_seq(cfg: ModelConfig, pos_emb: torch.Tensor) -> torch.Tensor:
@@ -113,47 +146,66 @@ def _vit_block(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
 
 
 def forward_features(cfg: ModelConfig, params, image: torch.Tensor,
-                     beta: int = 0,
+                     full_ids=None, low_ids=None, beta: int = 0,
+                     reuse_ids=None,
                      reuse_tiles: Optional[torch.Tensor] = None,
                      capture_beta: int = 0,
                      layout: Optional[Dict[str, torch.Tensor]] = None):
     """Backbone forward.  Returns the (B, Hp, Wp, D) full-resolution
     feature map, or ``(feats, tiles)`` when ``capture_beta > 0``.
 
+    full_ids / low_ids / reuse_ids: region ids of the exact lane, (n,)
+    shared or (B, n) per sample (``partition.plan_to_region_ids``); None
+    or empty low and reuse ids run the full-resolution lane.  REUSE
+    regions are absent from the packed sequence and splice from
+    ``reuse_tiles`` (B, n_reuse, d^2, w^2, D), tiles captured at the
+    same restoration point, which needs ``beta >= 1``; an empty
+    ``reuse_ids`` leaves the lane bit-identical to none.  With LOW
+    regions at ``beta == 0`` the lane restores at the input.
+
     layout: the PlanLayout arrays of a length-bucketed padded sequence
-    (``win_src`` (·, nw_pad), ``nw``, ``out_src`` / ``out_map``
-    (·, nR*d^2) at beta >= 1; ``win_src``, ``win_dst`` (·, nw_pad),
-    ``low_src`` / ``low_ids`` (·, nR) at beta == 0; each shared or
-    per-sample; core.partition).  None runs the full-resolution lane.
-    At beta >= 1 REUSE regions splice from ``reuse_tiles``
-    (B, nR, d^2, w^2, D); at beta == 0 there are none.
+    instead of ids (``win_src`` (·, nw_pad), ``nw``, ``out_src`` /
+    ``out_map`` (·, nR*d^2) at beta >= 1; ``win_src``, ``win_dst``
+    (·, nw_pad), ``low_src`` / ``low_ids`` (·, nR) at beta == 0; each
+    shared or per-sample; core.partition).  At beta >= 1 REUSE regions
+    splice from ``reuse_tiles`` (B, nR, d^2, w^2, D); at beta == 0 there
+    are none.
+
     capture_beta: also return the per-region tiles (B, nR, d^2, w^2, D)
     of the token state entering the global block of subset
-    ``capture_beta`` (>= beta for a padded forward).
+    ``capture_beta`` (>= beta for a mixed forward).
     """
     part = vit_partition(cfg)
     M = blocks_per_subset(cfg)
     N = cfg.vit.n_subsets
     w2 = part.window * part.window
     padded = layout is not None
-    mixed = padded and beta > 0
+    n_reuse = 0 if reuse_ids is None else reuse_ids.shape[-1]
+    has_low = low_ids is not None and low_ids.shape[-1] > 0
+    exact = not padded and (has_low or n_reuse > 0)
+    mixed = (padded or exact) and beta > 0
     assert 0 <= beta <= N and 0 <= capture_beta <= N
-    if padded and beta == 0:
-        assert reuse_tiles is None, \
-            "REUSE tiles cannot splice at beta == 0 (restore at input)"
-    elif not padded:
-        assert reuse_tiles is None, "REUSE tiles need a padded layout"
+    if padded:
+        assert full_ids is None and low_ids is None and reuse_ids is None
+        if beta == 0:
+            assert reuse_tiles is None, \
+                "REUSE tiles cannot splice at beta == 0 (restore at input)"
+    elif reuse_ids is None:
+        assert reuse_tiles is None, "REUSE tiles need reuse_ids or a layout"
+    if n_reuse:
+        assert beta >= 1, "REUSE regions need a restoration point >= 1"
+        assert reuse_tiles is not None
     if capture_beta and mixed:
         assert capture_beta >= beta, \
             "cannot capture tiles before the restoration point"
 
     x_full = embed_patches(cfg, params, image)                # B,Hp,Wp,D
-    kv_len = win_valid = None
-    if padded:
-        # the pooled grid is always packed: one layout shape serves every
-        # plan mix, and a reuse-only sample never gathers from its half
+    kv_len = win_valid = x_low = None
+    if padded or has_low:
+        # the padded lane always packs the pooled grid (one layout shape
+        # serves every plan mix); an exact reuse-only plan never reads it
         x_low = embed_patches(cfg, params, image, part.downsample)
-    if mixed:
+    if padded and mixed:
         bank = mr.window_bank(x_full, part, x_low)
         tokens = dispatch.pack_pos(bank, params["pos_bank"],
                                    layout["win_src"], layout["nw"])
@@ -164,6 +216,13 @@ def forward_features(cfg: ModelConfig, params, image: torch.Tensor,
         tokens = mr.pack_padded(x_full, part, layout["win_src"], x_low)
         tokens = mr.restore_padded(tokens, part, layout["win_dst"],
                                    layout["low_src"], layout["low_ids"])
+        tokens = tokens + params["pos_seq"]
+    elif mixed:                           # exact lane, beta >= 1
+        tokens, _ = mr.pack_mixed(x_full, part, full_ids, low_ids, x_low)
+        tokens = tokens + packed_positions(params, part, full_ids, low_ids)
+    elif exact:                           # exact lane, restore at input
+        tokens, _ = mr.pack_mixed(x_full, part, full_ids, low_ids, x_low)
+        tokens = mr.restore_full(tokens, part, full_ids, low_ids)
         tokens = tokens + params["pos_seq"]
     else:
         tokens = mr.grid_to_full_seq(x_full, part) + params["pos_seq"]
@@ -176,10 +235,16 @@ def forward_features(cfg: ModelConfig, params, image: torch.Tensor,
             is_global = m == M - 1
             if is_global and not restored and beta == s + 1:
                 B, D = tokens.shape[0], tokens.shape[-1]
-                tokens = dispatch.restore_gather(
-                    tokens.reshape(B, -1, w2, D), layout["out_src"],
-                    layout["out_map"], part.window, part.downsample,
-                    reuse_tiles=reuse_tiles)
+                if padded:
+                    tokens = dispatch.restore_gather(
+                        tokens.reshape(B, -1, w2, D), layout["out_src"],
+                        layout["out_map"], part.window, part.downsample,
+                        reuse_tiles=reuse_tiles)
+                else:
+                    tokens = mr.restore_full(
+                        tokens, part, full_ids, low_ids,
+                        reuse_ids=reuse_ids if n_reuse else None,
+                        reuse_tiles=reuse_tiles if n_reuse else None)
                 restored = True
             if is_global and capture_beta == s + 1:
                 tiles = tokens.reshape(tokens.shape[0], part.n_regions,
@@ -198,14 +263,16 @@ def forward_features(cfg: ModelConfig, params, image: torch.Tensor,
 
 
 def forward_det(cfg: ModelConfig, params, image: torch.Tensor,
-                beta: int = 0, reuse_tiles: Optional[torch.Tensor] = None,
+                full_ids=None, low_ids=None, beta: int = 0,
+                reuse_ids=None, reuse_tiles: Optional[torch.Tensor] = None,
                 capture_beta: int = 0,
                 layout: Optional[Dict[str, torch.Tensor]] = None):
-    """Backbone + dense head.  Returns the det-head outputs, or
-    ``(outputs, tiles)`` when ``capture_beta > 0``."""
+    """Backbone + dense head (arguments as :func:`forward_features`).
+    Returns the det-head outputs, or ``(outputs, tiles)`` when
+    ``capture_beta > 0``."""
     dispatch.disable_tf32()
-    feats = forward_features(cfg, params, image, beta,
-                             reuse_tiles=reuse_tiles,
+    feats = forward_features(cfg, params, image, full_ids, low_ids, beta,
+                             reuse_ids=reuse_ids, reuse_tiles=reuse_tiles,
                              capture_beta=capture_beta, layout=layout)
     if capture_beta:
         feats, tiles = feats

@@ -41,10 +41,15 @@ compute, and :meth:`ServerModel.infer_speculative` with
 :func:`predict_canvas` / :func:`region_divergence` /
 :func:`build_patch_plan` serves its speculative REUSE lane.
 
-Not ported yet: the host-resident cache mode (and its
-``ServingStats.tile_bytes*``), the kernel autotuner, the half-precision
-quantized lanes (fp16/bf16 weights or activations) and calibration
-(``quant/calibrate.py``).
+``ServerModel(device_cache=False)`` is the reference's host-resident
+cache mode, which its benches compare against: captured tiles are copied
+to host memory at every refresh and REUSE tiles are gathered there and
+copied back through pinned memory, each copy counted in
+``stats.tile_bytes_*``; detections and tiles are those of the default
+device-resident mode, which moves no tile bytes.
+
+Not ported yet: the kernel autotuner and the half-precision quantized
+lanes (fp16/bf16 weights or activations).
 """
 from __future__ import annotations
 
@@ -71,7 +76,7 @@ from repro_torch.offload.faults import (DegradationLadder, FaultInjector,
 from repro_torch.offload.optimizer import SystemState
 from repro_torch.offload.tracker import LKTracker
 from repro_torch.quant import ptq
-from repro_torch.quant import qtensor as qt
+from repro_torch.quant.qtensor import to_device
 from repro_torch.serve.request import (FeatureCache, ServingStats,
                                        StaleCacheEpoch)
 from repro_torch.serve.scheduler import SoloScheduler
@@ -84,18 +89,6 @@ SIZE_SCALE = (1920 * 1080) / (512 * 512)
 # at beta == 0 (win_src, win_dst, low_src, low_ids)
 _LAYOUT_ARGS = ("win_src", "win_dst", "low_src", "low_ids", "nw",
                 "out_src", "out_map")
-
-
-def to_device(tree, device: torch.device):
-    """A parameter tree (dicts and lists of tensors and QuantTensors) on
-    ``device``."""
-    if isinstance(tree, (torch.Tensor, qt.QuantTensor)):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, device) for v in tree]
-    return tree
 
 
 @dataclass
@@ -145,13 +138,20 @@ class ServerModel:
     on ``device`` before anything runs (``calib_frames`` feed head
     scoring when the spec prunes) and ``quant_report`` keeps the
     compression report.  Pre-compressed trees pass ``quant=None``.
+
+    ``device_cache=True`` keeps captured restoration-point tiles on the
+    device end to end (reuse gathers and refreshes are device index ops,
+    zero tile bytes between host and device); ``False`` is the
+    host-resident mode, which copies and counts them
+    (``stats.tile_bytes_*``).
     """
 
     def __init__(self, cfg: ModelConfig, params, top_k: int = 32,
                  score_thresh: float = 0.4, n_buckets: int = 4,
                  b_buckets: Tuple[int, ...] = pt.BATCH_BUCKETS,
                  n_length_buckets: int = pt.N_LENGTH_BUCKETS,
-                 device: str = "cuda", quant=None, calib_frames=None):
+                 device: str = "cuda", quant=None, calib_frames=None,
+                 device_cache: bool = True):
         dispatch.disable_tf32()
         self.device = torch.device(device)
         params = to_device(params, self.device)
@@ -172,6 +172,7 @@ class ServerModel:
         self.score_thresh = score_thresh
         self.n_buckets = n_buckets
         self.b_buckets = tuple(sorted(b_buckets))
+        self.device_cache = device_cache
         self.length_edges = pt.length_bucket_set(self.part, n_length_buckets)
         self.full_capture = 0
         self._keys: set = set()
@@ -501,28 +502,44 @@ class ServerModel:
 
     def _wave_tiles(self, layouts: List[pt.PlanLayout], caches,
                     npad: int) -> torch.Tensor:
-        """(Bp, n_regions, d^2, w^2, D) stacked per-sample reuse tiles,
-        gathered on the card.  Rows are (n_regions,)-padded: entries past
-        a sample's n_reuse gather region 0, which no destination reads."""
+        """(Bp, n_regions, d^2, w^2, D) stacked per-sample reuse tiles.
+        Rows are (n_regions,)-padded: entries past a sample's n_reuse
+        gather region 0, which no destination reads.  Device-resident
+        caches gather on the card; host caches gather on the host, and
+        the wave's tiles are copied up through pinned memory, their real
+        rows counted in ``stats.tile_bytes_h2d``."""
         B = len(layouts)
         if caches is None or all(l.n_reuse == 0 for l in layouts):
             return self._zeros_tiles(B + npad)
         nR = self.part.n_regions
-        zero = self._zeros_tiles(1)[0]
-        rows = []
+        rows, host_bytes = [], 0
         for l, c in zip(layouts, caches):
             if l.n_reuse == 0 or c is None or c.tiles is None:
-                rows.append(zero)
+                rows.append(None)
                 continue
-            rows.append(c.gather(self._h2d(
-                np.where(l.reuse_ids < nR, l.reuse_ids, 0).astype(np.int64))))
-        rows += [rows[0]] * npad
-        return torch.stack(rows)
+            ids = np.where(l.reuse_ids < nR, l.reuse_ids, 0).astype(np.int64)
+            if c.tiles_on_device:
+                rows.append(c.gather(self._h2d(ids)))
+            else:
+                g = c.gather(torch.from_numpy(ids))
+                # only the real rows are payload; the pad rows are an
+                # artifact of the padded gather
+                host_bytes += g[:l.n_reuse].nbytes
+                rows.append(g)
+        zero = self._zeros_tiles(1)[0]
+        if host_bytes:
+            self.stats.tile_bytes_h2d += host_bytes
+            zero = zero.cpu()
+        rows = [zero if r is None else r for r in rows]
+        tiles = torch.stack(rows + [rows[0]] * npad)
+        return self._h2d(tiles.numpy()) if host_bytes else tiles
 
     def _refresh_caches(self, caches, tiles_out: torch.Tensor, layouts,
                         cap: int, frame_ids) -> None:
         """Refresh each real sessionful sample's cache with its captured
-        tiles.  Padded rows and cache-less samples are never written."""
+        tiles.  Padded rows and cache-less samples are never written.  A
+        host-resident cache copies its sample's tiles down, counted in
+        ``stats.tile_bytes_d2h``."""
         B = len(caches)
         reuse_rows = [l.reuse_ids[:l.n_reuse] if l is not None
                       else np.zeros((0,), np.int32)
@@ -530,8 +547,11 @@ class ServerModel:
         for i, c in enumerate(caches[:B]):
             if c is None:
                 continue
-            c.update(mr.take_sample_tiles(tiles_out, i), reuse_rows[i], cap,
-                     frame_ids[i], epoch=self.epoch)
+            tiles = mr.take_sample_tiles(tiles_out, i)
+            if not self.device_cache:
+                self.stats.tile_bytes_d2h += tiles.nbytes
+            c.update(tiles, reuse_rows[i], cap, frame_ids[i],
+                     epoch=self.epoch, host=not self.device_cache)
 
     # ------------------------------------------------------------------
     # speculative REUSE execution (the spliced forward starts before the

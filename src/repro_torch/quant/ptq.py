@@ -10,7 +10,9 @@ every linear use-site routes through ``quant.qtensor.matmul``, so
 
 "int8" makes per-output-channel symmetric QuantTensors of every linear
 weight (fused QKV, w_o, MLP, patch embed, the position grid and the
-detection-head convs); biases and norm affines stay float.  This port
+detection-head convs); biases and norm affines stay float.
+:func:`quantize_lm_params` is the LM serving lane's counterpart: the
+attention and MLP projections of every block.  This port
 serves float32 activations only: the half-precision lanes (``act_dtype``
 "fp16"/"bf16", ``weight_dtype`` "fp16"/"bf16") need half variants of
 the attention, pack/restore and pool kernels and raise here.
@@ -101,6 +103,31 @@ def quantize_vitdet_params(params, out_dtype=torch.float32):
         "blocks": blocks,
         "head": head,
     }
+
+
+# the projection weights of a port LM block (q/k/v fused into w_qkv)
+LM_TARGETS = frozenset({"w_qkv", "w_o", "w_up", "w_down", "w_gate"})
+
+
+def quantize_lm_params(params):
+    """The LM serving lane's tree walk: per-output-channel int8
+    QuantTensors (float32 outputs) for the attention and MLP projections
+    of every block (``LM_TARGETS``), which route through
+    ``qtensor.matmul``; embeddings, norms, the LM head and the mamba
+    layers' ``w_in`` / ``w_out`` (plain GEMMs in the reference too) pass
+    through.  Per-column scales make the fused ``w_qkv``'s codes and
+    scales those of ``w_q``, ``w_k`` and ``w_v`` quantized apart, and a
+    layer's those of the reference's scan-stacked weight at that layer
+    (its per-(layer, column) scales)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (qt.quantize_weight(v) if k in LM_TARGETS
+                        else walk(v)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return node
+
+    return walk(params)
 
 
 def compress(cfg: ModelConfig, params, spec: QuantSpec,

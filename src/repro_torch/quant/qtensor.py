@@ -198,6 +198,14 @@ def map_tree(fn, tree):
     return fn(tree)
 
 
+def to_device(tree, device):
+    """A tree of dicts and lists of tensors and QuantTensors on
+    ``device`` (leaves already there are kept, not copied)."""
+    return map_tree(lambda x: x.to(device)
+                    if isinstance(x, (torch.Tensor, QuantTensor)) else x,
+                    tree)
+
+
 def cast_tree(tree, dtype: torch.dtype):
     """Cast every float leaf to ``dtype``.  QuantTensor leaves keep their
     int8 codes and float32 scales but retarget their output dtype."""

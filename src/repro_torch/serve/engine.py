@@ -46,6 +46,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import registry
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant import qtensor as qt
 from repro_torch.serve.request import (FeatureCache, Request, Response,
                                        ServingStats)
 from repro_torch.serve.scheduler import form_wave
@@ -80,9 +81,11 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig = None):
         self.cfg = cfg
-        self.params = params
         self.sc = sc or ServeConfig()
         self.device = torch.device(self.sc.device)
+        # a float or an int8 tree (quant.ptq.quantize_lm_params): its
+        # QuantTensor projections run the int8 GEMM through qtensor.matmul
+        self.params = qt.to_device(params, self.device)
         self.queue: List[Request] = []
         self.responses: Dict[int, Response] = {}
         self._prefill_fns: Dict = {}

@@ -7,9 +7,12 @@ one cache per client stream, holding the per-region backbone-feature
 tiles captured at the restoration point of that client's previous
 offload, plus the bookkeeping that bounds staleness — a region may be
 reused at most ``max_age`` (K) CONSECUTIVE offloads before it must be
-transmitted again.  Tiles stay on the card: reuse gathers are device
-index ops and a refresh overwrites the cached buffer in place, unless the
-cache is a speculative clone that shares the live session's buffer.  The LM
+transmitted again.  Tiles stay on the server's device by default: reuse
+gathers are device index ops and a refresh overwrites the cached buffer
+in place, unless the cache is a speculative clone that shares the live
+session's buffer.  A host-resident cache (``ServerModel(device_cache=
+False)``) keeps them in host memory, pinned on a CUDA server, and
+gathers there.  The LM
 engine (``serve/engine.py``) uses the same bookkeeping without tiles to
 gate and bucket reuse spans.
 """
@@ -38,7 +41,9 @@ class ServingStats:
     executable-grid key ``(length bucket, beta, capture, B bucket)``.
     ``warmed`` flips once :meth:`finish_warmup` closes the warmup pass;
     every first use after that is a steady-state stall, which callers
-    treat as a failure (``steady_compiles > 0``).
+    treat as a failure (``steady_compiles > 0``).  The tile byte counters
+    account the host<->device traffic of the temporal-reuse FeatureCache
+    (zero with a device-resident cache).
     """
     compiles: int = 0
     steady_compiles: int = 0
@@ -46,12 +51,21 @@ class ServingStats:
     warmed: bool = False
     warmup_wall_s: float = 0.0
     offloads: int = 0
+    tile_bytes_d2h: int = 0
+    tile_bytes_h2d: int = 0
     # crash-restarts of this replica (ServerModel.restart), reuse splices
     # served, and splices refused because the client's tiles came from a
     # pre-restart epoch (StaleCacheEpoch)
     restarts: int = 0
     reuse_splices: int = 0
     stale_epoch_rejects: int = 0
+
+    @property
+    def tile_bytes(self) -> int:
+        return self.tile_bytes_d2h + self.tile_bytes_h2d
+
+    def tile_bytes_per_offload(self) -> float:
+        return self.tile_bytes / max(self.offloads, 1)
 
     def note_compile(self, key: Tuple) -> None:
         """Record the first use of a grid key; after warmup it counts as
@@ -74,8 +88,10 @@ class ServingStats:
 class FeatureCache:
     """Per-client cached restoration-point feature tiles + reuse ages.
 
-    ``tiles``: (n_regions, d^2, w^2, D) device tensor (None until the
-    first capture).  ``beta``: the restoration point the tiles were
+    ``tiles``: (n_regions, d^2, w^2, D) tensor (None until the first
+    capture) on the server's device, or in host memory when
+    ``host_tiles`` (the host-resident mode).  ``beta``: the restoration
+    point the tiles were
     captured at — reuse is only valid at the SAME point.  ``age[j]``:
     consecutive offloads region j has been reused.  ``epoch``: the
     replica generation the tiles were captured under.
@@ -106,10 +122,16 @@ class FeatureCache:
     # so update() must not overwrite it in place (the clone owns a buffer
     # again after its first refresh)
     owns_tiles: bool = True
+    # True when ``tiles`` is the host copy (ServerModel(device_cache=False))
+    host_tiles: bool = False
 
     def __post_init__(self):
         if self.age is None:
             self.age = np.zeros((self.n_regions,), np.int32)
+
+    @property
+    def tiles_on_device(self) -> bool:
+        return self.tiles is not None and not self.host_tiles
 
     def eligible(self, beta: int) -> np.ndarray:
         """(n_regions,) bool: regions whose cached tile may be reused for
@@ -121,8 +143,8 @@ class FeatureCache:
 
     def gather(self, reuse_ids: torch.Tensor) -> torch.Tensor:
         """(n_reuse, d^2, w^2, D) tiles of the plan's reuse set, gathered
-        on the card; ``reuse_ids`` is an index tensor on the tiles'
-        device (the server copies it there without blocking)."""
+        where the tiles reside; ``reuse_ids`` is an index tensor there
+        (the server copies it to the card without blocking)."""
         assert self.tiles is not None, "cache holds no tiles yet"
         return mr.gather_tiles(self.tiles, reuse_ids)
 
@@ -177,7 +199,7 @@ class FeatureCache:
                             beta=self.beta, tiles=self.tiles,
                             age=self.age.copy(), frame=self.frame,
                             warm=self.warm, epoch=self.epoch,
-                            owns_tiles=False)
+                            owns_tiles=False, host_tiles=self.host_tiles)
 
     def commit_speculative(self, clone: "FeatureCache",
                            reuse_ids: np.ndarray, beta: int, frame: int,
@@ -187,6 +209,7 @@ class FeatureCache:
         converged prediction; they age by one from this cache's own
         pre-speculation ages, so K still forces a re-transmission."""
         self.tiles = clone.tiles
+        self.host_tiles = clone.host_tiles
         self.note(reuse_ids, beta, frame, epoch=epoch)
 
     # ------------------------------------------------------------------
@@ -208,21 +231,32 @@ class FeatureCache:
             self.pred_age += 1
 
     def update(self, tiles: torch.Tensor, reuse_ids: np.ndarray, beta: int,
-               frame: int, epoch: Optional[int] = None) -> None:
+               frame: int, epoch: Optional[int] = None,
+               host: bool = False) -> None:
         """Full refresh after a forward that captured tiles.  A buffer
-        this cache owns, of the same shape, type and device, is
+        this cache owns, of the same shape, type and residence, is
         overwritten in place; otherwise (first capture, or a speculative
         clone still sharing the live session's buffer) the cache takes
         its own copy, so it never pins the whole wave's capture and never
-        writes a buffer it shares."""
+        writes a buffer it shares.  ``host``: keep the tiles in host
+        memory (pinned when they come from the card) instead of on their
+        device; the copy there blocks until the forward has written
+        them."""
+        dev = torch.device("cpu") if host else tiles.device
         if (self.owns_tiles and self.tiles is not None
+                and self.host_tiles == host
                 and self.tiles.shape == tiles.shape
                 and self.tiles.dtype == tiles.dtype
-                and self.tiles.device == tiles.device):
+                and self.tiles.device == dev):
             mr.refresh_tiles(self.tiles, tiles)
+        elif host:
+            self.tiles = torch.empty(tiles.shape, dtype=tiles.dtype,
+                                     pin_memory=tiles.is_cuda)
+            self.tiles.copy_(tiles)
         else:
             self.tiles = tiles.clone()
         self.owns_tiles = True
+        self.host_tiles = host
         self.note(reuse_ids, beta, frame, epoch=epoch)
 
 

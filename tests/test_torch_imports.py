@@ -48,7 +48,9 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.train.checkpoint", "repro_torch.train.server",
             "repro_torch.train.trainer", "repro_torch.train.straggler",
             "repro_torch.train.elastic", "repro_torch.launch.train",
-            "repro_torch.optim.grad_compression")
+            "repro_torch.optim.grad_compression",
+            "repro_torch.quant.calibrate", "repro_torch.quant",
+            "repro_torch.core.mixed_res", "repro_torch.convert")
 
 
 def test_every_port_module_imports_without_jax():
