@@ -46,7 +46,17 @@ Phases; any failure exits non-zero and prints no result:
      causal GQA shapes (T = 128 and the mixed prefill's T = 96).  The
      three float32 tensor-core kernels (window, flash, ``ssd_scan``) are
      bounded by their bytes or by three TF32 products per product at the
-     TF32 peak (3xTF32), whichever is larger;
+     TF32 peak (3xTF32), whichever is larger.  The whole phase runs
+     three times, through the kernels' float32, fp16 and bf16 entry
+     points (``kernel_checks``, one copy of every check and bound, the
+     multi-client layouts at float32 only): the data movement and the
+     serving frame's pool bit-equal at every type, avg_pool's other
+     paths, attention and decode (at half also a half cache under a
+     float32 q) within one ULP of the half type beyond the float32 limit
+     at HALF_EQUAL or more of the elements bit-equal; the bound counts
+     the type's bytes, and at half attention's products as one half
+     product at the half tensor-core peak.  Each row gains ``f16`` /
+     ``bf16`` entries with the float32 row's keys;
   3. serve full-width ViTDet-L (24 blocks, D=1024, 1024x1024 frames,
      weights drawn from a seed) through ``ServerModel.infer_wave``: warm
      up, then a full-resolution wave that captures restoration-point
@@ -122,7 +132,7 @@ Phases; any failure exits non-zero and prints no result:
      configs), fit the size and
      accuracy ``MLPEstimator``s on the card, then run ``Simulation`` for
      TrackB2B, ViTMAlis and ViTMAlis+Reuse on ``cycleS`` and
-     ViTMAlis+Reuse on ``parkS`` (30 frames each, the 4G trace).  Per
+     ViTMAlis+Reuse on ``parkS`` (24 frames each, the 4G trace).  Per
      run: offloads, the server's wall time per offload, the modelled
      Eq. (2) terms, F1, payload size, REUSE offloads, client host ms per
      frame and launches per kernel.  No key may first run after warmup,
@@ -193,7 +203,9 @@ Phases; any failure exits non-zero and prints no result:
      differs; a 2-block full-width model at B = 1,
      card vs CPU: loss to TRAIN_LOSS_RTOL, every leaf's gradient the
      same two ways.  Last,
-     the reference's SIM recipe (1800 steps, peak lr 5e-4, B = 2): the
+     the reference's SIM recipe at half its depth (900 of its 1800
+     steps, peak lr 5e-4, B = 2; cut to keep the run within its time
+     limit): the
      loss every 200 steps and the wall, the mean of the last 100 losses
      below that of the first 50, the trained server's frame F1 against
      the ground-truth boxes of held-out clips (and of the training clips)
@@ -255,13 +267,41 @@ Phases; any failure exits non-zero and prints no result:
      zamba2-1.2b served once through the lane (its shared block's five
      GEMMs a call);
  20. the calibration gate (``quant.calibrate``) on full-width ViTDet-L
-     (seed 0): the default ladder raises (its half rungs); then
-     int8 + fp32 with and without one pruned head, ``parkS`` / ``driveN``,
-     CALIB_FRAMES frames, top-k 32 at score 0: each candidate's bytes and
-     F1 deltas, the shipped spec and the wall.  On seeded weights this
-     measures agreement with the float32 model, not accuracy.
+     (seed 0) with its default ladder (int8+fp16-p1, int8+fp16, int8,
+     fp16+fp16, most compressed first), ``parkS`` / ``driveN``,
+     CALIB_FRAMES frames, top-k 32 at score 0: each rung's bytes and F1
+     deltas, the shipped spec, the wall and the fp16 launches (the int8
+     GEMM's half epilogue and half attention must run).  On seeded
+     weights this measures agreement with the float32 model, not
+     accuracy;
+ 21. the ViT half lanes: full-width ViTDet-L (seed 0) through
+     ``ServerModel(quant=spec)`` for int8+fp16-p1 (the reference's
+     shipped point), an fp16 tree and a bf16 tree: compression on the
+     card, warmup on phase 3's plan space (the grid's keys must equal
+     float32's), a full-res wave capturing tiles, a mixed beta-2 wave
+     splicing REUSE tiles, a beta-0 wave, the exact lane at beta 2;
+     finite detections, no steady first use, tiles in the half type;
+     the counts set to 0 before and read after two paths a spec: the
+     compression (``vitdet-l <spec> compress``), where avg_pool must
+     launch at half on the positional grid, and the served waves with
+     the exact lane (``vitdet-l <spec>``), where kernels 1-4 and 6 (7
+     in the int8 lane) must launch at half (a served wave pools its
+     float32 frame in float32, as in the reference); weight bytes, ratio and wave ms beside phase 3's and
+     phase 5's; 8-block int8+fp16-p1 and bf16 trees card vs CPU to
+     HALF_E2E_RTOL.  Inside phase 13, on its clips and estimators: phase
+     18 again on an fp16 server (equal detections in both cache modes;
+     tiles move in half float32's bytes);
+ 22. the LM half lanes: full-width Qwen3-4B (phase 7's weights and
+     prompts) on a bf16 tree, an fp16 tree and a float32 tree over a
+     bf16 cache, plain waves of 8 x 128 + 16: weight GB, prefill and
+     decode-step ms beside phase 7's, flash at half in a half tree's
+     prefill, decode at half in every step, finite bf16 logits (fp16's
+     printed), greedy agreement with phase 7's tokens (printed); one
+     bf16 wave each of mamba2-370m and zamba2-1.2b; a 2-layer bf16
+     Qwen3 card vs CPU to LM_BF16_RTOL.
 
-Each serving path resets the launch counts just before it and reads them
+Every printed line also goes to ``chiprun_out/chip_smoke.log`` and every
+number to ``chiprun_out/chip_smoke.json``.  Each serving path resets the launch counts just before it and reads them
 just after.  The line before the last is a JSON object with every
 kernel's numbers: its ``launches`` is the sum over the serving paths
 that ran it, and ``launches_by_path`` gives each path's count (the
@@ -271,9 +311,10 @@ the two Qwen3-4B waves of phase 7, one wave of each SSM model, the
 multi-client run and burst wave of phase 14, named ``mc ...``, the
 two training runs of phase 15, ``train ...``, the LM training runs
 of phase 16, ``lm_train ...``, the exact lane of phase 17, the host- and
-device-cache simulations of phase 18, the int8 LM waves of phase 19 and
-the calibration of phase 20); the ``int8_matmul`` row also gives phase
-19's decode-step device us and bound.  The last line is
+device-cache simulations of phase 18, the int8 LM waves of phase 19,
+the calibration of phase 20 and the half lanes of phases 21 and 22);
+the ``int8_matmul`` row also gives phase 19's decode-step device us and
+bound, and every row but ``ssd_scan``'s its ``f16`` / ``bf16`` numbers.  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -303,6 +344,7 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
 PEAK_FP32 = 67e12           # H100 SXM float32 FMA outside tensor cores
 PEAK_INT8 = 1979e12         # H100 SXM dense int8 tensor-core ops/s
 PEAK_TF32 = 495e12          # H100 SXM dense TF32 tensor-core flops/s
+PEAK_HALF = 989e12          # H100 SXM dense fp16 / bf16 tensor-core flops/s
 TF32_PRODUCTS = 3           # 3xTF32: float32 accuracy from three products
 # flash_attention's extra checks (B, T, S, H, KV, Dh): every head width the
 # kernel builds, T and S off its 64-row tiles, S < T, GQA groups 1 and 4
@@ -323,6 +365,7 @@ SSD_STAGES = ("ssd_scores_kernel", "ssd_states_kernel", "ssd_pass_kernel",
 SSD_REF_SHAPES = ((2, 128, 8, 1, 32, 16, 32), (1, 200, 16, 2, 64, 32, 64),
                   (2, 64, 4, 4, 16, 64, 32), (1, 96, 8, 1, 128, 64, 96))
 POOL_TOL = 1e-6             # mean of four floats, absolute
+HALF_EQUAL = 0.99           # half attention: bit-equal share to plain
 # avg_pool's other paths (shape, d, base offset in floats): W * C = 30 and
 # Wo * C = 9 (4-byte copies), a base 4 bytes off 16, a row of three
 # chunks, 1024 channels (80 KB of shared memory), d = 4 at the frame
@@ -346,21 +389,21 @@ DECODE_EDGES = (((2, 256, 8, 2, 64), (0, 1)), ((2, 256, 8, 2, 64), (64, 256)),
                 ((3, 777, 8, 4, 16), (1, 511, 777)),
                 ((2, 200, 6, 6, 64), (77, 200)))
 E2E_RTOL = 1e-3             # 8-block forward, card vs CPU, relative
-OFFLOAD_FRAMES = 30         # frames of each phase-13 simulation
+OFFLOAD_FRAMES = 24         # frames of each phase-13 simulation
 # phase 13's simulations: (policy, video), each against the 4G trace
 OFFLOAD_RUNS = (("TrackB2B", "cycleS"), ("ViTMAlis", "cycleS"),
                 ("ViTMAlis+Reuse", "cycleS"), ("ViTMAlis+Reuse", "parkS"))
-# phase 13's card-vs-CPU simulations, (policy, video), and their frames
-# (TrackB2B: two offloads in 24)
-CROSS_RUNS = (("TrackB2B", "cycleS"), ("ViTMAlis+Reuse", "parkS"))
-SIM_CROSS_FRAMES = 24
+# phase 13's card-vs-CPU simulations, (policy, video, frames): TrackB2B
+# offloads at frames 1 and 15, ViTMAlis+Reuse on parkS at 1 (full), 14
+# (LOW), 16 (REUSE) and 19 (LOW and REUSE)
+CROSS_RUNS = (("TrackB2B", "cycleS", 16), ("ViTMAlis+Reuse", "parkS", 20))
 DET_RTOL = 1e-3             # its detections, card vs CPU, relative
 # phase 14, the multi-client edge: run A's clients (video, 4G trace index
 # = position), run B's slow-uplink clients, their frames, the server's
 # B buckets and the clips' seed (bench_multiclient's)
 MC_VIDEOS = ("walkS", "cycleS", "driveN", "walkB")
 MC_SLOW_VIDEOS = ("parkS", "parkS", "parkS", "driveN")
-MC_FRAMES, MC_SLOW_FRAMES = 16, 20
+MC_FRAMES, MC_SLOW_FRAMES = 12, 20
 MC_B_BUCKETS = (1, 2, 4)
 MC_SEED = 17
 # run B's uplink: bench_multiclient's SLOW_UPLINK compounds ten
@@ -390,7 +433,9 @@ TRAIN_GRAD_TOL = 1e-3       # analytic vs autograd backward, of a leaf's max
 # plain route): the bound sits just above that.
 KINK_GRAD_TOL = 5e-3
 TRAIN_LOSS_RTOL = 1e-4      # the 2-block model's loss, card vs CPU
-SIM_STEPS, SIM_PEAK_LR = 1800, 5e-4   # benchmarks/common.py's SIM recipe
+# benchmarks/common.py's SIM recipe (1800 steps, peak lr 5e-4) at half its
+# depth, to keep the whole run within its time limit
+SIM_STEPS, SIM_PEAK_LR = 900, 5e-4
 F1_VIDEOS, F1_FRAMES, F1_SEED = ("walkS", "walkB", "cycleS"), 16, 23
 BWD_MARKS = ("window_attention_bwd", "flash_attention_bwd")
 # phase 16, LM training: causal GQA flash at Qwen3-4B's and the ~100M
@@ -408,6 +453,18 @@ SSM_TRAIN_STEPS, SSM_TRAIN_B = 2, 2   # full-width mamba2 / zamba2 steps
 LM_CROSS_T = 128            # the few-layer card-vs-CPU steps
 LM_GRAD_TOL = 1e-3          # LM step gradients, of each leaf's largest
 CALIB_FRAMES = 8            # phase 20's frames a scenario
+# phase 22: the lanes (name, tree dtype, cache dtype) and the bf16
+# card-vs-CPU limit (tests/test_torch_half_lm.py's bf16 lane)
+LM_HALF_LANES = (("bf16", "bfloat16", "float32"),
+                 ("fp16", "float16", "float32"),
+                 ("bf16-cache", "float32", "bfloat16"))
+LM_BF16_RTOL = 3e-2
+# phase 21: the reference's shipped point, an fp16 tree and a bf16 tree
+HALF_SPECS = (("int8", "fp16", 1), ("fp16", "fp32", 0), ("bf16", "fp32", 0))
+HALF_E2E = (("int8", "fp16", 1), ("bf16", "fp32", 0))   # card vs CPU
+# their limits, of the largest feature: the CPU tests' (the half types'
+# own rounding; int8 rows at a rounding tie), tests/test_torch_half_vit.py
+HALF_E2E_RTOL = {"int8+fp16-p1": 0.05, "fp16": 3e-3, "bf16": 2.5e-2}
 QUANT_SPEC = ("int8", "fp32", 1)
 # the GEMMs of the quantized full-width model, (K, N): patch embed,
 # fused QKV, w_o, MLP up, MLP down (15 heads of 64 after pruning)
@@ -462,8 +519,13 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+LOG = None                  # chiprun_out/chip_smoke.log, opened by main()
+
+
 def say(*a) -> None:
     print(*a, flush=True)
+    if LOG is not None:
+        print(*a, file=LOG, flush=True)
 
 
 def main() -> int:
@@ -477,11 +539,17 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU",
               file=sys.stderr)
         return 2
+    global LOG
+    OUT_DIR.mkdir(exist_ok=True)
+    LOG = open(OUT_DIR / "chip_smoke.log", "w")
     try:
         result = run(torch)
     except Exception:                        # every phase failure
         traceback.print_exc()
+        traceback.print_exc(file=LOG)
         return 1
+    finally:
+        LOG.flush()
     say(json.dumps({"kernels": result}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -499,11 +567,6 @@ def run(torch):
     from repro_torch.core import partition as pt
     from repro_torch.core import vit_backbone as vb
     from repro_torch.kernels import build, dispatch
-    from repro_torch.kernels.flash_attention import ops as flash
-    from repro_torch.kernels.fused_serving import ops as fused
-    from repro_torch.kernels.int8_matmul import ops as i8
-    from repro_torch.kernels.mixed_res_pool import ops as pool
-    from repro_torch.kernels.window_attention import ops as win
     from repro_torch.quant import qtensor as qt
 
     # phase 1 -------------------------------------------------------------
@@ -542,225 +605,38 @@ def run(torch):
 
     # phase 2 -------------------------------------------------------------
     say(f"phase 2: kernels vs plain versions at full width (B={B}, "
-        f"T={T}, D={D}, H={H}x{Dh}, w2={w2}, length bucket {lb})")
+        f"T={T}, D={D}, H={H}x{Dh}, w2={w2}, length bucket {lb}), at "
+        f"float32, fp16 and bf16")
     rows = {}
 
-    def measure(name, kernel, plain_fn, lib_fn, nbytes, nops, peak):
-        """Kernel alone (its latest launch relaunched), plain version and
-        library call in ms, the bound in ms with what sets it, and the
-        kernel's device microseconds per launch from a trace."""
-        k_ms = timed(torch, lambda: kernel.relaunch(1))
-        p_ms = timed(torch, plain_fn)
-        l_ms = timed(torch, lib_fn) if lib_fn is not None else None
-        d_us = device_us(torch, lambda: kernel.relaunch(1),
-                         DEVICE_NAMES[name])
-        return (k_ms, p_ms, l_ms) + bound(nbytes, nops, peak) + (d_us,)
-
-    def record(name, err, kernel, plain_fn, lib_fn, nbytes, nops,
-               peak=PEAK_FP32, **extra):
-        put(name, err, *measure(name, kernel, plain_fn, lib_fn, nbytes,
-                                nops, peak), **extra)
-
-    def put(name, err, k_ms, p_ms, l_ms, bound_ms, bound_by, d_us, **extra):
-        """One kernels-line row: ``ms`` is host-clocked back-to-back
-        relaunches (CUDA events), ``device_us`` the kernel's own device
-        time per launch (trace); ``extra`` adds keys such as ``cold_us``."""
-        rows[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": l_ms, "device_us": d_us, **extra}
-        say(f"  {name}: max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
+    def put(name, err, k_ms, p_ms, l_ms, bound_ms, bound_by, d_us,
+            dt=torch.float32, **extra):
+        """One kernels-line row, or at fp16 / bf16 its ``f16`` / ``bf16``
+        entry: ``ms`` is host-clocked back-to-back relaunches (CUDA
+        events), ``device_us`` the kernel's own device time per launch
+        (trace); ``extra`` adds keys such as ``cold_us``.  Returns it."""
+        r = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": l_ms, "device_us": d_us, **extra}
+        suf = build.FLOAT_SUFFIX[dt]
+        if dt == torch.float32:
+            rows[name] = r
+        else:
+            rows[name][suf] = r
+        say(f"  {name} {suf}: max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
             f"device_us={d_us:.2f} plain_ms={p_ms:.4f} library_ms="
             f"{'null' if l_ms is None else f'{l_ms:.4f}'} "
             f"bound_ms={bound_ms:.4f} ({bound_by})"
             + "".join(f" {k}={v}" for k, v in extra.items()))
+        return r
 
-    def max_err(a, b):
-        return float((a - b).abs().max())
-
-    def rate(name, ms, nbytes):
-        """Print a byte-bound kernel's achieved rate and share of its
-        bound."""
-        say(f"  {name}: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
-            f"{nbytes / PEAK_BYTES * 1e3 / ms:.3f} of its byte bound")
-
-    # avg_pool: its other paths first (4-byte copies where W * C, Wo * C
-    # or the base is not 16-byte aligned, rows cut into chunks, wide
-    # channels), then the raw frame, pooled before the low-resolution
-    # embedding, which must match the plain version exactly
-    for shape, d, off in POOL_CASES:
-        flat = torch.rand(int(np.prod(shape)) + off, generator=gen,
-                          device=dev)
-        xs = flat[off:].view(shape)
-        err = max_err(pool.avg_pool_cuda(xs, d), pool.avg_pool_plain(xs, d))
-        check(err <= POOL_TOL, f"avg_pool {shape} d={d} offset {off}: max "
-              f"error {err} > {POOL_TOL}")
-    say(f"  avg_pool paths {POOL_CASES}: within {POOL_TOL}")
-    frames = [torch.rand((B, *cfg.vit.img_size, 3), generator=gen,
-                         device=dev) for _ in range(4)]
-    x = frames[0]
-    got, want = pool.avg_pool_cuda(x, 2), pool.avg_pool_plain(x, 2)
-    err = max_err(got, want)
-    check(torch.equal(got, want), f"avg_pool: serving frame differs from "
-          f"plain by {err}")
-    xc = x.permute(0, 3, 1, 2)
-    cold = cold_us(torch, [lambda f=f: pool.avg_pool_cuda(f, 2)
-                           for f in frames], DEVICE_NAMES["avg_pool"])
-    pool.avg_pool_cuda(x, 2)                  # the row's relaunch is x's
-    record("avg_pool", err, pool.KERNEL, lambda: pool.avg_pool_plain(x, 2),
-           lambda: F.avg_pool2d(xc, 2),
-           4 * (x.numel() + got.numel()), x.numel() + got.numel(),
-           cold_us=cold)
-    x1 = x[:1]                          # phase 13's single-client frame
-    check(torch.equal(pool.avg_pool_cuda(x1, 2), pool.avg_pool_plain(x1, 2)),
-          "avg_pool: B=1 serving frame differs from plain")
-    del frames, x1
-
-    # pack_pos: window bank + positional bank -> packed sequence
-    nbank = nR * dd + nR
-    bank = torch.randn((B, nbank, w2, D), generator=gen, device=dev)
-    pos_bank = torch.randn((nbank, w2, D), generator=gen, device=dev)
-    args = (bank, pos_bank, lay["win_src"], lay["nw"])
-    got, want = fused.pack_pos_cuda(*args), fused.pack_pos_plain(*args)
-    err = max_err(got, want)
-    check(torch.equal(got, want), f"pack_pos: kernel differs from plain "
-          f"by up to {err}")
-    win_src, nw = arrays["win_src"], arrays["nw"]
-    used = [set(win_src[b, :nw[b]].tolist()) for b in range(B)]
-    win_bytes = 4 * w2 * D
-    nbytes = (win_bytes * (sum(map(len, used)) + len(set().union(*used)))
-              + 4 * got.numel() + 4 * (win_src.size + nw.size))
-    record("pack_pos", err, fused.PACK_POS,
-           lambda: fused.pack_pos_plain(*args), None, nbytes,
-           int(nw.sum()) * w2 * D)
-
-    # restore_gather: packed windows + REUSE tiles -> full-res sequence
-    windows = torch.randn((B, lb, w2, D), generator=gen, device=dev)
-    tiles = torch.randn((B, nR, dd, w2, D), generator=gen, device=dev)
-    args = (windows, lay["out_src"], lay["out_map"], part.window,
-            part.downsample, tiles)
-    got, want = (fused.restore_gather_cuda(*args),
-                 fused.restore_gather_plain(*args))
-    err = max_err(got, want)
-    check(torch.equal(got, want), f"restore_gather: kernel differs from "
-          f"plain by up to {err}")
-    out_src = arrays["out_src"]
-    n_src = sum(len(set(out_src[b].tolist())) for b in range(B))
-    nbytes = (win_bytes * n_src + 4 * got.numel()
-              + 4 * (out_src.size * 2 + (dd + 1) * w2))
-    record("restore_gather", err, fused.RESTORE,
-           lambda: fused.restore_gather_plain(*args), None, nbytes, 0)
-
-    # phase 13's single-client layouts (B = 1, twelve LOW regions, with
-    # and without REUSE tiles spliced in), exact as above
-    edges = pt.length_bucket_set(part)
-    for one in single_plans(pt, nR):
-        lb1 = pt.length_bucket(pt.plan_n_windows(one, part), edges)
-        a1, _ = pt.stack_plan_layouts([pt.plan_layout(one.states, lb1,
-                                                      part)])
-        l1 = {k: torch.as_tensor(v, device=dev) for k, v in a1.items()}
-        p_args = (bank[:1], pos_bank, l1["win_src"], l1["nw"])
-        r_args = (torch.randn((1, lb1, w2, D), generator=gen, device=dev),
-                  l1["out_src"], l1["out_map"], part.window,
-                  part.downsample, tiles[:1] if one.n_reuse else None)
-        check(torch.equal(fused.pack_pos_cuda(*p_args),
-                          fused.pack_pos_plain(*p_args))
-              and torch.equal(fused.restore_gather_cuda(*r_args),
-                              fused.restore_gather_plain(*r_args)),
-              f"pack_pos / restore_gather at B=1, plan {one.states} "
-              f"(length bucket {lb1}): kernel differs from plain")
-    say(f"  pack_pos, restore_gather, avg_pool at B=1 (phase 13's "
-        f"layouts, {len(single_plans(pt, nR))} plans): equal to plain")
-    mc_kernel_checks(torch, pt, part, fused, pool, dev, gen, D,
-                     cfg.vit.img_size)
-
-    # window attention: column views of a fused QKV product, as the
-    # blocks hand them over; the padded shape with win_valid first
-    def qkv_views(tokens):
-        qkv = torch.randn((B, tokens, 3 * D), generator=gen, device=dev)
-        return [t.reshape(B, tokens, H, Dh) for t in qkv.split(D, dim=-1)]
-
-    qp, kp, vp = qkv_views(lb * w2)
-    wv = lay["nw"]
-    err_p = max_err(win.window_attention_cuda(qp, kp, vp, w2, wv),
-                    win.window_attention_plain(qp, kp, vp, w2, wv))
-    # the int8 lane's call: 15 heads, views of a 2880-wide fused QKV
-    qkv = torch.randn((B, T, 3 * (H - 1) * Dh), generator=gen, device=dev)
-    q15, k15, v15 = (t.reshape(B, T, H - 1, Dh)
-                     for t in qkv.split((H - 1) * Dh, dim=-1))
-    err_15 = max_err(win.window_attention_cuda(q15, k15, v15, w2),
-                     win.window_attention_plain(q15, k15, v15, w2))
-    ms_15 = timed(torch, lambda: win.KERNEL.relaunch(1))
-    rate("window_attention H=15", ms_15, 16 * B * T * (H - 1) * Dh)
-    del qkv, q15, k15, v15
-    q, k, v = qkv_views(T)
-    got = win.window_attention_cuda(q, k, v, w2)
-    err = max(err_p, err_15,
-              max_err(got, win.window_attention_plain(q, k, v, w2)))
-    say(f"  window_attention errors: padded {err_p:.3g}, H=15 {err_15:.3g}, "
-        f"full-res {err:.3g} (limit {ATTN_TOL})")
-    check(err <= ATTN_TOL, f"window_attention: max error {err}")
-    qw, kw, vw = (t.reshape(B, T // w2, w2, H, Dh).permute(0, 1, 3, 2, 4)
-                  .reshape(-1, H, w2, Dh).contiguous() for t in (q, k, v))
-    record("window_attention", err, win.KERNEL,
-           lambda: win.window_attention_plain(q, k, v, w2),
-           lambda: F.scaled_dot_product_attention(qw, kw, vw),
-           4 * 4 * B * T * H * Dh,
-           TF32_PRODUCTS * 4 * B * (T // w2) * H * w2 * w2 * Dh, PEAK_TF32)
-    rate("window_attention", rows["window_attention"]["ms"],
-         4 * 4 * B * T * H * Dh)
-
-    # flash attention: the unmasked global blocks after restoration; a
-    # causal GQA call and the extra cases first, each causal and not (the
-    # kernel keeps both options)
-    errs = {}
-    for (fb, ft, fs, fh, fkv, fd) in ((1, 1000, 1000, H, 4, Dh),) \
-            + FLASH_CASES:
-        qs = torch.randn((fb, ft, fh, fd), generator=gen, device=dev)
-        ks, vs = (torch.randn((fb, fs, fkv, fd), generator=gen, device=dev)
-                  for _ in range(2))
-        for causal in (True, False):
-            errs[(fb, ft, fs, fh, fkv, fd, causal)] = max_err(
-                flash.flash_attention_cuda(qs, ks, vs, causal=causal),
-                flash.flash_attention_plain(qs, ks, vs, causal=causal))
-    say(f"  flash_attention max errors by (B, T, S, H, KV, Dh, causal): "
-        f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} } (limit "
-        f"{ATTN_TOL})")
-    got = flash.flash_attention_cuda(q, k, v)
-    err = max(max(errs.values()),
-              max_err(got, flash.flash_attention_plain(q, k, v)))
-    check(err <= ATTN_TOL, f"flash_attention: max error {err}")
-    qf, kf, vf = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
-    record("flash_attention", err, flash.KERNEL,
-           lambda: flash.flash_attention_plain(q, k, v),
-           lambda: F.scaled_dot_product_attention(qf, kf, vf),
-           4 * 4 * B * T * H * Dh, TF32_PRODUCTS * 4 * B * H * T * T * Dh,
-           PEAK_TF32)
-    del bank, pos_bank, windows, tiles, q, k, v, qw, kw, vw, qf, kf, vf
-    torch.cuda.empty_cache()
-    lm_kernels = lm_kernel_checks(torch, F, flash, dev, gen, put)
-
-    # nn_upsample: the LOW windows of a beta-0 wave, (B * nR, w, w, D)
-    x = torch.randn((B * nR, part.window, part.window, D), generator=gen,
-                    device=dev)
-    got, want = pool.nn_upsample_cuda(x, 2), pool.nn_upsample_plain(x, 2)
-    check(torch.equal(got, want), "nn_upsample: kernel differs from plain")
-    xc = x.permute(0, 3, 1, 2)
-    record("nn_upsample", 0.0, pool.UPSAMPLE,
-           lambda: pool.nn_upsample_plain(x, 2),
-           lambda: F.interpolate(xc, scale_factor=2, mode="nearest"),
-           4 * (x.numel() + got.numel()), 0)
-
-    # int8_matmul: the quantized model's GEMMs, bit-equal; then a ragged
-    # shape that masks M, N and K
-    gemm = gemm_checks(torch, i8, qt, dev, gen, cfg.n_layers)
-    by = {b: sum(r["bound_ms"] for r in gemm if r["bound_by"] == b)
-          for b in ("bytes", "operations")}
-    put("int8_matmul", 0.0, *(sum(r[k] for r in gemm)
-                              for k in ("ms", "plain_ms", "library_ms",
-                                        "bound_ms")),
-        max(by, key=by.get), sum(r["device_us"] for r in gemm))
-    del x, got, want
-    torch.cuda.empty_cache()
+    gemm, lm_kernels = {}, {}
+    for dt in build.FLOAT_TYPES:
+        g, lm = kernel_checks(torch, F, dev, gen, cfg, part, lay, arrays, lb,
+                              put, dt)
+        gemm[build.FLOAT_SUFFIX[dt]] = g
+        lm_kernels.update(lm)
+        torch.cuda.empty_cache()
 
     # each serving path's launch counts, reset just before it and read
     # just after: kernel -> {path: launches}
@@ -839,6 +715,14 @@ def run(torch):
     # phase 20 ------------------------------------------------------------
     lat["calibrate"] = calibrate_phase(torch, cfg, dev, count)
 
+    # phase 21 (its cache check runs inside phase 13) ----------------------
+    lat["vit_half"] = vit_half_phase(torch, cfg, dev, count, plans, lat)
+    lat["vit_half"]["host_cache_fp16"] = lat["offload"].pop(
+        "host_cache_fp16")
+
+    # phase 22 ------------------------------------------------------------
+    lat["lm_half"] = lm_half_phase(torch, QWEN, dev, lat["lm"], count)
+
     out = []
     for name in KERNEL_SOURCES:
         src, replaces = KERNEL_SOURCES[name]
@@ -854,19 +738,23 @@ def run(torch):
                     "library_ms": r["library_ms"],
                     "device_us": r["device_us"],
                     **{k: r[k] for k in ("cold_us", "decode_step_device_us",
-                                         "decode_step_bound_us") if k in r}})
+                                         "decode_step_bound_us", "f16",
+                                         "bf16") if k in r}})
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi.stdout.strip(), "kernels": out, "waves": lat,
          "int8_gemm_shapes": gemm}, indent=1))
     return out
 
 
-def gemm_checks(torch, i8, qt, dev, gen, n_layers):
-    """int8_matmul kernel vs plain version, bit-equal, at the quantized
-    model's GEMM shapes (timed: kernel, plain, ``torch._int_mm`` as the
-    library yardstick, the fp32 ``torch.matmul`` of the same shape for
-    context, and the row quantization of the GEMM's input) and at a
-    ragged shape (checked only).  Returns the timed rows."""
+def gemm_checks(torch, i8, qt, dev, gen, n_layers, dt):
+    """int8_matmul kernel vs plain version with ``dt`` out, bit-equal, at
+    the quantized model's GEMM shapes (timed: kernel, plain,
+    ``torch._int_mm`` as the library yardstick, the ``dt`` ``torch.matmul``
+    of the same shape for context, and the row quantization of the GEMM's
+    input as the int8 lane runs it) and at a ragged shape (checked
+    only).  Returns the timed rows."""
+    from repro_torch.kernels.build import FLOAT_SUFFIX
+    suf, es = FLOAT_SUFFIX[dt], torch.finfo(dt).bits // 8
     out = []
     for (M, K, N) in [(GEMM_M, K, N) for K, N in GEMM_SHAPES] + \
             [(1000, 100, 130), (1000, 960, 2880)]:
@@ -876,13 +764,13 @@ def gemm_checks(torch, i8, qt, dev, gen, n_layers):
                            dtype=torch.int32).to(torch.int8).t()
         sx = torch.rand(M, generator=gen, device=dev) * 0.02 + 1e-3
         sw = torch.rand(N, generator=gen, device=dev) * 0.02 + 1e-3
-        got = i8.int8_matmul_cuda(xq, wq, sx, sw)
-        want = i8.int8_matmul_plain(xq, wq, sx, sw)
-        check(torch.equal(got, want), f"int8_matmul {M}x{K}x{N}: kernel "
-              f"differs from plain by up to "
-              f"{float((got - want).abs().max())}")
+        got = i8.int8_matmul_cuda(xq, wq, sx, sw, dt)
+        want = i8.int8_matmul_plain(xq, wq, sx, sw, dt)
+        check(got.dtype == dt and torch.equal(got, want),
+              f"int8_matmul {suf} {M}x{K}x{N}: kernel differs from plain "
+              f"by up to {float((got.float() - want.float()).abs().max())}")
         if M != GEMM_M:
-            say(f"  int8_matmul {M}x{K}x{N} (ragged): bit-equal")
+            say(f"  int8_matmul {suf} {M}x{K}x{N} (ragged): bit-equal")
             continue
         k_ms = timed(torch, lambda: i8.KERNEL.relaunch(1))
         d_us = device_us(torch, lambda: i8.KERNEL.relaunch(1),
@@ -892,39 +780,38 @@ def gemm_checks(torch, i8, qt, dev, gen, n_layers):
         chosen = i8.tile_n
         i8.tile_n = lambda n, k: 384 - tile
         try:
-            other = i8.int8_matmul_cuda(xq, wq, sx, sw)
-            check(torch.equal(other, want), f"int8_matmul {M}x{K}x{N}: the "
-                  f"{384 - tile}-wide tile differs from plain")
+            other = i8.int8_matmul_cuda(xq, wq, sx, sw, dt)
+            check(torch.equal(other, want), f"int8_matmul {suf} {M}x{K}x{N}"
+                  f": the {384 - tile}-wide tile differs from plain")
             o_ms = timed(torch, lambda: i8.KERNEL.relaunch(1))
         finally:
             i8.tile_n = chosen
-        p_ms = timed(torch, lambda: i8.int8_matmul_plain(xq, wq, sx, sw))
+        p_ms = timed(torch, lambda: i8.int8_matmul_plain(xq, wq, sx, sw, dt))
         l_ms = timed(torch, lambda: torch._int_mm(xq, wq))
-        xf = torch.randn((M, K), generator=gen, device=dev)
-        wf = torch.randn((K, N), generator=gen, device=dev)
+        xf = torch.randn((M, K), generator=gen, device=dev).to(dt)
+        wf = torch.randn((K, N), generator=gen, device=dev).to(dt)
         f_ms = timed(torch, lambda: torch.matmul(xf, wf))
-        r_ms = timed(torch, lambda: qt._quantize_rows(xf))
-        nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
+        r_ms = timed(torch, lambda: qt._quantize_rows(xf.float()))
+        nbytes = M * K + K * N + 4 * (M + N) + es * M * N
         b_ms, b_by = bound(nbytes, 2 * M * N * K, PEAK_INT8)
         row = {"M": M, "K": K, "N": N, "ms": k_ms, "device_us": d_us,
-               "plain_ms": p_ms,
-               "library_ms": l_ms, "fp32_matmul_ms": f_ms,
+               "plain_ms": p_ms, "library_ms": l_ms, "matmul_ms": f_ms,
                "row_quant_ms": r_ms, "bound_ms": b_ms, "bound_by": b_by,
                "tile_n": tile, f"ms_tile_{tile}": k_ms,
                f"ms_tile_{384 - tile}": o_ms}
         out.append(row)
-        say(f"  int8_matmul {M}x{K}x{N}: bit-equal kernel_ms={k_ms:.4f} "
-            f"(128x{tile} tiles; 128x{384 - tile}: {o_ms:.4f}) "
+        say(f"  int8_matmul {suf} {M}x{K}x{N}: bit-equal kernel_ms="
+            f"{k_ms:.4f} (128x{tile} tiles; 128x{384 - tile}: {o_ms:.4f}) "
             f"plain_ms={p_ms:.4f} int_mm_ms={l_ms:.4f} "
-            f"fp32_matmul_ms={f_ms:.4f} row_quant_ms={r_ms:.4f} "
+            f"{suf}_matmul_ms={f_ms:.4f} row_quant_ms={r_ms:.4f} "
             f"bound_ms={b_ms:.4f} ({b_by})")
         say(f"    {2 * M * N * K / k_ms / 1e9:.1f} TOPS, "
             f"{nbytes / k_ms / 1e6:.1f} GB/s, {b_ms / k_ms:.3f} of its bound")
         del xq, wq, xf, wf, got, want, other
     by_k = {r["K"]: r["row_quant_ms"] for r in out}
     block = sum(by_k[K] for K, _ in GEMM_SHAPES[1:])
-    say(f"  row quantization per full-res wave ({n_layers} blocks x "
-        f"{block:.4f} ms + patch embed {by_k[768]:.4f} ms): "
+    say(f"  row quantization of {suf} inputs per full-res wave ({n_layers} "
+        f"blocks x {block:.4f} ms + patch embed {by_k[768]:.4f} ms): "
         f"{n_layers * block + by_k[768]:.4f} ms")
     return out
 
@@ -1084,6 +971,7 @@ def serve(torch, cfg, dev, gen, plans, pt):
                                    captures=(BETA,))
     space += [(int(p.n_low), 0, 0, 0) for p in b0_plans]   # beta-0 keys
     n_keys = srv.warmup(space, (1, 2))
+    grid_keys = sorted(srv._keys)
     say(f"  warmup of {n_keys} grid keys {srv.stats.warmup_wall_s:.2f} s; "
         f"init + warmup {time.perf_counter() - t0:.2f} s; length buckets "
         f"{srv.length_edges}")
@@ -1123,7 +1011,7 @@ def serve(torch, cfg, dev, gen, plans, pt):
     lat = {"full_res_first_s": t_full, "mixed_first_s": t_mixed,
            "full_res_median_s": statistics.median(reps_full),
            "mixed_median_s": statistics.median(reps_mixed), "B": B,
-           "beta": BETA}
+           "beta": BETA, "grid_keys": grid_keys}
     say(f"  waves (B={B}, host clock incl. decode): full-res first "
         f"{t_full:.4f} s median {lat['full_res_median_s']:.4f} s; mixed "
         f"beta {BETA} first {t_mixed:.4f} s median "
@@ -1370,7 +1258,7 @@ def compare_on_cpu(torch, cfg, dev, gen, p_gpu, plans, pt, vb, rtol,
     img = torch.rand((1, *cfg.vit.img_size, 3), generator=gen, device=dev)
     tiles = torch.randn((1, part.n_regions, part.windows_per_full_region,
                          part.tokens_low_region, cfg.d_model), generator=gen,
-                        device=dev)
+                        device=dev).to(p_gpu["patch_embed"]["b"].dtype)
     lb = max(pt.length_bucket_set(part))
     lay = pt.plan_layout(plans[0].states, lb, part)
     layout = {k: torch.as_tensor(getattr(lay, k)[None], device=dev)
@@ -1390,14 +1278,16 @@ def compare_on_cpu(torch, cfg, dev, gen, p_gpu, plans, pt, vb, rtol,
     t0 = time.perf_counter()
     p_cpu = to_device(p_gpu, torch.device("cpu"))
     want = run_on("cpu", p_cpu)
+    errs = {}
     for what, g, c in zip(("features", "tiles"), got, want):
-        g = g.cpu()
+        g, c = g.cpu().float(), c.float()
         check(bool(torch.isfinite(g).all()), f"{what}: non-finite on card")
-        rel = float((g - c).abs().max() / c.abs().max())
+        errs[what] = rel = float((g - c).abs().max() / c.abs().max())
         say(f"  beta {beta} {what} {tuple(g.shape)}: max relative error "
             f"{rel:.3g} (limit {rtol})")
         check(rel <= rtol, f"{what}: card vs CPU {rel} > {rtol}")
     say(f"  CPU forward {time.perf_counter() - t0:.1f} s")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1509,10 +1399,69 @@ def serve_offload(torch, cfg, dev, count):
     steady = srv.stats.steady_compiles
     del srv
     torch.cuda.empty_cache()
+    out["host_cache_fp16"] = half_host_cache(
+        torch, cfg, dev, lo, clips, trace, size_e, acc_e, inf_delay, count,
+        out["host_cache"])
     out["card_vs_cpu"] = offload_cross_check(
         torch, cfg.replace(n_layers=8), dev, clips, inf_delay, size_e, acc_e)
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"  phase 13: {out['phase_s']:.1f} s; steady first uses {steady}")
+    return out
+
+
+def half_host_cache(torch, cfg, dev, lo, clips, trace, size_e, acc_e,
+                    inf_delay, count, f32):
+    """Phase 21's cache check, on phase 13's clips, trace and estimators:
+    phase 18 again on an fp16 server (the launcher's make: seed 0, B = 1,
+    top-k 32, score 0, warmed over the policies' plan space, its tree
+    cast by ``QuantSpec("fp16")``): equal detections in both modes, and
+    every tile copied in half the bytes of phase 18's float32 tiles (the
+    same bytes halved where the two runs make the same offloads)."""
+    from repro_torch import convert
+    from repro_torch.offload.simulator import ServerModel
+    from repro_torch.quant.ptq import QuantSpec
+
+    t0 = time.perf_counter()
+    params = convert.init_vitdet_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    srv = ServerModel(cfg, params, top_k=32, score_thresh=0.0,
+                      b_buckets=(1,), device=dev,
+                      quant=QuantSpec("fp16", "fp32", 0))
+    del params
+    srv.warmup(lo.reachable_plan_space(srv.part), (1,))
+    check(srv.act_dtype == torch.float16, f"fp16 server at {srv.act_dtype}")
+    say(f"phase 21 (on phase 13's clips): fp16 server init + warmup "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = host_cache_runs(torch, srv, lo, clips, trace, size_e, acc_e,
+                          inf_delay, count, tag="fp16 ",
+                          phase="21, fp16 (on phase 13's clips)")
+    check(srv.stats.steady_compiles == 0,
+          f"fp16 server: steady-state first uses "
+          f"{srv.stats.steady_compile_keys}")
+    part = srv.part
+    unit = part.windows_per_full_region * part.tokens_low_region \
+        * cfg.d_model                       # elements of one region's tile
+    h, h32 = out["host"], f32["host"]
+    tiles = {k: (h[k] / (2 * unit), h32[k] / (4 * unit))
+             for k in ("tile_bytes_d2h", "tile_bytes_h2d")}
+    check(all(a == int(a) and b == int(b) for a, b in tiles.values()),
+          f"tile bytes not whole half / float32 tiles: {tiles}")
+    same = out["decisions"] == f32["decisions"]
+    if same:
+        check(2 * h["tile_bytes_d2h"] == h32["tile_bytes_d2h"]
+              and 2 * h["tile_bytes_h2d"] == h32["tile_bytes_h2d"],
+              f"fp16 tile bytes {h} not half of float32's {h32}")
+    out["tiles_moved"] = {k: v[0] for k, v in tiles.items()}
+    out["same_offloads_as_fp32"] = same
+    say(f"  fp16 tile bytes: {2 * unit} a region tile against float32's "
+        f"{4 * unit}; tiles moved d2h / h2d {tiles['tile_bytes_d2h'][0]:.0f}"
+        f" / {tiles['tile_bytes_h2d'][0]:.0f} (float32 run "
+        f"{tiles['tile_bytes_d2h'][1]:.0f} / "
+        f"{tiles['tile_bytes_h2d'][1]:.0f}); "
+        f"{'the same' if same else 'other'} offloads than phase 18"
+        + (f": bytes exactly half" if same else ""))
+    del srv
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1555,8 +1504,8 @@ def offload_cross_check(torch, cfg, dev, clips, inf_delay, size_e, acc_e):
     part, patch = gpu.part, cfg.vit.patch_size
     trace = make_trace("4g", 0, duration_s=60)
     out = {}
-    for policy, video in CROSS_RUNS:
-        frames = clips[video][0][:SIM_CROSS_FRAMES]
+    for policy, video, n in CROSS_RUNS:
+        frames = clips[video][0][:n]
         say(f"  card vs CPU: {policy} on {video}, {cfg.n_layers}-block "
             f"full-width model, {len(frames)} frames")
         gt = [gpu.infer(f) for f in frames]
@@ -3089,38 +3038,54 @@ def lm_train_phase(torch, dev, count):
     return out
 
 
-def lm_kernel_checks(torch, F, flash, dev, gen, put):
-    """Phase 2 for the LM lane: ``decode_attention`` against its plain
-    version at the serving shape (its kernels-line row, through ``put``)
-    and at a ragged long cache; ``flash_attention`` at the LM prefill's
-    causal GQA shapes.  Returns the extra rows."""
+def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
+    """Phase 2 for the LM lane at ``dt``: ``decode_attention`` against its
+    plain version at the serving shape (its kernels-line row, through
+    ``put``; at fp16 / bf16 the half cache also under a float32 q, as a
+    float32 tree over a half cache runs it), at the kv_len edges and at
+    a ragged long cache; ``flash_attention`` at the LM prefill's causal
+    GQA shapes.  Each held by :func:`agree`.  Returns the extra rows,
+    keyed with ``_f16`` / ``_bf16`` at half."""
+    from repro_torch.kernels.build import FLOAT_SUFFIX
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.configs.qwen3_4b import CONFIG as QWEN
     H, KV, Dh = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
+    f32 = dt == torch.float32
+    suf, es = FLOAT_SUFFIX[dt], torch.finfo(dt).bits // 8
+    products, attn_peak = (TF32_PRODUCTS, PEAK_TF32) if f32 else \
+        (1, PEAK_HALF)
+    tag = "" if f32 else f"_{suf}"
     extra = {}
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
 
     def decode_case(name):
         """One of DECODE_SHAPES: checked, timed warm (relaunches: host
         clock and device time) and cold (rotating over caches that leave
         the L2), beside the plain version and SDPA."""
         (b, S, h, kv, dh), lens = DECODE_SHAPES[name]
-        sets = cold_sets(2 * 4 * b * S * kv * dh)
-        q = torch.randn((b, 1, h, dh), generator=gen, device=dev)
+        sets = cold_sets(2 * es * b * S * kv * dh)
+        q = rnd(b, 1, h, dh)
         kl = torch.tensor(lens, dtype=torch.int32, device=dev)
-        caches = [[torch.randn((b, S, kv, dh), generator=gen, device=dev)
-                   for _ in range(2)] for _ in range(sets)]
+        caches = [[rnd(b, S, kv, dh) for _ in range(2)] for _ in range(sets)]
         cold = cold_us(torch, [
             lambda k=k, v=v: dec.decode_attention_cuda(q, k, v, kl)
             for k, v in caches], DEVICE_NAMES["decode_attention"])
         k, v = caches[0]
         del caches
-        got = dec.decode_attention_cuda(q, k, v, kl)
-        err = float((got - dec.decode_attention_plain(q, k, v, kl))
-                    .abs().max())
-        check(err <= DECODE_TOL, f"decode_attention {name}: max error {err} "
-              f"> {DECODE_TOL}")
+        row = {"shape": [b, S, h, kv, dh], "kv_len": list(lens)}
+        if not f32:
+            q32 = q.float()
+            row["f32_q_max_abs_err"], _ = agree(
+                torch, f"decode_attention {name} {suf} cache, float32 q",
+                dec.decode_attention_cuda(q32, k, v, kl),
+                dec.decode_attention_plain(q32, k, v, kl), DECODE_TOL)
+        err, eq = agree(torch, f"decode_attention {name} {suf}",
+                        dec.decode_attention_cuda(q, k, v, kl),
+                        dec.decode_attention_plain(q, k, v, kl), DECODE_TOL)
         k_ms = timed(torch, lambda: dec.KERNEL.relaunch(1))
         d_us = device_us(torch, lambda: dec.KERNEL.relaunch(1),
                          DEVICE_NAMES["decode_attention"])
@@ -3131,50 +3096,45 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put):
         l_ms = timed(torch, lambda: F.scaled_dot_product_attention(
             qt_, kt, vt, attn_mask=mask, enable_gqa=True))
         keys = sum(min(x, S) for x in lens)       # the rows this run reads
-        nbytes = 4 * (keys * kv * dh * 2 + 2 * q.numel() + b)
+        nbytes = es * (keys * kv * dh * 2 + 2 * q.numel()) + 4 * b
         b_ms, b_by = bound(nbytes, 4 * keys * h * dh, PEAK_FP32)
         n, kps = dec.plan(b, kv, h // kv, S, sms)
-        row = {"shape": [b, S, h, kv, dh], "kv_len": list(lens),
-               "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "device_us": d_us, "cold_us": cold, "cold_sets": sets,
-               "splits": n, "keys_per_split": kps}
-        say(f"  decode_attention {name}: {row}")
+        row.update({"max_abs_err": err, "equal_frac": eq, "ms": k_ms,
+                    "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "device_us": d_us, "cold_us": cold,
+                    "cold_sets": sets, "splits": n, "keys_per_split": kps})
+        say(f"  decode_attention {name} {suf}: {row}")
         return row
 
     # the kv_len edges: no key, one key, a split boundary, kv_len = S,
     # splits wholly past kv_len, G = 1 / 8 / 16, every head width
     errs = {}
     for (b, S, h, kv, dh), lens in DECODE_EDGES:
-        q = torch.randn((b, 1, h, dh), generator=gen, device=dev)
-        k, v = (torch.randn((b, S, kv, dh), generator=gen, device=dev)
-                for _ in range(2))
+        q, k, v = rnd(b, 1, h, dh), rnd(b, S, kv, dh), rnd(b, S, kv, dh)
         kl = torch.tensor(lens, dtype=torch.int32, device=dev)
-        errs[(b, S, h, kv, dh, *lens)] = err = float(
-            (dec.decode_attention_cuda(q, k, v, kl)
-             - dec.decode_attention_plain(q, k, v, kl)).abs().max())
-        check(err <= DECODE_TOL, f"decode_attention {(b, S, h, kv, dh)} "
-              f"kv_len {lens}: max error {err} > {DECODE_TOL}")
-    say(f"  decode_attention kv_len edges, max errors: "
-        f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} } (limit "
-        f"{DECODE_TOL})")
+        errs[(b, S, h, kv, dh, *lens)], _ = agree(
+            torch, f"decode_attention {suf} {(b, S, h, kv, dh)} kv_len "
+            f"{lens}", dec.decode_attention_cuda(q, k, v, kl),
+            dec.decode_attention_plain(q, k, v, kl), DECODE_TOL)
+    say(f"  decode_attention {suf} kv_len edges, max errors: "
+        f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} }")
     for name in ("ragged", "zamba2"):
-        extra[f"decode_attention_{name}"] = decode_case(name)
+        extra[f"decode_attention_{name}{tag}"] = decode_case(name)
     r = decode_case("serving")
     put("decode_attention", *(r[key] for key in (
         "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by", "device_us")), cold_us=r["cold_us"],
-        splits=r["splits"], keys_per_split=r["keys_per_split"])
+        "bound_by", "device_us")), dt=dt, cold_us=r["cold_us"],
+        splits=r["splits"], keys_per_split=r["keys_per_split"],
+        equal_frac=r["equal_frac"],
+        **{k: r[k] for k in ("f32_q_max_abs_err",) if k in r})
 
     for T in (LM_T, LM_T - 32):       # plain prefill; mixed at 4 of 8 pooled
-        q = torch.randn((LM_B, T, H, Dh), generator=gen, device=dev)
-        k = torch.randn((LM_B, T, KV, Dh), generator=gen, device=dev)
-        v = torch.randn((LM_B, T, KV, Dh), generator=gen, device=dev)
-        got = flash.flash_attention_cuda(q, k, v, causal=True)
-        err = float((got - flash.flash_attention_plain(q, k, v, causal=True))
-                    .abs().max())
-        check(err <= ATTN_TOL, f"flash_attention causal GQA T={T}: max "
-              f"error {err}")
+        q, k, v = rnd(LM_B, T, H, Dh), rnd(LM_B, T, KV, Dh), \
+            rnd(LM_B, T, KV, Dh)
+        err, eq = agree(torch, f"flash_attention {suf} causal GQA T={T}",
+                        flash.flash_attention_cuda(q, k, v, causal=True),
+                        flash.flash_attention_plain(q, k, v, causal=True),
+                        ATTN_TOL)
         k_ms = timed(torch, lambda: flash.KERNEL.relaunch(1))
         d_us = device_us(torch, lambda: flash.KERNEL.relaunch(1),
                          DEVICE_NAMES["flash_attention"])
@@ -3184,15 +3144,283 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put):
         l_ms = timed(torch, lambda: F.scaled_dot_product_attention(
             qt_, kt, vt, is_causal=True, enable_gqa=True))
         pairs = T * (T + 1) // 2                  # causal (query, key) pairs
-        b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()),
-                           TF32_PRODUCTS * 4 * LM_B * H * pairs * Dh,
-                           PEAK_TF32)
+        b_ms, b_by = bound(es * (2 * q.numel() + 2 * k.numel()),
+                           products * 4 * LM_B * H * pairs * Dh, attn_peak)
         row = {"shape": [LM_B, T, H, KV, Dh], "max_abs_err": err,
-               "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "device_us": d_us}
-        extra[f"flash_attention_causal_T{T}"] = row
-        say(f"  flash_attention causal GQA {row}")
+               "equal_frac": eq, "ms": k_ms, "plain_ms": p_ms,
+               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "device_us": d_us}
+        extra[f"flash_attention_causal_T{T}{tag}"] = row
+        say(f"  flash_attention {suf} causal GQA {row}")
     return extra
+
+
+def ulp(torch, x):
+    """One unit in the last place of ``x``'s half type at each |x| (its
+    spacing there; the smallest subnormal's at 0), as float32."""
+    p, tiny = {torch.float16: (11, 2.0 ** -24),
+               torch.bfloat16: (8, 2.0 ** -133)}[x.dtype]
+    _, e = torch.frexp(x.float().abs())
+    return torch.clamp(torch.ldexp(torch.ones_like(e, dtype=torch.float32),
+                                   e - p), min=tiny)
+
+
+def half_close(torch, name, got, want, atol):
+    """A half kernel against its plain version: every element within one
+    ULP of the plain value (beyond ``atol``, the float32 kernel-vs-plain
+    limit, which near zero exceeds a half ULP), at least HALF_EQUAL of
+    them bit-equal.  Returns (largest difference, bit-equal share)."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name}: {got.dtype} {tuple(got.shape)} against "
+          f"{want.dtype} {tuple(want.shape)}")
+    d = (got.float() - want.float()).abs()
+    equal = float((got == want).float().mean())
+    excess = float((d - ulp(torch, want) - atol).max())
+    check(excess <= 0 and equal >= HALF_EQUAL and bool(
+        torch.isfinite(got).all()), f"{name}: {excess} beyond one ULP + "
+          f"{atol}, {equal:.5f} bit-equal (at least {HALF_EQUAL})")
+    return float(d.max()), equal
+
+
+def rate(name, ms, nbytes):
+    """Print a byte-bound kernel's achieved rate and share of its bound."""
+    say(f"  {name}: {ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
+        f"{nbytes / PEAK_BYTES * 1e3 / ms:.3f} of its byte bound")
+
+
+def kernel_checks(torch, F, dev, gen, cfg, part, lay, arrays, lb, put, dt):
+    """Phase 2 at one element type ``dt``: kernels 1-8 through their
+    ``dt`` entry points at full width, each against its plain version on
+    the same inputs and timed beside it and the library call (``put``).
+    The data movement (pack, restore, the serving frame's pool, the
+    upsample) and the int8 epilogue are bit-equal at every type; the
+    rest is held by :func:`agree`.  Bounds count ``dt``'s bytes, and
+    attention's operations as three TF32 products at float32 (3xTF32)
+    or one half product at fp16 / bf16 (a product of two half values is
+    exact in float32), each at its tensor-core peak.  Float32 also runs
+    the multi-client layouts (phase 14's waves).  Returns the int8 GEMM
+    rows and the LM-lane rows (:func:`lm_kernel_checks`)."""
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.fused_serving import ops as fused
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.mixed_res_pool import ops as pool
+    from repro_torch.kernels.window_attention import ops as win
+    from repro_torch.core import partition as pt
+    from repro_torch.quant import qtensor as qt
+
+    from repro_torch.kernels.build import FLOAT_SUFFIX
+
+    f32 = dt == torch.float32
+    suf, es = FLOAT_SUFFIX[dt], torch.finfo(dt).bits // 8
+    products, attn_peak = (TF32_PRODUCTS, PEAK_TF32) if f32 else \
+        (1, PEAK_HALF)
+    nR, dd = part.n_regions, part.windows_per_full_region
+    w2, D, H, Dh = part.window ** 2, cfg.d_model, cfg.n_heads, cfg.head_dim
+    T = part.grid_h * part.grid_w
+    say(f" at {suf}")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def uni(*shape):
+        return torch.rand(shape, generator=gen, device=dev).to(dt)
+
+    def same(name, got, want):
+        check(torch.equal(got, want), f"{name} {suf}: kernel differs from "
+              f"plain by up to {float((got.float() - want.float()).abs().max())}")
+
+    def record(name, err, kernel, plain_fn, lib_fn, nbytes, nops,
+               peak=PEAK_FP32, **extra):
+        """Kernel alone (its latest launch relaunched), plain version and
+        library call in ms, the bound, and the kernel's device us."""
+        k_ms = timed(torch, lambda: kernel.relaunch(1))
+        p_ms = timed(torch, plain_fn)
+        l_ms = timed(torch, lib_fn) if lib_fn is not None else None
+        d_us = device_us(torch, lambda: kernel.relaunch(1),
+                         DEVICE_NAMES[name])
+        return put(name, err, k_ms, p_ms, l_ms, *bound(nbytes, nops, peak),
+                   d_us, dt=dt, **extra)
+
+    # avg_pool: its other paths first (4-byte copies where W * C, Wo * C
+    # or the base is not 16-byte aligned, rows cut into chunks, wide
+    # channels), then the raw frame, pooled before the low-resolution
+    # embedding, which must match the plain version exactly
+    for shape, d, off in POOL_CASES:
+        xs = uni(int(np.prod(shape)) + off)[off:].view(shape)
+        agree(torch, f"avg_pool {suf} {shape} d={d} offset {off}",
+              pool.avg_pool_cuda(xs, d), pool.avg_pool_plain(xs, d), POOL_TOL)
+    say(f"  avg_pool paths {POOL_CASES}: within {POOL_TOL}"
+        + ("" if f32 else " and one ULP"))
+    frames = [uni(B, *cfg.vit.img_size, 3) for _ in range(4)]
+    x = frames[0]
+    got = pool.avg_pool_cuda(x, 2)
+    same("avg_pool: serving frame", got, pool.avg_pool_plain(x, 2))
+    xc = x.permute(0, 3, 1, 2)
+    cold = cold_us(torch, [lambda f=f: pool.avg_pool_cuda(f, 2)
+                           for f in frames], DEVICE_NAMES["avg_pool"])
+    pool.avg_pool_cuda(x, 2)                  # the row's relaunch is x's
+    record("avg_pool", 0.0, pool.KERNEL, lambda: pool.avg_pool_plain(x, 2),
+           lambda: F.avg_pool2d(xc, 2), es * (x.numel() + got.numel()),
+           x.numel() + got.numel(), cold_us=cold)
+    x1 = x[:1]                          # phase 13's single-client frame
+    same("avg_pool: B=1 serving frame", pool.avg_pool_cuda(x1, 2),
+         pool.avg_pool_plain(x1, 2))
+    del frames, x, x1, xc
+
+    # pack_pos: window bank + positional bank -> packed sequence
+    nbank = nR * dd + nR
+    bank, pos_bank = rnd(B, nbank, w2, D), rnd(nbank, w2, D)
+    args = (bank, pos_bank, lay["win_src"], lay["nw"])
+    got = fused.pack_pos_cuda(*args)
+    same("pack_pos", got, fused.pack_pos_plain(*args))
+    win_src, nw = arrays["win_src"], arrays["nw"]
+    used = [set(win_src[b, :nw[b]].tolist()) for b in range(B)]
+    win_bytes = es * w2 * D
+    record("pack_pos", 0.0, fused.PACK_POS,
+           lambda: fused.pack_pos_plain(*args), None,
+           win_bytes * (sum(map(len, used)) + len(set().union(*used)))
+           + es * got.numel() + 4 * (win_src.size + nw.size),
+           int(nw.sum()) * w2 * D)
+
+    # restore_gather: packed windows + REUSE tiles -> full-res sequence
+    windows, tiles = rnd(B, lb, w2, D), rnd(B, nR, dd, w2, D)
+    args = (windows, lay["out_src"], lay["out_map"], part.window,
+            part.downsample, tiles)
+    got = fused.restore_gather_cuda(*args)
+    same("restore_gather", got, fused.restore_gather_plain(*args))
+    out_src = arrays["out_src"]
+    n_src = sum(len(set(out_src[b].tolist())) for b in range(B))
+    record("restore_gather", 0.0, fused.RESTORE,
+           lambda: fused.restore_gather_plain(*args), None,
+           win_bytes * n_src + es * got.numel()
+           + 4 * (out_src.size * 2 + (dd + 1) * w2), 0)
+
+    # phase 13's single-client layouts (B = 1, twelve LOW regions, with
+    # and without REUSE tiles spliced in), exact as above
+    edges = pt.length_bucket_set(part)
+    for one in single_plans(pt, nR):
+        lb1 = pt.length_bucket(pt.plan_n_windows(one, part), edges)
+        a1, _ = pt.stack_plan_layouts([pt.plan_layout(one.states, lb1,
+                                                      part)])
+        l1 = {k: torch.as_tensor(v, device=dev) for k, v in a1.items()}
+        p_args = (bank[:1], pos_bank, l1["win_src"], l1["nw"])
+        r_args = (rnd(1, lb1, w2, D), l1["out_src"], l1["out_map"],
+                  part.window, part.downsample,
+                  tiles[:1] if one.n_reuse else None)
+        same(f"pack_pos at B=1, plan {one.states}",
+             fused.pack_pos_cuda(*p_args), fused.pack_pos_plain(*p_args))
+        same(f"restore_gather at B=1, plan {one.states}",
+             fused.restore_gather_cuda(*r_args),
+             fused.restore_gather_plain(*r_args))
+    say(f"  pack_pos, restore_gather, avg_pool at B=1 (phase 13's "
+        f"layouts, {len(single_plans(pt, nR))} plans): equal to plain")
+    del bank, pos_bank, windows, tiles, got
+    if f32:
+        mc_kernel_checks(torch, pt, part, fused, pool, dev, gen, D,
+                         cfg.vit.img_size)
+
+    # window attention: column views of a fused QKV product, as the
+    # blocks hand them over; the padded shape with win_valid first, then
+    # the int8 lane's 15 heads (views of a 2880-wide fused QKV)
+    def qkv_views(tokens, heads=H):
+        qkv = rnd(B, tokens, 3 * heads * Dh)
+        return [t.reshape(B, tokens, heads, Dh)
+                for t in qkv.split(heads * Dh, dim=-1)]
+
+    qp, kp, vp = qkv_views(lb * w2)
+    err_p, _ = agree(torch, f"window_attention {suf} padded",
+                     win.window_attention_cuda(qp, kp, vp, w2, lay["nw"]),
+                     win.window_attention_plain(qp, kp, vp, w2, lay["nw"]),
+                     ATTN_TOL)
+    q15, k15, v15 = qkv_views(T, H - 1)
+    err_15, _ = agree(torch, f"window_attention {suf} H=15",
+                      win.window_attention_cuda(q15, k15, v15, w2),
+                      win.window_attention_plain(q15, k15, v15, w2),
+                      ATTN_TOL)
+    rate(f"window_attention {suf} H=15",
+         timed(torch, lambda: win.KERNEL.relaunch(1)),
+         4 * es * B * T * (H - 1) * Dh)
+    del qp, kp, vp, q15, k15, v15
+    q, k, v = qkv_views(T)
+    err, eq = agree(torch, f"window_attention {suf}",
+                    win.window_attention_cuda(q, k, v, w2),
+                    win.window_attention_plain(q, k, v, w2), ATTN_TOL)
+    say(f"  window_attention {suf} errors: padded {err_p:.3g}, H=15 "
+        f"{err_15:.3g}, full-res {err:.3g}")
+    qw, kw, vw = (t.reshape(B, T // w2, w2, H, Dh).permute(0, 1, 3, 2, 4)
+                  .reshape(-1, H, w2, Dh).contiguous() for t in (q, k, v))
+    nbytes = 4 * es * B * T * H * Dh
+    r = record("window_attention", max(err, err_p, err_15), win.KERNEL,
+               lambda: win.window_attention_plain(q, k, v, w2),
+               lambda: F.scaled_dot_product_attention(qw, kw, vw), nbytes,
+               products * 4 * B * (T // w2) * H * w2 * w2 * Dh, attn_peak,
+               equal_frac=eq)
+    rate(f"window_attention {suf}", r["ms"], nbytes)
+    del qw, kw, vw
+
+    # flash attention: the unmasked global blocks after restoration; a
+    # causal GQA call and the extra cases first, each causal and not (the
+    # kernel keeps both options)
+    errs = {}
+    for (fb, ft, fs, fh, fkv, fd) in ((1, 1000, 1000, H, 4, Dh),) \
+            + FLASH_CASES:
+        qs, ks, vs = rnd(fb, ft, fh, fd), rnd(fb, fs, fkv, fd), \
+            rnd(fb, fs, fkv, fd)
+        for causal in (True, False):
+            key = (fb, ft, fs, fh, fkv, fd, causal)
+            errs[key], _ = agree(
+                torch, f"flash_attention {suf} {key}",
+                flash.flash_attention_cuda(qs, ks, vs, causal=causal),
+                flash.flash_attention_plain(qs, ks, vs, causal=causal),
+                ATTN_TOL)
+    say(f"  flash_attention {suf} max errors by (B, T, S, H, KV, Dh, "
+        f"causal): { {k: float(f'{e:.3g}') for k, e in errs.items()} }")
+    err, eq = agree(torch, f"flash_attention {suf}",
+                    flash.flash_attention_cuda(q, k, v),
+                    flash.flash_attention_plain(q, k, v), ATTN_TOL)
+    qf, kf, vf = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+    record("flash_attention", max(err, *errs.values()), flash.KERNEL,
+           lambda: flash.flash_attention_plain(q, k, v),
+           lambda: F.scaled_dot_product_attention(qf, kf, vf),
+           4 * es * B * T * H * Dh, products * 4 * B * H * T * T * Dh,
+           attn_peak, equal_frac=eq)
+    del q, k, v, qf, kf, vf
+    torch.cuda.empty_cache()
+    lm_kernels = lm_kernel_checks(torch, F, flash, dev, gen, put, dt)
+
+    # nn_upsample: the LOW windows of a beta-0 wave, (B * nR, w, w, D)
+    x = rnd(B * nR, part.window, part.window, D)
+    got = pool.nn_upsample_cuda(x, 2)
+    same("nn_upsample", got, pool.nn_upsample_plain(x, 2))
+    xc = x.permute(0, 3, 1, 2)
+    record("nn_upsample", 0.0, pool.UPSAMPLE,
+           lambda: pool.nn_upsample_plain(x, 2),
+           lambda: F.interpolate(xc, scale_factor=2, mode="nearest"),
+           es * (x.numel() + got.numel()), 0)
+    del x, xc, got
+
+    # int8_matmul: the quantized model's GEMMs, bit-equal, out_dtype dt;
+    # then a ragged shape that masks M, N and K
+    gemm = gemm_checks(torch, i8, qt, dev, gen, cfg.n_layers, dt)
+    by = {b: sum(r["bound_ms"] for r in gemm if r["bound_by"] == b)
+          for b in ("bytes", "operations")}
+    put("int8_matmul", 0.0, *(sum(r[k] for r in gemm)
+                              for k in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms")),
+        max(by, key=by.get), sum(r["device_us"] for r in gemm), dt=dt)
+    return gemm, lm_kernels
+
+
+def agree(torch, name, got, want, tol):
+    """A kernel against its plain version on the same inputs: at float32
+    every element within ``tol``; at fp16 / bf16 by :func:`half_close`.
+    Returns (largest difference, bit-equal share)."""
+    if got.dtype != torch.float32:
+        return half_close(torch, name, got, want, tol)
+    err = float((got - want).abs().max())
+    check(want.dtype == torch.float32 and err <= tol,
+          f"{name}: max error {err} > {tol}")
+    return err, float((got == want).float().mean())
 
 
 def _marked(torch, fn, name):
@@ -3398,12 +3626,14 @@ def profile_lm(torch, name, run_wave, wall_s, steps=LM_NEW - 1):
     return out
 
 
-def lm_cross_check(torch, cfg, dev, phase=8, T=LM_T):
+def lm_cross_check(torch, cfg, dev, phase=8, T=LM_T, dtype=None,
+                   rtol=LM_RTOL):
     """A few layers of a full-width LM on the card and, through the plain
     versions, on the CPU: prefill logits and 8 teacher-forced decode
-    steps, each to LM_RTOL of its largest magnitude.  A dense model runs
+    steps, each to ``rtol`` of its largest magnitude.  A dense model runs
     plain and mixed at beta 2; an SSM model also compares the hidden
-    states of ``mixed_forward_ssm`` at beta 2 (half the spans pooled)."""
+    states of ``mixed_forward_ssm`` at beta 2 (half the spans pooled).
+    ``dtype`` casts the tree (``qtensor.cast_tree``) first."""
     from repro_torch.core import seq_mixed_res as smr
     from repro_torch.models import registry
     from repro_torch.models import transformer as tfm
@@ -3413,6 +3643,9 @@ def lm_cross_check(torch, cfg, dev, phase=8, T=LM_T):
     torch.set_num_threads(os.cpu_count() or 1)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     p_gpu = registry.init_params(cfg, gen, device=dev)
+    if dtype is not None:
+        from repro_torch.quant import qtensor as qt
+        p_gpu = qt.cast_tree(p_gpu, dtype)
     p_cpu = to_device(p_gpu, torch.device("cpu"))
     B, n_dec = 2, 8
     rng = np.random.default_rng(SEED + 3)
@@ -3454,10 +3687,9 @@ def lm_cross_check(torch, cfg, dev, phase=8, T=LM_T):
         check(all(np.isfinite(rel)), f"{kind}: non-finite logits")
         worst[kind] = {"prefill": rel[0], "decode_max": max(rel[1:])}
         say(f"  {kind}: prefill logits max relative error {rel[0]:.3g}, "
-            f"{n_dec} decode steps max {max(rel[1:]):.3g} (limit {LM_RTOL}); "
+            f"{n_dec} decode steps max {max(rel[1:]):.3g} (limit {rtol}); "
             f"{time.perf_counter() - t0:.1f} s")
-        check(max(rel) <= LM_RTOL, f"{kind}: card vs CPU {max(rel)} > "
-              f"{LM_RTOL}")
+        check(max(rel) <= rtol, f"{kind}: card vs CPU {max(rel)} > {rtol}")
     if cfg.family == "ssm":
         pk = {k: torch.as_tensor(v.astype(np.int64)) for k, v in pack.items()}
         with torch.no_grad():
@@ -3655,7 +3887,7 @@ def ssd_cost(b, T, H, G, N, P, chunk, init_state=False):
     return nbytes, ops
 
 
-TRACE_TRIES = 3   # traces kernel_breakdown takes before a kernel is untraced
+TRACE_TRIES = 5   # traces kernel_breakdown takes before a kernel is untraced
 
 
 def kernel_breakdown(torch, fn, names, n=20):
@@ -3663,16 +3895,19 @@ def kernel_breakdown(torch, fn, names, n=20):
     name holds one of ``names`` (a trace of ``n`` calls).  CUPTI now and
     then returns a trace that lacks the device activity of a kernel that
     did run (the launches are counted and checked elsewhere), so a trace
-    in which a kernel reads 0 is taken again, up to TRACE_TRIES traces;
-    the check fails only if no trace sees every kernel."""
+    in which a kernel reads 0 is taken again, up to TRACE_TRIES traces,
+    each of twice the calls of the one before (a short trace is the one
+    CUPTI loses whole); the check fails only if no trace sees every
+    kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, TRACE_TRIES + 1):
+        calls = n << (attempt - 1)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us = dict.fromkeys(names, 0.0)
@@ -3680,11 +3915,13 @@ def kernel_breakdown(torch, fn, names, n=20):
             if e.device_type == DeviceType.CUDA:
                 key = next((k for k in names if k in e.name), None)
                 if key:
-                    us[key] += e.time_range.elapsed_us() / n
+                    us[key] += e.time_range.elapsed_us() / calls
         if all(us.values()):
             return us
+        seen = sorted({e.name[:60] for e in prof.events()
+                       if e.device_type == DeviceType.CUDA})
         say(f"  kernel_breakdown: trace {attempt} of {TRACE_TRIES} lacks "
-            f"device time in {us}")
+            f"device time in {us}; its device events: {seen[:8]}")
     check(False, f"kernel_breakdown: untraced kernels in {us} after "
           f"{TRACE_TRIES} traces")
 
@@ -3874,14 +4111,15 @@ def exact_lane_cpu(torch, cfg, dev, low_plans, reuse_plans):
 
 
 def host_cache_runs(torch, srv, lo, clips, trace, size_e, acc_e, inf_delay,
-                    count):
+                    count, tag="", phase="18 (on phase 13's server)"):
     """Phase 18: ViTMAlis+Reuse on parkS with the server's FeatureCache
     host-resident (``device_cache=False``) and device-resident: the same
     offloads with equal detections, tile bytes an offload above 0 in host
-    mode and 0 in device mode, and the server's ms an offload in each."""
+    mode and 0 in device mode, and the server's ms an offload in each.
+    ``tag`` names a half server's runs (phase 21)."""
     from repro_torch.kernels import dispatch
     policy, video = "ViTMAlis+Reuse", "parkS"
-    say(f"phase 18 (on phase 13's server): {policy} on {video}, "
+    say(f"phase {phase}: {policy} on {video}, "
         f"{OFFLOAD_FRAMES} frames, FeatureCache host-resident and "
         f"device-resident")
     frames, gt = clips[video]
@@ -3896,7 +4134,7 @@ def host_cache_runs(torch, srv, lo, clips, trace, size_e, acc_e, inf_delay,
         sim, _ = lo.run_policy(srv, frames, gt, trace, pol, part, patch,
                                inf_delay, video)
         launches = dispatch.launch_counts()  # ... and ends here
-        count(f"offload {mode} cache {policy} {video}", launches)
+        count(f"offload {mode} cache {tag}{policy} {video}", launches)
         jobs[mode] = sim.jobs
         d2h, h2d = st.tile_bytes_d2h - before[0], st.tile_bytes_h2d - before[1]
         n = st.offloads - before[2]
@@ -3934,6 +4172,7 @@ def host_cache_runs(torch, srv, lo, clips, trace, size_e, acc_e, inf_delay,
     check(out["device"]["tile_bytes_per_offload"] == 0,
           "device cache moved tile bytes")
     say(f"  detections equal over {len(jobs['host'])} offloads")
+    out["decisions"] = decisions(jobs["host"])
     return out
 
 
@@ -4061,12 +4300,13 @@ def lm_int8(torch, cfg, dev, fp32, count):
     return out
 
 
-def lm_engine(torch, cfg, params, dev, new=LM_NEW):
-    """A ServeEngine for plain waves of LM_B x LM_T + ``new``, warmed."""
+def lm_engine(torch, cfg, params, dev, new=LM_NEW, cache_dtype=None):
+    """A ServeEngine for plain waves of LM_B x LM_T + ``new``, warmed,
+    its caches in ``cache_dtype`` (float32 by default)."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     eng = ServeEngine(cfg, params, ServeConfig(
         max_batch=LM_B, max_len=LM_T + new + 8, buckets=(LM_T,),
-        device=str(dev)))
+        device=str(dev), cache_dtype=cache_dtype or torch.float32))
     return eng, eng.warmup()
 
 
@@ -4187,41 +4427,353 @@ def lm_int8_hybrid(torch, cfg, dev, count):
 
 
 # ---------------------------------------------------------------------------
+# the ViT half-precision lanes (phase 21)
+
+
+def vit_half_phase(torch, cfg, dev, count, plans, lat):
+    """Phase 21: full-width ViTDet-L (seed 0) served through
+    ``ServerModel(quant=spec)`` for each of HALF_SPECS (the reference's
+    shipped ``int8+fp16-p1``, an fp16 tree, a bf16 tree): compression on
+    the card, warmup on phase 3's plan space (the float32 grid's keys),
+    a full-resolution wave capturing tiles, a mixed beta-2 wave at bucket
+    48 splicing REUSE tiles from them, a beta-0 wave and the exact lane
+    at beta 2.  Every wave finite, no steady first use.  Two paths a
+    spec, each with its launches and its half launches, the counts set
+    to 0 just before it and read just after: the compression (the
+    server's construction, ``vitdet-l <spec> compress``), where
+    ``avg_pool`` must launch at half (it pools the half positional
+    grid), and the served waves and the exact lane (``vitdet-l
+    <spec>``), where window, flash, pack_pos, restore_gather and
+    nn_upsample must launch at half, and ``int8_matmul`` in the int8
+    lane.  A served wave pools its frame in float32, as the reference
+    does (the frame is float32; the patch embedding casts after the
+    pool).  Wave ms beside phase 3's float32 and phase 5's int8 + fp32
+    from this run.  Then 8-block full-width trees card
+    vs CPU within the CPU tests' limits (HALF_E2E_RTOL)."""
+    from repro_torch import convert
+    from repro_torch.core import partition as pt
+    from repro_torch.core import vit_backbone as vb
+    from repro_torch.kernels import dispatch
+    from repro_torch.offload.simulator import ServerModel
+    from repro_torch.quant.ptq import QuantSpec, compress
+    from repro_torch.serve.request import FeatureCache
+
+    t_phase = time.perf_counter()
+    say(f"phase 21: the ViT half lanes, {cfg.name} {cfg.n_layers} blocks "
+        f"D={cfg.d_model}, B={B}: {[QuantSpec(*s).name for s in HALF_SPECS]}")
+    out = {"specs": {}}
+    seen = {"f16": set(), "bf16": set()}         # the served paths
+    pooled = {"f16": set(), "bf16": set()}       # the compressions
+    for spec in HALF_SPECS:
+        name = QuantSpec(*spec).name
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = convert.init_vitdet_params(cfg, gen, device=dev)
+        t0 = time.perf_counter()
+        dispatch.reset_launch_counts()      # the compression starts here
+        srv = ServerModel(cfg, params, b_buckets=(1, 2), device=dev,
+                          quant=QuantSpec(*spec))
+        del params
+        torch.cuda.synchronize()
+        comp = dispatch.launch_counts()     # ... and ends here
+        rep = srv.quant_report
+        suf = {torch.float16: "f16", torch.bfloat16: "bf16"}[srv.act_dtype]
+        comp_half = dispatch.launch_counts(suf)
+        count(f"vitdet-l {name} compress", comp)
+        pooled[suf] |= {k for k, v in comp_half.items() if v}
+        nR = srv.part.n_regions
+        b0 = beta0_plans(pt, nR)
+        space = srv.default_plan_space([BETA], reuse_edges=(0, 4),
+                                       captures=(BETA,))
+        space += [(int(p.n_low), 0, 0, 0) for p in b0]
+        srv.warmup(space, (1, 2))
+        check(sorted(srv._keys) == lat["grid_keys"],
+              f"{name}: grid keys differ from float32's")
+        full = [pt.RegionPlan(np.zeros(nR, np.int8)) for _ in range(B)]
+        caches = [FeatureCache(nR) for _ in range(B)]
+        frames = [torch.rand((B, *cfg.vit.img_size, 3), generator=gen,
+                             device=dev) for _ in range(2)]
+        low_plans, _ = exact_plans(pt, nR)
+        (fi, li, _), _, _ = lane_inputs(torch, pt, srv.part, low_plans, dev)
+
+        def wave(i, wplans, beta=BETA, **kw):
+            t = time.perf_counter()
+            pend = srv.infer_wave(frames[i], wplans, beta,
+                                  caches=caches if beta else None,
+                                  frame_ids=[i] * B if beta else None,
+                                  defer=True, **kw)
+            check(bool(torch.isfinite(pend.boxes).all()
+                       and torch.isfinite(pend.scores).all()),
+                  f"{name} wave {i} beta {beta}: non-finite detections")
+            check(len(pend.wait()) == B, f"{name}: wrong detection count")
+            return time.perf_counter() - t
+
+        def exact():
+            with torch.no_grad():
+                o = vb.forward_det(srv.cfg, srv.params, frames[1], fi, li,
+                                   BETA)
+            check(all(bool(torch.isfinite(t).all()) for lvl in o
+                      for t in lvl.values() if isinstance(t, torch.Tensor)),
+                  f"{name}: exact lane non-finite")
+
+        dispatch.reset_launch_counts()      # the served path starts here
+        firsts = (wave(0, full, capture_beta=BETA), wave(1, plans),
+                  wave(1, b0, beta=0))
+        exact()
+        launches = dispatch.launch_counts()  # ... and ends here
+        half = dispatch.launch_counts(suf)
+        count(f"vitdet-l {name}", launches)
+        seen[suf] |= {k for k, v in half.items() if v}
+        check(srv.stats.steady_compiles == 0,
+              f"{name}: steady-state first uses "
+              f"{srv.stats.steady_compile_keys}")
+        for c in caches:
+            check(c.tiles is not None and c.tiles.dtype == srv.act_dtype
+                  and bool(torch.isfinite(c.tiles).all()),
+                  f"{name}: cached tiles missing, non-finite or not "
+                  f"{srv.act_dtype}")
+        ms = {"full_res": statistics.median(
+                  wave(0, full, capture_beta=BETA) for _ in range(3)) * 1e3,
+              "mixed": statistics.median(wave(1, plans)
+                                         for _ in range(3)) * 1e3,
+              "beta0": statistics.median(wave(1, b0, beta=0)
+                                         for _ in range(3)) * 1e3,
+              "exact_beta2": timed(torch, exact, target_ms=300)}
+        check(srv.stats.steady_compiles == 0, f"{name}: steady first uses")
+        r = {"act_dtype": str(srv.act_dtype), "bytes": rep["bytes"],
+             "bytes_fp32": rep["bytes_fp32"], "ratio": rep["ratio"],
+             "heads": srv.cfg.n_heads, "init_warmup_s": time.perf_counter()
+             - t0, "first_s": firsts, "wave_ms": ms,
+             "launches": {k: v for k, v in launches.items() if v},
+             f"launches_{suf}": {k: v for k, v in half.items() if v},
+             "compress_launches": {k: v for k, v in comp.items() if v},
+             f"compress_launches_{suf}": {k: v for k, v in comp_half.items()
+                                          if v}}
+        out["specs"][name] = r
+        say(f"  {name} ({srv.act_dtype}): {rep['bytes_fp32']} -> "
+            f"{rep['bytes']} bytes (ratio {rep['ratio']:.4f}), heads "
+            f"{srv.cfg.n_heads}; waves ms (B={B}): full-res "
+            f"{ms['full_res']:.1f}, mixed beta {BETA} {ms['mixed']:.1f}, "
+            f"beta 0 {ms['beta0']:.1f}, exact lane beta {BETA} "
+            f"{ms['exact_beta2']:.1f}; steady first uses 0")
+        say(f"    served launches {json.dumps(r['launches'])}; at {suf} "
+            f"{json.dumps(r[f'launches_{suf}'])}")
+        say(f"    compression launches {json.dumps(r['compress_launches'])};"
+            f" at {suf} {json.dumps(r[f'compress_launches_{suf}'])}")
+        del srv, caches, frames
+        torch.cuda.empty_cache()
+    q = lat["quant"]
+    out["fp32_ms"] = {"full_res": lat["full_res_median_s"] * 1e3,
+                      "mixed": lat["mixed_median_s"] * 1e3,
+                      "beta0": lat["beta0_median_s"] * 1e3}
+    out["int8_fp32_ms"] = {"full_res": q["full_res_median_s"] * 1e3,
+                           "mixed": q["mixed_median_s"] * 1e3}
+    say(f"  beside (this run): fp32 full-res {out['fp32_ms']['full_res']:.1f}"
+        f" / mixed {out['fp32_ms']['mixed']:.1f} / beta 0 "
+        f"{out['fp32_ms']['beta0']:.1f} ms (phase 3); int8+fp32-p1 "
+        f"{out['int8_fp32_ms']['full_res']:.1f} / "
+        f"{out['int8_fp32_ms']['mixed']:.1f} ms (phase 5)")
+    out["half_kernels"] = {k: sorted(v) for k, v in seen.items()}
+    out["half_kernels_compress"] = {k: sorted(v) for k, v in pooled.items()}
+    want = ("window_attention", "flash_attention", "pack_pos",
+            "restore_gather", "nn_upsample")
+    for suf, got in seen.items():
+        missing = [k for k in want + (("int8_matmul",) if suf == "f16"
+                                      else ()) if k not in got]
+        check(not missing, f"phase 21: never launched at {suf} on a served "
+              f"path: {missing}")
+        check("avg_pool" in pooled[suf], f"phase 21: avg_pool never "
+              f"launched at {suf} in a compression")
+    say(f"  half launches, served: {out['half_kernels']}; compression: "
+        f"{out['half_kernels_compress']}")
+    out["card_vs_cpu"] = {}
+    for spec in HALF_E2E:
+        name = QuantSpec(*spec).name
+        say(f"  8-block full-width {name} tree, card vs CPU "
+            f"(limit {HALF_E2E_RTOL[name]})")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        c8 = cfg.replace(n_layers=8)
+        p_gpu = convert.init_vitdet_params(c8, gen, device=dev)
+        qcfg, p_gpu, _ = compress(c8, p_gpu, QuantSpec(*spec))
+        out["card_vs_cpu"][name] = compare_on_cpu(
+            torch, qcfg, dev, gen, p_gpu, plans, pt, vb, HALF_E2E_RTOL[name])
+        del p_gpu
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 21: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the LM half-precision lanes (phase 22)
+
+
+def lm_half_phase(torch, cfg, dev, fp32, count):
+    """Phase 22: full-width Qwen3-4B (seed 0, phase 7's weights and
+    prompts) served through ``ServeEngine`` in plain waves of LM_B x LM_T
+    + LM_NEW tokens on each of LM_HALF_LANES: a bf16 tree and an fp16
+    tree (``qtensor.cast_tree``, float32 caches) and a float32 tree over
+    a bf16 cache (``ServeConfig.cache_dtype``).  For each: weight GB,
+    prefill and decode-step ms, ``flash_attention`` at half in the
+    prefill of a half tree and ``decode_attention`` at half in every
+    decode step (its q or its cache half), finite prefill logits (gated
+    on bf16; printed on fp16, whose range a 36-layer seeded model may
+    leave), and greedy agreement with phase 7's float32 tokens (printed,
+    not gated).  Then mamba2-370m and zamba2-1.2b serve one bf16 wave each
+    (``ssd_scan`` on float32 casts, as in the reference), and a 2-layer
+    full-width bf16 Qwen3 card vs CPU to LM_BF16_RTOL."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.quant import qtensor as qt
+
+    t_phase = time.perf_counter()
+    say(f"phase 22: the LM half lanes, {cfg.name} {cfg.n_layers} layers "
+        f"D={cfg.d_model}, waves of {LM_B} x {LM_T} + {LM_NEW} tokens: "
+        f"{[name for name, _, _ in LM_HALF_LANES]}")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, LM_T).astype(np.int32)
+               for _ in range(LM_B)]
+    ref = fp32["plain"]
+    steps = LM_NEW - 1
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p32 = registry.init_params(cfg, gen, device=dev)
+    out = {"lanes": {}}
+    for name, tree_dt, cache_dt in LM_HALF_LANES:
+        tree_dt, cache_dt = getattr(torch, tree_dt), getattr(torch, cache_dt)
+        params = p32 if tree_dt == torch.float32 else \
+            qt.cast_tree(p32, tree_dt)
+        torch.cuda.synchronize()
+        gb = qt.tree_bytes(params) / 1e9
+        half = cache_dt if cache_dt != torch.float32 else tree_dt
+        suf = {torch.float16: "f16", torch.bfloat16: "bf16"}[half]
+        eng, n_keys = lm_engine(torch, cfg, params, dev,
+                                cache_dtype=cache_dt)
+        dispatch.reset_launch_counts()      # this lane starts here
+        first, tokens = lm_wave(eng, cfg, prompts)
+        launches = dispatch.launch_counts()  # ... and ends here
+        at_half = dispatch.launch_counts(suf)
+        count(f"{cfg.name} {name}", launches)
+        want = {"decode_attention": cfg.n_layers * steps}
+        if tree_dt != torch.float32:
+            want["flash_attention"] = cfg.n_layers
+        check(all(at_half[k] == n and launches[k] == n
+                  for k, n in want.items()),
+              f"{name}: launches {launches}, at {suf} {at_half}, want {want}")
+        walls = [lm_wave(eng, cfg, prompts)[0] for _ in range(3)]
+        times = lm_phase_times(torch, eng, cfg, prompts, None, False)
+        check(eng.stats.steady_compiles == 0,
+              f"{name}: steady first uses {eng.stats.steady_compile_keys}")
+        with torch.no_grad():
+            state = eng._state(LM_B)
+            toks = torch.as_tensor(np.stack(prompts).astype(np.int64),
+                                   device=dev)
+            h, _, _ = registry.prefill(cfg, params, {"tokens": toks}, state)
+            logits = tfm.logits_from_hidden(cfg, params, h[:, -1:])
+            finite = bool(torch.isfinite(logits).all())
+            hidden_max = float(h.float().abs().max())
+        if name != "fp16":
+            check(finite, f"{name}: non-finite prefill logits")
+        same = sum(a == b for g, w in zip(tokens, ref["tokens"])
+                   for a, b in zip(g, w))
+        r = {"weight_gb": gb, "first_s": first,
+             "median_s": statistics.median(walls), **times,
+             "logits_finite": finite, "last_hidden_absmax": hidden_max,
+             "token_agreement_with_fp32": same / (LM_B * LM_NEW),
+             "launches": {k: v for k, v in launches.items() if v},
+             f"launches_{suf}": {k: v for k, v in at_half.items() if v},
+             "warmup_keys": n_keys}
+        out["lanes"][name] = r
+        say(f"  {name}: weights {gb:.3f} GB; wave first {first:.4f} s, "
+            f"median {r['median_s']:.4f} s (fp32 {ref['median_s']:.4f}); "
+            f"prefill {times['prefill_ms']:.3f} ms (fp32 "
+            f"{ref['prefill_ms']:.3f}), decode {times['decode_step_ms']:.3f}"
+            f" ms/step (fp32 {ref['decode_step_ms']:.3f}); prefill logits "
+            f"{'finite' if finite else 'NOT finite'} (last hidden |max| "
+            f"{hidden_max:.4g}); greedy tokens equal to fp32's {same} of "
+            f"{LM_B * LM_NEW} (not gated)")
+        say(f"    launches {json.dumps(r['launches'])}; at {suf} "
+            f"{json.dumps(r[f'launches_{suf}'])}")
+        del eng, params, state, h, logits
+        torch.cuda.empty_cache()
+    del p32
+    torch.cuda.empty_cache()
+    from repro_torch.configs.mamba2_370m import CONFIG as MAMBA
+    from repro_torch.configs.zamba2_1p2b import CONFIG as ZAMBA
+    for c in (MAMBA, ZAMBA):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = qt.cast_tree(registry.init_params(c, gen, device=dev),
+                              torch.bfloat16)
+        p_rng = np.random.default_rng(SEED)
+        ps = [p_rng.integers(0, c.vocab_size, LM_T).astype(np.int32)
+              for _ in range(LM_B)]
+        eng, _ = lm_engine(torch, c, params, dev)
+        dispatch.reset_launch_counts()      # this wave starts here
+        wall, _ = lm_wave(eng, c, ps)
+        launches = dispatch.launch_counts()  # ... and ends here
+        at_half = dispatch.launch_counts("bf16")
+        count(f"{c.name} bf16", launches)
+        n_attn = c.n_layers // 6 if c.family == "hybrid" else 0
+        check(launches["ssd_scan"] == c.n_layers
+              and at_half["flash_attention"] == n_attn
+              and at_half["decode_attention"] == n_attn * steps,
+              f"{c.name} bf16: launches {launches}, bf16 {at_half}")
+        check(eng.stats.steady_compiles == 0, f"{c.name} bf16: steady "
+              f"first use")
+        out[c.name] = {"wall_s": wall, "weight_gb": qt.tree_bytes(params)
+                       / 1e9, "launches": {k: v for k, v in launches.items()
+                                           if v},
+                       "launches_bf16": {k: v for k, v in at_half.items()
+                                         if v}}
+        say(f"  {c.name} bf16: {out[c.name]['weight_gb']:.3f} GB; wave of "
+            f"{LM_B} x {LM_T} + {LM_NEW} in {wall:.3f} s; launches "
+            f"{json.dumps(out[c.name]['launches'])}; at bf16 "
+            f"{json.dumps(out[c.name]['launches_bf16'])}")
+        del eng, params
+        torch.cuda.empty_cache()
+    out["card_vs_cpu"] = lm_cross_check(
+        torch, cfg.replace(n_layers=2), dev, phase=22, dtype=torch.bfloat16,
+        rtol=LM_BF16_RTOL)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 22: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the calibration gate (phase 20)
 
 
 def calibrate_phase(torch, cfg, dev, count):
     """Phase 20: ``quant.calibrate`` on full-width ViTDet-L (seed 0) with
-    the int8 + fp32 rungs with and without one pruned head, ``parkS`` /
-    ``driveN``, CALIB_FRAMES frames, top-k 32 at score 0: the deltas, the
-    shipped spec and the wall.  The default ladder's half rungs raise."""
+    its default ladder (``ptq.DEFAULT_CANDIDATES``: int8+fp16-p1,
+    int8+fp16, int8, fp16+fp16, most compressed first), ``parkS`` /
+    ``driveN``, CALIB_FRAMES frames, top-k 32 at score 0: each rung's
+    bytes and deltas, the shipped spec and the wall.  The half rungs run
+    the kernels' half entry points."""
     from repro_torch import convert
     from repro_torch.kernels import dispatch
     from repro_torch.quant import calibrate as cal
-    from repro_torch.quant.ptq import QuantSpec
+    from repro_torch.quant.ptq import DEFAULT_CANDIDATES
 
     say(f"phase 20: calibration gate, {cfg.name} {cfg.n_layers} blocks, "
-        f"{CALIB_FRAMES} frames of {cal.SCENARIOS}, candidates "
-        f"int8+fp32 p0 / p1, top-k 32, score threshold 0")
+        f"{CALIB_FRAMES} frames of {cal.SCENARIOS}, the default ladder "
+        f"{[c.name for c in DEFAULT_CANDIDATES]}, top-k 32, score "
+        f"threshold 0")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = convert.init_vitdet_params(cfg, gen, device=dev)
     kw = dict(device=str(dev), top_k=32, score_thresh=0.0)
-    try:
-        cal.calibrate(cfg, params, n_frames=2, server_kw=kw)
-    except NotImplementedError as e:
-        say(f"  default ladder refused: {e}")
-    else:
-        raise SmokeFailure("calibrate ran the default ladder's half rungs")
     t0 = time.perf_counter()
     dispatch.reset_launch_counts()          # the calibration starts here
-    rep = cal.calibrate(cfg, params,
-                        candidates=[QuantSpec("int8", "fp32", p)
-                                    for p in (0, 1)],
-                        n_frames=CALIB_FRAMES, server_kw=kw)
+    rep = cal.calibrate(cfg, params, n_frames=CALIB_FRAMES, server_kw=kw)
     launches = dispatch.launch_counts()     # ... and ends here
+    half = dispatch.launch_counts("f16")
     wall = time.perf_counter() - t0
     count("calibrate vitdet-l", launches)
-    check(launches["int8_matmul"] > 0, "calibrate ran no int8 GEMM")
+    check(rep.points[0].spec.name == DEFAULT_CANDIDATES[0].name,
+          f"the ladder did not start at its most compressed rung: "
+          f"{[p.spec.name for p in rep.points]}")
+    check(launches["int8_matmul"] > 0 and half["int8_matmul"] > 0,
+          f"calibrate ran no fp16-output int8 GEMM: {launches}, fp16 {half}")
+    check(half["window_attention"] > 0 and half["flash_attention"] > 0,
+          f"calibrate's half rungs launched no half attention: {half}")
     points = []
     for p in rep.points:
         check(all(np.isfinite(d) for d in p.deltas.values()),
@@ -4234,14 +4786,16 @@ def calibrate_phase(torch, cfg, dev, count):
                                    p.deltas.items())
             + f" (bound {rep.bound}): {'pass' if p.passed else 'fail'}")
     shipped = rep.shipped.name if rep.shipped else None
-    say(f"  shipped {shipped}; {wall:.1f} s.  On seeded weights this "
-        f"measures agreement with the fp32 model's detections, not "
-        f"accuracy")
+    say(f"  shipped {shipped}; {wall:.1f} s; fp16 launches "
+        f"{json.dumps({k: v for k, v in half.items() if v})}.  On seeded "
+        f"weights these deltas measure agreement with the fp32 model's "
+        f"detections, not accuracy")
     del params
     torch.cuda.empty_cache()
     return {"points": points, "shipped": shipped, "bound": rep.bound,
             "bytes_fp32": rep.bytes_fp32, "wall_s": wall,
-            "launches": {k: v for k, v in launches.items() if v}}
+            "launches": {k: v for k, v in launches.items() if v},
+            "launches_f16": {k: v for k, v in half.items() if v}}
 
 
 def device_us(torch, fn, frag, n=20):

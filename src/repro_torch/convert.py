@@ -45,15 +45,24 @@ def _is_quant(x) -> bool:
     return all(hasattr(x, a) for a in ("q", "scale", "out_dtype"))
 
 
+# float leaves that keep their type; any other float leaf becomes float32
+_HALF = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
 def _t(x, device):
-    """A float leaf -> float32 tensor; a QuantTensor leaf -> the port's
-    QuantTensor (codes and scales byte for byte)."""
+    """A float leaf -> a float32 tensor, or an fp16 / bf16 one where the
+    leaf is half (bf16 arrives as ``ml_dtypes.bfloat16``, which torch
+    cannot read: it goes through float32, exactly both ways); a
+    QuantTensor leaf -> the port's QuantTensor (codes and scales byte for
+    byte, its output type kept)."""
     if _is_quant(x):
         return qt.QuantTensor(
             torch.tensor(np.asarray(x.q, dtype=np.int8), device=device),
             torch.tensor(np.asarray(x.scale, dtype=np.float32).reshape(-1),
                          device=device), str(x.out_dtype))
-    return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+    a = np.asarray(x)
+    t = torch.tensor(a.astype(np.float32), device=device)
+    return t.to(_HALF[a.dtype.name]) if a.dtype.name in _HALF else t
 
 
 def _conv(p: Mapping, device) -> Dict:
@@ -65,8 +74,8 @@ def _conv(p: Mapping, device) -> Dict:
             torch.tensor(np.asarray(w.scale, np.float32).reshape(-1),
                          device=device), str(w.out_dtype), axis=0)
     else:
-        wt = _t(np.ascontiguousarray(
-            np.asarray(w, dtype=np.float32).transpose(3, 2, 0, 1)), device)
+        wt = _t(np.ascontiguousarray(np.asarray(w).transpose(3, 2, 0, 1)),
+                device)
     return {"w": wt, "b": _t(p["b"], device)}
 
 

@@ -31,9 +31,10 @@ def conv2d(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
     """NCHW SAME conv (odd square kernel), OIHW weight ``p["w"]``.  An
     int8 QuantTensor weight (scales per output channel O) dequantizes at
     entry, as the reference's does: the int8 gain in the head is the
-    smaller resident weight, not an int8 convolution."""
+    smaller resident weight, not an int8 convolution.  ``x`` takes the
+    weight's type (the half lanes: cuDNN's fp16 / bf16 convolution)."""
     w = qt.asarray(p["w"])
-    return F.conv2d(x, w, p["b"], padding=w.shape[-1] // 2)
+    return F.conv2d(x.to(w.dtype), w, p["b"], padding=w.shape[-1] // 2)
 
 
 def det_head_forward(cfg: ModelConfig, p, feats: torch.Tensor

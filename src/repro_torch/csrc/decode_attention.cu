@@ -1,4 +1,4 @@
-// One-token GQA decode attention against a KV cache, float32.
+// One-token GQA decode attention against a KV cache, float32 arithmetic.
 //
 // Replaces src/repro/kernels/decode_attention/kernel.py:
 // decode_attention_kernel (_decode_kernel).  q: (B, 1, H, Dh); k/v:
@@ -37,6 +37,17 @@
 // would break parity).  The warps of a block, then the blocks of the
 // cluster, merge their partial softmaxes; rank 0 reads the others'
 // through distributed shared memory, all at once, and writes the output.
+//
+// Element types (common.cuh).  The reference casts q, k and v to float32
+// each on load, so q's type and the cache's may differ (fp16 weights over
+// the default float32 cache, float32 weights over a bf16 cache).  The
+// kernel is a template over the cache's type, exported as
+// decode_attention_{f32,f16,bf16}; q's type (and the output's, which is
+// q's) is an argument, 0 / 1 / 2 for float32 / fp16 / bf16, read once a
+// block.  A half cache converts to float while staged: plain 16-byte
+// loads of 8 elements, stored as two float4 slots of the same ring, so
+// the arithmetic reads float32 at every type; the cache's bytes, which
+// bound the kernel, halve.
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -102,11 +113,27 @@ __device__ __forceinline__ int slot(int row, int c) {
 // keys, so more independent chains, where the group has few heads).
 // P V: Dh / 4 lanes cover one V row, 32 * 4 / Dh rows at a time, each
 // key's p broadcast by a shuffle.
-template <int DH, int GT, int HB>
+// Four consecutive elements of q (type code qdt) at element offset off
+// (a multiple of 4), as floats; and four outputs, rounded once.
+__device__ __forceinline__ float4 load_q4(const void* q, int qdt,
+                                          long long off) {
+  if (qdt == 1) return load4(static_cast<const __half*>(q) + off);
+  if (qdt == 2) return load4(static_cast<const __nv_bfloat16*>(q) + off);
+  return load4(static_cast<const float*>(q) + off);
+}
+
+__device__ __forceinline__ void store_o4(void* out, int qdt, long long off,
+                                         float4 v) {
+  if (qdt == 1) store4(static_cast<__half*>(out) + off, v);
+  else if (qdt == 2) store4(static_cast<__nv_bfloat16*>(out) + off, v);
+  else store4(static_cast<float*>(out) + off, v);
+}
+
+template <int DH, int GT, int HB, typename CT>
 __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const int* __restrict__ kv_len,
-    float* __restrict__ out, int S, int H, int KV, int stages,
+    const void* __restrict__ q, const CT* __restrict__ k,
+    const CT* __restrict__ v, const int* __restrict__ kv_len,
+    void* __restrict__ out, int qdt, int S, int H, int KV, int stages,
     long long sqb, long long skb, long long skt, long long svb,
     long long svt, float scale) {
   static_assert(HB == 1 || (HB == kWarps && GT == 1), "HB");
@@ -156,17 +183,32 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   const int n_keys = max(0, min(s0 + run, len) - s0);
   const int n_tiles = (n_keys + TK - 1) / TK;
 
-  const float* kb = k + b * skb + static_cast<long long>(kvh) * DH;
-  const float* vb = v + b * svb + static_cast<long long>(kvh) * DH;
+  const CT* kb = k + b * skb + static_cast<long long>(kvh) * DH;
+  const CT* vb = v + b * svb + static_cast<long long>(kvh) * DH;
   auto load = [&](int t) {       // tile t of the split into its stage
     float4* ks = smem4 + (t % stages) * STAGE;
     const int r0 = s0 + t * TK, rows = min(TK, n_keys - t * TK);
-    for (int idx = threadIdx.x; idx < rows * RW; idx += kThreads) {
-      const int i = idx / RW, c = idx % RW, dst = slot<RW>(i, c);
-      cp_async16_zfill(reinterpret_cast<float*>(ks + dst),
-                       kb + (r0 + i) * skt + 4 * c, true);
-      cp_async16_zfill(reinterpret_cast<float*>(ks + TK * RW + dst),
-                       vb + (r0 + i) * svt + 4 * c, true);
+    if constexpr (sizeof(CT) == 4) {
+      for (int idx = threadIdx.x; idx < rows * RW; idx += kThreads) {
+        const int i = idx / RW, c = idx % RW, dst = slot<RW>(i, c);
+        cp_async16_zfill(reinterpret_cast<float*>(ks + dst),
+                         kb + (r0 + i) * skt + 4 * c, true);
+        cp_async16_zfill(reinterpret_cast<float*>(ks + TK * RW + dst),
+                         vb + (r0 + i) * svt + 4 * c, true);
+      }
+    } else {           // 8 half elements a load: float4 slots 2c, 2c + 1
+      constexpr int RH = RW / 2;
+      for (int idx = threadIdx.x; idx < rows * RH; idx += kThreads) {
+        const int i = idx / RH, c = idx % RH;
+        const int d0 = slot<RW>(i, 2 * c), d1 = slot<RW>(i, 2 * c + 1);
+        float f[8];
+        load16(kb + (r0 + i) * skt + 8 * c, f);
+        ks[d0] = make_float4(f[0], f[1], f[2], f[3]);
+        ks[d1] = make_float4(f[4], f[5], f[6], f[7]);
+        load16(vb + (r0 + i) * svt + 8 * c, f);
+        ks[TK * RW + d0] = make_float4(f[0], f[1], f[2], f[3]);
+        ks[TK * RW + d1] = make_float4(f[4], f[5], f[6], f[7]);
+      }
     }
   };
   for (int t = 0; t < stages; ++t) {    // the ring's first tiles, before
@@ -179,12 +221,12 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   float4 qr[GT][QF];
 #pragma unroll
   for (int h = 0; h < GT; ++h) {
-    const float4* qrow = reinterpret_cast<const float4*>(
-        q + b * sqb + static_cast<long long>((kvh + hw) * G + g0 + h) * DH);
+    const long long qrow =
+        b * sqb + static_cast<long long>((kvh + hw) * G + g0 + h) * DH;
 #pragma unroll
     for (int i = 0; i < QF; ++i) {
       float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (h < ng) t = qrow[r + LPS * i];
+      if (h < ng) t = load_q4(q, qdt, qrow + 4 * (r + LPS * i));
       qr[h][i] = make_float4(t.x * scale, t.y * scale, t.z * scale,
                              t.w * scale);
     }
@@ -348,16 +390,16 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
       const float inv = ll > 0.0f ? 1.0f / ll : 0.0f;
       const long long row = static_cast<long long>(b) * H +
                             (kvh + hs / GT) * G + g0 + hs % GT;
-      reinterpret_cast<float4*>(out + row * DH)[c] =
-          make_float4(aa.x * inv, aa.y * inv, aa.z * inv, aa.w * inv);
+      store_o4(out, qdt, row * DH + 4 * c,
+               make_float4(aa.x * inv, aa.y * inv, aa.z * inv, aa.w * inv));
     }
   }
   cluster.sync();
 }
 
-template <int DH, int GT, int HB>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const int* kv_len, float* out, int B, int S, int H,
+template <int DH, int GT, int HB, typename CT>
+cudaError_t launch(const void* q, const CT* k, const CT* v,
+                   const int* kv_len, void* out, int qdt, int B, int S, int H,
                    int KV, int n_split, int keys_per_split, long long sqb,
                    long long skb, long long skt, long long svb,
                    long long svt, float scale, cudaStream_t stream) {
@@ -367,7 +409,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   const int stages = tiles < kMaxStages ? tiles : kMaxStages;
   const size_t smem = static_cast<size_t>(stages) * 2 * kTileFloats *
                       sizeof(float);
-  auto* kernel = decode_attention_kernel<DH, GT, HB>;
+  auto* kernel = decode_attention_kernel<DH, GT, HB, CT>;
   cudaError_t e = repro_allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
@@ -382,7 +424,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, q, k, v, kv_len, out, S, H, KV,
+  e = cudaLaunchKernelEx(&cfg, kernel, q, k, v, kv_len, out, qdt, S, H, KV,
                          stages, sqb, skb, skt, svb, svt, scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
@@ -392,17 +434,18 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 // of 4, four kv heads (HB = 4); else one kv head and a group of GT query
 // heads, G rounded up to 1, 2, 4 or 8 (larger groups take several blocks
 // of 8).  ops.py's plan counts blocks the same way.
-template <int DH>
-cudaError_t launch_g(const float* q, const float* k, const float* v,
-                     const int* kv_len, float* out, int B, int S, int H,
-                     int KV, int n_split, int keys_per_split, long long sqb,
-                     long long skb, long long skt, long long svb,
-                     long long svt, float scale, cudaStream_t stream) {
+template <int DH, typename CT>
+cudaError_t launch_g(const void* q, const CT* k, const CT* v,
+                     const int* kv_len, void* out, int qdt, int B, int S,
+                     int H, int KV, int n_split, int keys_per_split,
+                     long long sqb, long long skb, long long skt,
+                     long long svb, long long svt, float scale,
+                     cudaStream_t stream) {
   const int G = H / KV;
 #define REPRO_DECODE_LAUNCH(GT, HB)                                         \
-  return launch<DH, GT, HB>(q, k, v, kv_len, out, B, S, H, KV, n_split,   \
-                            keys_per_split, sqb, skb, skt, svb, svt,      \
-                            scale, stream)
+  return launch<DH, GT, HB>(q, k, v, kv_len, out, qdt, B, S, H, KV,       \
+                            n_split, keys_per_split, sqb, skb, skt, svb,  \
+                            svt, scale, stream)
   if (G == 1 && KV % kWarps == 0) REPRO_DECODE_LAUNCH(1, kWarps);
   if (G == 1) REPRO_DECODE_LAUNCH(1, 1);
   if (G == 2) REPRO_DECODE_LAUNCH(2, 1);
@@ -413,20 +456,23 @@ cudaError_t launch_g(const float* q, const float* k, const float* v,
 
 }  // namespace
 
-// q, out: (B, 1, H, Dh) with dense heads (q's batch stride sqb); k/v:
-// (B, S, KV, Dh) with dense heads, batch and token strides given.  The
+// q, out: (B, 1, H, Dh) with dense heads (q's batch stride sqb), of type
+// code qdt (0 float32, 1 fp16, 2 bf16); k/v: (B, S, KV, Dh) of the
+// entry's type, with dense heads, batch and token strides given.  The
 // keys split into n_split (1..8) runs of keys_per_split, which must
 // cover [0, S) with no run wholly past S.  Every pointer and stride must
-// allow 16-byte loads (the wrapper checks).
-REPRO_EXPORT int decode_attention_f32(
-    const float* q, const float* k, const float* v, const int* kv_len,
-    float* out, int B, int S, int H, int KV, int Dh, int n_split,
-    int keys_per_split, long long sqb, long long skb, long long skt,
-    long long svb, long long svt, float scale, int device, void* stream) {
+// allow 16-byte loads of the cache and 4-element loads of q (the wrapper
+// checks).
+template <typename CT>
+int entry(const void* q, const CT* k, const CT* v, const int* kv_len,
+          void* out, int qdt, int B, int S, int H, int KV, int Dh,
+          int n_split, int keys_per_split, long long sqb, long long skb,
+          long long skt, long long svb, long long svt, float scale,
+          int device, void* stream) {
   cudaError_t e = repro_begin(device);
   if (e != cudaSuccess) return e;
   if (KV <= 0 || H % KV || n_split < 1 || n_split > kMaxCluster ||
-      keys_per_split < 1 ||
+      keys_per_split < 1 || qdt < 0 || qdt > 2 ||
       static_cast<long long>(n_split) * keys_per_split < S ||
       (S > 0 && static_cast<long long>(n_split - 1) * keys_per_split >= S))
     return cudaErrorInvalidValue;
@@ -435,7 +481,7 @@ REPRO_EXPORT int decode_attention_f32(
   switch (Dh) {
 #define REPRO_DECODE_DH(DH)                                                 \
   case DH:                                                                  \
-    return launch_g<DH>(q, k, v, kv_len, out, B, S, H, KV, n_split,         \
+    return launch_g<DH>(q, k, v, kv_len, out, qdt, B, S, H, KV, n_split,    \
                         keys_per_split, sqb, skb, skt, svb, svt, scale, st)
     REPRO_DECODE_DH(16);
     REPRO_DECODE_DH(32);
@@ -445,3 +491,16 @@ REPRO_EXPORT int decode_attention_f32(
     default: return cudaErrorInvalidValue;
   }
 }
+
+#define REPRO_DECODE_ENTRY(T, SUF)                                          \
+  REPRO_EXPORT int decode_attention_##SUF(                                  \
+      const void* q, const T* k, const T* v, const int* kv_len, void* out,  \
+      int qdt, int B, int S, int H, int KV, int Dh, int n_split,            \
+      int keys_per_split, long long sqb, long long skb, long long skt,      \
+      long long svb, long long svt, float scale, int device, void* stream) {\
+    return entry<T>(q, k, v, kv_len, out, qdt, B, S, H, KV, Dh, n_split,    \
+                    keys_per_split, sqb, skb, skt, svb, svt, scale, device, \
+                    stream);                                                \
+  }
+
+REPRO_FLOAT_TYPES(REPRO_DECODE_ENTRY)

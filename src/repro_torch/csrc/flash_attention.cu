@@ -61,6 +61,16 @@
 // Shared memory: Q plus two stages of K and V, (64 MT + 4 x 64) x (Dh + 4)
 // floats: 104 KB at Dh = 64, MT = 2 (two blocks an SM), 169 KB at
 // Dh = 128.
+//
+// Element types (common.cuh): q, k, v and out all float32, fp16 or bf16,
+// exported as flash_attention_{f32,f16,bf16}.  Half rows convert to
+// float while staged (tf32_mma.cuh's stage_rows: plain 16-byte loads
+// into the same float shared rows, so the shared-memory budget and the
+// ring are those of float32; the next tile's loads are issued where its
+// copies are, before the current tile's arithmetic).  Half values split
+// with lo = 0 (exact TF32), so the arithmetic is float32's; the output
+// rounds once to the input type, as the reference casts its float32
+// result.
 #include <math.h>
 
 #include <cstdint>
@@ -73,9 +83,10 @@ namespace {
 constexpr int kBK = 64, kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
+template <typename E>
 struct Args {
-  const float *q, *k, *v;
-  float* out;
+  const E *q, *k, *v;
+  E* out;
   int T, S, H, KV;
   long long sqb, sqt, skb, skt, svb, svt;
   float scale_log2;  // softmax scale * log2(e)
@@ -87,9 +98,9 @@ struct Args {
 // alone takes 64 registers a tile)
 __host__ __device__ constexpr int m_tiles(int dh) { return dh <= 64 ? 2 : 1; }
 
-template <int DH>
+template <int DH, typename E>
 __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1)
-    flash_attention_kernel(const Args a) {
+    flash_attention_kernel(const Args<E> a) {
   constexpr int LD = DH + 4, ND = DH / 8, NJ = kBK / 8, MT = m_tiles(DH);
   constexpr int BQ = 64 * MT;  // query rows a block
   extern __shared__ __align__(16) float sm[];
@@ -100,8 +111,8 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1)
   const int kvh = h / (a.H / a.KV);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const float* kb = a.k + b * a.skb + static_cast<long long>(kvh) * DH;
-  const float* vb = a.v + b * a.svb + static_cast<long long>(kvh) * DH;
+  const E* kb = a.k + b * a.skb + static_cast<long long>(kvh) * DH;
+  const E* vb = a.v + b * a.svb + static_cast<long long>(kvh) * DH;
 
   int n_kt = (a.S + kBK - 1) / kBK;
   if (a.causal) {  // tiles wholly above the diagonal contribute nothing
@@ -279,7 +290,7 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1)
   cp_async_wait<0>();  // the Q copy, when no tile ran
 
   const long long sot = static_cast<long long>(a.H) * DH;
-  float* ob = a.out + static_cast<long long>(b) * a.T * sot +
+  E* ob = a.out + static_cast<long long>(b) * a.T * sot +
               static_cast<long long>(h) * DH + 2 * t;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
@@ -295,23 +306,21 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1)
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       if (ra < a.T)
-        *reinterpret_cast<float2*>(ob + ra * sot + 8 * n) =
-            make_float2(o[mt][n][0] * i0, o[mt][n][1] * i0);
+        store2(ob + ra * sot + 8 * n, o[mt][n][0] * i0, o[mt][n][1] * i0);
       if (rb < a.T)
-        *reinterpret_cast<float2*>(ob + rb * sot + 8 * n) =
-            make_float2(o[mt][n][2] * i1, o[mt][n][3] * i1);
+        store2(ob + rb * sot + 8 * n, o[mt][n][2] * i1, o[mt][n][3] * i1);
     }
   }
 }
 
-template <int DH>
-cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+template <int DH, typename E>
+cudaError_t launch(const Args<E>& a, int B, cudaStream_t stream) {
   constexpr int BQ = 64 * m_tiles(DH);
   const size_t smem = sizeof(float) * (BQ + 4 * kBK) * (DH + 4);
-  cudaError_t e = repro_allow_smem(flash_attention_kernel<DH>, smem);
+  cudaError_t e = repro_allow_smem(flash_attention_kernel<DH, E>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.T + BQ - 1) / BQ, a.H, B);
-  flash_attention_kernel<DH><<<grid, kThreads, smem, stream>>>(a);
+  flash_attention_kernel<DH, E><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -321,20 +330,21 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-REPRO_EXPORT int flash_attention_f32(
-    const float* q, const float* k, const float* v, float* out, int B,
-    int T, int S, int H, int KV, int Dh, long long sqb, long long sqt,
-    long long skb, long long skt, long long svb, long long svt, float scale,
-    int causal, int device, void* stream) {
+template <typename E>
+int entry(const E* q, const E* k, const E* v, E* out, int B, int T_, int S,
+          int H, int KV, int Dh, long long sqb, long long sqt, long long skb,
+          long long skt, long long svb, long long svt, float scale,
+          int causal, int device, void* stream) {
   cudaError_t e = repro_begin(device);
   if (e != cudaSuccess) return e;
   if (KV <= 0 || H % KV) return cudaErrorInvalidValue;
-  if (B == 0 || T == 0 || H == 0) return cudaSuccess;
+  if (B == 0 || T_ == 0 || H == 0) return cudaSuccess;
+  constexpr int V = Vec16<E>::N;   // 16-byte vectors: strides in elements
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
-                   (sqb | sqt | skb | skt | svb | svt) % 4 == 0;
-  const Args a{q,   k,   v,   out, T,   S,   H,
-               KV,  sqb, sqt, skb, skt, svb, svt,
-               scale * kLog2e, causal, vec};
+                   (sqb | sqt | skb | skt | svb | svt) % V == 0;
+  const Args<E> a{q,   k,   v,   out, T_,  S,   H,
+                  KV,  sqb, sqt, skb, skt, svb, svt,
+                  scale * kLog2e, causal, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (Dh) {
     case 16: return launch<16>(a, B, st);
@@ -344,3 +354,15 @@ REPRO_EXPORT int flash_attention_f32(
     default: return cudaErrorInvalidValue;
   }
 }
+
+#define REPRO_FLASH_ENTRY(T, SUF)                                            \
+  REPRO_EXPORT int flash_attention_##SUF(                                    \
+      const T* q, const T* k, const T* v, T* out, int B, int T_, int S,      \
+      int H, int KV, int Dh, long long sqb, long long sqt, long long skb,    \
+      long long skt, long long svb, long long svt, float scale, int causal,  \
+      int device, void* stream) {                                            \
+    return entry<T>(q, k, v, out, B, T_, S, H, KV, Dh, sqb, sqt, skb, skt,   \
+                    svb, svt, scale, causal, device, stream);                \
+  }
+
+REPRO_FLOAT_TYPES(REPRO_FLASH_ENTRY)

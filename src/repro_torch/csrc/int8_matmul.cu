@@ -57,6 +57,13 @@
 // TMA needs 16-byte-aligned base pointers and row pitches: K must be a
 // multiple of 16 (the wrapper zero-pads it) and the bases 16-byte aligned
 // (else the entry point refuses the call).
+//
+// Output types (common.cuh): the epilogue's float32 value rounds once to
+// float32, fp16 or bf16 (the reference's out_dtype), exported as
+// int8_matmul_{f32,f16,bf16}; the TMA maps and the wgmma main loop read
+// int8 and do not change.  A half row stores four outputs (8 bytes) at a
+// time.  The product sx[m] * sw[n] stays in float32 in the same order,
+// so each type is bit-exact against the reference's epilogue.
 #include <cuda.h>
 
 #include <cstdint>
@@ -202,13 +209,13 @@ __device__ __forceinline__ void wgmma_m64n128k32(int* d, uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
-template <int BN>
+template <int BN, typename OT>
 __global__ void __launch_bounds__(THREADS, Tile<BN>::BLOCKS_PER_SM)
     int8_matmul_kernel(const __grid_constant__ CUtensorMap map_x,
                        const __grid_constant__ CUtensorMap map_w,
                        const float* __restrict__ sx,
                        const float* __restrict__ sw,
-                       float* __restrict__ out, int M, int N, int K) {
+                       OT* __restrict__ out, int M, int N, int K) {
   constexpr int STAGES = Tile<BN>::STAGES;
   constexpr int A_BYTES = BM * BK, B_BYTES = BN * BK;
   constexpr int NH = BN / 128;             // m64n128 wgmmas per k step
@@ -319,14 +326,14 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::BLOCKS_PER_SM)
     o.y = __fmul_rn(__fmul_rn(__int2float_rn(a.y), s), wv[1]);
     o.z = __fmul_rn(__fmul_rn(__int2float_rn(a.z), s), wv[2]);
     o.w = __fmul_rn(__fmul_rn(__int2float_rn(a.w), s), wv[3]);
-    float* dst = out + static_cast<long long>(gr) * N + gc;
+    OT* dst = out + static_cast<long long>(gr) * N + gc;
     if (vec && gc + 3 < N) {
-      *reinterpret_cast<float4*>(dst) = o;
+      store4(dst, o);
     } else {
       const float ov[4] = {o.x, o.y, o.z, o.w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (gc + e < N) dst[e] = ov[e];
+        if (gc + e < N) dst[e] = from_f32<OT>(ov[e]);
     }
   }
 }
@@ -376,20 +383,20 @@ bool k_major_map(CUtensorMap* map, const int8_t* base, int rows, int K,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int BN>
+template <int BN, typename OT>
 cudaError_t launch(const int8_t* xq, const int8_t* wt, const float* sx,
-                   const float* sw, float* out, int M, int N, int K,
+                   const float* sw, OT* out, int M, int N, int K,
                    cudaStream_t stream) {
   CUtensorMap map_x, map_w;
   if (!k_major_map(&map_x, xq, M, K, BM) || !k_major_map(&map_w, wt, N, K, BN))
     return cudaErrorInvalidValue;
   const size_t smem = smem_bytes<BN>();
-  cudaError_t e = repro_allow_smem(int8_matmul_kernel<BN>, smem);
+  cudaError_t e = repro_allow_smem(int8_matmul_kernel<BN, OT>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(repro_ceil_div(N, BN), repro_ceil_div(M, BM));
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  int8_matmul_kernel<BN><<<grid, THREADS, smem, stream>>>(map_x, map_w, sx, sw,
-                                                         out, M, N, K);
+  int8_matmul_kernel<BN, OT><<<grid, THREADS, smem, stream>>>(
+      map_x, map_w, sx, sw, out, M, N, K);
   return cudaGetLastError();
 }
 
@@ -397,12 +404,13 @@ cudaError_t launch(const int8_t* xq, const int8_t* wt, const float* sx,
 
 // xq: (M, K) int8 row-major; wt: the weight codes as (N, K) int8
 // row-major (the (K, N) weight's transpose); sx: (M,) f32; sw: (N,) f32;
-// out: (M, N) f32 row-major.  K must be a positive multiple of 16 and
-// xq, wt 16-byte aligned (TMA's terms); tile_n is 128 or 256.
-REPRO_EXPORT int int8_matmul_f32(const int8_t* xq, const int8_t* wt,
-                                 const float* sx, const float* sw,
-                                 float* out, int M, int N, int K, int tile_n,
-                                 int device, void* stream) {
+// out: (M, N) row-major in the entry's type.  K must be a positive
+// multiple of 16 and xq, wt 16-byte aligned (TMA's terms); tile_n is 128
+// or 256.
+template <typename OT>
+int entry(const int8_t* xq, const int8_t* wt, const float* sx,
+          const float* sw, OT* out, int M, int N, int K, int tile_n,
+          int device, void* stream) {
   cudaError_t e = repro_begin(device);
   if (e != cudaSuccess) return e;
   if (M < 0 || N < 0 || K <= 0 || K % 16 ||
@@ -415,3 +423,13 @@ REPRO_EXPORT int int8_matmul_f32(const int8_t* xq, const int8_t* wt,
   if (tile_n == 256) return launch<256>(xq, wt, sx, sw, out, M, N, K, s);
   return cudaErrorInvalidValue;
 }
+
+#define REPRO_INT8_ENTRY(T, SUF)                                             \
+  REPRO_EXPORT int int8_matmul_##SUF(const int8_t* xq, const int8_t* wt,     \
+                                     const float* sx, const float* sw,       \
+                                     T* out, int M, int N, int K,            \
+                                     int tile_n, int device, void* stream) { \
+    return entry<T>(xq, wt, sx, sw, out, M, N, K, tile_n, device, stream);   \
+  }
+
+REPRO_FLOAT_TYPES(REPRO_INT8_ENTRY)

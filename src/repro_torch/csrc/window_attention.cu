@@ -50,6 +50,16 @@
 //    relabelling; a sum over keys does not depend on their order.  The
 //    rows are divided by the softmax sum at the end and stored as float2.
 // Dh must be a multiple of 8 and at most 128, w2 at most 128.
+//
+// Element types (common.cuh): q, k, v and out all float32, fp16 or bf16,
+// exported as window_attention_{f32,f16,bf16}.  Half rows convert to
+// float while they are staged (plain 16-byte loads of 8 elements, then
+// float stores into the same shared rows), so shared memory, the
+// fragments and the softmax are float32 at every type, as the
+// reference's kernel casts q, k and v to float32 on load.  A half value
+// is an exact TF32 value: its split leaves lo = 0, and the products are
+// those of float32 (the zero lo products are kept; dropping them is
+// speed work).  The output rounds once to the input type.
 #include <math.h>
 
 #include <cstdint>
@@ -61,9 +71,27 @@ namespace {
 
 // Stage rows [0, w2) of a (w2, Dh) slab with token pitch `st` into shared
 // rows of `ld` floats.
-__device__ __forceinline__ void stage(float* s, const float* g, long long st,
+template <typename T>
+__device__ __forceinline__ void stage(float* s, const T* g, long long st,
                                       int w2, int Dh, int ld, bool vec) {
-  if (vec) {
+  if constexpr (sizeof(T) != 4) {   // fp16 / bf16: convert while staging
+    if (vec) {
+      const int cpr = Dh / 8;
+      for (int idx = threadIdx.x; idx < w2 * cpr; idx += blockDim.x) {
+        const int i = idx / cpr, c = (idx % cpr) * 8;
+        float f[8];
+        load16(g + i * st + c, f);
+        float4* d = reinterpret_cast<float4*>(s + i * ld + c);
+        d[0] = make_float4(f[0], f[1], f[2], f[3]);
+        d[1] = make_float4(f[4], f[5], f[6], f[7]);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < w2 * Dh; idx += blockDim.x) {
+        const int i = idx / Dh, c = idx % Dh;
+        s[i * ld + c] = to_f32(g[i * st + c]);
+      }
+    }
+  } else if (vec) {
     const int cpr = Dh / 4;
     for (int idx = threadIdx.x; idx < w2 * cpr; idx += blockDim.x) {
       const int i = idx / cpr, c = (idx % cpr) * 4;
@@ -78,10 +106,11 @@ __device__ __forceinline__ void stage(float* s, const float* g, long long st,
 }
 
 // The arguments every (window, head) of a call shares.
+template <typename T>
 struct Args {
-  const float *q, *k, *v;
+  const T *q, *k, *v;
   const int* win_valid;
-  float* out;
+  T* out;
   int W, w2, H, KV, Dh;
   long long sqb, sqt, skb, skt, svb, svt;
   float scale;
@@ -89,13 +118,15 @@ struct Args {
 };
 
 // Item `it` of the call is window bw = it / H (of the B * W), head it % H.
-__device__ __forceinline__ bool item_valid(const Args& a, int it) {
+template <typename T>
+__device__ __forceinline__ bool item_valid(const Args<T>& a, int it) {
   const int bw = it / a.H;
   return a.win_valid == nullptr || bw % a.W < a.win_valid[bw / a.W];
 }
 
 // Start the cp.async copies of item `it`'s q, k and v rows into `buf`.
-__device__ __forceinline__ void load_item(const Args& a, int it, float* buf,
+template <typename T>
+__device__ __forceinline__ void load_item(const Args<T>& a, int it, float* buf,
                                           int w2p, int ld) {
   const int bw = it / a.H, h = it % a.H;
   const int b = bw / a.W;
@@ -112,17 +143,17 @@ __device__ __forceinline__ void load_item(const Args& a, int it, float* buf,
 }
 
 // Item `it` from its staged rows in `buf` (or zeros for a pad window).
-template <int NT, int ND>
-__device__ __forceinline__ void attend(const Args& a, int it,
+template <int NT, int ND, typename T>
+__device__ __forceinline__ void attend(const Args<T>& a, int it,
                                        const float* buf, int w2p, int ld) {
   const int bw = it / a.H, h = it % a.H;
   const int w2 = a.w2, Dh = a.Dh;
   const long long sot = static_cast<long long>(a.H) * Dh;
-  float* ob = a.out + static_cast<long long>(bw) * w2 * sot +
+  T* ob = a.out + static_cast<long long>(bw) * w2 * sot +
               static_cast<long long>(h) * Dh;
   if (!item_valid(a, it)) {
     for (int idx = threadIdx.x; idx < w2 * Dh; idx += blockDim.x)
-      ob[(idx / Dh) * sot + idx % Dh] = 0.0f;
+      ob[(idx / Dh) * sot + idx % Dh] = from_f32<T>(0.0f);
     return;
   }
   const int nt = w2p / 8, nd = Dh / 8;
@@ -215,12 +246,8 @@ __device__ __forceinline__ void attend(const Args& a, int it,
   for (int n = 0; n < ND; ++n) {
     if (n >= nd) break;
     const int c = 8 * n + 2 * t;
-    if (r0 < w2)
-      *reinterpret_cast<float2*>(ob + r0 * sot + c) =
-          make_float2(o[n][0] * i0, o[n][1] * i0);
-    if (r1 < w2)
-      *reinterpret_cast<float2*>(ob + r1 * sot + c) =
-          make_float2(o[n][2] * i1, o[n][3] * i1);
+    if (r0 < w2) store2(ob + r0 * sot + c, o[n][0] * i0, o[n][1] * i0);
+    if (r1 < w2) store2(ob + r1 * sot + c, o[n][2] * i1, o[n][3] * i1);
   }
 }
 
@@ -228,9 +255,9 @@ __device__ __forceinline__ void attend(const Args& a, int it,
 // tiles (Dh / 8); the loops run to the call's own counts.  Block it is
 // head it % H of window it / H (of the B * W), so the blocks in flight
 // read whole token rows of a fused QKV.
-template <int NT, int ND>
+template <int NT, int ND, typename T>
 __global__ void __launch_bounds__(16 * NT, NT == 8 ? 4 : 1)
-    window_attention_kernel(const Args a) {
+    window_attention_kernel(const Args<T> a) {
   const int it = blockIdx.x;
   const int w2p = (a.w2 + 15) / 16 * 16, ld = a.Dh + 4;
   extern __shared__ __align__(16) float sm[];
@@ -250,13 +277,13 @@ __global__ void __launch_bounds__(16 * NT, NT == 8 ? 4 : 1)
   attend<NT, ND>(a, it, sm, w2p, ld);
 }
 
-template <int NT, int ND>
-cudaError_t launch(const Args& a, int n_items, cudaStream_t stream) {
+template <int NT, int ND, typename T>
+cudaError_t launch(const Args<T>& a, int n_items, cudaStream_t stream) {
   const int w2p = (a.w2 + 15) / 16 * 16;
   const size_t smem = sizeof(float) * 3 * w2p * (a.Dh + 4);
-  cudaError_t e = repro_allow_smem(window_attention_kernel<NT, ND>, smem);
+  cudaError_t e = repro_allow_smem(window_attention_kernel<NT, ND, T>, smem);
   if (e != cudaSuccess) return e;
-  window_attention_kernel<NT, ND><<<n_items, 2 * w2p, smem, stream>>>(a);
+  window_attention_kernel<NT, ND, T><<<n_items, 2 * w2p, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -266,21 +293,22 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-REPRO_EXPORT int window_attention_f32(
-    const float* q, const float* k, const float* v, const int* win_valid,
-    float* out, int B, int W, int w2, int H, int KV, int Dh, long long sqb,
-    long long sqt, long long skb, long long skt, long long svb,
-    long long svt, float scale, int device, void* stream) {
+template <typename T>
+int entry(const T* q, const T* k, const T* v, const int* win_valid, T* out,
+          int B, int W, int w2, int H, int KV, int Dh, long long sqb,
+          long long sqt, long long skb, long long skt, long long svb,
+          long long svt, float scale, int device, void* stream) {
   cudaError_t e = repro_begin(device);
   if (e != cudaSuccess) return e;
   if (KV <= 0 || H % KV || w2 <= 0 || w2 > 128 || Dh <= 0 || Dh % 8 ||
       Dh > 128)
     return cudaErrorInvalidValue;
   if (B == 0 || W == 0 || H == 0) return cudaSuccess;
+  constexpr int V = Vec16<T>::N;   // 16-byte vectors: strides in elements
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
-                   (sqb | sqt | skb | skt | svb | svt) % 4 == 0;
-  const Args a{q,   k,   v,   win_valid, out, W,   w2,  H,     KV,
-               Dh,  sqb, sqt, skb,       skt, svb, svt, scale, vec};
+                   (sqb | sqt | skb | skt | svb | svt) % V == 0;
+  const Args<T> a{q,   k,   v,   win_valid, out, W,   w2,  H,     KV,
+                  Dh,  sqb, sqt, skb,       skt, svb, svt, scale, vec};
   const long long n_items = static_cast<long long>(B) * W * H;
   if (n_items > 0x7fffffff) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -288,3 +316,15 @@ REPRO_EXPORT int window_attention_f32(
     return launch<8, 8>(a, static_cast<int>(n_items), s);
   return launch<16, 16>(a, static_cast<int>(n_items), s);
 }
+
+#define REPRO_WINDOW_ENTRY(T, SUF)                                          \
+  REPRO_EXPORT int window_attention_##SUF(                                  \
+      const T* q, const T* k, const T* v, const int* win_valid, T* out,     \
+      int B, int W, int w2, int H, int KV, int Dh, long long sqb,           \
+      long long sqt, long long skb, long long skt, long long svb,            \
+      long long svt, float scale, int device, void* stream) {               \
+    return entry<T>(q, k, v, win_valid, out, B, W, w2, H, KV, Dh, sqb, sqt, \
+                    skb, skt, svb, svt, scale, device, stream);             \
+  }
+
+REPRO_FLOAT_TYPES(REPRO_WINDOW_ENTRY)

@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, Sequence
 
 import torch
 
@@ -105,45 +105,87 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# the element types of the kernels' float operands, and the suffix of
+# each type's entry point (csrc/common.cuh: REPRO_FLOAT_TYPES)
+FLOAT_SUFFIX = {torch.float32: "f32", torch.float16: "f16",
+                torch.bfloat16: "bf16"}
+FLOAT_TYPES = tuple(FLOAT_SUFFIX)
+HALF_TYPES = (torch.float16, torch.bfloat16)
+
+
 class CudaKernel:
-    """One C entry point of a kernel library, with its launch count.
+    """The C entry points of one kernel, one per element type
+    (``<symbol>_f32``, ``_f16``, ``_bf16``), with their launch counts.
 
     Called with the entry point's arguments, tensors standing for their
-    device pointers.  ``launches`` grows by one for every launch that the
-    CUDA runtime accepted, and nowhere else.  ``last_args`` keeps the
-    latest call's arguments (and so its tensors) for :meth:`relaunch`."""
+    device pointers, and ``dtype``, the type whose entry point launches.
+    ``launches`` grows by one for every launch that the CUDA runtime
+    accepted, and nowhere else; ``by_dtype`` splits it by suffix: of
+    ``dtype``, or, when a float32 entry point takes a half tensor
+    operand (decode's half q over a float32 cache), of that operand.
+    ``last_args`` keeps the latest call's arguments (and so its tensors)
+    for :meth:`relaunch`."""
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 dtypes: Sequence[torch.dtype] = FLOAT_TYPES):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.dtypes = tuple(dtypes)
         self.launches = 0
+        self.by_dtype: Dict[str, int] = {FLOAT_SUFFIX[d]: 0
+                                         for d in self.dtypes}
         self.last_args: tuple = ()
-        self._fn: Optional[ctypes._CFuncPtr] = None
+        self.last_dtype = torch.float32
+        self._fns: Dict[str, ctypes._CFuncPtr] = {}
 
-    def _launch(self, args) -> None:
-        if self._fn is None:
-            lib = load(self.source)
-            fn = getattr(lib, self.symbol)
+    def check_dtype(self, name: str, *tensors: torch.Tensor) -> torch.dtype:
+        """The one element type of ``tensors``; raises unless they share
+        it and the kernel is built for it."""
+        dt = tensors[0].dtype
+        if dt not in self.dtypes or any(t.dtype != dt for t in tensors):
+            raise ValueError(
+                f"{name}: operands of one type among "
+                f"{[str(d).replace('torch.', '') for d in self.dtypes]}, "
+                f"got {[str(t.dtype).replace('torch.', '') for t in tensors]}")
+        return dt
+
+    def _launch(self, args, dtype) -> None:
+        sym = f"{self.symbol}_{FLOAT_SUFFIX[dtype]}"
+        fn = self._fns.get(sym)
+        if fn is None:
+            fn = getattr(load(self.source), sym)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
-        err = self._fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                         for a in args))
+            self._fns[sym] = fn
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args))
         if err:
             msg = load(self.source).repro_error_string(err).decode()
-            raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
+            raise RuntimeError(f"{sym}: CUDA error {err} ({msg})")
 
-    def __call__(self, *args) -> None:
-        self._launch(args)
+    def __call__(self, *args, dtype: torch.dtype = torch.float32) -> None:
+        if dtype not in self.dtypes:
+            raise ValueError(f"{self.symbol}: no {dtype} entry point")
+        self._launch(args, dtype)
         self.launches += 1
+        if dtype == torch.float32:
+            dtype = next((a.dtype for a in args if isinstance(a, torch.Tensor)
+                          and a.dtype in HALF_TYPES), dtype)
+        self.by_dtype[FLOAT_SUFFIX[dtype]] += 1
         self.last_args = args
+        self.last_dtype = dtype
+
+    def reset(self) -> None:
+        self.launches = 0
+        for k in self.by_dtype:
+            self.by_dtype[k] = 0
 
     def relaunch(self, n: int) -> None:
         """Launch the latest call's arguments ``n`` more times, uncounted:
         times the kernel alone, without its wrapper."""
         for _ in range(n):
-            self._launch(self.last_args)
+            self._launch(self.last_args, self.last_dtype)
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -9,8 +9,14 @@ reference's ``ref.py``), with zeros for a row whose ``kv_len`` is 0, as
 the Pallas kernel gives.
 
 q: (B, 1, H, Dh); k/v: (B, S, KV, Dh) with H = KV * G; kv_len: (B,)
-int32 valid cache lengths.  Returns (B, 1, H, Dh).  The kernel reads the
-cache through its batch and token strides, in place.
+int32 valid cache lengths.  Returns (B, 1, H, Dh) in q's type.  The
+kernel reads the cache through its batch and token strides, in place.
+q and the cache may each be float32, fp16 or bf16, and their types may
+differ (an fp16 model over a float32 cache, a float32 model over a bf16
+cache): the kernel has one entry point per cache type, takes q's type
+as an argument and computes in float32, as the reference casts q, k and
+v on load.  A launch counts under the cache's type where that is half,
+else under q's.
 """
 from __future__ import annotations
 
@@ -18,14 +24,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
-                                       head_rows, stream_of)
+from repro_torch.kernels.build import (FLOAT_TYPES, F, I, L, P, CudaKernel,
+                                       check_cuda, head_rows, stream_of)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
     NEG_INF, decode_attention_plain)
 
-KERNEL = CudaKernel("decode_attention", "decode_attention_f32",
-                    [P, P, P, P, P, I, I, I, I, I, I, I, L, L, L, L, L, F, I,
-                     P])
+# one entry point per cache type; q's type is an argument (Q_TYPE)
+KERNEL = CudaKernel("decode_attention", "decode_attention",
+                    [P, P, P, P, P, I, I, I, I, I, I, I, I, L, L, L, L, L, F,
+                     I, P])
+Q_TYPE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8               # query heads of one kv head a block serves
 KV_PER_BLOCK = 4            # kv heads a block serves where G = 1
@@ -74,7 +82,9 @@ def plan(B: int, KV: int, G: int, S: int, sms: int) -> Tuple[int, int]:
 
 
 def _aligned(t: torch.Tensor, *strides: int) -> bool:
-    return t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in strides)
+    """16-byte aligned start and strides (in elements of ``t``)."""
+    return t.data_ptr() % 16 == 0 and all(
+        s * t.element_size() % 16 == 0 for s in strides)
 
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,10 +100,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(kv_len.shape)}; one query token, head dim "
                          f"one of {HEAD_DIMS}")
     check_cuda("decode_attention", q, k, v, kv_len)
-    if q.dtype != torch.float32 or k.dtype != torch.float32 \
-            or v.dtype != torch.float32 or kv_len.dtype != torch.int32:
-        raise ValueError("decode_attention: float32 q/k/v and int32 kv_len "
-                         "only")
+    cache_dt = KERNEL.check_dtype("decode_attention cache", k, v)
+    if q.dtype not in FLOAT_TYPES or kv_len.dtype != torch.int32:
+        raise ValueError(f"decode_attention: q of {FLOAT_TYPES} and int32 "
+                         f"kv_len, got {q.dtype} and {kv_len.dtype}")
     q, kv_len = head_rows(q), kv_len.contiguous()
     if not _aligned(q, q.stride(0)):
         q = q.contiguous()
@@ -110,7 +120,7 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n, keys = plan(B, KV, H // KV, S, sms)
     out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=dev)
     scale = Dh ** -0.5 if scale is None else scale
-    KERNEL(q, k, v, kv_len, out, B, S, H, KV, Dh, n, keys, q.stride(0),
-           k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
-           dev.index, stream_of(q))
+    KERNEL(q, k, v, kv_len, out, Q_TYPE[q.dtype], B, S, H, KV, Dh, n, keys,
+           q.stride(0), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+           float(scale), dev.index, stream_of(q), dtype=cache_dt)
     return out

@@ -18,7 +18,16 @@ import, :func:`refresh_from_env`) > a per-call ``mode`` >
 
 Each kernel keeps a launch count (``launch_counts``), which grows only
 where a wrapper launched its kernel, so a run can show that it went
-through the kernels.
+through the kernels; ``launch_counts("f16")`` / ``("bf16")`` count the
+launches of its half entry point alone.
+
+Every route takes float32, fp16 and bf16 tensors, as the reference's
+kernels do (they compute in float32 and return the input's type): on
+the card each launches its kernel's entry point for that type, on the
+CPU the plain version casts to float32, computes and casts back.
+``ssd_scan`` is the exception the reference makes too: it casts its
+inputs to float32 before the (float32) kernel and returns y in float32
+and the final state in the incoming state's type.
 """
 from __future__ import annotations
 
@@ -82,13 +91,33 @@ def _no_vjp(name: str, *xs: Optional[torch.Tensor]) -> None:
                            f"torch.no_grad()")
 
 
-def launch_counts() -> Dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+_HALF = (torch.float16, torch.bfloat16)
+
+
+def _float32_grads(name: str, *xs: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would differentiate a half operand through a
+    kernel's Function: they train in float32, as the reference's recipes
+    do (half operands serve without ``requires_grad`` or under
+    ``torch.no_grad()``)."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in xs) and any(
+            x is not None and x.dtype in _HALF for x in xs):
+        raise RuntimeError(f"{name}: gradients are float32 only, got "
+                           f"{[str(x.dtype) for x in xs if x is not None]}")
+
+
+def launch_counts(dtype: Optional[str] = None) -> Dict[str, int]:
+    """Launches per kernel since the last reset; with ``dtype`` ("f32",
+    "f16", "bf16"), those of that type's entry point alone (0 for a
+    kernel built for float32 only)."""
+    if dtype is None:
+        return {name: k.launches for name, k in KERNELS.items()}
+    return {name: k.by_dtype.get(dtype, 0) for name, k in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -155,6 +184,7 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, T, H, Dh); k/v: (B, T, KV, Dh); ``window`` tokens per
     window; ``win_valid`` (B,) valid-window counts (pad windows -> 0)."""
     on_card(q)                      # any other device raises
+    _float32_grads("window_attention", q, k, v)
     return _win.WindowAttention.apply(q, k, v, window, win_valid)
 
 
@@ -162,6 +192,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False) -> torch.Tensor:
     """q: (B, T, H, Dh); k/v: (B, S, KV, Dh)."""
     on_card(q)                      # any other device raises
+    _float32_grads("flash_attention", q, k, v)
     return _flash.FlashAttention.apply(q, k, v, causal)
 
 
@@ -183,9 +214,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     B/C (b, T, G, N), chunk length ``chunk``, optional initial state
     (b, H, N, P).  Returns (y (b, T, H, P), final state (b, H, N, P))."""
     _no_vjp("ssd_scan", x, dt, A, Bm, Cm, init_state)
+    # the scan runs in float32 whatever its inputs' type, as the
+    # reference's ssd_scan/ops.py casts them before its kernel; y stays
+    # float32 and the final state takes the incoming state's type
+    f32 = torch.float32
+    x, dt, A, Bm, Cm = (t.to(f32) for t in (x, dt, A, Bm, Cm))
+    s0 = init_state.to(f32) if init_state is not None else None
     if on_card(x):
-        return _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk, init_state)
-    return _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, init_state)
+        y, s_fin = _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk, s0)
+    else:
+        y, s_fin = _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, s0)
+    if init_state is not None:
+        s_fin = s_fin.to(init_state.dtype)
+    return y, s_fin
 
 
 def avg_pool(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -193,6 +234,7 @@ def avg_pool(x: torch.Tensor, d: int) -> torch.Tensor:
     if d == 1:
         return x
     on_card(x)                      # any other device raises
+    _float32_grads("avg_pool", x)
     return _pool.AvgPool.apply(x, d)
 
 
@@ -201,6 +243,7 @@ def nn_upsample(x: torch.Tensor, d: int) -> torch.Tensor:
     if d == 1:
         return x
     on_card(x)                      # any other device raises
+    _float32_grads("nn_upsample", x)
     return _pool.NNUpsample.apply(x, d)
 
 

@@ -8,7 +8,9 @@ function in plain PyTorch: dense float32 softmax attention, taken
 
 q: (B, T, H, Dh); k/v: (B, S, KV, Dh) with H = KV * G.  ``causal``: query
 t sees keys s <= t.  A row that no key reaches outputs zeros.  The
-kernel reads q, k and v through their batch and token strides.
+kernel reads q, k and v through their batch and token strides.  q, k
+and v share one type, float32, fp16 or bf16; kernel and plain version
+compute in float32 and return the input's type, as the reference does.
 
 ``FlashAttention`` is the differentiable entry (``kernels.dispatch``
 routes through it on both devices): its forward is the kernel on the
@@ -28,7 +30,7 @@ from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     NEG_INF, Q_CHUNK, flash_attention_plain)
 
-KERNEL = CudaKernel("flash_attention", "flash_attention_f32",
+KERNEL = CudaKernel("flash_attention", "flash_attention",
                     [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, F, I, I,
                      P])
 HEAD_DIMS = (16, 32, 64, 128)
@@ -46,15 +48,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"must be one of {HEAD_DIMS}")
     q, k, v = head_rows(q), head_rows(k), head_rows(v)
     check_cuda("flash_attention", q, k, v)
-    if q.dtype != torch.float32 or k.dtype != torch.float32 \
-            or v.dtype != torch.float32:
-        raise ValueError("flash_attention: float32 q/k/v only")
+    dt = KERNEL.check_dtype("flash_attention", q, k, v)
     scale = Dh ** -0.5 if scale is None else scale
     out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
     KERNEL(q, k, v, out, B, T, S,
            H, KV, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
            v.stride(0), v.stride(1), float(scale), int(bool(causal)),
-           q.device.index, stream_of(q))
+           q.device.index, stream_of(q), dtype=dt)
     return out
 
 

@@ -5,7 +5,10 @@ epilogue (destination-major restoration gather).
 the ports of ``repro/kernels/fused_serving/kernel.py:pack_pos_kernel`` and
 ``:restore_gather_kernel``; the ``*_plain`` functions (``ref.py``,
 re-exported here) are the same ops in plain PyTorch.  Both are data
-movement plus one add, so kernel and plain version agree bit for bit.
+movement plus one add, so kernel and plain version agree bit for bit,
+in float32, fp16 and bf16 alike (the banks, windows and tiles of one
+call share a type; the half add rounds once, as the reference's add in
+the input type does).
 
 Token-map convention (``upsample_token_maps``): the restoration's
 nearest-neighbour upsample sends LOW-window token ``t`` of sub-window
@@ -25,9 +28,9 @@ from repro_torch.kernels.fused_serving.ref import (  # noqa: F401
     _counts, _maps_on, _per_sample, pack_pos_plain, restore_gather_plain,
     upsample_token_maps)
 
-PACK_POS = CudaKernel("fused_serving", "pack_pos_f32",
+PACK_POS = CudaKernel("fused_serving", "pack_pos",
                       [P, P, P, P, P, I, I, I, L, I, P])
-RESTORE = CudaKernel("fused_serving", "restore_gather_f32",
+RESTORE = CudaKernel("fused_serving", "restore_gather",
                      [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P])
 
 
@@ -45,14 +48,13 @@ def pack_pos_cuda(bank: torch.Tensor, pos_bank: torch.Tensor,
     nwb = _counts(nw, B)
     bank, pos_bank = bank.contiguous(), pos_bank.contiguous()
     check_cuda("pack_pos", bank, pos_bank, src, nwb)
-    if bank.dtype != torch.float32 or pos_bank.dtype != torch.float32:
-        raise ValueError("pack_pos: float32 banks only")
+    dt = PACK_POS.check_dtype("pack_pos", bank, pos_bank)
     nw_pad = src.shape[1]
     out = torch.empty((B, nw_pad * w2, C), dtype=bank.dtype,
                       device=bank.device)
     PACK_POS(bank, pos_bank, src,
              nwb, out, B, nbank, nw_pad, w2 * C,
-             bank.device.index, stream_of(bank))
+             bank.device.index, stream_of(bank), dtype=dt)
     return out
 
 
@@ -80,13 +82,12 @@ def restore_gather_cuda(windows: torch.Tensor, out_src: torch.Tensor,
         tensors.append(tiles)
         tiles_arg, ntile = tiles, tiles.shape[1]
     check_cuda("restore_gather", *tensors)
-    if windows.dtype != torch.float32 or (
-            reuse_tiles is not None and reuse_tiles.dtype != torch.float32):
-        raise ValueError("restore_gather: float32 windows and tiles only")
+    dt = RESTORE.check_dtype("restore_gather", windows,
+                             *([tiles_arg] if tiles_arg is not None else []))
     out = torch.empty((B, nout * w2, D), dtype=windows.dtype,
                       device=windows.device)
     RESTORE(windows, tiles_arg, src_idx,
             map_idx, maps, out, B, nw_pad,
             ntile, nout, maps.shape[0], w2, D, windows.device.index,
-            stream_of(windows))
+            stream_of(windows), dtype=dt)
     return out

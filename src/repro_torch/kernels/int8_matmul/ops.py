@@ -9,7 +9,8 @@ epilogue, the quantized lane's matmul:
 in plain PyTorch.  Both are exact: the integer sum has no rounding, and
 the epilogue is the same three float32 operations in the same order as
 the reference (``repro/kernels/int8_matmul/ref.py``), so kernel, plain
-version and reference agree bit for bit.
+version and reference agree bit for bit.  ``out_dtype`` float32, fp16
+or bf16 rounds that float32 value once (the ``int8+fp16`` lane).
 
 The kernel reads the weight codes K-contiguous, as the (N, K) matrix
 whose transpose is ``wq``; ``quant.qtensor.QuantTensor`` keeps its 2-D
@@ -26,7 +27,7 @@ import torch
 from repro_torch.kernels.build import I, P, CudaKernel, check_cuda, stream_of
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_plain  # noqa: F401
 
-KERNEL = CudaKernel("int8_matmul", "int8_matmul_f32",
+KERNEL = CudaKernel("int8_matmul", "int8_matmul",
                     [P, P, P, P, P, I, I, I, I, I, P])
 K_ALIGN = 16                 # TMA: 16-byte row pitch
 BALANCE = 590                # H100 int8 ops per byte: 1,979 TOPS / 3.35 TB/s
@@ -68,9 +69,9 @@ def int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
                          f"{wq.dtype}")
     if sx.dtype != torch.float32 or sw.dtype != torch.float32:
         raise ValueError("int8_matmul: float32 scales only")
-    if out_dtype != torch.float32:
-        raise NotImplementedError(f"int8_matmul: out_dtype {out_dtype} (the "
-                                  f"kernel writes float32)")
+    if out_dtype not in KERNEL.dtypes:
+        raise ValueError(f"int8_matmul: out_dtype {out_dtype}, not one of "
+                         f"{KERNEL.dtypes}")
     if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[0]:
         raise ValueError(f"int8_matmul: xq {tuple(xq.shape)} and wq "
                          f"{tuple(wq.shape)} do not multiply")
@@ -87,9 +88,9 @@ def int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
         raise ValueError("int8_matmul: xq and wq must start 16-byte aligned "
                          "(TMA)")
     sx, sw = sx.contiguous(), sw.contiguous()
-    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     if M and N:
         K = xq.shape[1]
         KERNEL(xq, wq, sx, sw, out, M, N, K, tile_n(N, K), xq.device.index,
-               stream_of(xq))
+               stream_of(xq), dtype=out_dtype)
     return out

@@ -6,7 +6,13 @@ d x d nearest-neighbour upsample (restoration at beta = 0, §III-B).
 ``repro/kernels/mixed_res_pool/kernel.py:avg_pool_kernel`` and
 ``:nn_upsample_kernel``; the ``*_plain`` functions (``ref.py``,
 re-exported here) are the same ops in plain PyTorch, which the CPU path
-and the tests use.
+and the tests use.  Both take float32, fp16 and bf16 grids: the pool sums
+in float32 and rounds once to the input's type, the upsample copies.
+The pool is bit-equal to the plain version at the serving frame (d = 2,
+four terms summed in the plain version's order); where torch's
+reduction sums in another order (d = 4, wide channels) its float32
+result differs by rounding, so a half result may differ by one unit in
+the last place.
 ``AvgPool`` / ``NNUpsample`` are the differentiable entries
 (``kernels.dispatch`` routes through them on both devices): the kernel
 on the card, the plain version on the CPU, and the reference's
@@ -22,38 +28,39 @@ from repro_torch.kernels.build import I, P, CudaKernel, check_cuda, stream_of
 from repro_torch.kernels.mixed_res_pool.ref import (  # noqa: F401
     avg_pool_plain, nn_upsample_plain)
 
-KERNEL = CudaKernel("avg_pool", "avg_pool_f32", [P, P, I, I, I, I, I, I, P])
-UPSAMPLE = CudaKernel("nn_upsample", "nn_upsample_f32",
+KERNEL = CudaKernel("avg_pool", "avg_pool", [P, P, I, I, I, I, I, I, P])
+UPSAMPLE = CudaKernel("nn_upsample", "nn_upsample",
                       [P, P, I, I, I, I, I, I, P])
 
 
-def _check_grid(name: str, x: torch.Tensor) -> None:
+def _check_grid(name: str, kernel: CudaKernel,
+                x: torch.Tensor) -> torch.dtype:
     check_cuda(name, x)
-    if x.dtype != torch.float32 or x.dim() != 4:
-        raise ValueError(f"{name}: (B, H, W, C) float32, got "
-                         f"{tuple(x.shape)} {x.dtype}")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: (B, H, W, C), got {tuple(x.shape)}")
+    return kernel.check_dtype(name, x)
 
 
 def avg_pool_cuda(x: torch.Tensor, d: int) -> torch.Tensor:
-    _check_grid("avg_pool", x)
+    dt = _check_grid("avg_pool", KERNEL, x)
     B, H, W, C = x.shape
     if H % d or W % d:
         raise ValueError(f"avg_pool: {H}x{W} not divisible by d={d}")
     x = x.contiguous()
     out = torch.empty((B, H // d, W // d, C), dtype=x.dtype, device=x.device)
     KERNEL(x, out, B, H, W, C, d, x.device.index,
-           stream_of(x))
+           stream_of(x), dtype=dt)
     return out
 
 
 def nn_upsample_cuda(x: torch.Tensor, d: int) -> torch.Tensor:
-    _check_grid("nn_upsample", x)
+    dt = _check_grid("nn_upsample", UPSAMPLE, x)
     if d < 1:
         raise ValueError(f"nn_upsample: d={d}")
     B, H, W, C = x.shape
     x = x.contiguous()
     out = torch.empty((B, H * d, W * d, C), dtype=x.dtype, device=x.device)
-    UPSAMPLE(x, out, B, H, W, C, d, x.device.index, stream_of(x))
+    UPSAMPLE(x, out, B, H, W, C, d, x.device.index, stream_of(x), dtype=dt)
     return out
 
 

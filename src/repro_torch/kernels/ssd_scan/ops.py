@@ -34,9 +34,9 @@ from repro_torch.kernels.build import (I, L, P, CudaKernel, check_cuda,
                                        head_rows, stream_of)
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_plain  # noqa: F401
 
-KERNEL = CudaKernel("ssd_scan", "ssd_scan_f32",
+KERNEL = CudaKernel("ssd_scan", "ssd_scan",
                     [P, P, P, P, P, P, P, P, P, L, I, I, I, I, I, I, I, L, L,
-                     L, L, L, L, L, L, I, P])
+                     L, L, L, L, L, L, I, P], dtypes=(torch.float32,))
 STATE_DIMS = (16, 32, 64, 128)       # N the kernel is built for
 P_SLICE = 64                         # head-dim columns one block owns
 TILE = 64                            # the kernels' row tile

@@ -12,7 +12,11 @@ zeros.  The kernel reads q, k and v through their batch and token
 strides, so the three column slices of the fused QKV product go in
 without a copy.  It computes both products on the TF32 tensor cores in
 the 3xTF32 scheme (each operand split into two TF32 parts, three
-products kept), which stays within ~1e-5 of float32 here.
+products kept), which stays within ~1e-5 of float32 here.  q, k and v
+share one type, float32, fp16 or bf16: the kernel computes in float32
+(a half operand converts exactly and splits with a zero low part) and
+returns the input's type, as the reference does; so does the plain
+version.
 
 ``WindowAttention`` is the differentiable entry (``kernels.dispatch``
 routes through it on both devices): its forward is the kernel on the
@@ -32,7 +36,7 @@ from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
 from repro_torch.kernels.window_attention.ref import (  # noqa: F401
     window_attention_plain)
 
-KERNEL = CudaKernel("window_attention", "window_attention_f32",
+KERNEL = CudaKernel("window_attention", "window_attention",
                     [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, F,
                      I, P])
 MAX_WINDOW = MAX_HEAD_DIM = 128   # the kernel's register tiles
@@ -60,15 +64,13 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         tensors.append(wv)
         valid_arg = wv
     check_cuda("window_attention", *tensors)
-    if q.dtype != torch.float32 or k.dtype != torch.float32 \
-            or v.dtype != torch.float32:
-        raise ValueError("window_attention: float32 q/k/v only")
+    dt = KERNEL.check_dtype("window_attention", q, k, v)
     scale = Dh ** -0.5 if scale is None else scale
     out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
     KERNEL(q, k, v, valid_arg, out,
            B, T // window, window, H, KV, Dh, q.stride(0), q.stride(1),
            k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
-           q.device.index, stream_of(q))
+           q.device.index, stream_of(q), dtype=dt)
     return out
 
 

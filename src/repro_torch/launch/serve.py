@@ -5,13 +5,16 @@ mixed-granularity prefill as a per-request knob (the port of
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b \\
       [--reduced] [--requests 16 --prompt-len 128 --max-new 16] \\
-      [--mixed --beta 2 --low-frac 0.5] [--quant int8] [--device cpu]
+      [--mixed --beta 2 --low-frac 0.5] [--quant int8|fp16|bf16] \\
+      [--device cpu]
 
 ``--arch`` is one of ``repro_torch.configs.ARCH_MODULES`` (qwen3-4b,
 mamba2-370m, zamba2-1.2b); the SSM and hybrid families serve the plain
 path (``--mixed`` is turned off for them, as in the reference).
 ``--quant int8`` serves ``quant.ptq.quantize_lm_params``'s tree (int8
-attention and MLP projections, float32 activations) and prints its
+attention and MLP projections, float32 activations); ``fp16`` / ``bf16``
+cast the whole tree (``qtensor.cast_tree``: half activations, the
+kernels' half entry points, float32 caches).  Each prints the tree's
 size before and after.
 
 Exits 0 only if every request got ``--max-new`` tokens.
@@ -28,7 +31,7 @@ import torch
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import registry
 from repro_torch.quant import qtensor as qt
-from repro_torch.quant.ptq import quantize_lm_params
+from repro_torch.quant.ptq import DTYPES, quantize_lm_params
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.request import Request
 
@@ -50,12 +53,11 @@ def main(argv=None) -> int:
                     help="with --mixed: rotate the pooled spans across K "
                     "distinct layouts (same n_low, different content: the "
                     "requests split into K waves)")
-    ap.add_argument("--quant", choices=("fp32", "int8"), default="fp32",
+    ap.add_argument("--quant", choices=("fp32", "fp16", "bf16", "int8"),
+                    default="fp32",
                     help="serving weight lane: int8 quantizes the "
                     "projection weights (per-output-channel, "
-                    "repro_torch.quant) at float32 activations; the "
-                    "reference's fp16 / bf16 lanes need half kernels "
-                    "(ROADMAP.md)")
+                    "repro_torch.quant), fp16/bf16 cast the whole tree")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -67,9 +69,12 @@ def main(argv=None) -> int:
     dev = torch.device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = registry.init_params(cfg, gen, device=dev)
-    if args.quant == "int8":
+    if args.quant != "fp32":
         bytes0 = qt.tree_bytes(params)
-        params = quantize_lm_params(params)
+        if args.quant == "int8":
+            params = quantize_lm_params(params)
+        else:
+            params = qt.cast_tree(params, DTYPES[args.quant])
         print(f"[serve] quant={args.quant}: {bytes0 / 2**20:.1f} MiB -> "
               f"{qt.tree_bytes(params) / 2**20:.1f} MiB")
     sc = ServeConfig(max_batch=args.batch,

@@ -111,8 +111,13 @@ def _kv_slot(caches: Dict, idx: int) -> Dict[str, torch.Tensor]:
 
 def _store(states: Dict[str, torch.Tensor], idx: int,
            new: Dict[str, torch.Tensor]) -> None:
-    """Write layer ``idx``'s new conv and SSM states into the stacks."""
+    """Write layer ``idx``'s new conv and SSM states into the stacks.  A
+    stack takes the type its layers produce (the conv state the model's,
+    the SSM state float32), as the reference's scan stacks them anew: a
+    half cache under a float32 tree, or the reverse, gives way to it."""
     for k, v in new.items():
+        if states[k].dtype != v.dtype:
+            states[k] = states[k].to(v.dtype)
         states[k][idx].copy_(v)
 
 

@@ -85,9 +85,12 @@ def conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
                 w: torch.Tensor, b: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-step conv: x_t (B, C); conv_state (B, K-1, C) of past inputs.
-    Returns (out (B, C), the new state (B, K-1, C))."""
+    Returns (out (B, C), the new state (B, K-1, C)).  Mixed types
+    promote, as the reference's jnp ops do (a float32 state under a half
+    model runs the step in float32)."""
     window = torch.cat([conv_state, x_t[:, None, :]], dim=1)     # (B,K,C)
-    out = torch.einsum("bkc,kc->bc", window, w) + b[None, :]
+    ct = torch.promote_types(window.dtype, w.dtype)
+    out = torch.einsum("bkc,kc->bc", window.to(ct), w.to(ct)) + b[None, :]
     return out, window[:, 1:, :]
 
 

@@ -48,8 +48,11 @@ copied back through pinned memory, each copy counted in
 ``stats.tile_bytes_*``; detections and tiles are those of the default
 device-resident mode, which moves no tile bytes.
 
-Not ported yet: the kernel autotuner and the half-precision quantized
-lanes (fp16/bf16 weights or activations).
+A half tree (``quant=QuantSpec("int8", "fp16", 1)``, the reference's
+shipped point, or fp16 / bf16 weights) serves its grid in ``act_dtype``:
+activations, zero tiles and cached tiles in that type, the kernels'
+half entry points, detections decoded in float32, and the same grid
+keys as float32.  Not ported yet: the kernel autotuner.
 """
 from __future__ import annotations
 
@@ -164,9 +167,6 @@ class ServerModel:
         # activation dtype of the grid, read from the tree so that
         # pre-compressed parameters work too
         self.act_dtype = params["patch_embed"]["b"].dtype
-        if self.act_dtype != torch.float32:
-            raise NotImplementedError(
-                f"activation dtype {self.act_dtype}: only float32 is ported")
         self.part = vb.vit_partition(cfg)
         self.top_k = top_k
         self.score_thresh = score_thresh
@@ -341,14 +341,16 @@ class ServerModel:
             return self.full_capture
         return want
 
-    def _h2d(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the server's device.  On the card the copy
-        goes through pinned memory without blocking the host, so it never
-        waits for the forwards already queued on the stream."""
+    def _h2d(self, a) -> torch.Tensor:
+        """A host array or tensor (half tiles have no numpy type) on the
+        server's device.  On the card the copy goes through pinned memory
+        without blocking the host, so it never waits for the forwards
+        already queued on the stream."""
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))
         if self.device.type != "cuda":
-            return torch.as_tensor(a, device=self.device)
-        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
-            self.device, non_blocking=True)
+            return t.to(self.device)
+        return t.contiguous().pin_memory().to(self.device, non_blocking=True)
 
     def stage_frames(self, frames) -> StagedWave:
         """Stage a wave's decoded frames ahead of its forward.
@@ -532,7 +534,7 @@ class ServerModel:
             zero = zero.cpu()
         rows = [zero if r is None else r for r in rows]
         tiles = torch.stack(rows + [rows[0]] * npad)
-        return self._h2d(tiles.numpy()) if host_bytes else tiles
+        return self._h2d(tiles) if host_bytes else tiles
 
     def _refresh_caches(self, caches, tiles_out: torch.Tensor, layouts,
                         cap: int, frame_ids) -> None:

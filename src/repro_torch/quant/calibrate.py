@@ -15,10 +15,9 @@ parameter bytes (most compressed first) and ships the FIRST point that
 holds the bound; if none does, the deployment stays float32 (shipped is
 None).  ``ServerModel(cfg, params, quant=shipped)`` then serves it.
 
-The port compresses to int8 weights at float32 activations only: a rung
-with half weights or activations (three of the four in
-``DEFAULT_CANDIDATES``) raises ``NotImplementedError`` from
-``ptq.compress`` before any server is built, rather than being skipped.
+Every rung of ``DEFAULT_CANDIDATES`` runs: ``int8+fp16-p1``,
+``int8+fp16`` and ``fp16+fp16`` serve through the kernels' half entry
+points, ``int8`` at float32.
 """
 from __future__ import annotations
 
@@ -108,8 +107,7 @@ def calibrate(cfg: ModelConfig, params,
     ``score_thresh``, buckets...); the tree is moved to that device
     first.  ``calib_frames`` feed head scoring for pruned candidates
     (default: the first scenario's first four frames).  Every candidate
-    is compressed before the first server is built, so an unsupported
-    rung raises before any forward runs.
+    is compressed before the first server is built.
     """
     from repro_torch.offload.simulator import ServerModel
     kw = dict(server_kw or {})

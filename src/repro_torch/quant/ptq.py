@@ -10,12 +10,13 @@ every linear use-site routes through ``quant.qtensor.matmul``, so
 
 "int8" makes per-output-channel symmetric QuantTensors of every linear
 weight (fused QKV, w_o, MLP, patch embed, the position grid and the
-detection-head convs); biases and norm affines stay float.
+detection-head convs); biases and norm affines stay float.  A half
+``act_dtype`` ("fp16" / "bf16") casts every float leaf to it, and the
+QuantTensors' outputs too (the ``int8+fp16`` lane); "fp16" / "bf16"
+weights cast the whole tree, as in the reference.  The half trees run
+through the kernels' half entry points (``kernels.dispatch``).
 :func:`quantize_lm_params` is the LM serving lane's counterpart: the
-attention and MLP projections of every block.  This port
-serves float32 activations only: the half-precision lanes (``act_dtype``
-"fp16"/"bf16", ``weight_dtype`` "fp16"/"bf16") need half variants of
-the attention, pack/restore and pool kernels and raise here.
+attention and MLP projections of every block.
 """
 from __future__ import annotations
 
@@ -140,11 +141,10 @@ def compress(cfg: ModelConfig, params, spec: QuantSpec,
     re-derived from the quantized grid), and the report records bytes
     before and after (the derived position layouts not counted, as the
     reference's tree has none), the ratio, and each layer's kept and
-    dropped heads."""
-    if spec.act_dtype != "fp32" or spec.weight_dtype in ("fp16", "bf16"):
-        raise NotImplementedError(
-            f"{spec.name}: only float32 activations with fp32 or int8 "
-            f"weights are ported (half lanes need half kernel variants)")
+    dropped heads.  The position layouts are derived after the cast, from
+    the half or dequantized grid (``vb.add_position_banks``: dequantize
+    to the activation type, pool in float32, cast back, as the
+    reference's forward does)."""
     params = vb.strip_derived(params)
     bytes0 = qt.tree_bytes(params)
     report: Dict = {"spec": spec.name, "weight_dtype": spec.weight_dtype,
@@ -163,8 +163,15 @@ def compress(cfg: ModelConfig, params, spec: QuantSpec,
         report["kept_heads"] = kept
         report["dropped_heads"] = [
             sorted(set(range(H)) - set(ks)) for ks in kept]
+    adt = spec.act_torch
     if spec.weight_dtype == "int8":
-        params = quantize_vitdet_params(params, out_dtype=spec.act_torch)
+        params = quantize_vitdet_params(params, out_dtype=adt)
+        if adt != torch.float32:
+            params = qt.cast_tree(params, adt)
+    elif spec.weight_dtype in ("fp16", "bf16"):
+        params = qt.cast_tree(params, DTYPES[spec.weight_dtype])
+    elif adt != torch.float32:
+        params = qt.cast_tree(params, adt)
     report["bytes"] = qt.tree_bytes(params)
     report["ratio"] = bytes0 / max(report["bytes"], 1)
     return cfg, vb.add_position_banks(cfg, params), report

@@ -150,10 +150,14 @@ def matmul(x: torch.Tensor, w: WeightLike, *,
            mode: Optional[str] = None) -> torch.Tensor:
     """``x @ w`` with quant-aware routing.
 
-    Float weights take the plain ``x @ w``.  QuantTensor weights run the
-    int8 lane (mode "native") or the dequantized float GEMM (mode
-    "dequant"), see ``kernels.dispatch.resolve_quant``."""
+    Float weights take the plain ``x @ w``; the half-precision lane casts
+    the activations to an fp16 / bf16 weight's type first, so a half tree
+    carries half activations through the whole backbone.  QuantTensor
+    weights run the int8 lane (mode "native") or the dequantized float
+    GEMM (mode "dequant"), see ``kernels.dispatch.resolve_quant``."""
     if not isinstance(w, QuantTensor):
+        if w.dtype != x.dtype and w.dtype in (torch.float16, torch.bfloat16):
+            x = x.to(w.dtype)
         return torch.matmul(x, w)
     if dispatch.resolve_quant(mode) == "dequant":
         wd = w.dequant()

@@ -74,6 +74,9 @@ class ServeConfig:
     # slot 0 and are masked out of the responses)
     b_buckets: Tuple[int, ...] = (1, 2, 4, 8)
     device: str = "cuda"
+    # the type of the KV caches and of the conv states (the SSM states
+    # stay float32, as in the reference): fp16 / bf16 halve their bytes
+    cache_dtype: torch.dtype = torch.float32
 
 
 class ServeEngine:
@@ -176,7 +179,7 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def _state(self, batch: int):
         return registry.init_decode_state(self.cfg, batch, self.sc.max_len,
-                                          torch.float32, self.device)
+                                          self.sc.cache_dtype, self.device)
 
     def _build_prefill(self, beta: int, mixed: bool) -> Callable:
         cfg, params = self.cfg, self.params

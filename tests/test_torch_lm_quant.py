@@ -178,8 +178,19 @@ def test_launch_serve_int8_subprocess():
 
 @pytest.mark.parametrize("lane", ["fp16", "bf16"])
 def test_launch_serve_refuses_half_lanes(lane):
+    """The half lanes, once refused, serve: the reference's MiB line for
+    the cast tree, then every request's tokens.  A lane the reference
+    lacks is still refused by argparse."""
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--quant", lane,
-         "--reduced", "--device", "cpu"],
+         "--reduced", "--device", "cpu", "--requests", "2",
+         "--prompt-len", "32", "--max-new", "4"],
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert f"[serve] quant={lane}: 0.4 MiB -> 0.2 MiB" in out.stdout
+    assert "[serve] 2 requests, 8 tokens" in out.stdout
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--quant",
+         f"{lane}x", "--reduced", "--device", "cpu"],
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 2 and "invalid choice" in out.stderr

@@ -318,8 +318,30 @@ def test_compress_report_matches_reference(sim, spec):
 @pytest.mark.parametrize("spec", [("int8", "fp16", 0), ("fp16", "fp16", 0),
                                   ("bf16", "fp32", 0)])
 def test_compress_refuses_half_lanes(sim, spec):
-    with pytest.raises(NotImplementedError):
-        tptq.compress(tcfg.SIM, sim[1], tptq.QuantSpec(*spec))
+    """The half lanes, once refused, compress as the reference does: the
+    same report, and a tree equal to the reference's compressed tree
+    converted (half leaves, QuantTensors with half outputs, the position
+    layouts derived from the half or dequantized grid)."""
+    jp, tp = sim
+    jc2, jq, jrep = jptq.compress(jcfg.SIM, jp, jptq.QuantSpec(*spec))
+    tc2, tq, trep = tptq.compress(tcfg.SIM, tp, tptq.QuantSpec(*spec))
+    for key in ("spec", "bytes_fp32", "bytes", "ratio", "weight_dtype",
+                "act_dtype"):
+        assert trep[key] == jrep[key], key
+    half = tptq.DTYPES[spec[1] if spec[0] == "int8" else spec[0]]
+    want = convert.params_from_jax(_np_tree(jq), tc2, device="cpu")
+    assert tq["patch_embed"]["b"].dtype == half
+    for key in ("pos_seq", "pos_bank"):
+        assert tq[key].dtype == half and torch.equal(tq[key], want[key])
+    for got_blk, want_blk in zip(tq["blocks"], want["blocks"]):
+        for key in ("w_qkv", "w_o"):
+            g, w = got_blk["attn"][key], want_blk["attn"][key]
+            if spec[0] == "int8":
+                assert g.out_dtype == w.out_dtype == str(half)[6:]
+                assert torch.equal(g.q, w.q) and torch.equal(g.scale,
+                                                             w.scale)
+            else:
+                assert g.dtype == half and torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------
