@@ -10,7 +10,8 @@ Phases; any failure exits non-zero and prints no result:
 
   1. print the card's name and power limit; build the nine CUDA kernels
      (eight libraries) from ``src/repro_torch/csrc`` (one nvcc per source,
-     all at once);
+     all at once); print the registers and spills of every kernel, and
+     on a line each those of the half attention kernels;
   2. hold each kernel against its plain PyTorch version on the card, at
      the full-width ViTDet-L shapes the serving path gives it, and time
      the kernel alone, the plain version and, where one PyTorch call
@@ -56,7 +57,12 @@ Phases; any failure exits non-zero and prints no result:
      at HALF_EQUAL or more of the elements bit-equal; the bound counts
      the type's bytes, and at half attention's products as one half
      product at the half tensor-core peak.  Each row gains ``f16`` /
-     ``bf16`` entries with the float32 row's keys;
+     ``bf16`` entries with the float32 row's keys.  At half, window and
+     flash run their half tensor-core kernels (``HALF_KERNELS``), which
+     the traces time under those kernels' own names (a trace with no
+     device time there fails), and each is also held on q, k and v whose
+     base lies 2 bytes off 16, which its wrapper copies (three copies
+     counted);
   3. serve full-width ViTDet-L (24 blocks, D=1024, 1024x1024 frames,
      weights drawn from a seed) through ``ServerModel.infer_wave``: warm
      up, then a full-resolution wave that captures restoration-point
@@ -288,7 +294,9 @@ Phases; any failure exits non-zero and prints no result:
      in the int8 lane) must launch at half (a served wave pools its
      float32 frame in float32, as in the reference); weight bytes, ratio and wave ms beside phase 3's and
      phase 5's; 8-block int8+fp16-p1 and bf16 trees card vs CPU to
-     HALF_E2E_RTOL.  Inside phase 13, on its clips and estimators: phase
+     HALF_E2E_RTOL; per served path a line of its fp16 / bf16 window
+     and flash launches, each through the half design, and the view
+     copies their wrappers made.  Inside phase 13, on its clips and estimators: phase
      18 again on an fp16 server (equal detections in both cache modes;
      tiles move in half float32's bytes);
  22. the LM half lanes: full-width Qwen3-4B (phase 7's weights and
@@ -297,8 +305,9 @@ Phases; any failure exits non-zero and prints no result:
      decode-step ms beside phase 7's, flash at half in a half tree's
      prefill, decode at half in every step, finite bf16 logits (fp16's
      printed), greedy agreement with phase 7's tokens (printed); one
-     bf16 wave each of mamba2-370m and zamba2-1.2b; a 2-layer bf16
-     Qwen3 card vs CPU to LM_BF16_RTOL.
+     bf16 wave each of mamba2-370m and zamba2-1.2b, each lane and wave
+     with the half-design line of phase 21; a 2-layer bf16 Qwen3 card
+     vs CPU to LM_BF16_RTOL.
 
 Every printed line also goes to ``chiprun_out/chip_smoke.log`` and every
 number to ``chiprun_out/chip_smoke.json``.  Each serving path resets the launch counts just before it and reads them
@@ -324,6 +333,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -510,6 +520,15 @@ DEVICE_NAMES = {
     "decode_attention": "decode_attention_kernel", "ssd_scan": "ssd_"}
 
 
+# the fp16 / bf16 entry points of window and flash attention launch only
+# their half kernels (the half tensor-core design): kernel name -> the
+# fragment of that kernel's name in a trace, and the design
+HALF_KERNELS = {
+    "window_attention": ("window_attention_kernel_half",
+                         "mma.sync m16n8k16 + cp.async + ldmatrix"),
+    "flash_attention": ("flash_attention_kernel_half", "wgmma + TMA")}
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -588,6 +607,10 @@ def run(torch):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {name}: {line.strip()}")
+    for fn, regs, spills in ptxas_kernels(logs, [f for f, _ in
+                                                 HALF_KERNELS.values()]):
+        say(f"  half design kernel {fn}: {regs} registers, spill stores / "
+            f"loads {spills[0]} / {spills[1]} bytes")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3137,7 +3160,7 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
                         ATTN_TOL)
         k_ms = timed(torch, lambda: flash.KERNEL.relaunch(1))
         d_us = device_us(torch, lambda: flash.KERNEL.relaunch(1),
-                         DEVICE_NAMES["flash_attention"])
+                         trace_name("flash_attention", dt))
         p_ms = timed(torch, lambda: flash.flash_attention_plain(
             q, k, v, causal=True))
         qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -3163,6 +3186,50 @@ def ulp(torch, x):
     _, e = torch.frexp(x.float().abs())
     return torch.clamp(torch.ldexp(torch.ones_like(e, dtype=torch.float32),
                                    e - p), min=tiny)
+
+
+def ptxas_kernels(logs, frags):
+    """(kernel, registers, (spill store bytes, spill load bytes)) of each
+    kernel in the ``nvcc -Xptxas -v`` logs whose name holds one of
+    ``frags``, its name demangled where ``c++filt`` is at hand."""
+    out, fn, spills = [], None, (0, 0)
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills = (int(m.group(1)), int(m.group(2)))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn and any(f in fn for f in frags):
+                out.append((fn, int(m.group(1)), spills))
+                fn = None
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(
+            f for f, _, _ in out), capture_output=True, text=True,
+            timeout=60).stdout.split("\n")
+        out = [(n or f, r, sp) for n, (f, r, sp) in zip(names, out)]
+    return out
+
+
+def half_design(path, suf, half):
+    """Phases 21 and 22: the fp16 / bf16 window and flash launches of a
+    served path, each through its half design (the half entry points
+    launch nothing else), and the operands their wrappers copied because
+    the design's 16-byte loads refuse the view, read with the launch
+    counts.  Prints one line and returns the counts."""
+    from repro_torch.kernels import dispatch
+    copies = dispatch.copy_counts()
+    r = {k: {"launches": half[k], "view_copies": copies[k],
+             "design": HALF_KERNELS[k][1]} for k in HALF_KERNELS}
+    say(f"    half design at {suf} on {path}: " + "; ".join(
+        f"{k} {v['launches']} launches ({v['design']}), {v['view_copies']} "
+        f"view copies" for k, v in r.items()))
+    return r
 
 
 def half_close(torch, name, got, want, atol):
@@ -3237,7 +3304,7 @@ def kernel_checks(torch, F, dev, gen, cfg, part, lay, arrays, lb, put, dt):
         p_ms = timed(torch, plain_fn)
         l_ms = timed(torch, lib_fn) if lib_fn is not None else None
         d_us = device_us(torch, lambda: kernel.relaunch(1),
-                         DEVICE_NAMES[name])
+                         trace_name(name, dt))
         return put(name, err, k_ms, p_ms, l_ms, *bound(nbytes, nops, peak),
                    d_us, dt=dt, **extra)
 
@@ -3341,6 +3408,9 @@ def kernel_checks(torch, F, dev, gen, cfg, part, lay, arrays, lb, put, dt):
          timed(torch, lambda: win.KERNEL.relaunch(1)),
          4 * es * B * T * (H - 1) * Dh)
     del qp, kp, vp, q15, k15, v15
+    if not f32:
+        unaligned_view(torch, f"window_attention {suf}", win, rnd,
+                       (B, T, H, Dh), lambda f, a: f(*a, w2))
     q, k, v = qkv_views(T)
     err, eq = agree(torch, f"window_attention {suf}",
                     win.window_attention_cuda(q, k, v, w2),
@@ -3375,6 +3445,9 @@ def kernel_checks(torch, F, dev, gen, cfg, part, lay, arrays, lb, put, dt):
                 ATTN_TOL)
     say(f"  flash_attention {suf} max errors by (B, T, S, H, KV, Dh, "
         f"causal): { {k: float(f'{e:.3g}') for k, e in errs.items()} }")
+    if not f32:
+        unaligned_view(torch, f"flash_attention {suf}", flash, rnd,
+                       (1, 1000, H, Dh), lambda f, a: f(*a, causal=True))
     err, eq = agree(torch, f"flash_attention {suf}",
                     flash.flash_attention_cuda(q, k, v),
                     flash.flash_attention_plain(q, k, v), ATTN_TOL)
@@ -3409,6 +3482,34 @@ def kernel_checks(torch, F, dev, gen, cfg, part, lay, arrays, lb, put, dt):
                                         "bound_ms")),
         max(by, key=by.get), sum(r["device_us"] for r in gemm), dt=dt)
     return gemm, lm_kernels
+
+
+def trace_name(name, dt):
+    """The fragment of a kernel's name in a trace: at fp16 / bf16 the half
+    design's own kernel for window and flash attention, so that a phase-2
+    device time of 0 (checked by ``device_us``) would show that a half
+    launch took some other kernel."""
+    if dt.itemsize == 2 and name in HALF_KERNELS:
+        return HALF_KERNELS[name][0]
+    return DEVICE_NAMES[name]
+
+
+def unaligned_view(torch, name, ops, rnd, shape, call):
+    """A half attention kernel on q, k and v whose base lies 2 bytes off
+    16 (views of one flat buffer): the wrapper copies each (three copies
+    counted on the kernel) and the result holds to the plain version."""
+    n = int(np.prod(shape))
+    flat = rnd(3 * n + 1)[1:]
+    qkv = [t.view(shape) for t in flat.split(n)]
+    before = ops.KERNEL.copies
+    prefix = name.split()[0]
+    err, eq = agree(torch, f"{name} unaligned view",
+                    call(getattr(ops, f"{prefix}_cuda"), qkv),
+                    call(getattr(ops, f"{prefix}_plain"), qkv), ATTN_TOL)
+    check(ops.KERNEL.copies - before == 3, f"{name} unaligned view: "
+          f"{ops.KERNEL.copies - before} copies counted, want 3")
+    say(f"  {name} unaligned view {shape}: max error {err:.3g}, "
+        f"{eq:.5f} bit-equal; 3 copies counted")
 
 
 def agree(torch, name, got, want, tol):
@@ -4521,6 +4622,7 @@ def vit_half_phase(torch, cfg, dev, count, plans, lat):
         exact()
         launches = dispatch.launch_counts()  # ... and ends here
         half = dispatch.launch_counts(suf)
+        design = half_design(f"vitdet-l {name}", suf, half)
         count(f"vitdet-l {name}", launches)
         seen[suf] |= {k for k, v in half.items() if v}
         check(srv.stats.steady_compiles == 0,
@@ -4547,7 +4649,7 @@ def vit_half_phase(torch, cfg, dev, count, plans, lat):
              f"launches_{suf}": {k: v for k, v in half.items() if v},
              "compress_launches": {k: v for k, v in comp.items() if v},
              f"compress_launches_{suf}": {k: v for k, v in comp_half.items()
-                                          if v}}
+                                          if v}, "half_design": design}
         out["specs"][name] = r
         say(f"  {name} ({srv.act_dtype}): {rep['bytes_fp32']} -> "
             f"{rep['bytes']} bytes (ratio {rep['ratio']:.4f}), heads "
@@ -4651,6 +4753,7 @@ def lm_half_phase(torch, cfg, dev, fp32, count):
         first, tokens = lm_wave(eng, cfg, prompts)
         launches = dispatch.launch_counts()  # ... and ends here
         at_half = dispatch.launch_counts(suf)
+        design = half_design(f"{cfg.name} {name}", suf, at_half)
         count(f"{cfg.name} {name}", launches)
         want = {"decode_attention": cfg.n_layers * steps}
         if tree_dt != torch.float32:
@@ -4680,7 +4783,7 @@ def lm_half_phase(torch, cfg, dev, fp32, count):
              "token_agreement_with_fp32": same / (LM_B * LM_NEW),
              "launches": {k: v for k, v in launches.items() if v},
              f"launches_{suf}": {k: v for k, v in at_half.items() if v},
-             "warmup_keys": n_keys}
+             "half_design": design, "warmup_keys": n_keys}
         out["lanes"][name] = r
         say(f"  {name}: weights {gb:.3f} GB; wave first {first:.4f} s, "
             f"median {r['median_s']:.4f} s (fp32 {ref['median_s']:.4f}); "
@@ -4710,6 +4813,7 @@ def lm_half_phase(torch, cfg, dev, fp32, count):
         wall, _ = lm_wave(eng, c, ps)
         launches = dispatch.launch_counts()  # ... and ends here
         at_half = dispatch.launch_counts("bf16")
+        design = half_design(f"{c.name} bf16", "bf16", at_half)
         count(f"{c.name} bf16", launches)
         n_attn = c.n_layers // 6 if c.family == "hybrid" else 0
         check(launches["ssd_scan"] == c.n_layers
@@ -4722,7 +4826,7 @@ def lm_half_phase(torch, cfg, dev, fp32, count):
                        / 1e9, "launches": {k: v for k, v in launches.items()
                                            if v},
                        "launches_bf16": {k: v for k, v in at_half.items()
-                                         if v}}
+                                         if v}, "half_design": design}
         say(f"  {c.name} bf16: {out[c.name]['weight_gb']:.3f} GB; wave of "
             f"{LM_B} x {LM_T} + {LM_NEW} in {wall:.3f} s; launches "
             f"{json.dumps(out[c.name]['launches'])}; at bf16 "

@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
 """Device time of ``decode_attention`` and ``avg_pool`` at the shapes
-``chip_smoke.py``'s phase 2 gives them, for one checkout's port.
+``chip_smoke.py``'s phase 2 gives them, for one checkout's port.  Flash
+and window attention, at float32, fp16 and bf16 with SDPA beside each,
+are timed by ``flash_ab.py``, which takes a tree the same way (its
+``PYTHONPATH``).
 
 Run on a machine with an NVIDIA GPU, from the root of this checkout:
 

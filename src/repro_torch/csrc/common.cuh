@@ -16,6 +16,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
 extern "C" __attribute__((visibility("default")))
@@ -72,6 +74,11 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// A shared-memory pointer as the 32-bit address PTX takes.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // Elements of T in 16 bytes: 4 floats, 8 halves.

@@ -63,19 +63,67 @@
 // Dh = 128.
 //
 // Element types (common.cuh): q, k, v and out all float32, fp16 or bf16,
-// exported as flash_attention_{f32,f16,bf16}.  Half rows convert to
-// float while staged (tf32_mma.cuh's stage_rows: plain 16-byte loads
-// into the same float shared rows, so the shared-memory budget and the
-// ring are those of float32; the next tile's loads are issued where its
-// copies are, before the current tile's arithmetic).  Half values split
-// with lo = 0 (exact TF32), so the arithmetic is float32's; the output
-// rounds once to the input type, as the reference casts its float32
-// result.
+// exported as flash_attention_{f32,f16,bf16}.  Float32 runs the kernel
+// above.  fp16 / bf16 run flash_attention_kernel_half, built for Hopper's
+// half tensor cores:
+//  - Bound: operations, 137.4 GFLOP at the ViT shape, 139 us at the 989
+//    TFLOP/s dense half rate for one half product a product.  Q K^T takes
+//    one (a product of two half values is exact in float32, summed in a
+//    float32 accumulator); P V takes two, P_hi V + P_lo V, with P split in
+//    registers into two pieces of the input's type (half_mma.cuh): P
+//    rounded once moves a third of the outputs off the float32 plain
+//    version's rounding, the split keeps over 99% of them bit-equal.
+//    Three half products a product: a floor of 208 us at the ViT shape.
+//    Beside them the softmax runs on the CUDA cores (an exp2 per score,
+//    16 a clock an SM: ~140 us at the ViT shape) with the split's
+//    conversions.
+//  - Design: wgmma.mma_async m64nNk16 with float32 accumulators, the
+//    only way to the half tensor cores' full rate.  A block of 128 query
+//    rows of one (batch row, head) has two consumer warpgroups of 64
+//    rows and one producer warp.  The producer's lane 0 loads Q once and
+//    keeps a ring of three K / V stages full with TMA (4D maps over
+//    (Dh, heads, tokens, batch) built per call, so the fused QKV product's
+//    column views go in as they are), each stage completing on a "full"
+//    mbarrier and reused once all eight consumer warps have arrived on
+//    its "empty" one.  Rows are 128 bytes (64 half columns) with the
+//    128-byte swizzle, the layout wgmma's descriptors read: Dh = 128 is
+//    two such panels, Dh = 16 or 32 one panel whose extra columns TMA
+//    fills with zeros (exact zeros in Q K^T, unstored in O).  Rows past T
+//    or S read as zero; masked scores are -inf.
+//  - S = Q K^T: wgmma with Q and K both K-major in shared memory, 128
+//    keys a tile at Dh <= 64 (64 at Dh = 128, where O takes 64 registers
+//    a thread).  The online softmax is the float32 kernel's in registers,
+//    in base 2, with its -inf handling; the scale multiplies the row max
+//    of the raw scores once and folds into p = 2^(s scale - max) as one
+//    FMA, and 2^x is one MUFU op (ex2.approx.ftz).  The score
+//    accumulator's layout is already the A-register layout of 16 keys,
+//    so P_hi and P_lo feed wgmma from registers with no relabelling; V is
+//    B, MN-major in shared memory under wgmma's transpose bit.
+//  - Each key tile's P V starts from zero in its own fragment (scale-d 0
+//    on its first wgmma), per 64-column panel of V, and joins O in one
+//    float32 FMA a value, O = O alpha + (P V): the tensor cores' sums
+//    round toward zero, wgmma's as well as mma.sync's, so accumulating
+//    into the running O would add truncations of O's own size.
+//  - The two warpgroups take turns at the tensor cores (named barriers):
+//    a turn issues tile kt - 1's P V, joins it, and issues tile kt's
+//    Q K^T; tile kt's softmax runs outside the turn, under the other
+//    warpgroup's products.  That keeps one tile's scores and the P pieces
+//    of the tile before live one at a time: 139-167 registers a thread
+//    with no spills, inside the 168 that a 288-thread block gets (a
+//    block's registers are counted in whole warpgroups).  FA3's
+//    two-stage pipeline (the next Q K^T under this tile's softmax) needs
+//    both live, ~215 registers: ptxas compiled it at 168 even under
+//    setmaxnreg, spilled and ran slower (PERF.md §6).  One block an SM;
+//    outputs round once, to nearest, on store.
+// The half kernel takes 16-byte-aligned bases and strides (TMA's terms);
+// the wrapper copies a view that misses them, and counts the copy.
 #include <math.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "half_mma.cuh"
+#include "hopper.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -328,6 +376,351 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// ---------------------------------------------------------------------------
+// fp16 / bf16: TMA loads, wgmma on the half tensor cores.
+
+// Tile sizes of the half kernel for head width DH.  Shared rows are 128
+// bytes, 64 half columns, the 128-byte swizzle's row: a head of DH > 64
+// takes DH / 64 such panels, and one of DH < 64 is zero-filled by TMA to
+// one panel (its extra columns add exact zeros to Q K^T, and their
+// outputs are not stored).
+template <int DH>
+struct HalfTile {
+  static constexpr int DP = DH < 64 ? 64 : DH;  // staged head width
+  static constexpr int NP = DP / 64;            // 64-column panels
+  static constexpr int BQ = 128;                // query rows: 2 warpgroups
+  static constexpr int BN = DP == 64 ? 128 : 64;  // keys a tile
+  static constexpr int STAGES = 3;
+  static constexpr int Q_PANEL = BQ * 128, KV_PANEL = BN * 128;  // bytes
+  static constexpr int Q_BYTES = NP * Q_PANEL, KV_BYTES = NP * KV_PANEL;
+  static constexpr int STAGE = 2 * KV_BYTES;    // K then V
+  // 1 KB of slack to align to the swizzle's 1024 bytes, Q, the ring, and
+  // the Q barrier, a full and an empty barrier per stage
+  static constexpr size_t SMEM =
+      1024 + Q_BYTES + STAGES * STAGE + (1 + 2 * STAGES) * sizeof(uint64_t);
+};
+constexpr int kHalfConsumers = 2;                        // warpgroups
+constexpr int kHalfThreads = kHalfConsumers * 128 + 32;  // + producer warp
+constexpr int kSched = 1;   // named barriers kSched + wg: the issue turns
+
+template <int DH, typename E>
+__global__ void __launch_bounds__(kHalfThreads, 1)
+    flash_attention_kernel_half(const __grid_constant__ CUtensorMap mq,
+                                const __grid_constant__ CUtensorMap mk,
+                                const __grid_constant__ CUtensorMap mv,
+                                E* __restrict__ out, int T, int S, int H,
+                                int KV, float scale_log2, int causal) {
+  using L = HalfTile<DH>;
+  constexpr int BQ = L::BQ, BN = L::BN, NP = L::NP, ST = L::STAGES;
+  constexpr int NS = BN / 8;      // 8-key blocks of a score row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = Qs + L::Q_BYTES;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + ST * L::STAGE);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + ST;
+
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int n_kt = (S + BN - 1) / BN;
+  if (causal) {  // tiles wholly above the diagonal contribute nothing
+    const int last = (min(q0 + BQ, T) - 1) / BN + 1;
+    n_kt = min(n_kt, last);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kHalfConsumers * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kHalfConsumers * 4) {
+    // producer: lane 0 loads Q once, then keeps the ring of K / V tiles
+    // full; TMA zero-fills rows past T or S and columns past DH
+    if (lane == 0) {
+      mbar_expect_tx(qbar, L::Q_BYTES);
+#pragma unroll
+      for (int p = 0; p < NP; ++p)
+        tma_load_4d(&mq, Qs + p * L::Q_PANEL, qbar, 64 * p, h, q0, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % ST;
+        if (kt >= ST) mbar_wait(&empty[s], ((kt / ST) - 1) & 1);
+        uint8_t* st = ring + s * L::STAGE;
+        mbar_expect_tx(&full[s], L::STAGE);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          tma_load_4d(&mk, st + p * L::KV_PANEL, &full[s], 64 * p, kvh,
+                      kt * BN, b);
+          tma_load_4d(&mv, st + L::KV_BYTES + p * L::KV_PANEL, &full[s],
+                      64 * p, kvh, kt * BN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows [64 wg, 64 wg + 64) of the
+  // block; the thread holds rows ra and rb = ra + 8 of them, and the
+  // columns 8j + 2t, + 1 of every 8-column block of a 64-wide fragment
+  const int wg = warp / 4, t = lane % 4;
+  const int ra = q0 + 64 * wg + 16 * (warp % 4) + lane / 4, rb = ra + 8;
+  float o[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  const uint32_t qa = smem_u32(Qs) + wg * 64 * 128;
+  mbar_wait(qbar, 0);
+
+  // tile kt's online softmax on sc in float32, in base 2: the row max of
+  // the masked raw scores, scaled once (the scale is positive, so this is
+  // the max of the scaled scores), p = 2^(s scale - max) in one FMA; then
+  // P as two half pieces in the A layout of each 16 keys (half_mma.cuh)
+  uint32_t ph[BN / 16][4], pl[BN / 16][4];
+  float al0 = 1.0f, al1 = 1.0f;      // the rescale of the tile in ph / pl
+  auto softmax = [&](int kt, float* sc) {
+    const int k0 = kt * BN;
+    const bool edge = k0 + BN > S || (causal && k0 + BN - 1 > ra);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (edge) {
+          const int kj = k0 + 8 * j + 2 * t + e;
+          if (kj >= S || (causal && kj > ra)) sc[4 * j + e] = -INFINITY;
+          if (kj >= S || (causal && kj > rb)) sc[4 * j + 2 + e] = -INFINITY;
+        }
+        mx0 = fmaxf(mx0, sc[4 * j + e]);
+        mx1 = fmaxf(mx1, sc[4 * j + 2 + e]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0 * scale_log2);
+    const float mn1 = fmaxf(m1, mx1 * scale_log2);
+    // a row no key has reached yet subtracts 0: 2^-inf = 0 throughout
+    const float mr0 = mn0 == -INFINITY ? 0.0f : mn0;
+    const float mr1 = mn1 == -INFINITY ? 0.0f : mn1;
+    al0 = ex2(m0 - mr0);
+    al1 = ex2(m1 - mr1);
+    m0 = mn0;
+    m1 = mn1;
+    float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -mr0));
+        sc[4 * j + 2 + e] = ex2(fmaf(sc[4 * j + 2 + e], scale_log2, -mr1));
+        rs0 += sc[4 * j + e];
+        rs1 += sc[4 * j + 2 + e];
+      }
+    }
+    l0 = l0 * al0 + rs0;
+    l1 = l1 * al1 + rs1;
+#pragma unroll
+    for (int c = 0; c < BN / 16; ++c)
+      split_a<E>(sc + 8 * c, sc + 8 * c + 4, ph[c], pl[c]);
+  };
+  // S = Q K^T of tile kt: one half product a product (exact), float32
+  // sums; fragment 4j + e is row ra (rb for e >= 2), key kt BN + 8j + 2t
+  // + (e & 1)
+  auto issue_qk = [&](int kt, float* sc) {
+    mbar_wait(&full[kt % ST], (kt / ST) & 1);
+    const uint32_t ks = smem_u32(ring + (kt % ST) * L::STAGE);
+    fence_regs<4 * NS>(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::DP / 16; ++kk) {
+      const int p = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss<BN, E>(sc, sw128_desc(qa + p * L::Q_PANEL + off),
+                      sw128_desc(ks + p * L::KV_PANEL + off), kk);
+    }
+    wgmma_commit();
+  };
+  auto wait_qk = [&](float* sc) {
+    wgmma_wait<0>();
+    fence_regs<4 * NS>(sc);
+  };
+  // P V of tile kt per 64-column panel of V: from zero in its own
+  // fragment, P_hi V then P_lo V each 16 keys, joined to O in one float32
+  // FMA a value; then the stage is released
+  auto pv_join = [&](int kt) {
+    const uint32_t vs =
+        smem_u32(ring + (kt % ST) * L::STAGE) + L::KV_BYTES;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float pv[32];
+      fence_regs<32>(pv);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < BN / 16; ++c) {
+        const uint64_t dv = sw128_desc(vs + p * L::KV_PANEL + c * 16 * 128);
+        wgmma_rs<E>(pv, ph[c], dv, c);
+        wgmma_rs<E>(pv, pl[c], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32>(pv);
+#pragma unroll
+      for (int c = 0; c < BN / 16; ++c) {
+        fence_regs<4>(ph[c]);
+        fence_regs<4>(pl[c]);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        o[p][i] = fmaf(o[p][i], (i & 2) ? al1 : al0, pv[i]);
+    }
+    if (lane == 0) mbar_arrive(&empty[kt % ST]);   // this warp is done
+  };
+
+  // The two warpgroups take turns at the tensor cores (named barriers
+  // kSched + wg): a turn issues tile kt - 1's P V and tile kt's Q K^T, and
+  // the softmax of tile kt runs outside the turn, while the other
+  // warpgroup has its own.  n_kt + 1 turns a warpgroup, warpgroup 0 first
+  // and warpgroup 1 last.  Each step's scores are a fresh array, so no
+  // tile's scores stay live across the next turn.
+  if (n_kt > 0) {
+    if (wg == 1) named_arrive(kSched, 256);
+    {
+      float sc[4 * NS];
+      named_sync(kSched + wg, 256);
+      issue_qk(0, sc);
+      named_arrive(kSched + 1 - wg, 256);
+      wait_qk(sc);
+      softmax(0, sc);
+    }
+    for (int kt = 1; kt < n_kt; ++kt) {
+      float sc[4 * NS];
+      named_sync(kSched + wg, 256);
+      pv_join(kt - 1);
+      issue_qk(kt, sc);
+      named_arrive(kSched + 1 - wg, 256);
+      wait_qk(sc);
+      softmax(kt, sc);
+    }
+    named_sync(kSched + wg, 256);
+    pv_join(n_kt - 1);
+    if (wg == 0) named_arrive(kSched + 1, 256);
+  }
+
+  float s0 = l0, s1 = l1;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+  }
+  const float i0 = s0 > 0.0f ? 1.0f / s0 : 0.0f;
+  const float i1 = s1 > 0.0f ? 1.0f / s1 : 0.0f;
+  const long long sot = static_cast<long long>(H) * DH;
+  E* ob = out + static_cast<long long>(b) * T * sot +
+          static_cast<long long>(h) * DH + 2 * t;
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (64 * p + 8 * j >= DH) break;
+      const int c = 64 * p + 8 * j;
+      if (ra < T)
+        store2(ob + ra * sot + c, o[p][4 * j] * i0, o[p][4 * j + 1] * i0);
+      if (rb < T)
+        store2(ob + rb * sot + c, o[p][4 * j + 2] * i1,
+               o[p][4 * j + 3] * i1);
+    }
+}
+
+// A (B, rows, heads, DH) half tensor, heads dense, as a 4D TMA map of
+// boxes of 64 columns x 1 head x `box_rows` rows, swizzled 128 bytes;
+// elements outside the tensor read as zero.  Strides in elements.
+template <typename E>
+bool head_map(CUtensorMap* map, const E* base, int DH, int heads, int rows,
+              int B, long long srow, long long sb, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  if (B == 1) sb = srow * rows;
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(DH), static_cast<cuuint64_t>(heads),
+      static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(DH) * sizeof(E),
+      static_cast<cuuint64_t>(srow) * sizeof(E),
+      static_cast<cuuint64_t>(sb) * sizeof(E)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType ty = std::is_same_v<E, __half>
+                                     ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, ty, 4, const_cast<E*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DH, typename E>
+cudaError_t launch_half(const E* q, const E* k, const E* v, E* out, int B,
+                        int T, int S, int H, int KV, long long sqb,
+                        long long sqt, long long skb, long long skt,
+                        long long svb, long long svt, float scale_log2,
+                        int causal, cudaStream_t stream) {
+  using L = HalfTile<DH>;
+  CUtensorMap mq, mk, mv;
+  int rows = S;
+  if (S == 0) {  // no key: no K / V tile is loaded; their maps are q's
+    k = v = q;
+    KV = H;
+    rows = T;
+    skt = svt = sqt;
+    skb = svb = sqb;
+  }
+  if (!head_map(&mq, q, DH, H, T, B, sqt, sqb, L::BQ) ||
+      !head_map(&mk, k, DH, KV, rows, B, skt, skb, L::BN) ||
+      !head_map(&mv, v, DH, KV, rows, B, svt, svb, L::BN))
+    return cudaErrorInvalidValue;
+  cudaError_t e = repro_allow_smem(flash_attention_kernel_half<DH, E>, L::SMEM);
+  if (e != cudaSuccess) return e;
+  dim3 grid((T + L::BQ - 1) / L::BQ, H, B);
+  flash_attention_kernel_half<DH, E><<<grid, kHalfThreads, L::SMEM, stream>>>(
+      mq, mk, mv, out, T, S, H, KV, scale_log2, causal);
+  return cudaGetLastError();
+}
+
+// TMA's terms: 16-byte-aligned bases and byte strides (the wrapper copies
+// a view that misses them)
+template <typename E>
+int entry_half(const E* q, const E* k, const E* v, E* out, int B, int T_,
+               int S, int H, int KV, int Dh, long long sqb, long long sqt,
+               long long skb, long long skt, long long svb, long long svt,
+               float scale, int causal, cudaStream_t st) {
+  constexpr int V = Vec16<E>::N;
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
+      (sqb | sqt | skb | skt | svb | svt) % V || !(scale > 0.0f))
+    return cudaErrorInvalidValue;
+  const float sl = scale * kLog2e;
+  switch (Dh) {
+    case 16: return launch_half<16>(q, k, v, out, B, T_, S, H, KV, sqb, sqt,
+                                    skb, skt, svb, svt, sl, causal, st);
+    case 32: return launch_half<32>(q, k, v, out, B, T_, S, H, KV, sqb, sqt,
+                                    skb, skt, svb, svt, sl, causal, st);
+    case 64: return launch_half<64>(q, k, v, out, B, T_, S, H, KV, sqb, sqt,
+                                    skb, skt, svb, svt, sl, causal, st);
+    case 128: return launch_half<128>(q, k, v, out, B, T_, S, H, KV, sqb,
+                                      sqt, skb, skt, svb, svt, sl, causal,
+                                      st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 template <typename E>
@@ -339,19 +732,24 @@ int entry(const E* q, const E* k, const E* v, E* out, int B, int T_, int S,
   if (e != cudaSuccess) return e;
   if (KV <= 0 || H % KV) return cudaErrorInvalidValue;
   if (B == 0 || T_ == 0 || H == 0) return cudaSuccess;
-  constexpr int V = Vec16<E>::N;   // 16-byte vectors: strides in elements
-  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
-                   (sqb | sqt | skb | skt | svb | svt) % V == 0;
-  const Args<E> a{q,   k,   v,   out, T_,  S,   H,
-                  KV,  sqb, sqt, skb, skt, svb, svt,
-                  scale * kLog2e, causal, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (Dh) {
-    case 16: return launch<16>(a, B, st);
-    case 32: return launch<32>(a, B, st);
-    case 64: return launch<64>(a, B, st);
-    case 128: return launch<128>(a, B, st);
-    default: return cudaErrorInvalidValue;
+  if constexpr (sizeof(E) != 4) {
+    return entry_half(q, k, v, out, B, T_, S, H, KV, Dh, sqb, sqt, skb, skt,
+                      svb, svt, scale, causal, st);
+  } else {
+    constexpr int V = Vec16<E>::N;   // 16-byte vectors: strides in elements
+    const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
+                     (sqb | sqt | skb | skt | svb | svt) % V == 0;
+    const Args<E> a{q,   k,   v,   out, T_,  S,   H,
+                    KV,  sqb, sqt, skb, skt, svb, svt,
+                    scale * kLog2e, causal, vec};
+    switch (Dh) {
+      case 16: return launch<16>(a, B, st);
+      case 32: return launch<32>(a, B, st);
+      case 64: return launch<64>(a, B, st);
+      case 128: return launch<128>(a, B, st);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -64,11 +64,10 @@
 // int8 and do not change.  A half row stores four outputs (8 bytes) at a
 // time.  The product sx[m] * sw[n] stays in float32 in the same order,
 // so each type is bit-exact against the reference's epilogue.
-#include <cuda.h>
-
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -94,81 +93,6 @@ constexpr size_t smem_bytes() {
   // ring, and a full and an empty mbarrier per stage
   return 1024 + static_cast<size_t>(Tile<BN>::STAGES) * (BM + BN) * BK +
          2 * Tile<BN>::STAGES * sizeof(uint64_t);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Copy the box at (c0 = K offset in bytes, c1 = row) of `map` into shared
-// memory at `dst`; completes `bytes` of `bar`'s transaction count.
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with the 128-byte
-// swizzle: start address, leading offset 1 (unused by swizzled K-major
-// layouts), stride 1024 bytes between groups of 8 rows, layout type 1.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns them.
-template <int N>
-__device__ __forceinline__ void fence_regs(int* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // d (64 x 128 int32, this warpgroup's fragment) += A (64 x 32) * B^T,
@@ -235,7 +159,7 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::BLOCKS_PER_SM)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS * 4);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -270,20 +194,20 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::BLOCKS_PER_SM)
     const uint32_t sb = smem_u32(ring + s * (A_BYTES + B_BYTES) + A_BYTES);
 #pragma unroll
     for (int h = 0; h < NH; ++h) fence_regs<64>(acc[h]);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 32; ++kk)
 #pragma unroll
       for (int h = 0; h < NH; ++h)
         wgmma_m64n128k32(acc[h], sw128_desc(sa + kk * 32),
                          sw128_desc(sb + h * 128 * BK + kk * 32));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    wgmma_commit();
 #pragma unroll
     for (int h = 0; h < NH; ++h) fence_regs<64>(acc[h]);
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wgmma_wait<1>();
     if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % STAGES]);
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_wait<0>();
 #pragma unroll
   for (int h = 0; h < NH; ++h) fence_regs<64>(acc[h]);
 
@@ -336,33 +260,6 @@ __global__ void __launch_bounds__(THREADS, Tile<BN>::BLOCKS_PER_SM)
         if (gc + e < N) dst[e] = from_f32<OT>(ov[e]);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, found through the runtime so that
-// this library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A (rows, K) int8 row-major matrix as 128-byte x box_rows TMA boxes with

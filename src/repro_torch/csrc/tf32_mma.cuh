@@ -1,5 +1,7 @@
 // TF32 tensor-core helpers shared by the float32 attention and scan
 // kernels: cp.async staging and mma.sync m16n8k8 in the 3xTF32 scheme.
+// (The fp16 / bf16 attention kernels use half tensor cores instead:
+// half_mma.cuh.)
 //
 // 3xTF32: each float32 operand x splits into x_hi (x with its low 13
 // mantissa bits cleared, a TF32 value) and x_lo = x - x_hi, of which the
@@ -22,10 +24,6 @@
 #include <cstdint>
 
 #include "common.cuh"
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16- and 4-byte cp.async copies, filling the destination with zeros when
 // `full` is false (src is then not read, but must still be a valid
@@ -60,51 +58,22 @@ __device__ __forceinline__ void cp_async_wait() {
 // `valid` are zero-filled.  `vec`: 16-byte copies (source address and
 // pitch 16-byte aligned, W a multiple of 4), else 4-byte ones.  Every
 // thread of the block takes part; the caller commits and waits.
-//
-// Rows of fp16 or bf16 (T = __half, __nv_bfloat16) convert to float
-// while they are staged: plain loads, 16 bytes (8 elements) at a time
-// where `vec` (pitch and address 16-byte aligned, W a multiple of 8), one
-// element at a time otherwise, and float stores into the same shared
-// rows, so the arithmetic after the stage reads float32 as at float32.
-// These stores are visible after the caller's __syncthreads, as the
-// copies are after its cp.async wait.  A half value is an exact TF32
-// value (10 and 7 mantissa bits against TF32's 10), so split_tf32 gives
-// it lo = 0 and the 3xTF32 products stay exact.
-template <int W, typename T>
-__device__ __forceinline__ void stage_rows(float* s, int ld, const T* g,
+template <int W>
+__device__ __forceinline__ void stage_rows(float* s, int ld, const float* g,
                                            long long st, int rows, int valid,
                                            bool vec) {
-  if constexpr (sizeof(T) == 4) {
-    if (vec) {
-      constexpr int CPR = W / 4;
-      for (int idx = threadIdx.x; idx < rows * CPR; idx += blockDim.x) {
-        const int i = idx / CPR, c = (idx % CPR) * 4;
-        const bool in = i < valid;
-        cp_async16_zfill(s + i * ld + c, g + (in ? i : 0) * st + c, in);
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < rows * W; idx += blockDim.x) {
-        const int i = idx / W, c = idx % W;
-        const bool in = i < valid;
-        cp_async4_zfill(s + i * ld + c, g + (in ? i : 0) * st + c, in);
-      }
+  if (vec) {
+    constexpr int CPR = W / 4;
+    for (int idx = threadIdx.x; idx < rows * CPR; idx += blockDim.x) {
+      const int i = idx / CPR, c = (idx % CPR) * 4;
+      const bool in = i < valid;
+      cp_async16_zfill(s + i * ld + c, g + (in ? i : 0) * st + c, in);
     }
   } else {
-    if (vec) {
-      constexpr int CPR = W / 8;
-      for (int idx = threadIdx.x; idx < rows * CPR; idx += blockDim.x) {
-        const int i = idx / CPR, c = (idx % CPR) * 8;
-        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (i < valid) load16(g + i * st + c, f);
-        float4* d = reinterpret_cast<float4*>(s + i * ld + c);
-        d[0] = make_float4(f[0], f[1], f[2], f[3]);
-        d[1] = make_float4(f[4], f[5], f[6], f[7]);
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < rows * W; idx += blockDim.x) {
-        const int i = idx / W, c = idx % W;
-        s[i * ld + c] = i < valid ? to_f32(g[i * st + c]) : 0.0f;
-      }
+    for (int idx = threadIdx.x; idx < rows * W; idx += blockDim.x) {
+      const int i = idx / W, c = idx % W;
+      const bool in = i < valid;
+      cp_async4_zfill(s + i * ld + c, g + (in ? i : 0) * st + c, in);
     }
   }
 }

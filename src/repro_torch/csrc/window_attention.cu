@@ -52,46 +52,58 @@
 // Dh must be a multiple of 8 and at most 128, w2 at most 128.
 //
 // Element types (common.cuh): q, k, v and out all float32, fp16 or bf16,
-// exported as window_attention_{f32,f16,bf16}.  Half rows convert to
-// float while they are staged (plain 16-byte loads of 8 elements, then
-// float stores into the same shared rows), so shared memory, the
-// fragments and the softmax are float32 at every type, as the
-// reference's kernel casts q, k and v to float32 on load.  A half value
-// is an exact TF32 value: its split leaves lo = 0, and the products are
-// those of float32 (the zero lo products are kept; dropping them is
-// speed work).  The output rounds once to the input type.
+// exported as window_attention_{f32,f16,bf16}.  Float32 runs the kernel
+// above.  fp16 / bf16 run window_attention_kernel_half:
+//  - Bound: bytes.  Half q, k, v and out are 8 B per token, head and
+//    feature: 67 MB per full-resolution layer of a wave of two, 20.0 us
+//    at 3.35 TB/s, against 2.15 GFLOP (2.2 us at the 989 TFLOP/s half
+//    tensor-core rate, 3.3 us for the three half products a product this
+//    design takes).  The arithmetic is far off the critical path; what
+//    bounds a kernel is how well its loads keep the memory busy.
+//  - Design: half rows stay half.  A block owns one (window, head), as
+//    at float32; its q, k and v rows are copied by 16-byte cp.async
+//    straight into half shared rows of Dh rounded up to 16, plus 8
+//    elements of padding, so the eight row addresses of an ldmatrix hit
+//    eight distinct 16-byte bank groups: 27 KB a block at w2 = Dh = 64
+//    (the float32 kernel's 52 KB); five blocks an SM (at most 102
+//    registers a thread), one's copies running under the others'
+//    arithmetic.  Within a block, q and k are one cp.async group and v
+//    another: S and the softmax start once q and k have landed, while v
+//    is still on its way.  A block that walks several items with two
+//    buffers was slower (four blocks an SM, and a coarser tail), and so
+//    were two heads a block (256-byte runs of a token row) and six
+//    blocks an SM (80 registers): PERF.md §6.
+//  - S = Q K^T and O = P V run as mma.sync m16n8k16 tiles with float32
+//    accumulators, fragments from ldmatrix (V's transposed), one half
+//    product a product for S (exact), two for O: P_hi V + P_lo V, P split
+//    into two half pieces of the input's type as it leaves the scores,
+//    whose layout is already the A fragment's (half_mma.cuh).  The row
+//    softmax runs in base 2 (scores times scale * log2(e), one MUFU op
+//    a probability); pad keys (w2 not a multiple of 16) score -inf, pad
+//    rows and pad feature columns are zero.  The rows, divided by their
+//    sum and rounded once, go through the warp's own q rows (no longer
+//    read) so that a warp stores whole rows in 16-byte pieces.
+//  - What is left between it and its bound: the copies' access pattern
+//    (128-byte runs of 6 KB token rows) and the arithmetic (96 mma.sync
+//    a warp and item, 64 of them P V's two pieces) that the blocks in
+//    flight do not hide.
+// The half kernel takes 16-byte-aligned bases and strides; the wrapper
+// copies a view that misses them, and counts the copy.
 #include <math.h>
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "half_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
-// Stage rows [0, w2) of a (w2, Dh) slab with token pitch `st` into shared
-// rows of `ld` floats.
-template <typename T>
-__device__ __forceinline__ void stage(float* s, const T* g, long long st,
+// Stage rows [0, w2) of a (w2, Dh) float slab with token pitch `st` into
+// shared rows of `ld` floats.
+__device__ __forceinline__ void stage(float* s, const float* g, long long st,
                                       int w2, int Dh, int ld, bool vec) {
-  if constexpr (sizeof(T) != 4) {   // fp16 / bf16: convert while staging
-    if (vec) {
-      const int cpr = Dh / 8;
-      for (int idx = threadIdx.x; idx < w2 * cpr; idx += blockDim.x) {
-        const int i = idx / cpr, c = (idx % cpr) * 8;
-        float f[8];
-        load16(g + i * st + c, f);
-        float4* d = reinterpret_cast<float4*>(s + i * ld + c);
-        d[0] = make_float4(f[0], f[1], f[2], f[3]);
-        d[1] = make_float4(f[4], f[5], f[6], f[7]);
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < w2 * Dh; idx += blockDim.x) {
-        const int i = idx / Dh, c = idx % Dh;
-        s[i * ld + c] = to_f32(g[i * st + c]);
-      }
-    }
-  } else if (vec) {
+  if (vec) {
     const int cpr = Dh / 4;
     for (int idx = threadIdx.x; idx < w2 * cpr; idx += blockDim.x) {
       const int i = idx / cpr, c = (idx % cpr) * 4;
@@ -287,6 +299,233 @@ cudaError_t launch(const Args<T>& a, int n_items, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp16 / bf16: half rows in shared memory, m16n8k16 half tensor cores.
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The shape of one item's half buffer: q, k and v, w2p rows each of ld =
+// dp + 8 elements (dp: Dh rounded up to 16), so each row starts 16 bytes
+// further round the banks and the eight row addresses of an ldmatrix hit
+// distinct banks.
+struct HalfBuf {
+  int w2p, dp, ld, elems;
+  __host__ __device__ explicit HalfBuf(int w2, int Dh)
+      : w2p((w2 + 15) / 16 * 16), dp((Dh + 15) / 16 * 16), ld(dp + 8),
+        elems(3 * w2p * ld) {}
+};
+
+// Start the 16-byte cp.async copies of item `it`'s rows [0, w2), columns
+// [0, Dh) of q, k and v (m = 0, 1, 2) for m in [m0, m1) into `buf`.
+template <typename E>
+__device__ __forceinline__ void stage_half(const Args<E>& a, int it, E* buf,
+                                           const HalfBuf& hb, int m0,
+                                           int m1) {
+  const int bw = it / a.H, h = it % a.H;
+  const int b = bw / a.W, kvh = h / (a.H / a.KV), w2 = a.w2;
+  const long long t0 = static_cast<long long>(bw % a.W) * w2;
+  const E* src[3] = {
+      a.q + b * a.sqb + t0 * a.sqt + static_cast<long long>(h) * a.Dh,
+      a.k + b * a.skb + t0 * a.skt + static_cast<long long>(kvh) * a.Dh,
+      a.v + b * a.svb + t0 * a.svt + static_cast<long long>(kvh) * a.Dh};
+  const long long st[3] = {a.sqt, a.skt, a.svt};
+  const int cpr = a.Dh / 8;
+  for (int idx = m0 * w2 * cpr + threadIdx.x; idx < m1 * w2 * cpr;
+       idx += blockDim.x) {
+    const int m = idx / (w2 * cpr), r = idx % (w2 * cpr);
+    const int i = r / cpr, c = (r % cpr) * 8;
+    cp_async16(buf + (m * hb.w2p + i) * hb.ld + c, src[m] + i * st[m] + c);
+  }
+}
+
+// Item `it` from its half rows in `buf`: S = Q K^T (one exact half
+// product, float32 sums), the row softmax in float32 in base 2, O =
+// P_hi V + P_lo V (half_mma.cuh), rows divided by their sum and rounded
+// once; zeros for a pad window.
+template <int NT, int ND, typename E>
+__device__ __forceinline__ void attend_half(const Args<E>& a, int it,
+                                            const E* buf,
+                                            const HalfBuf& hb) {
+  const int w2 = a.w2, Dh = a.Dh, ld = hb.ld;
+  const int bw = it / a.H, h = it % a.H;
+  const long long sot = static_cast<long long>(a.H) * Dh;
+  E* ob = a.out + static_cast<long long>(bw) * w2 * sot +
+          static_cast<long long>(h) * Dh;
+  if (!item_valid(a, it)) {
+    for (int idx = threadIdx.x; idx < w2 * Dh; idx += blockDim.x)
+      ob[(idx / Dh) * sot + idx % Dh] = from_f32<E>(0.0f);
+    return;
+  }
+  const E* const sq = buf;
+  const E* const sk = sq + hb.w2p * ld;
+  const E* const sv = sk + hb.w2p * ld;
+  const int nt = hb.w2p / 8, nd = hb.dp / 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+
+  // S = Q K^T: fragment (j, e) is row g (+8 for e >= 2), key 8j + 2t +
+  // (e & 1); ldmatrix x4 gives Q's A fragment of a k16 step, and two
+  // neighbouring 8-key tiles of K's B fragments
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+  const E* qa = sq + (16 * warp + lane % 16) * ld + (lane / 16) * 8;
+  const E* kb = sk + ((lane & 7) + ((lane >> 4) << 3)) * ld +
+                ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < ND / 2; ++kk) {
+    if (2 * kk >= nd) break;
+    uint32_t af[4];
+    ldsm_x4(af, qa + 16 * kk);
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      if (2 * jp >= nt) break;
+      uint32_t bf[4];
+      ldsm_x4(bf, kb + 16 * jp * ld + 16 * kk);
+      mma_16816<E>(s[2 * jp], af, bf);
+      mma_16816<E>(s[2 * jp + 1], af, bf + 2);
+    }
+  }
+
+  // row softmax in registers, in base 2: scores times scale * log2(e),
+  // p = 2^(s - max) in one MUFU op; rows g and g + 8
+  const float sl = a.scale * kLog2e;
+  const bool pad = w2 != hb.w2p;      // pad keys to mask
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool key = !pad || 8 * j + 2 * t + e < w2;
+      s[j][e] = key ? s[j][e] * sl : -INFINITY;
+      s[j][2 + e] = key ? s[j][2 + e] * sl : -INFINITY;
+      m0 = fmaxf(m0, s[j][e]);
+      m1 = fmaxf(m1, s[j][2 + e]);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= nt) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[j][e] = ex2(s[j][e] - m0);
+      s[j][2 + e] = ex2(s[j][2 + e] - m1);
+      l0 += s[j][e];
+      l1 += s[j][2 + e];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+
+  // O = P_hi V + P_lo V per k16 step of keys, once V has landed;
+  // ldmatrix.trans gives V's B fragments of two neighbouring 8-feature
+  // tiles
+  cp_async_wait<0>();
+  __syncthreads();
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  const E* vb = sv + ((lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                (lane >> 4) * 8;
+#pragma unroll
+  for (int c = 0; c < NT / 2; ++c) {
+    if (2 * c >= nt) break;
+    uint32_t ph[4], pl[4];
+    split_a<E>(s[2 * c], s[2 * c + 1], ph, pl);
+#pragma unroll
+    for (int np = 0; np < ND / 2; ++np) {
+      if (2 * np >= nd) break;
+      uint32_t bf[4];
+      ldsm_x4_t(bf, vb + 16 * c * ld + 16 * np);
+      mma_16816<E>(o[2 * np], ph, bf);
+      mma_16816<E>(o[2 * np], pl, bf);
+      mma_16816<E>(o[2 * np + 1], ph, bf + 2);
+      mma_16816<E>(o[2 * np + 1], pl, bf + 2);
+    }
+  }
+
+  // the rows divided by their sum and rounded once into the warp's own q
+  // rows (Q is no longer read), then stored as 16-byte pieces: a warp
+  // writes whole 16-row x Dh blocks
+  const float i0 = 1.0f / l0, i1 = 1.0f / l1;
+  E* const so = const_cast<E*>(sq) + 16 * warp * ld;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    if (8 * n >= Dh) break;
+    const int c = 8 * n + 2 * t;
+    store2(so + (lane / 4) * ld + c, o[n][0] * i0, o[n][1] * i0);
+    store2(so + (lane / 4 + 8) * ld + c, o[n][2] * i1, o[n][3] * i1);
+  }
+  __syncwarp();
+  const int cpr = Dh / 8;
+  for (int idx = lane; idx < 16 * cpr; idx += 32) {
+    const int r = idx / cpr, c = (idx % cpr) * 8;
+    if (16 * warp + r < w2)
+      *reinterpret_cast<uint4*>(ob + (16 * warp + r) * sot + c) =
+          *reinterpret_cast<const uint4*>(so + r * ld + c);
+  }
+}
+
+// Block it is head it % H of window it / H (of the B * W), as at float32,
+// so the blocks in flight read whole token rows of a fused QKV; up to
+// five blocks an SM (27 KB of shared memory and at most 102 registers a
+// thread each), one's copies running under the others' arithmetic.
+template <int NT, int ND, typename E>
+__global__ void __launch_bounds__(16 * NT, NT == 8 ? 5 : 1)
+    window_attention_kernel_half(const Args<E> a) {
+  const HalfBuf hb(a.w2, a.Dh);
+  extern __shared__ __align__(16) uint8_t smh[];
+  E* const buf = reinterpret_cast<E*>(smh);
+  const int it = blockIdx.x;
+  if (item_valid(a, it)) {
+    stage_half(a, it, buf, hb, 0, 2);   // q and k: what S needs
+    cp_async_commit();
+    stage_half(a, it, buf, hb, 2, 3);   // v lands under S and the softmax
+    cp_async_commit();
+    // pad rows and the pad column block of every row are zero
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    const int pr = hb.w2p - a.w2, cb = hb.dp / 8;
+    for (int idx = threadIdx.x; idx < 3 * pr * cb; idx += blockDim.x) {
+      const int m = idx / (pr * cb), r = idx % (pr * cb);
+      *reinterpret_cast<uint4*>(buf + (m * hb.w2p + a.w2 + r / cb) * hb.ld +
+                                (r % cb) * 8) = zero;
+    }
+    if (hb.dp != a.Dh)
+      for (int idx = threadIdx.x; idx < 3 * a.w2; idx += blockDim.x)
+        *reinterpret_cast<uint4*>(
+            buf + ((idx / a.w2) * hb.w2p + idx % a.w2) * hb.ld + a.Dh) = zero;
+    cp_async_wait<1>();
+    __syncthreads();
+  }
+  attend_half<NT, ND>(a, it, buf, hb);
+}
+
+template <int NT, int ND, typename E>
+cudaError_t launch_half(const Args<E>& a, int n_items, cudaStream_t stream) {
+  const HalfBuf hb(a.w2, a.Dh);
+  const size_t smem = sizeof(E) * hb.elems;
+  cudaError_t e =
+      repro_allow_smem(window_attention_kernel_half<NT, ND, E>, smem);
+  if (e != cudaSuccess) return e;
+  window_attention_kernel_half<NT, ND, E>
+      <<<n_items, 2 * hb.w2p, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -312,9 +551,16 @@ int entry(const T* q, const T* k, const T* v, const int* win_valid, T* out,
   const long long n_items = static_cast<long long>(B) * W * H;
   if (n_items > 0x7fffffff) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w2 <= 64 && Dh <= 64)
-    return launch<8, 8>(a, static_cast<int>(n_items), s);
-  return launch<16, 16>(a, static_cast<int>(n_items), s);
+  if constexpr (sizeof(T) != 4) {   // half rows: 16-byte copies only
+    if (!vec) return cudaErrorInvalidValue;
+    if (w2 <= 64 && Dh <= 64)
+      return launch_half<8, 8>(a, static_cast<int>(n_items), s);
+    return launch_half<16, 16>(a, static_cast<int>(n_items), s);
+  } else {
+    if (w2 <= 64 && Dh <= 64)
+      return launch<8, 8>(a, static_cast<int>(n_items), s);
+    return launch<16, 16>(a, static_cast<int>(n_items), s);
+  }
 }
 
 #define REPRO_WINDOW_ENTRY(T, SUF)                                          \

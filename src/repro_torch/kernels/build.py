@@ -124,7 +124,9 @@ class CudaKernel:
     ``dtype``, or, when a float32 entry point takes a half tensor
     operand (decode's half q over a float32 cache), of that operand.
     ``last_args`` keeps the latest call's arguments (and so its tensors)
-    for :meth:`relaunch`."""
+    for :meth:`relaunch`.  ``copies`` counts the operands a wrapper copied
+    because the kernel's 16-byte loads refuse their view
+    (:func:`aligned_rows`)."""
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence,
                  dtypes: Sequence[torch.dtype] = FLOAT_TYPES):
@@ -135,6 +137,7 @@ class CudaKernel:
         self.launches = 0
         self.by_dtype: Dict[str, int] = {FLOAT_SUFFIX[d]: 0
                                          for d in self.dtypes}
+        self.copies = 0
         self.last_args: tuple = ()
         self.last_dtype = torch.float32
         self._fns: Dict[str, ctypes._CFuncPtr] = {}
@@ -178,6 +181,7 @@ class CudaKernel:
 
     def reset(self) -> None:
         self.launches = 0
+        self.copies = 0
         for k in self.by_dtype:
             self.by_dtype[k] = 0
 
@@ -204,3 +208,16 @@ def head_rows(x: torch.Tensor) -> torch.Tensor:
     if x.stride(3) == 1 and x.stride(2) == x.shape[3]:
         return x
     return x.contiguous()
+
+
+def aligned_rows(kernel: CudaKernel, x: torch.Tensor) -> torch.Tensor:
+    """A (B, T, heads, Dh) operand of a half attention kernel, which loads
+    rows in 16-byte pieces (TMA or ``cp.async``): itself when its base
+    and its batch and token strides are multiples of 16 bytes, else a
+    contiguous copy, counted in ``kernel.copies``."""
+    es = x.element_size()
+    if x.data_ptr() % 16 == 0 and all(s * es % 16 == 0
+                                      for s in x.stride()[:2]):
+        return x
+    kernel.copies += 1
+    return x.clone(memory_format=torch.contiguous_format)

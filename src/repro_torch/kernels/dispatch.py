@@ -19,7 +19,9 @@ import, :func:`refresh_from_env`) > a per-call ``mode`` >
 Each kernel keeps a launch count (``launch_counts``), which grows only
 where a wrapper launched its kernel, so a run can show that it went
 through the kernels; ``launch_counts("f16")`` / ``("bf16")`` count the
-launches of its half entry point alone.
+launches of its half entry point alone, and ``copy_counts`` the operands
+a half attention wrapper copied because its kernel's loads refuse the
+view.
 
 Every route takes float32, fp16 and bf16 tensors, as the reference's
 kernels do (they compute in float32 and return the input's type): on
@@ -113,6 +115,12 @@ def launch_counts(dtype: Optional[str] = None) -> Dict[str, int]:
     if dtype is None:
         return {name: k.launches for name, k in KERNELS.items()}
     return {name: k.by_dtype.get(dtype, 0) for name, k in KERNELS.items()}
+
+
+def copy_counts() -> Dict[str, int]:
+    """Operands copied since the last reset because a kernel's 16-byte
+    loads refuse their view (``build.aligned_rows``), per kernel."""
+    return {name: k.copies for name, k in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:

@@ -9,8 +9,14 @@ function in plain PyTorch: dense float32 softmax attention, taken
 q: (B, T, H, Dh); k/v: (B, S, KV, Dh) with H = KV * G.  ``causal``: query
 t sees keys s <= t.  A row that no key reaches outputs zeros.  The
 kernel reads q, k and v through their batch and token strides.  q, k
-and v share one type, float32, fp16 or bf16; kernel and plain version
-compute in float32 and return the input's type, as the reference does.
+and v share one type, float32, fp16 or bf16, and the result has it, as
+the reference's.  At float32 the kernel runs 3xTF32 products; at fp16 /
+bf16 it runs TMA loads and ``wgmma`` on the half tensor cores (Q K^T
+exact, the online softmax in float32, P V as two half products of P
+split into P_hi and P_lo, one rounding on store), whose maps need
+16-byte-aligned bases and strides: the wrapper copies a view that misses
+them and counts the copy (``KERNEL.copies``).  The plain version
+computes in float32 and casts back.
 
 ``FlashAttention`` is the differentiable entry (``kernels.dispatch``
 routes through it on both devices): its forward is the kernel on the
@@ -25,8 +31,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
-                                       head_rows, stream_of)
+from repro_torch.kernels.build import (HALF_TYPES, F, I, L, P, CudaKernel,
+                                       aligned_rows, check_cuda, head_rows,
+                                       stream_of)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
     NEG_INF, Q_CHUNK, flash_attention_plain)
 
@@ -49,6 +56,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = head_rows(q), head_rows(k), head_rows(v)
     check_cuda("flash_attention", q, k, v)
     dt = KERNEL.check_dtype("flash_attention", q, k, v)
+    if dt in HALF_TYPES:
+        q, k, v = (aligned_rows(KERNEL, t) for t in (q, k, v))
     scale = Dh ** -0.5 if scale is None else scale
     out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
     KERNEL(q, k, v, out, B, T, S,

@@ -10,13 +10,17 @@ number of TOKENS per window (w^2) and divides T.  ``win_valid``: optional
 (B,) count of valid windows per sample; later (pad) windows output
 zeros.  The kernel reads q, k and v through their batch and token
 strides, so the three column slices of the fused QKV product go in
-without a copy.  It computes both products on the TF32 tensor cores in
-the 3xTF32 scheme (each operand split into two TF32 parts, three
-products kept), which stays within ~1e-5 of float32 here.  q, k and v
-share one type, float32, fp16 or bf16: the kernel computes in float32
-(a half operand converts exactly and splits with a zero low part) and
-returns the input's type, as the reference does; so does the plain
-version.
+without a copy.  At float32 it computes both products on the TF32 tensor
+cores in the 3xTF32 scheme (each operand split into two TF32 parts,
+three products kept), which stays within ~1e-5 of float32 here.  q, k
+and v share one type, float32, fp16 or bf16, and the result has it, as
+the reference's.  At fp16 / bf16 the kernel keeps half rows and runs
+the half tensor cores: Q K^T exact, the softmax in float32, P V as two
+half products of P split into P_hi and P_lo, one rounding on store
+(within one ULP of the plain version, >= 99% bit-equal).  Its 16-byte
+loads need 16-byte-aligned bases and strides: the wrapper copies a view
+that misses them and counts the copy (``KERNEL.copies``).  The plain
+version computes in float32 and casts back.
 
 ``WindowAttention`` is the differentiable entry (``kernels.dispatch``
 routes through it on both devices): its forward is the kernel on the
@@ -31,8 +35,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.build import (F, I, L, P, CudaKernel, check_cuda,
-                                       head_rows, stream_of)
+from repro_torch.kernels.build import (HALF_TYPES, F, I, L, P, CudaKernel,
+                                       aligned_rows, check_cuda, head_rows,
+                                       stream_of)
 from repro_torch.kernels.window_attention.ref import (  # noqa: F401
     window_attention_plain)
 
@@ -65,6 +70,8 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         valid_arg = wv
     check_cuda("window_attention", *tensors)
     dt = KERNEL.check_dtype("window_attention", q, k, v)
+    if dt in HALF_TYPES:
+        q, k, v = (aligned_rows(KERNEL, t) for t in (q, k, v))
     scale = Dh ** -0.5 if scale is None else scale
     out = torch.empty((B, T, H, Dh), dtype=q.dtype, device=q.device)
     KERNEL(q, k, v, valid_arg, out,

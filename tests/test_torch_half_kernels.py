@@ -24,11 +24,17 @@ Tolerances and why:
     and a half ULP is finer than that noise, the bound adds the float32
     parity limit of the port's attention (1e-5 absolute).
 
-The CUDA kernels stage half rows by converting them to float32 on load.
-A half value is an exact TF32 value (fp16's 10 and bf16's 7 mantissa
-bits fit TF32's 10), so the 3xTF32 split gives it a zero low part and the
-products are float32's: ``test_half_staging_*`` emulates that path
-(convert, split, three products, round once) against the plain version.
+The CUDA window and flash kernels keep half rows half in shared memory
+and run the half tensor cores: Q K^T is one half product (a product of
+two half values is exact in float32), and P, float32 in registers, goes
+into P V as two half pieces, P_hi = half(P) and P_lo = half(P - P_hi)
+(``test_torch_kernel_numerics.py`` holds that arithmetic to the plain
+version and the reference, and shows that P rounded once breaks the 99%
+bit-equal share).  ``test_half_staging_*`` emulates the window kernel's
+path at half (half rows, exact products, the split, round once) against
+the plain version.  A half value is also an exact TF32 value (fp16's 10
+and bf16's 7 mantissa bits fit TF32's 10), so the 3xTF32 split gives it
+a zero low part.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +47,7 @@ from repro.kernels.fused_serving import ops as jfused
 from repro.kernels.int8_matmul import ops as jmm
 from repro.kernels.mixed_res_pool import ops as jpool
 from repro.kernels.window_attention import ops as jwin
+from repro_torch.kernels import build as tbuild
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.build import FLOAT_TYPES
 from repro_torch.kernels.decode_attention import ops as tdec
@@ -50,7 +57,7 @@ from repro_torch.kernels.int8_matmul import ops as tmm
 from repro_torch.kernels.mixed_res_pool import ops as tpool
 from repro_torch.kernels.window_attention import ops as twin
 
-from test_torch_kernel_numerics import _tf32, window_attention_3xtf32
+from test_torch_kernel_numerics import _tf32, window_attention_half
 
 torch.set_num_threads(2)
 HALF = {"fp16": (torch.float16, jnp.float16),
@@ -273,15 +280,36 @@ def test_half_values_split_with_zero_low_part(dt):
 @pytest.mark.parametrize("dt", sorted(HALF))
 @pytest.mark.parametrize("w2,Dh", [(64, 64), (49, 32)])
 def test_half_staging_window_within_one_ulp_of_plain(dt, w2, Dh):
-    """Convert while staging, three TF32 products (the low parts zero),
-    float32 softmax, round once: the kernel's path at half, against the
-    plain version at half."""
+    """Half rows, Q K^T from exact half products, float32 softmax, P V
+    from the two half pieces of P, round once: the kernel's path at half,
+    against the plain version at half."""
     rng = np.random.default_rng(7)
     B, W, H, KV = 2, 3, 4, 2
     (q, _), (k, _), (v, _) = _qkv(rng, B, W * w2, H, KV, Dh, dt=dt)
-    got = window_attention_3xtf32(q.float(), k.float(), v.float(), w2) \
-        .to(q.dtype)
+    got = window_attention_half(q, k, v, w2)
     _within_one_ulp(got, twin.window_attention_plain(q, k, v, w2))
+
+
+@pytest.mark.parametrize("dt", sorted(HALF))
+def test_half_attention_copies_the_views_its_loads_refuse(dt):
+    """The half window and flash kernels load rows 16 bytes at a time (TMA,
+    ``cp.async``): a column view of a fused QKV product goes in as it is;
+    a view whose base or token stride is off 16 bytes is copied, each
+    copy counted on the kernel (``build.aligned_rows``)."""
+    tdt = HALF[dt][0]
+    kernel = tbuild.CudaKernel("flash_attention", "flash_attention", [])
+    qkv = torch.randn(2, 8, 3 * 4 * 16).to(tdt)
+    q = qkv[..., :64].reshape(2, 8, 4, 16)
+    assert tbuild.aligned_rows(kernel, q) is q and kernel.copies == 0
+    for view in (torch.randn(2 * 8 * 64 + 1).to(tdt)[1:].view(2, 8, 4, 16),
+                 torch.randn(2, 8, 65).to(tdt)[..., :64].reshape(2, 8, 4,
+                                                                16)):
+        got = tbuild.aligned_rows(kernel, view)
+        assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+        assert torch.equal(got, view)
+    assert kernel.copies == 2
+    kernel.reset()
+    assert kernel.copies == 0
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ import torch
 from repro.kernels.flash_attention import ops as jflash
 from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro.kernels.ssd_scan import ops as jssd
+from repro.kernels.window_attention import ops as jwin
 from repro.kernels.window_attention.ref import window_attention_ref
 from repro.models import mamba2 as jm2
 from repro_torch.kernels import build as tbuild
@@ -281,6 +282,213 @@ def test_flash_tile_local_pv_keeps_float32_accuracy():
         q[None, :, None], k[None, :, None], v[None, :, None])[0, :, 0])
     assert err(_flash_truncating(q, k, v, tile_local=True)) <= 4 * plain
     assert err(_flash_truncating(q, k, v, tile_local=False)) >= 10 * plain
+
+
+# ---------------------------------------------------------------------------
+# the half kernels (fp16 / bf16 entry points of window and flash
+# attention): half tensor cores, P split in two half pieces
+
+
+HALF_TYPES = {"fp16": (torch.float16, jnp.float16),
+              "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def half_pieces(p: torch.Tensor, dt: torch.dtype, split: bool = True):
+    """P as the half kernels feed it to the tensor cores, as float32 values
+    of ``dt``: P_hi = P rounded to ``dt`` and P_lo = P - P_hi rounded to
+    ``dt`` (csrc/half_mma.cuh: split_half2), or, with ``split`` off, P
+    rounded once (what fused attention libraries do)."""
+    hi = p.to(dt).float()
+    return (hi, (p - hi).to(dt).float()) if split else (hi,)
+
+
+def _pv_half(pieces, v):
+    """P V as the half kernels form it: from zero, each 16 keys' products
+    of P_hi and then of P_lo (exact) added to the sum and rounded toward
+    zero (the tensor cores' accumulation, as ``_mma_3xtf32`` models it).
+    pieces: (..., t, s) float32 values of the half type; v: (..., s, d)."""
+    c = torch.zeros((*pieces[0].shape[:-1], v.shape[-1]))
+    for k0 in range(0, v.shape[-2], 16):
+        for x in pieces:
+            c = _toward_zero(c.double() + x[..., k0:k0 + 16].double()
+                             @ v[..., k0:k0 + 16, :].double())
+    return c
+
+
+def window_attention_half(q, k, v, window, win_valid=None, split=True):
+    """The window kernel's arithmetic at half: S = Q K^T exact products
+    with a float32 sum, the row softmax in base 2 (scores times c = scale
+    * log2(e), p = 2^(s - max)), P V from the two half pieces of P
+    (``_pv_half``), the rows divided by their sum and rounded once to the
+    input type."""
+    B, T, H, Dh = q.shape
+    KV = k.shape[2]
+    G, W = H // KV, T // window
+    c = float(np.float32(Dh ** -0.5) * np.float32(LOG2E))
+    qw = q.float().reshape(B, W, window, KV, G, Dh)
+    kw = k.float().reshape(B, W, window, KV, Dh)
+    vw = v.float().reshape(B, W, window, KV, Dh)
+    s = torch.einsum("bwikgd,bwjkd->bwkgij", qw.double(),
+                     kw.double()).float() * c
+    e = torch.exp2(s - s.amax(-1, keepdim=True))
+    inv = 1.0 / e.sum(-1, keepdim=True)
+    o = _pv_half(half_pieces(e, q.dtype, split),
+                 vw.permute(0, 1, 3, 2, 4)[:, :, :, None]) * inv
+    if win_valid is not None:
+        keep = torch.arange(W)[None, :] < win_valid[:, None]
+        o = o * keep[:, :, None, None, None, None]
+    return o.permute(0, 1, 4, 2, 3, 5).reshape(B, T, H, Dh).to(q.dtype)
+
+
+def flash_tile(Dh: int) -> int:
+    """Keys a tile of the half flash kernel (HalfTile::BN)."""
+    return 128 if Dh <= 64 else 64
+
+
+def flash_half(q, k, v, causal=False, split=True):
+    """The flash kernel's arithmetic at half, per key tile of
+    ``flash_tile(Dh)`` keys: S = Q K^T exact products with a float32 sum;
+    the online softmax in base 2 with ``flash_3xtf32``'s -inf handling,
+    its row max that of the masked raw scores times c = scale * log2(e)
+    (c > 0) and P = 2^(s c - max) in one rounding (an FMA); the tile's
+    P V from zero from the two half pieces of P (``_pv_half``), joined to
+    the rescaled O in one rounding (an FMA); rows divided by their sum (0
+    where it is 0) and rounded once."""
+    B, T, H, Dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G, tile = H // KV, flash_tile(Dh)
+    c = float(np.float32(Dh ** -0.5) * np.float32(LOG2E))
+    qg = q.float().reshape(B, T, KV, G, Dh)
+    m = torch.full((B, KV, G, T), float("-inf"))
+    lsum = torch.zeros((B, KV, G, T))
+    o = torch.zeros((B, KV, G, T, Dh))
+    rows = torch.arange(T)[:, None]
+    for k0 in range(0, S, tile):
+        if causal and k0 > T - 1:
+            break                       # wholly above the diagonal
+        kt = k[:, k0:k0 + tile].float()
+        vt = v[:, k0:k0 + tile].float()
+        s = torch.einsum("btkgd,bskd->bkgts", qg.double(),
+                         kt.double()).float()
+        if causal:
+            seen = rows >= torch.arange(k0, k0 + kt.shape[1])[None, :]
+            s = s.masked_fill(~seen, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        m_ref = torch.where(m_new == float("-inf"), 0.0, m_new)
+        alpha = torch.exp2(m - m_ref)
+        p = torch.exp2((s.double() * c - m_ref[..., None].double()).float())
+        lsum = lsum * alpha + p.sum(-1)
+        pv = _pv_half(half_pieces(p, q.dtype, split),
+                      vt.permute(0, 2, 1, 3)[:, :, None])
+        o = (o.double() * alpha[..., None].double() + pv.double()).float()
+        m = m_new
+    inv = torch.where(lsum > 0, 1.0 / lsum, 0.0)
+    out = o * inv[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh).to(q.dtype)
+
+
+def _half_inputs(rng, shapes, dt):
+    """Unit normals rounded once to the half type ``dt``, as (torch, jax)
+    pairs."""
+    tdt, jdt = HALF_TYPES[dt]
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    return [(torch.from_numpy(a).to(tdt), jnp.asarray(a).astype(jdt))
+            for a in arrays]
+
+
+def _from_jax(x, dt) -> torch.Tensor:
+    return torch.from_numpy(np.array(x.astype(jnp.float32))).to(
+        HALF_TYPES[dt][0])
+
+
+def ulp(x: torch.Tensor) -> torch.Tensor:
+    """One unit in the last place of the half type at each |x| (the
+    smallest subnormal's spacing at 0), as float32."""
+    p, tiny = {torch.float16: (11, 2.0 ** -24),
+               torch.bfloat16: (8, 2.0 ** -133)}[x.dtype]
+    _, e = torch.frexp(x.float().abs())
+    return torch.clamp(torch.ldexp(torch.ones_like(e, dtype=torch.float32),
+                                   e - p), min=tiny)
+
+
+def half_agreement(got: torch.Tensor, want: torch.Tensor):
+    """(largest excess over one ULP of ``want``, bit-equal share)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    d = (got.float() - want.float()).abs()
+    return (float((d - ulp(want)).max()),
+            float((got == want).float().mean()))
+
+
+def assert_half_close(got, want):
+    """Within one ULP of the half type beyond the float32 attention limit,
+    at least 99% of the elements bit-equal (chip_smoke.half_close)."""
+    excess, equal = half_agreement(got, want)
+    assert excess <= TOL and equal >= 0.99, (excess, equal)
+
+
+@pytest.mark.parametrize("dt", sorted(HALF_TYPES))
+@pytest.mark.parametrize("heads", ["gqa_4_2", "fused_15"])
+@pytest.mark.parametrize("w2,Dh", [(64, 64), (49, 32)])
+def test_window_half_matches_plain_and_reference(w2, Dh, heads, dt):
+    rng = np.random.default_rng(17)
+    B, W = 2, 3
+    H, KV = (4, 2) if heads == "gqa_4_2" else (15, 15)
+    (q, jq), (k, jk), (v, jv) = _half_inputs(
+        rng, ((B, W * w2, H, Dh), (B, W * w2, KV, Dh), (B, W * w2, KV, Dh)),
+        dt)
+    wv = np.array([W, W - 1], np.int32)
+    got = window_attention_half(q, k, v, w2, torch.from_numpy(wv))
+    assert_half_close(got, twin.window_attention_plain(
+        q, k, v, w2, torch.from_numpy(wv)))
+    want = jwin.window_attention(jq, jk, jv, w2, win_valid=jnp.asarray(wv),
+                                 interpret=True)
+    assert_half_close(got, _from_jax(want, dt))
+
+
+# (B, T, S, H, KV, Dh): GQA groups 1 and 4, T and S off the key tiles
+# (128 keys at Dh 64, 64 at Dh 128), S < T, the LM prefill's head width
+HALF_FLASH_SHAPES = [(1, 200, 150, 4, 1, 64), (2, 130, 300, 4, 4, 64),
+                     (1, 100, 260, 6, 2, 128), (2, 128, 128, 8, 2, 128)]
+
+
+@pytest.mark.parametrize("dt", sorted(HALF_TYPES))
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", HALF_FLASH_SHAPES)
+def test_flash_half_matches_plain_and_reference(shape, causal, dt):
+    B, T, S, H, KV, Dh = shape
+    rng = np.random.default_rng(sum(shape) + causal)
+    (q, jq), (k, jk), (v, jv) = _half_inputs(
+        rng, ((B, T, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh)), dt)
+    got = flash_half(q, k, v, causal)
+    assert_half_close(got, tflash.flash_attention_plain(q, k, v, causal))
+    want = jflash.flash_attention(jq, jk, jv, causal=causal, interpret=True)
+    assert_half_close(got, _from_jax(want, dt))
+
+
+@pytest.mark.parametrize("dt", sorted(HALF_TYPES))
+@pytest.mark.parametrize("kernel", ["flash", "window"])
+def test_half_p_rounded_once_breaks_the_bit_equal_share(kernel, dt):
+    """Why P goes to the tensor cores in two half pieces: rounded once to
+    the half type (what fused attention libraries do), P moves about a
+    third of the outputs off the plain version's rounding, far below the
+    99% bit-equal share every half attention is held to; split in two,
+    the same inputs keep it."""
+    rng = np.random.default_rng(23)
+    if kernel == "flash":
+        (q, _), (k, _), (v, _) = _half_inputs(
+            rng, ((1, 256, 4, 64), (1, 256, 4, 64), (1, 256, 4, 64)), dt)
+        want = tflash.flash_attention_plain(q, k, v)
+        run = lambda split: flash_half(q, k, v, split=split)  # noqa: E731
+    else:
+        (q, _), (k, _), (v, _) = _half_inputs(
+            rng, ((2, 256, 4, 64), (2, 256, 4, 64), (2, 256, 4, 64)), dt)
+        want = twin.window_attention_plain(q, k, v, 64)
+        run = lambda split: window_attention_half(  # noqa: E731
+            q, k, v, 64, split=split)
+    _, once = half_agreement(run(False), want)
+    excess, split = half_agreement(run(True), want)
+    assert once < 0.9
+    assert split >= 0.99 and excess <= TOL
 
 
 # ---------------------------------------------------------------------------
