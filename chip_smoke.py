@@ -307,7 +307,29 @@ Phases; any failure exits non-zero and prints no result:
      printed), greedy agreement with phase 7's tokens (printed); one
      bf16 wave each of mamba2-370m and zamba2-1.2b, each lane and wave
      with the half-design line of phase 21; a 2-layer bf16 Qwen3 card
-     vs CPU to LM_BF16_RTOL.
+     vs CPU to LM_BF16_RTOL;
+ 23. the MoE family: dbrx-132b (16 experts top-4, GQA 48/8) and
+     deepseek-v2-236b (MLA, 160 experts top-6 and 2 shared, a dense
+     layer first) at full published width, depth cut to MOE_LAYERS
+     layers (float32 weights of 57.1 and 53.2 GB, seed 0, each freed
+     before the next), each through a warmed ``ServeEngine``: a plain
+     and a mixed wave (half the spans pooled at BETA) of 8 x 128 + 16;
+     dbrx must launch flash once a layer a prefill and decode once a
+     layer a step, deepseek-v2 neither (MLA's attention is einsums);
+     no steady first use; prefill and decode-step ms against the
+     step's byte bound (every weight but the embedding table), one MoE
+     layer's experts timed alone at the step's shape against their
+     slabs' bytes, peak memory against the card's; a traced wave of each kind split into the
+     experts (bmm + SwiGLU), MLA's attention, flash, decode and the
+     rest; dbrx's kernel route against the plain route on the card,
+     teacher-forced on its plain wave's tokens (``hold_routes``: logits
+     to LM_RTOL and greedy tokens equal but at near-ties, unless the
+     routes chose other experts, which the first call to do so may
+     only at routing near-ties, MOE_ROUTE_TIE); a narrow config of
+     each family (``MOE_NARROW``) card vs CPU, plain and mixed, held
+     the same way.  Phase 2 checks and times flash at dbrx's causal
+     prefill shapes (G = 6, T = 128 and the mixed 96) and decode at its
+     serving step and kv_len edges, at every type.
 
 Every printed line also goes to ``chiprun_out/chip_smoke.log`` and every
 number to ``chiprun_out/chip_smoke.json``.  Each serving path resets the launch counts just before it and reads them
@@ -321,7 +343,8 @@ multi-client run and burst wave of phase 14, named ``mc ...``, the
 two training runs of phase 15, ``train ...``, the LM training runs
 of phase 16, ``lm_train ...``, the exact lane of phase 17, the host- and
 device-cache simulations of phase 18, the int8 LM waves of phase 19,
-the calibration of phase 20 and the half lanes of phases 21 and 22);
+the calibration of phase 20, the half lanes of phases 21 and 22 and
+the MoE waves of phase 23, named by their config);
 the ``int8_matmul`` row also gives phase 19's decode-step device us and
 bound, and every row but ``ssd_scan``'s its ``f16`` / ``bf16`` numbers.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -384,20 +407,26 @@ POOL_CASES = (((2, 10, 10, 3), 2, 0), ((2, 16, 12, 3), 4, 0),
               ((1, 16, 16, 1024), 2, 0), ((2, 1024, 1024, 3), 4, 0))
 # decode_attention's phase-2 shapes (B, S, H, KV, Dh) and kv_len: the
 # Qwen3-4B serving step (its kernels-line row), zamba2-1.2b's shared
-# attention (G = 1) a few steps into a wave, and a ragged long cache
+# attention (G = 1) a few steps into a wave, a ragged long cache and
+# dbrx-132b's serving step (G = 6: the kernel rounds the group up to 8)
 DECODE_SHAPES = {
     "serving": ((LM_B, LM_MAX_LEN, 32, 8, 128), (LM_T + 1,) * LM_B),
+    "dbrx": ((LM_B, LM_MAX_LEN, 48, 8, 128), (LM_T + 1,) * LM_B),
     "zamba2": ((SSM_B, SSM_T + SSM_NEW, 32, 32, 64), (SSM_T + 8,) * SSM_B),
     "ragged": ((LM_B, LM_LONG_LENS[0], 32, 8, 128), LM_LONG_LENS)}
 # decode_attention's kv_len edges (B, S, H, KV, Dh), kv_len: no key, one
 # key, a split boundary, kv_len = S, runs wholly past kv_len, G = 1 over
-# four kv heads a block and over one (KV = 6), G = 4 / 8 / 16
+# four kv heads a block and over one (KV = 6), G = 4 / 8 / 16, and
+# dbrx-132b's G = 6 at its serving cache (no key, one, a split boundary,
+# the prompt, the full cache)
 DECODE_EDGES = (((2, 256, 8, 2, 64), (0, 1)), ((2, 256, 8, 2, 64), (64, 256)),
                 ((3, 300, 8, 8, 32), (5, 150, 299)),
                 ((2, 200, 8, 1, 16), (33, 200)),
                 ((2, 300, 16, 1, 32), (0, 300)),
                 ((3, 777, 8, 4, 16), (1, 511, 777)),
-                ((2, 200, 6, 6, 64), (77, 200)))
+                ((2, 200, 6, 6, 64), (77, 200)),
+                ((3, LM_MAX_LEN, 48, 8, 128), (0, 1, LM_MAX_LEN)),
+                ((2, LM_MAX_LEN, 48, 8, 128), (64, LM_T)))
 E2E_RTOL = 1e-3             # 8-block forward, card vs CPU, relative
 OFFLOAD_FRAMES = 24         # frames of each phase-13 simulation
 # phase 13's simulations: (policy, video), each against the 4G trace
@@ -469,6 +498,24 @@ LM_HALF_LANES = (("bf16", "bfloat16", "float32"),
                  ("fp16", "float16", "float32"),
                  ("bf16-cache", "float32", "bfloat16"))
 LM_BF16_RTOL = 3e-2
+# phase 23: the MoE configs' depth cut (dbrx-132b: 4 MoE layers;
+# deepseek-v2-236b: its dense layer and 3 MoE layers), a routing near-tie
+# (the k-th and (k+1)-th expert's probabilities this close: float32
+# rounding between routes can swap them), and the narrow card-vs-CPU
+# configs (the published layout: dbrx's GQA at G = 6 and Dh = 128,
+# deepseek-v2's MLA, shared experts and leading dense layer)
+MOE_LAYERS = 4
+MOE_ROUTE_TIE = 1e-5
+MOE_NARROW = {
+    "dbrx-132b": dict(n_layers=2, d_model=512, n_heads=12, n_kv_heads=2,
+                      head_dim=128, d_ff=1024, vocab_size=4096,
+                      moe=dict(n_experts=8, d_ff_expert=512)),
+    "deepseek-v2-236b": dict(
+        n_layers=3, d_model=512, n_heads=8, n_kv_heads=8, head_dim=64,
+        d_ff=1024, vocab_size=4096,
+        moe=dict(n_experts=16, d_ff_expert=128, d_ff_dense=1024),
+        mla=dict(kv_lora_rank=128, q_lora_rank=192, qk_nope_head_dim=64,
+                 qk_rope_head_dim=32, v_head_dim=64))}
 # phase 21: the reference's shipped point, an fp16 tree and a bf16 tree
 HALF_SPECS = (("int8", "fp16", 1), ("fp16", "fp32", 0), ("bf16", "fp32", 0))
 HALF_E2E = (("int8", "fp16", 1), ("bf16", "fp32", 0))   # card vs CPU
@@ -745,6 +792,9 @@ def run(torch):
 
     # phase 22 ------------------------------------------------------------
     lat["lm_half"] = lm_half_phase(torch, QWEN, dev, lat["lm"], count)
+
+    # phase 23 ------------------------------------------------------------
+    lat["moe"] = moe_phase(torch, dev, count)
 
     out = []
     for name in KERNEL_SOURCES:
@@ -3065,12 +3115,14 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
     """Phase 2 for the LM lane at ``dt``: ``decode_attention`` against its
     plain version at the serving shape (its kernels-line row, through
     ``put``; at fp16 / bf16 the half cache also under a float32 q, as a
-    float32 tree over a half cache runs it), at the kv_len edges and at
-    a ragged long cache; ``flash_attention`` at the LM prefill's causal
-    GQA shapes.  Each held by :func:`agree`.  Returns the extra rows,
-    keyed with ``_f16`` / ``_bf16`` at half."""
+    float32 tree over a half cache runs it), at the kv_len edges, at
+    a ragged long cache and at dbrx-132b's serving step (G = 6);
+    ``flash_attention`` at the LM prefills' causal GQA shapes (Qwen3-4B's
+    and dbrx-132b's, plain and mixed).  Each held by :func:`agree`.
+    Returns the extra rows, keyed with ``_f16`` / ``_bf16`` at half."""
     from repro_torch.kernels.build import FLOAT_SUFFIX
     from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.configs.dbrx_132b import CONFIG as DBRX
     from repro_torch.configs.qwen3_4b import CONFIG as QWEN
     H, KV, Dh = QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim
     f32 = dt == torch.float32
@@ -3141,7 +3193,7 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
             dec.decode_attention_plain(q, k, v, kl), DECODE_TOL)
     say(f"  decode_attention {suf} kv_len edges, max errors: "
         f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} }")
-    for name in ("ragged", "zamba2"):
+    for name in ("ragged", "zamba2", "dbrx"):
         extra[f"decode_attention_{name}{tag}"] = decode_case(name)
     r = decode_case("serving")
     put("decode_attention", *(r[key] for key in (
@@ -3151,30 +3203,35 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
         equal_frac=r["equal_frac"],
         **{k: r[k] for k in ("f32_q_max_abs_err",) if k in r})
 
-    for T in (LM_T, LM_T - 32):       # plain prefill; mixed at 4 of 8 pooled
-        q, k, v = rnd(LM_B, T, H, Dh), rnd(LM_B, T, KV, Dh), \
-            rnd(LM_B, T, KV, Dh)
-        err, eq = agree(torch, f"flash_attention {suf} causal GQA T={T}",
-                        flash.flash_attention_cuda(q, k, v, causal=True),
-                        flash.flash_attention_plain(q, k, v, causal=True),
-                        ATTN_TOL)
-        k_ms = timed(torch, lambda: flash.KERNEL.relaunch(1))
-        d_us = device_us(torch, lambda: flash.KERNEL.relaunch(1),
-                         trace_name("flash_attention", dt))
-        p_ms = timed(torch, lambda: flash.flash_attention_plain(
-            q, k, v, causal=True))
-        qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        l_ms = timed(torch, lambda: F.scaled_dot_product_attention(
-            qt_, kt, vt, is_causal=True, enable_gqa=True))
-        pairs = T * (T + 1) // 2                  # causal (query, key) pairs
-        b_ms, b_by = bound(es * (2 * q.numel() + 2 * k.numel()),
-                           products * 4 * LM_B * H * pairs * Dh, attn_peak)
-        row = {"shape": [LM_B, T, H, KV, Dh], "max_abs_err": err,
-               "equal_frac": eq, "ms": k_ms, "plain_ms": p_ms,
-               "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "device_us": d_us}
-        extra[f"flash_attention_causal_T{T}{tag}"] = row
-        say(f"  flash_attention {suf} causal GQA {row}")
+    # the LM prefills' causal GQA: Qwen3-4B (G = 4) and dbrx-132b (G = 6),
+    # the plain prefill and the mixed one at 4 of 8 spans pooled
+    for model, (h, kv) in (("", (H, KV)), ("dbrx_", (DBRX.n_heads,
+                                                    DBRX.n_kv_heads))):
+        for T in (LM_T, LM_T - 32):
+            q, k, v = rnd(LM_B, T, h, Dh), rnd(LM_B, T, kv, Dh), \
+                rnd(LM_B, T, kv, Dh)
+            err, eq = agree(
+                torch, f"flash_attention {suf} {model}causal GQA {h}/{kv} "
+                f"T={T}", flash.flash_attention_cuda(q, k, v, causal=True),
+                flash.flash_attention_plain(q, k, v, causal=True), ATTN_TOL)
+            k_ms = timed(torch, lambda: flash.KERNEL.relaunch(1))
+            d_us = device_us(torch, lambda: flash.KERNEL.relaunch(1),
+                             trace_name("flash_attention", dt))
+            p_ms = timed(torch, lambda: flash.flash_attention_plain(
+                q, k, v, causal=True))
+            qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            l_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+                qt_, kt, vt, is_causal=True, enable_gqa=True))
+            pairs = T * (T + 1) // 2              # causal (query, key) pairs
+            b_ms, b_by = bound(es * (2 * q.numel() + 2 * k.numel()),
+                               products * 4 * LM_B * h * pairs * Dh,
+                               attn_peak)
+            row = {"shape": [LM_B, T, h, kv, Dh], "max_abs_err": err,
+                   "equal_frac": eq, "ms": k_ms, "plain_ms": p_ms,
+                   "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "device_us": d_us}
+            extra[f"flash_attention_{model}causal_T{T}{tag}"] = row
+            say(f"  flash_attention {suf} {model}causal GQA {row}")
     return extra
 
 
@@ -4411,11 +4468,14 @@ def lm_engine(torch, cfg, params, dev, new=LM_NEW, cache_dtype=None):
     return eng, eng.warmup()
 
 
-def lm_wave(eng, cfg, prompts, new=LM_NEW):
-    """One plain wave; returns (host wall s, each request's tokens)."""
+def lm_wave(eng, cfg, prompts, new=LM_NEW, mask=None):
+    """One wave, plain or, with a span ``mask``, mixed at BETA; returns
+    (host wall s, each request's tokens)."""
     from repro_torch.serve.request import Request
     for rid, p in enumerate(prompts):
-        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=new))
+        eng.submit(Request(rid=rid, prompt=p, max_new_tokens=new,
+                           low_span_mask=mask,
+                           beta=0 if mask is None else BETA))
     t = time.perf_counter()
     resp = sorted(eng.run(), key=lambda r: r.rid)
     wall = time.perf_counter() - t
@@ -5028,6 +5088,340 @@ def ssd_kernel_checks(torch, dev, gen, put):
                                  "y_vs_plain", "state_vs_plain"), errs))
     say(f"  ssd_scan handoff at row {h}: {extra['handoff']}")
     return extra
+
+
+# ---------------------------------------------------------------------------
+# the MoE family (phase 23: dbrx-132b and deepseek-v2-236b through
+# ServeEngine)
+
+
+@contextlib.contextmanager
+def record_routes(torch, moe):
+    """``moe.route`` recording, call by call, each token's chosen experts
+    (sorted) and the gap between its k-th and (k+1)-th expert's
+    probability: a routing near-tie where that gap is small."""
+    saved, log = moe.route, []
+
+    def route(cfg, router_w, x_flat):
+        top_idx, top_gate, aux = saved(cfg, router_w, x_flat)
+        probs = torch.softmax((x_flat @ router_w).float(), dim=-1)
+        top = probs.topk(cfg.moe.top_k + 1, dim=-1).values
+        log.append((top_idx.sort(dim=-1).values.cpu(),
+                    (top[:, -2] - top[:, -1]).cpu()))
+        return top_idx, top_gate, aux
+    moe.route = route
+    try:
+        yield log
+    finally:
+        moe.route = saved
+
+
+@contextlib.contextmanager
+def plain_lm_route(dispatch, flash, dec):
+    """The flash and decode routes of ``dispatch`` replaced by their plain
+    versions: what the LM serving path is held against on the card."""
+    saved = dispatch.flash_attention, dispatch.decode_attention
+    dispatch.flash_attention = (lambda q, k, v, *, causal=False:
+                                flash.flash_attention_plain(q, k, v, causal))
+    dispatch.decode_attention = dec.decode_attention_plain
+    try:
+        yield
+    finally:
+        dispatch.flash_attention, dispatch.decode_attention = saved
+
+
+def moe_forced(torch, cfg, params, device, toks, T, pack=None):
+    """A prefill of ``toks[:, :T]`` (mixed at BETA with ``pack``), then
+    decode teacher-forced on the rest: each step's last-row logits
+    (steps, B, V) on the CPU, and the routing log."""
+    from repro_torch.core import seq_mixed_res as smr
+    from repro_torch.models import moe, registry
+    from repro_torch.models import transformer as tfm
+    B, n = toks.shape[0], toks.shape[1] - T
+    with record_routes(torch, moe) as log, torch.no_grad():
+        state = registry.init_decode_state(cfg, B, T + n + 8, device=device)
+        x = toks[:, :T].to(device)
+        if pack is None:
+            h, state, _ = registry.prefill(cfg, params, {"tokens": x}, state)
+        else:
+            h, state, _ = smr.mixed_prefill(
+                cfg, params, x, {k: v.to(device) for k, v in pack.items()},
+                BETA, state)
+        out = [tfm.logits_from_hidden(cfg, params, h[:, -1:])]
+        for i in range(n):
+            lg, state = registry.decode_step(
+                cfg, params, toks[:, T + i:T + i + 1].to(device), T + i,
+                state)
+            out.append(lg)
+    return torch.stack([o[:, -1].float().cpu() for o in out]), log
+
+
+def hold_routes(torch, name, got, want, rtol):
+    """Two routes' teacher-forced logits and routing logs (``moe_forced``):
+    each step's logits to ``rtol`` of its largest magnitude, and the same
+    greedy token wherever ``want``'s top-2 margin exceeds twice the
+    routes' difference in that row.  If the routes chose other experts
+    somewhere, the first call where they did must hold only routing
+    near-ties (gap <= MOE_ROUTE_TIE in ``want``'s probabilities): one
+    flipped expert moves its token's output by far more than rounding,
+    so the logits are then printed, not held."""
+    (g, glog), (c, clog) = got, want
+    check(len(glog) == len(clog), f"{name}: {len(glog)} against "
+          f"{len(clog)} routing calls")
+    rel = float(((g - c).abs().amax(dim=(1, 2))
+                 / c.abs().amax(dim=(1, 2))).max())
+    top2 = c.topk(2, dim=-1).values
+    flips = g.argmax(-1) != c.argmax(-1)
+    ties = top2[..., 0] - top2[..., 1] <= 2 * (g - c).abs().amax(dim=-1)
+    first = next(((i, (gi != ci).any(-1), gap) for i, ((gi, _), (ci, gap))
+                  in enumerate(zip(glog, clog)) if not torch.equal(gi, ci)),
+                 None)
+    out = {"logits_rel": rel, "greedy_flips": int(flips.sum()),
+           "greedy_flips_at_ties": int((flips & ties).sum()),
+           "routing_calls": len(clog), "first_routing_flip": None}
+    say(f"    {name}: logits max relative error {rel:.3g} (limit {rtol}), "
+        f"{out['greedy_flips']} of {flips.numel()} greedy tokens differ, "
+        f"{out['greedy_flips_at_ties']} of them at a near-tie; expert "
+        f"choices equal in " + ("all" if first is None else
+                                f"the first {first[0]}")
+        + f" of {len(clog)} routing calls")
+    if first is None:
+        check(rel <= rtol, f"{name}: logits {rel} > {rtol}")
+        check(not bool((flips & ~ties).any()),
+              f"{name}: a greedy token differs beyond a near-tie")
+        return out
+    i, rows, gap = first
+    worst = float(gap[rows].max())
+    out["first_routing_flip"] = {"call": i, "tokens": int(rows.sum()),
+                                 "max_gap": worst}
+    say(f"    {name}: routing call {i} chose other experts for "
+        f"{int(rows.sum())} tokens, largest k / k+1 probability gap "
+        f"{worst:.3g} (a near-tie at <= {MOE_ROUTE_TIE})")
+    check(worst <= MOE_ROUTE_TIE, f"{name}: experts differ at a gap of "
+          f"{worst} > {MOE_ROUTE_TIE}")
+    return out
+
+
+def moe_narrow(cfg):
+    """The card-vs-CPU config of a MoE family: ``MOE_NARROW``'s widths
+    over the published config's layout."""
+    kw = dict(MOE_NARROW[cfg.name])
+    for sub in ("moe", "mla"):
+        if sub in kw:
+            kw[sub] = dataclasses.replace(getattr(cfg, sub), **kw[sub])
+    return cfg.replace(**kw)
+
+
+def serve_moe(torch, cfg, dev):
+    """One MoE model (seed 0, full width) through a warmed ``ServeEngine``:
+    a plain and a mixed wave of LM_B x LM_T + LM_NEW (half the spans
+    pooled at BETA), each with its launches (dbrx: flash once a layer a
+    prefill, decode once a layer a step; deepseek-v2's MLA: neither),
+    prefill and decode-step ms; no steady first use; peak memory; the
+    decode step's byte bound and one MoE layer's experts timed alone at
+    the step's shape against their slabs' bytes; a traced wave of each
+    split into the experts, MLA's attention, flash, decode and the rest; for a model that runs kernels, the kernel route
+    held against the plain route on the card.  Returns (launches summed
+    over both waves, record)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe, registry
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    held_gb = torch.cuda.memory_allocated(dev) / 1e9
+    att = (f"MLA rank {cfg.mla.kv_lora_rank}" if cfg.mla is not None else
+           f"GQA {cfg.n_heads}/{cfg.n_kv_heads} Dh={cfg.head_dim}")
+    m = cfg.moe
+    say(f"  {cfg.name}: {cfg.n_layers} layers D={cfg.d_model}, {att}, "
+        f"{m.n_experts} experts top-{m.top_k} ({m.n_shared_experts} shared, "
+        f"{m.first_dense_layers} dense layers first)")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = registry.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_tensors(params))
+    say(f"    init {n_params} parameters ({4 * n_params / 1e9:.2f} GB; "
+        f"the analytic count, norm scales aside, {cfg.param_count()}) in "
+        f"{time.perf_counter() - t0:.2f} s; {held_gb:.2f} GB held before")
+    eng = ServeEngine(cfg, params, ServeConfig(
+        max_batch=LM_B, max_len=LM_MAX_LEN, buckets=(LM_T,),
+        device=str(dev)))
+    n_spans = LM_T // (cfg.mixed_res.window * cfg.mixed_res.downsample)
+    mask = np.zeros(n_spans, np.int32)
+    mask[:n_spans // 2] = 1
+    n_keys = eng.warmup(plan_space=[(n_spans // 2, 0, BETA)])
+    say(f"    warmup of {n_keys} keys {eng.stats.warmup_wall_s:.2f} s")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, LM_T).astype(np.int32)
+               for _ in range(LM_B)]
+    steps = LM_NEW - 1
+    gqa = cfg.mla is None
+    out = {"n_layers": cfg.n_layers, "n_params": n_params,
+           "weight_gb": 4 * n_params / 1e9, "warmup_keys": n_keys,
+           "warmup_s": eng.stats.warmup_wall_s}
+    total = dict.fromkeys(dispatch.KERNELS, 0)
+    for kind, wmask in (("plain", None), ("mixed", mask)):
+        dispatch.reset_launch_counts()      # the MoE path starts here
+        first, tokens = lm_wave(eng, cfg, prompts, mask=wmask)
+        launches = dispatch.launch_counts()  # ... and ends here
+        want = (cfg.n_layers if gqa else 0, cfg.n_layers * steps if gqa
+                else 0)
+        check((launches["flash_attention"], launches["decode_attention"])
+              == want, f"{cfg.name} {kind}: flash / decode launched "
+              f"{launches['flash_attention']} / "
+              f"{launches['decode_attention']} times, want {want}")
+        check(sum(launches.values()) == sum(want), f"{cfg.name} {kind}: "
+              f"other kernels launched: {launches}")
+        for name, n in launches.items():
+            total[name] += n
+        walls = [lm_wave(eng, cfg, prompts, mask=wmask)[0] for _ in range(2)]
+        rec = {"first_s": first, "median_s": statistics.median(walls),
+               "launches": launches, "tokens": tokens}
+        rec.update(lm_phase_times(torch, eng, cfg, prompts, mask,
+                                  wmask is not None))
+        out[kind] = rec
+        say(f"    {kind} wave: launches flash {launches['flash_attention']}"
+            f", decode {launches['decode_attention']}; first {first:.3f} s,"
+            f" median {rec['median_s']:.3f} s; prefill "
+            f"{rec['prefill_ms']:.2f} ms, decode {rec['decode_step_ms']:.2f}"
+            f" ms/step")
+    check(eng.stats.steady_compiles == 0, f"{cfg.name}: steady-state first "
+          f"uses {eng.stats.steady_compile_keys}")
+    out["steady_compiles"] = 0
+    # a decode step's byte bound: every weight but the embedding table
+    # (the step gathers LM_B of its rows) read once; and one MoE layer's
+    # experts at the step's shape (capacity slots an expert), timed alone
+    # against their slabs' bytes
+    step_gb = 4 * (n_params - params["embed"]["tok"].numel()) / 1e9
+    out["decode_bound_ms"] = step_gb * 1e9 / PEAK_BYTES * 1e3
+    ffn = params["blocks"][-1]["ffn"]
+    xs = torch.randn((m.n_experts, moe.expert_capacity(cfg, LM_B),
+                      cfg.d_model), generator=gen, device=dev)
+    slab_gb = 4 * sum(ffn[k].numel() for k in ("w_gate", "w_up",
+                                               "w_down")) / 1e9
+    out["experts_at_decode"] = {
+        "shape": list(xs.shape), "ms": timed(torch, lambda: moe.expert_ffn(
+            ffn, xs)), "bound_ms": slab_gb * 1e9 / PEAK_BYTES * 1e3}
+    del xs
+    say(f"    decode step byte bound {out['decode_bound_ms']:.2f} ms "
+        f"({step_gb:.2f} GB: every weight but the embedding table); one "
+        f"MoE layer's experts at the step's shape "
+        f"{tuple(out['experts_at_decode']['shape'])}: "
+        f"{out['experts_at_decode']['ms']:.3f} ms against "
+        f"{out['experts_at_decode']['bound_ms']:.3f} ms of slab bytes "
+        f"({slab_gb:.2f} GB)")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    say(f"    peak memory {out['peak_gb']:.2f} GB of the card's "
+        f"{card_gb:.2f} GB; 0 steady first uses")
+
+    # one traced wave of each kind, the experts and MLA's attention marked
+    saved = moe.expert_ffn, attn.mla_attend
+    moe.expert_ffn = _marked(torch, moe.expert_ffn, "moe_experts")
+    attn.mla_attend = _marked(torch, attn.mla_attend, "mla_attention")
+    try:
+        for kind, wmask in (("plain", None), ("mixed", mask)):
+            prof = profile_wave(
+                torch, f"{cfg.name}_{kind}",
+                lambda: lm_wave(eng, cfg, prompts, mask=wmask),
+                out[kind]["median_s"],
+                marks=("moe_experts", "mla_attention"))
+            fam = prof["families_ms"]
+            split = {k: fam.get(k, 0.0) for k in (
+                "moe_experts", "mla_attention", "flash_attention",
+                "decode_attention")}
+            split["other"] = prof["device_ms"] - sum(split.values())
+            out[kind]["profile"] = dict(prof, split_ms=split)
+            say(f"    {kind} trace split (device ms): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in split.items()))
+    finally:
+        moe.expert_ffn, attn.mla_attend = saved
+    check(eng.stats.steady_compiles == 0, f"{cfg.name}: steady first uses")
+
+    if gqa:     # the kernel route against the plain route, on the card
+        toks = torch.as_tensor(np.concatenate(
+            [np.stack(prompts), np.asarray(out["plain"]["tokens"])[:, :-1]],
+            axis=1))
+        t0 = time.perf_counter()
+        kern = moe_forced(torch, cfg, params, dev, toks, LM_T)
+        with plain_lm_route(dispatch, flash, dec):
+            dispatch.reset_launch_counts()
+            plain = moe_forced(torch, cfg, params, dev, toks, LM_T)
+            check(not any(dispatch.launch_counts().values()),
+                  f"{cfg.name}: the plain route launched a kernel")
+        out["route_check"] = hold_routes(
+            torch, f"{cfg.name} kernel vs plain route (teacher-forced on "
+            f"the plain wave's tokens)", kern, plain, LM_RTOL)
+        out["route_check"]["s"] = time.perf_counter() - t0
+    else:
+        say(f"    {cfg.name}: no kernel on this path (MLA's attention is "
+            f"einsums, as in the reference); no route to compare")
+    del eng, params
+    torch.cuda.empty_cache()
+    return total, out
+
+
+def moe_card_vs_cpu(torch, cfg, dev):
+    """A narrow config of the family (``moe_narrow``, seed SEED + 3) on
+    the card and, through the plain versions, on the CPU: prefill and 8
+    teacher-forced decode steps, plain and mixed at BETA, held by
+    :func:`hold_routes` to LM_RTOL."""
+    from repro_torch.core import seq_mixed_res as smr
+    from repro_torch.models import registry
+    from repro_torch.offload.simulator import to_device
+    narrow = moe_narrow(cfg)
+    say(f"  card vs CPU: {narrow.name} narrow ({narrow.n_layers} layers "
+        f"D={narrow.d_model}, {narrow.moe.n_experts} experts top-"
+        f"{narrow.moe.top_k})")
+    torch.set_num_threads(os.cpu_count() or 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    p_gpu = registry.init_params(narrow, gen, device=dev)
+    p_cpu = to_device(p_gpu, torch.device("cpu"))
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.as_tensor(rng.integers(0, narrow.vocab_size,
+                                        (2, LM_T + 8)))
+    part = smr.seq_partition(narrow, LM_T)
+    mask = np.zeros(part.n_spans, np.int32)
+    mask[:part.n_spans // 2] = 1
+    pack = {k: torch.as_tensor(v.astype(np.int64)) for k, v in
+            smr.build_seq_pack(mask, int(mask.sum()), part).items()}
+    out = {}
+    for kind, pk in (("plain", None), ("mixed", pack)):
+        out[kind] = hold_routes(
+            torch, f"{narrow.name} narrow {kind}, card vs CPU",
+            moe_forced(torch, narrow, p_gpu, dev, toks, LM_T, pk),
+            moe_forced(torch, narrow, p_cpu, "cpu", toks, LM_T, pk),
+            LM_RTOL)
+    del p_gpu, p_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, dev, count):
+    """Phase 23: dbrx-132b and deepseek-v2-236b at full published width,
+    depth cut to MOE_LAYERS (float32 weights of 57.1 and 53.2 GB), each
+    served by :func:`serve_moe` and freed before the next; then each
+    family's narrow config card vs CPU."""
+    from repro_torch.configs.dbrx_132b import CONFIG as DBRX
+    from repro_torch.configs.deepseek_v2_236b import CONFIG as DSV2
+    t_phase = time.perf_counter()
+    say(f"phase 23: MoE serving, dbrx-132b and deepseek-v2-236b at full "
+        f"width, {MOE_LAYERS} layers each, waves of {LM_B} x {LM_T} + "
+        f"{LM_NEW} tokens")
+    out = {}
+    for c in (DBRX, DSV2):
+        launches, out[c.name] = serve_moe(
+            torch, c.replace(n_layers=MOE_LAYERS), dev)
+        count(c.name, launches)
+    out["card_vs_cpu"] = {c.name: moe_card_vs_cpu(torch, c, dev)
+                          for c in (DBRX, DSV2)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 23: {out['phase_s']:.1f} s")
+    return out
 
 
 if __name__ == "__main__":

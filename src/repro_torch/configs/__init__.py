@@ -12,6 +12,8 @@ import importlib
 from repro_torch.models.config import ModelConfig, reduced
 
 ARCH_MODULES = {
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "mamba2-370m": "repro_torch.configs.mamba2_370m",
     "qwen3-4b": "repro_torch.configs.qwen3_4b",
     "vitdet-l": "repro_torch.configs.vitdet_l",

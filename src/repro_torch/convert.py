@@ -1,6 +1,6 @@
-"""Parameters for the port: conversion of ViTDet, dense-LM, SSM-LM and
-hybrid trees from the reference (the LMs' scan-stacked layers become
-per-layer lists) and of the offload estimator's MLP, and a seeded
+"""Parameters for the port: conversion of ViTDet, dense- and MoE-LM,
+SSM-LM and hybrid trees from the reference (the LMs' scan-stacked layers
+become per-layer lists) and of the offload estimator's MLP, and a seeded
 PyTorch init of ViTDet with the reference's shapes and distributions
 (the LMs' are in ``models``).
 
@@ -222,18 +222,24 @@ def _head(tree: Mapping, device) -> Dict:
 
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig,
                        device: str = "cuda") -> Dict:
-    """The reference's dense ``init_lm_params`` tree (scan-stacked
-    ``dense_blocks`` with a leading (L, ...) axis; numpy or array leaves)
-    -> the port's per-layer parameters, with ``w_q | w_k | w_v`` (and
-    their biases) fused once into ``w_qkv`` (``b_qkv``)."""
+    """The reference's dense or MoE ``init_lm_params`` tree (scan-stacked
+    ``dense_blocks`` then ``moe_blocks``, each with a leading (L, ...)
+    axis; numpy or array leaves) -> the port's per-layer parameters: GQA
+    ``w_q | w_k | w_v`` (and their biases) fused once into ``w_qkv``
+    (``b_qkv``), MLA's leaves as they are, a MoE layer's (L, E, D, F)
+    expert slabs as its (E, D, F) slice."""
     from repro_torch.models import transformer as tfm
-    tfm.check_dense(cfg)
+    tfm.check_decoder(cfg)
+    n_dense = tfm.n_dense_layers(cfg)
     blocks = []
     for i in range(cfg.n_layers):
-        b = _layer(tree["dense_blocks"], i)
+        b = (_layer(tree["dense_blocks"], i) if i < n_dense
+             else _layer(tree["moe_blocks"], i - n_dense))
+        attn = (_tensors(b["attn"], device) if cfg.mla is not None
+                else _fused_attn(b["attn"], device))
         blocks.append({"ln1": _tensors(b["ln1"], device),
                        "ln2": _tensors(b["ln2"], device),
-                       "attn": _fused_attn(b["attn"], device),
+                       "attn": attn,
                        "ffn": _tensors(b["ffn"], device)})
     return dict(_head(tree, device), blocks=blocks)
 

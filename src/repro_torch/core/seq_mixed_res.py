@@ -149,7 +149,8 @@ def restore_kv_caches(caches: Dict, restore_idx: torch.Tensor,
                       n_restore_layers: Dict[str, int]) -> Dict:
     """Restore the time axis of the pre-RP layers' cache entries, in place.
 
-    caches: {"<kind>_blocks": {"k"/"v": (L, B, S, KV, Dh)}}, whose leading
+    caches: {"<kind>_blocks": {leaf: (L, B, S, ...)}} (GQA k / v, MLA
+    c_kv / k_rope; time on axis 2), whose leading
     ``n_restore_layers[name]`` layers hold mixed-granularity entries at
     [0, T_mix); afterwards [0, T) holds the restored full-resolution
     entries.  The gather is taken first, then written over the slice (it
@@ -166,19 +167,53 @@ def restore_kv_caches(caches: Dict, restore_idx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# mixed-granularity prefill (dense decoders; the SSM and hybrid families
-# have none in the reference either: its run_blocks knows no mamba layer)
+# mixed-granularity forward and prefill of the decoder families (dense and
+# MoE, GQA or MLA; the SSM and hybrid families have none in the reference
+# either: its run_blocks knows no mamba layer)
+
+
+def mixed_forward_hidden(cfg: ModelConfig, params: Dict,
+                         tokens: torch.Tensor, pack: Dict[str, torch.Tensor],
+                         beta: int):
+    """Training / eval forward with mixed-granularity lower layers:
+    layers [0, Lb) attend causally over the pooled sequence, a broadcast
+    restore, then the rest at full resolution (beta 0 is the plain
+    forward).  A MoE layer's capacity follows the pooled token count.
+    Returns (hidden (B, T, D), aux)."""
+    x = tfm.embed_inputs(cfg, params, tokens)
+    B, T, _ = x.shape
+    Lb = layers_before_rp(cfg, beta, cfg.n_layers)
+    aux = 0.0
+
+    def run(x, positions, layers):
+        nonlocal aux
+        rope = tfm.rope_for(cfg, positions)
+        for p in layers:
+            x, a = tfm.train_block(cfg, p, x, rope)
+            aux = aux + a
+        return x
+
+    if Lb > 0:
+        xm = pack_sequence(x, pack["mix_idx"], cfg.mixed_res.downsample)
+        xm = run(xm, pack["pos_mix"][None].expand(B, xm.shape[1]),
+                 params["blocks"][:Lb])
+        x = restore_sequence(xm, pack["restore_idx"])
+    x = run(x, torch.arange(T, device=x.device).expand(B, T),
+            params["blocks"][Lb:])
+    return L.apply_norm(cfg, params["final_norm"], x), aux
 
 
 def mixed_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                   pack: Dict[str, torch.Tensor], beta: int, caches: Dict):
     """Serving prefill with mixed-granularity lower layers.
 
-    Pre-RP layers attend over the pooled sequence and write pooled K/V;
-    those cache entries are then broadcast-restored so the returned caches
-    are FULL-resolution for every layer — decode proceeds exactly as after
-    a plain prefill.  ``pack``: the :func:`build_seq_pack` arrays as
-    integer tensors on the tokens' device.  Returns (hidden, caches, aux).
+    Pre-RP layers attend over the pooled sequence and write pooled cache
+    entries (k / v, or MLA's latents); those are then broadcast-restored
+    in every stack they fall in, so the returned caches are
+    FULL-resolution for every layer — decode proceeds exactly as after a
+    plain prefill.  ``pack``: the :func:`build_seq_pack` arrays as
+    integer tensors on the tokens' device.  Returns (hidden, caches,
+    aux).
     """
     x = tfm.embed_inputs(cfg, params, tokens)
     B, T, _ = x.shape
@@ -192,7 +227,7 @@ def mixed_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         aux += a1
         x = restore_sequence(xm, pack["restore_idx"])
         caches = restore_kv_caches(caches, pack["restore_idx"],
-                                   {"dense_blocks": Lb})
+                                   tfm.restore_counts(cfg, Lb))
     positions = torch.arange(T, device=x.device).expand(B, T)
     x, caches, a2 = tfm.run_blocks(cfg, params, x, positions, Lb,
                                    cfg.n_layers, caches)

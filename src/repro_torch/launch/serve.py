@@ -9,8 +9,9 @@ Usage:
       [--device cpu]
 
 ``--arch`` is one of ``repro_torch.configs.ARCH_MODULES`` (qwen3-4b,
-mamba2-370m, zamba2-1.2b); the SSM and hybrid families serve the plain
-path (``--mixed`` is turned off for them, as in the reference).
+dbrx-132b, deepseek-v2-236b, mamba2-370m, zamba2-1.2b); the SSM and
+hybrid families serve the plain path (``--mixed`` is turned off for
+them, as in the reference).  The MoE configs serve float32 only.
 ``--quant int8`` serves ``quant.ptq.quantize_lm_params``'s tree (int8
 attention and MLP projections, float32 activations); ``fp16`` / ``bf16``
 cast the whole tree (``qtensor.cast_tree``: half activations, the
@@ -66,6 +67,11 @@ def main(argv=None) -> int:
         print(f"[serve] mixed prefill demo targets decoder LMs; "
               f"{args.arch} family={cfg.family} runs the plain path")
         args.mixed = False
+    if cfg.family == "moe" and args.quant != "fp32":
+        raise NotImplementedError(
+            f"--quant {args.quant} on {args.arch}: the MoE family's int8 and "
+            f"half lanes are not ported (the reference leaves its (L, E, D, "
+            f"F) expert slabs float); ROADMAP.md (Queue 1) lists them")
     dev = torch.device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = registry.init_params(cfg, gen, device=dev)

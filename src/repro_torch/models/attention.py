@@ -220,3 +220,132 @@ def attention_decode(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
     return _out_proj(cfg, p, sdpa(q, cache["k"], cache["v"], kv_len=kv_len))
+
+
+# ---------------------------------------------------------------------------
+# Multi-head Latent Attention (DeepSeek-V2)
+#
+# The cache holds only the compressed latent c_kv (rank kv_lora) and the
+# decoupled RoPE key k_rope.  Scores are taken against c_kv directly:
+# q_nope is mapped through W_uk into latent space (weight absorption) and
+# the latent output through W_uv.  No kernel: the reference runs these
+# products as einsums in float32 outside any Pallas call.
+
+
+def init_mla(cfg: ModelConfig, generator: torch.Generator,
+             device="cuda") -> Dict[str, torch.Tensor]:
+    """Seeded MLA weights, the reference's shapes and scales; ones for
+    the two latent norms."""
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+
+    def w(k, n):
+        return L.dense_init(k, n, generator, device)
+    return {"w_dq": w(D, m.q_lora_rank),
+            "q_norm": torch.ones(m.q_lora_rank, device=device),
+            "w_uq": w(m.q_lora_rank, H * qk_head),
+            "w_dkv": w(D, m.kv_lora_rank + m.qk_rope_head_dim),
+            "kv_norm": torch.ones(m.kv_lora_rank, device=device),
+            "w_uk": w(m.kv_lora_rank, H * m.qk_nope_head_dim),
+            "w_uv": w(m.kv_lora_rank, H * m.v_head_dim),
+            "w_o": w(H * m.v_head_dim, D)}
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.float32,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_rope(cfg: ModelConfig, positions: torch.Tensor):
+    """The rotation table of MLA's decoupled RoPE dims (``rope_table``
+    at ``qk_rope_head_dim``, every dim rotated)."""
+    return L.rope_table(positions, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+
+
+def _mla_q(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+           rope) -> Tuple[torch.Tensor, torch.Tensor]:
+    m = cfg.mla
+    B, T, _ = x.shape
+    cq = L.rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(B, T, cfg.n_heads, -1)
+    return (q[..., :m.qk_nope_head_dim],
+            L.apply_rope(q[..., m.qk_nope_head_dim:], rope))
+
+
+def _mla_latents(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                 x: torch.Tensor, rope) -> Tuple[torch.Tensor, torch.Tensor]:
+    m = cfg.mla
+    dkv = x @ p["w_dkv"]
+    c_kv = L.rms_norm(dkv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(dkv[..., m.kv_lora_rank:][:, :, None, :], rope)
+    return c_kv, k_rope[:, :, 0, :]                # one shared rope head
+
+
+def mla_attend(q_nope: torch.Tensor, q_rope: torch.Tensor,
+               c_kv: torch.Tensor, k_rope: torch.Tensor, w_uk: torch.Tensor,
+               w_uv: torch.Tensor, seen: torch.Tensor,
+               scale: float) -> torch.Tensor:
+    """MLA's attention in float32 for one block of query rows: q_nope
+    (B, C, H, nope) absorbed through w_uk (rank, H, nope) into latent
+    space and scored against c_kv (B, S, rank), plus q_rope (B, C, H,
+    rope) against the shared k_rope (B, S, rope); keys where ``seen``
+    (C or 1, S) is False masked; the latent output mapped through w_uv
+    (rank, H, v).  Returns (B, C, H, v)."""
+    q_lat = torch.einsum("bthd,lhd->bthl", q_nope.float(), w_uk)
+    logits = (torch.einsum("bthl,bsl->bhts", q_lat, c_kv)
+              + torch.einsum("bthd,bsd->bhts", q_rope.float(), k_rope)
+              ) * scale
+    probs = torch.softmax(logits.masked_fill(~seen, NEG_INF), dim=-1)
+    o_lat = torch.einsum("bhts,bsl->bthl", probs, c_kv)
+    return torch.einsum("bthl,lhd->bthd", o_lat, w_uv)
+
+
+def mla_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                x: torch.Tensor, rope,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                pos: Optional[int] = None) -> torch.Tensor:
+    """MLA attention over x (B, T, D); ``rope``: :func:`mla_rope` of the
+    rows' positions.  With ``cache`` and ``pos`` one decode step at
+    ``pos`` (keys [0, pos] of the cache); with ``cache`` alone a causal
+    prefill, the latents written at [0, T); without, a causal training
+    forward.  The cache is written IN PLACE and the queries read it
+    whole, masked, as the reference's do.  Query rows go ``Q_CHUNK`` at
+    a time where the reference blocks them: T > 2 * Q_CHUNK and a
+    multiple of it."""
+    m = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    q_nope, q_rope = _mla_q(cfg, p, x, rope)
+    c_new, kr_new = _mla_latents(cfg, p, x, rope)
+    decode = cache is not None and pos is not None
+    if cache is not None:
+        off = pos if decode else 0
+        cache["c_kv"][:, off:off + T] = c_new
+        cache["k_rope"][:, off:off + T] = kr_new
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    else:
+        c_kv, k_rope = c_new, kr_new
+    keys = torch.arange(c_kv.shape[1], device=x.device)
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, H, m.qk_nope_head_dim).float()
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, H, m.v_head_dim).float()
+    c_kv32, k_rope32 = c_kv.float(), k_rope.float()
+    chunk = Q_CHUNK if T > 2 * Q_CHUNK and T % Q_CHUNK == 0 else T
+    outs = []
+    for t0 in range(0, T, chunk):
+        if decode:
+            seen = (keys < pos + 1)[None, :]
+        else:
+            seen = (torch.arange(t0, t0 + chunk, device=x.device)[:, None]
+                    >= keys[None, :])
+        outs.append(mla_attend(q_nope[:, t0:t0 + chunk],
+                               q_rope[:, t0:t0 + chunk], c_kv32, k_rope32,
+                               w_uk, w_uv, seen, scale))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out.reshape(B, T, H * m.v_head_dim).to(x.dtype) @ p["w_o"]

@@ -94,8 +94,8 @@ def _shared_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope,
     causal forward; with ``cache`` a prefill into it (``pos`` None) or
     one decode step at ``pos`` (the dense family's ``block_forward``)."""
     if cache is not None:
-        return tfm.block_forward(cfg, p, x, rope, cache, pos, kv_len)
-    return tfm.train_block(cfg, p, x, rope)
+        return tfm.block_forward(cfg, p, x, rope, cache, pos, kv_len)[0]
+    return tfm.train_block(cfg, p, x, rope)[0]
 
 
 def _rope(cfg: ModelConfig, positions: torch.Tensor):

@@ -23,15 +23,26 @@ def dense_init(k: int, n: int, generator: torch.Generator,
                device="cuda") -> torch.Tensor:
     """A (k, n) weight: truncated normal in (-2, 2) times 1 / sqrt(k),
     drawn on ``generator.device`` and moved to ``device``."""
-    t = torch.empty((k, n), device=generator.device)
+    return slab_init((k, n), generator, device)
+
+
+def slab_init(shape: Tuple[int, ...], generator: torch.Generator,
+              device="cuda", scale: Optional[float] = None) -> torch.Tensor:
+    """A weight of any rank >= 2 drawn as the reference's ``dense_init``
+    draws it: truncated normal in (-2, 2) times ``scale``, by default
+    1 / sqrt(shape[0]) (for an (E, D, F) expert slab, the expert count)."""
+    t = torch.empty(shape, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return (t / math.sqrt(k)).to(device)
+    t = t.div_(math.sqrt(shape[0])) if scale is None else t.mul_(scale)
+    return t.to(device)
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator,
-             device="cuda") -> Dict[str, torch.Tensor]:
-    """SwiGLU (gate, up, down) or the plain GELU MLP with zero biases."""
-    D, F_ = cfg.d_model, cfg.d_ff
+             device="cuda", d_ff: Optional[int] = None
+             ) -> Dict[str, torch.Tensor]:
+    """SwiGLU (gate, up, down) or the plain GELU MLP with zero biases;
+    hidden width ``d_ff`` (default ``cfg.d_ff``)."""
+    D, F_ = cfg.d_model, d_ff or cfg.d_ff
     if cfg.activation == "silu":
         return {"w_gate": dense_init(D, F_, generator, device),
                 "w_up": dense_init(D, F_, generator, device),

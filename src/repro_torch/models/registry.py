@@ -9,12 +9,12 @@ port of ``repro.models.registry``).
   decode_step(cfg, params, token, pos, state)  -> (logits, state)
   count_params_analytic(cfg)                   analytic N (6 N D FLOPs)
 
-The dense decoder (``models.transformer``), the pure SSM LM
-(``models.ssm_lm``), the Mamba-2 + shared-attention hybrid
-(``models.hybrid``) and the ViT's parameters
-(``convert.init_vitdet_params``) are ported; MoE, MLA, VLM and
-encoder-decoder configs raise, in the order ``ROADMAP.md`` gives for
-their port (the parameter counts cover every family: arithmetic only).
+The dense and MoE decoders (``models.transformer``, GQA or MLA
+attention), the pure SSM LM (``models.ssm_lm``), the Mamba-2 +
+shared-attention hybrid (``models.hybrid``) and the ViT's parameters
+(``convert.init_vitdet_params``) are ported; VLM and encoder-decoder
+configs raise, in the order ``ROADMAP.md`` gives for their port (the
+parameter counts cover every family: arithmetic only).
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ def forward_hidden(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
                                      remat=remat)
     if cfg.family == "hybrid":
         return hyb.forward_hidden(cfg, params, batch["tokens"], remat=remat)
-    tfm.check_dense(cfg)                 # encdec, vlm, moe, mla raise
+    tfm.check_decoder(cfg)               # encdec and vlm raise
     return tfm.forward_hidden(cfg, params, batch["tokens"], remat=remat)
 
 
@@ -88,8 +88,8 @@ def _ce_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
             remat: bool = False
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross entropy (+ the MoE aux term, 0 for the ported
-    families).  ``batch``: "tokens" (B, T), optional "labels" (B, T)
+    """Next-token cross entropy + ``moe.router_aux_coef`` times the MoE
+    load-balance aux (0 for the other families).  ``batch``: "tokens" (B, T), optional "labels" (B, T)
     (default: the tokens shifted left, a 0 last) and "loss_mask" (B, T).
     Returns (loss, {"ce", "aux"})."""
     hidden, aux = forward_hidden(cfg, params, batch, remat)
@@ -126,7 +126,7 @@ def prefill(cfg: ModelConfig, params: Dict, batch: Dict[str, Any], state):
         return ssm_lm.prefill(cfg, params, batch["tokens"], state)
     if cfg.family == "hybrid":
         return hyb.prefill(cfg, params, batch["tokens"], state)
-    tfm.check_dense(cfg)
+    tfm.check_decoder(cfg)
     return tfm.prefill(cfg, params, batch["tokens"], state)
 
 
@@ -136,7 +136,7 @@ def decode_step(cfg: ModelConfig, params: Dict, token: torch.Tensor,
         return ssm_lm.decode_step(cfg, params, token, pos, state)
     if cfg.family == "hybrid":
         return hyb.decode_step(cfg, params, token, pos, state)
-    tfm.check_dense(cfg)
+    tfm.check_decoder(cfg)
     return tfm.decode_step(cfg, params, token, pos, state)
 
 

@@ -1,18 +1,26 @@
-"""Decoder-only LM assembly, dense family (the ``repro.models.transformer``
-subset the LM serving engine runs).
+"""Decoder-only LM assembly, dense and MoE families (the
+``repro.models.transformer`` subset the LM serving engine and trainer
+run).
 
 The reference stacks its layers along a leading axis and runs them with
-``jax.lax.scan``; here parameters are a list of per-layer dicts and a
+``jax.lax.scan``, one stack per layer kind (``dense_blocks`` then
+``moe_blocks``); here parameters are one list of per-layer dicts and a
 Python loop runs them.  Caches keep the reference's stacked layout,
-``{"dense_blocks": {"k": (L, B, S, KV, Dh), "v": ...}}``; a layer writes
-its slice of them in place.
+``{"dense_blocks": {...}, "moe_blocks": {...}}`` with leaves (L, B, S,
+...): k / v (L, B, S, KV, Dh), or MLA's latent c_kv (L, B, S, rank) and
+k_rope (L, B, S, rope dims); a layer writes its slice of them in place.
+
+A MoE config's first ``moe.first_dense_layers`` layers carry a dense
+FFN of width ``moe.d_ff_dense``, the rest the MoE FFN
+(``models.moe.moe_local``), whose load-balance aux every forward sums.
+An MLA config's layers attend through ``attention.mla_forward``.
 
 Entry points: ``init_lm_params`` / ``embed_inputs`` / ``forward_hidden``
 (training) / ``logits_from_hidden`` / ``init_caches`` / ``prefill`` /
 ``decode_step`` and ``run_blocks``, which runs an arbitrary [start, end)
-layer slice (the mixed-granularity prefill splits the backbone at its
-restoration point).
-MoE, MLA and VLM configs raise: their port follows in the order
+layer slice across the dense-to-MoE boundary (the mixed-granularity
+prefill splits the backbone at its restoration point).  VLM and
+encoder-decoder configs raise: their port follows in the order
 ``ROADMAP.md`` gives.
 """
 from __future__ import annotations
@@ -23,21 +31,49 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense decoder (the ported family)."""
-    if cfg.family != "dense" or cfg.moe or cfg.mla or cfg.vlm:
+def check_decoder(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a dense or MoE decoder (the ported
+    families)."""
+    if cfg.family not in ("dense", "moe") or cfg.vlm or cfg.encdec:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (moe={cfg.moe is not None}, "
-            f"mla={cfg.mla is not None}, vlm={cfg.vlm is not None}) is not "
-            f"ported to repro_torch; ROADMAP.md (Queue 1, \"the other LM "
-            f"families\") lists the order in which they follow")
+            f"{cfg.name}: family {cfg.family!r} (vlm={cfg.vlm is not None}, "
+            f"encdec={cfg.encdec is not None}) is not ported to "
+            f"repro_torch; ROADMAP.md (Queue 1, \"the other LM families\") "
+            f"lists the order in which they follow")
+
+
+def n_dense_layers(cfg: ModelConfig) -> int:
+    """Leading layers with a dense FFN (every layer of a dense config)."""
+    if cfg.moe is None:
+        return cfg.n_layers
+    return min(cfg.moe.first_dense_layers, cfg.n_layers)
+
+
+def layer_kind(cfg: ModelConfig, idx: int) -> str:
+    return "dense" if idx < n_dense_layers(cfg) else "moe"
 
 
 # ---------------------------------------------------------------------------
 # parameters
+
+
+def init_block(cfg: ModelConfig, generator: torch.Generator, device,
+               kind: str) -> Dict:
+    """One pre-norm block: GQA or MLA attention, then a SwiGLU FFN (at
+    ``moe.d_ff_dense`` in a MoE config's dense layers) or the MoE FFN."""
+    p = {"ln1": L.init_norm(cfg, device), "ln2": L.init_norm(cfg, device)}
+    p["attn"] = (attn.init_mla(cfg, generator, device) if cfg.mla is not None
+                 else attn.init_attention(cfg, generator, device))
+    if kind == "moe":
+        p["ffn"] = moe_lib.init_moe(cfg, generator, device)
+    else:
+        d_ff = cfg.moe.d_ff_dense if cfg.moe is not None else None
+        p["ffn"] = L.init_mlp(cfg, generator, device, d_ff=d_ff)
+    return p
 
 
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
@@ -47,17 +83,11 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
     normal std 0.02 for the embedding, ones for norm scales.  q, k and v
     weights are drawn apart and stored fused as ``w_qkv``.  Tensors are
     drawn on ``generator.device`` and moved to ``device``."""
-    check_dense(cfg)
-
-    def block():
-        return {"ln1": L.init_norm(cfg, device),
-                "ln2": L.init_norm(cfg, device),
-                "attn": attn.init_attention(cfg, generator, device),
-                "ffn": L.init_mlp(cfg, generator, device)}
-
+    check_decoder(cfg)
     embed = L.init_embedding(cfg, generator, device)
-    return {"embed": embed,
-            "blocks": [block() for _ in range(cfg.n_layers)],
+    blocks = [init_block(cfg, generator, device, layer_kind(cfg, i))
+              for i in range(cfg.n_layers)]
+    return {"embed": embed, "blocks": blocks,
             "final_norm": L.init_norm(cfg, device),
             "lm_head": L.init_lm_head(cfg, generator, device)}
 
@@ -66,48 +96,72 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
 # blocks
 
 
+def _ffn(cfg: ModelConfig, p: Dict, h: torch.Tensor):
+    """The block's FFN on its normed input: (output, aux); aux is the MoE
+    load-balance term, 0.0 for a dense FFN."""
+    if "router" in p:
+        return moe_lib.moe_local(cfg, p, h)
+    return L.apply_mlp(cfg, p, h), 0.0
+
+
 def block_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope,
                   cache: Dict[str, torch.Tensor], pos: Optional[int] = None,
-                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  kv_len: Optional[torch.Tensor] = None):
     """Pre-norm block.  ``pos`` None: prefill x (B, T, D) into ``cache``
     at [0, T); else decode one token at ``pos``.  ``rope``: the positions'
-    ``layers.rope_table``.  The cache is written in place."""
+    ``layers.rope_table`` (``attention.mla_rope`` for MLA).  The cache is
+    written in place.  Returns (x, aux)."""
     h = L.apply_norm(cfg, p["ln1"], x)
-    if pos is None:
+    if cfg.mla is not None:
+        a = attn.mla_forward(cfg, p["attn"], h, rope, cache, pos)
+    elif pos is None:
         a = attn.attention_prefill(cfg, p["attn"], h, rope, cache)
     else:
         a = attn.attention_decode(cfg, p["attn"], h, pos, rope, cache,
                                   kv_len=kv_len)
     x = x + a
-    return x + L.apply_mlp(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+    f, aux = _ffn(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+    return x + f, aux
 
 
-def train_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-                rope) -> torch.Tensor:
-    """Pre-norm block without a cache: causal attention through
-    ``dispatch.flash_attention`` (the kernel's ``autograd.Function`` on
-    the card), then the MLP."""
+def train_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope):
+    """Pre-norm block without a cache: causal attention (GQA through
+    ``dispatch.flash_attention``, the kernel's ``autograd.Function`` on
+    the card; MLA's einsums), then the FFN.  Returns (x, aux)."""
     h = L.apply_norm(cfg, p["ln1"], x)
-    x = x + attn.attention_forward(cfg, p["attn"], h, rope=rope, causal=True)
-    return x + L.apply_mlp(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+    if cfg.mla is not None:
+        x = x + attn.mla_forward(cfg, p["attn"], h, rope)
+    else:
+        x = x + attn.attention_forward(cfg, p["attn"], h, rope=rope,
+                                       causal=True)
+    f, aux = _ffn(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+    return x + f, aux
+
+
+def rope_for(cfg: ModelConfig, positions: torch.Tensor):
+    """The rotation table every layer of a forward shares."""
+    if cfg.mla is not None:
+        return attn.mla_rope(cfg, positions)
+    return L.rope_table(positions, cfg.head_dim, cfg.rope_theta,
+                        cfg.partial_rotary_factor)
 
 
 def forward_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
-                   remat: bool = False) -> Tuple[torch.Tensor, float]:
-    """Training / eval forward: the final hidden states (B, T, D) and aux
-    (0 for the dense family).  ``remat``: each block's activations are
-    recomputed in the backward (``layers.remat``; the reference's
-    ``jax.checkpoint`` of its scan body), so its flash forward runs
-    twice a step."""
-    check_dense(cfg)
+                   remat: bool = False) -> Tuple[torch.Tensor, object]:
+    """Training / eval forward: the final hidden states (B, T, D) and the
+    summed MoE aux (0.0 for the dense family).  ``remat``: each block's
+    activations are recomputed in the backward (``layers.remat``; the
+    reference's ``jax.checkpoint`` of its scan body), so its flash
+    forward runs twice a step."""
+    check_decoder(cfg)
     x = embed_inputs(cfg, params, tokens)
     B, T, _ = x.shape
-    positions = torch.arange(T, device=x.device).expand(B, T)
-    rope = L.rope_table(positions, cfg.head_dim, cfg.rope_theta,
-                        cfg.partial_rotary_factor)
+    rope = rope_for(cfg, torch.arange(T, device=x.device).expand(B, T))
+    aux_total = 0.0
     for p in params["blocks"]:
-        x = L.remat(train_block, remat, cfg, p, x, rope)
-    return L.apply_norm(cfg, params["final_norm"], x), 0.0
+        x, aux = L.remat(train_block, remat, cfg, p, x, rope)
+        aux_total = aux_total + aux
+    return L.apply_norm(cfg, params["final_norm"], x), aux_total
 
 
 def embed_inputs(cfg: ModelConfig, params: Dict,
@@ -127,34 +181,61 @@ def logits_from_hidden(cfg: ModelConfig, params: Dict,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: torch.dtype = torch.float32,
                 device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
-    """Stacked (L, B, max_len, KV, Dh) k/v caches, zero-filled."""
-    check_dense(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"dense_blocks": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    """Stacked zero-filled caches, one per layer kind present: k / v
+    (L, B, max_len, KV, Dh), or MLA's c_kv / k_rope (L, B, max_len,
+    ...)."""
+    check_decoder(cfg)
+    layer = (attn.init_mla_cache if cfg.mla is not None
+             else attn.init_kv_cache)(cfg, batch, max_len, dtype, "meta")
+    n_dense = n_dense_layers(cfg)
+    caches = {}
+    for name, n in (("dense_blocks", n_dense),
+                    ("moe_blocks", cfg.n_layers - n_dense)):
+        if n:
+            caches[name] = {k: torch.zeros((n, *v.shape), dtype=dtype,
+                                           device=device)
+                            for k, v in layer.items()}
+    return caches
+
+
+def layer_cache(cfg: ModelConfig, caches: Dict,
+                idx: int) -> Dict[str, torch.Tensor]:
+    """Layer ``idx``'s slice of the stacked caches (views: writes land in
+    the stack)."""
+    n_dense = n_dense_layers(cfg)
+    name, i = (("dense_blocks", idx) if idx < n_dense
+               else ("moe_blocks", idx - n_dense))
+    return {k: v[i] for k, v in caches[name].items()}
+
+
+def restore_counts(cfg: ModelConfig, n_layers: int) -> Dict[str, int]:
+    """How many leading layers of each cache stack lie in the first
+    ``n_layers`` layers (the mixed prefill's pre-RP layers)."""
+    n_dense = n_dense_layers(cfg)
+    return {"dense_blocks": min(n_layers, n_dense),
+            "moe_blocks": max(n_layers - n_dense, 0)}
 
 
 def run_blocks(cfg: ModelConfig, params: Dict, x: torch.Tensor,
                positions: torch.Tensor, start: int, end: int, caches: Dict,
-               pos: Optional[int] = None) -> Tuple[torch.Tensor, Dict, float]:
-    """Run backbone layers [start, end) on hidden states x, prefilling
-    (``pos`` None) or decoding one token at ``pos``; ``positions`` (B, T)
-    are the RoPE positions of x's rows.  Each layer writes its slice of
-    ``caches`` in place.  Returns (x, caches, aux); aux is 0 for the
-    dense family (the reference's MoE load-balance term)."""
-    rope = L.rope_table(positions, cfg.head_dim, cfg.rope_theta,
-                        cfg.partial_rotary_factor)
+               pos: Optional[int] = None) -> Tuple[torch.Tensor, Dict, object]:
+    """Run backbone layers [start, end) on hidden states x, across the
+    dense-to-MoE boundary, prefilling (``pos`` None) or decoding one
+    token at ``pos``; ``positions`` (B, T) are the RoPE positions of x's
+    rows.  Each layer writes its slice of ``caches`` in place.  Returns
+    (x, caches, aux), aux the layers' MoE load-balance terms summed (0.0
+    when none is a MoE layer)."""
+    rope = rope_for(cfg, positions)
     kv_len = None
-    if pos is not None:
+    if pos is not None and cfg.mla is None:
         kv_len = torch.full((x.shape[0],), pos + 1, dtype=torch.int32,
                             device=x.device)
-    stack = caches["dense_blocks"]
+    aux_total = 0.0
     for i in range(start, end):
-        x = block_forward(cfg, params["blocks"][i], x, rope,
-                          {"k": stack["k"][i], "v": stack["v"][i]}, pos,
-                          kv_len)
-    return x, caches, 0.0
+        x, aux = block_forward(cfg, params["blocks"][i], x, rope,
+                               layer_cache(cfg, caches, i), pos, kv_len)
+        aux_total = aux_total + aux
+    return x, caches, aux_total
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,

@@ -119,7 +119,14 @@ def quantize_lm_params(params):
     through.  Per-column scales make the fused ``w_qkv``'s codes and
     scales those of ``w_q``, ``w_k`` and ``w_v`` quantized apart, and a
     layer's those of the reference's scan-stacked weight at that layer
-    (its per-(layer, column) scales)."""
+    (its per-(layer, column) scales).  A tree with MoE layers raises:
+    the reference's walk leaves its 4-D expert stacks float, and the
+    port's per-layer (E, D, F) slabs would be quantized instead."""
+    if any("router" in b.get("ffn", {}) for b in params.get("blocks", ())):
+        raise NotImplementedError(
+            "quantize_lm_params: MoE layers' int8 lane is not ported "
+            "(ROADMAP.md, Queue 1)")
+
     def walk(node):
         if isinstance(node, dict):
             return {k: (qt.quantize_weight(v) if k in LM_TARGETS

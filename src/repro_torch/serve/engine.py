@@ -23,12 +23,14 @@ The engine batches requests into **waves**:
 PyTorch runs eagerly, so a key's "compile" is its first run; ``warmup``
 runs every key of the grid once and ``stats.steady_compiles`` counts a
 first run after it.  Any family the registry serves runs here: dense
-decoders, the pure SSM LM and the Mamba-2 hybrid (plain waves only for
-the last two, :data:`NO_MIXED_FAMILIES`).  On the card a dense prefill's
-causal attention runs the flash kernel and every decode step's cache
-read the decode kernel, once per layer; a mamba layer's prefill runs the
+and MoE decoders, the pure SSM LM and the Mamba-2 hybrid (plain waves
+only for the last two, :data:`NO_MIXED_FAMILIES`).  On the card a GQA
+prefill's causal attention runs the flash kernel and every decode step's
+cache read the decode kernel, once per layer (MLA's attention runs
+einsums, as in the reference); a mamba layer's prefill runs the
 ``ssd_scan`` kernel (``kernels.dispatch``).  Caches and states are
-updated in place.
+updated in place.  A MoE wave's pad slots copy slot 0 and compete for
+expert capacity, as in the reference.
 """
 from __future__ import annotations
 

@@ -73,10 +73,10 @@ def test_decode_plain_kv_len_edges(kv_len_val):
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 6])
 def test_decode_plain_gqa_groups(G):
-    """GQA groups 1/2/4 against a cache of 300, not a multiple of the
-    Pallas kernel's 128-key block."""
+    """GQA groups 1/2/3/4/6 (6: dbrx-132b's 48 heads over 8) against a
+    cache of 300, not a multiple of the Pallas kernel's 128-key block."""
     q, k, v, kv_len = _inputs(31 + G, 2, 300, 4 * G, 4, 64)
     got = _plain(q, k, v, kv_len)
     pallas, ref = _both_refs(q, k, v, kv_len, bs=128)
@@ -137,6 +137,8 @@ def test_split_plan(shape):
     ((1, 1040, 4, 4, 64), [1032]),           # zamba2's G = 1, Dh = 64
     ((2, 40, 16, 1, 32), [0, 40]),           # two groups of 8 heads
     ((2, 200, 6, 6, 64), [77, 200]),         # G = 1, KV not a multiple of 4
+    ((2, 152, 48, 8, 128), [129, 152]),      # dbrx-132b's G = 6
+    ((2, 200, 12, 4, 64), [33, 200]),        # G = 3
 ])
 def test_split_merge_matches_reference(shape, lens):
     """The kernel's split -> partial (m, l, acc) -> merge path in plain
@@ -234,6 +236,8 @@ def test_dense_causal_offset_matches_reference():
     ((3, 300, 8, 8, 32), [5, 150, 299]),     # splits wholly past kv_len
     ((2, 200, 8, 1, 16), [33, 200]),         # G = 8, Dh = 16
     ((2, 200, 6, 6, 64), [77, 200]),         # G = 1, KV not a multiple of 4
+    ((8, 152, 48, 8, 128), [129] * 8),       # dbrx-132b's serving step
+    ((3, 152, 48, 8, 128), [0, 1, 152]),     # ... at its kv_len edges
 ])
 def test_decode_kernel_matches_plain_on_card(shape, lens):
     if not torch.cuda.is_available():

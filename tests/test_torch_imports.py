@@ -50,7 +50,9 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.train.elastic", "repro_torch.launch.train",
             "repro_torch.optim.grad_compression",
             "repro_torch.quant.calibrate", "repro_torch.quant",
-            "repro_torch.core.mixed_res", "repro_torch.convert")
+            "repro_torch.core.mixed_res", "repro_torch.convert",
+            "repro_torch.models.moe", "repro_torch.configs.dbrx_132b",
+            "repro_torch.configs.deepseek_v2_236b")
 
 
 def test_every_port_module_imports_without_jax():

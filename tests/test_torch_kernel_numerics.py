@@ -173,11 +173,13 @@ def flash_3xtf32(q, k, v, causal=False, tile=64):
     return out.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh)
 
 
-# (B, T, S, H, KV, Dh): GQA groups 1 and 4, T and S off the 64-key tile,
-# S < T, and every head width the kernel builds
+# (B, T, S, H, KV, Dh): GQA groups 1, 3, 4 and 6 (dbrx-132b's 48 / 8 at
+# its mixed prefill's T = 96), T and S off the 64-key tile, S < T, and
+# every head width the kernel builds
 FLASH_SHAPES = [(1, 130, 130, 4, 4, 16), (2, 100, 77, 8, 2, 32),
                 (1, 200, 150, 4, 1, 64), (1, 70, 200, 2, 2, 128),
-                (1, 64, 64, 4, 1, 64)]
+                (1, 64, 64, 4, 1, 64), (1, 70, 130, 6, 2, 32),
+                (1, 96, 96, 12, 2, 128)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -445,10 +447,12 @@ def test_window_half_matches_plain_and_reference(w2, Dh, heads, dt):
     assert_half_close(got, _from_jax(want, dt))
 
 
-# (B, T, S, H, KV, Dh): GQA groups 1 and 4, T and S off the key tiles
-# (128 keys at Dh 64, 64 at Dh 128), S < T, the LM prefill's head width
+# (B, T, S, H, KV, Dh): GQA groups 1, 3, 4 and 6, T and S off the key
+# tiles (128 keys at Dh 64, 64 at Dh 128), S < T, the LM prefill's head
+# width
 HALF_FLASH_SHAPES = [(1, 200, 150, 4, 1, 64), (2, 130, 300, 4, 4, 64),
-                     (1, 100, 260, 6, 2, 128), (2, 128, 128, 8, 2, 128)]
+                     (1, 100, 260, 6, 2, 128), (2, 128, 128, 8, 2, 128),
+                     (1, 96, 96, 12, 2, 128)]
 
 
 @pytest.mark.parametrize("dt", sorted(HALF_TYPES))

@@ -86,7 +86,8 @@ def test_configs_copy_the_reference():
     from repro.configs import get_config as jget_config
     for get, jget in ((get_config, jget_config),
                       (get_reduced, jget_reduced)):
-        for arch in (ARCH, "vitdet-l", "mamba2-370m", "zamba2-1.2b"):
+        for arch in (ARCH, "vitdet-l", "mamba2-370m", "zamba2-1.2b",
+                     "dbrx-132b", "deepseek-v2-236b"):
             assert dataclasses.asdict(get(arch)) == \
                 dataclasses.asdict(jget(arch))
     with pytest.raises(KeyError, match="ROADMAP"):
@@ -94,12 +95,15 @@ def test_configs_copy_the_reference():
 
 
 def test_unported_families_raise():
-    from repro_torch.models.config import MoEConfig
-    moe = get_reduced(ARCH).replace(family="moe", moe=MoEConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.init_decode_state(moe, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    from repro_torch.models.config import EncDecConfig, VLMConfig
+    for cfg in (get_reduced(ARCH).replace(family="vlm", vlm=VLMConfig()),
+                get_reduced(ARCH).replace(family="encdec",
+                                          encdec=EncDecConfig())):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            registry.init_decode_state(cfg, 1, 8, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            registry.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
 
 
 def test_seeded_init_has_the_reference_shapes_and_scales():

@@ -221,9 +221,9 @@ def test_ssm_training_route_never_reaches_ssd_scan(monkeypatch):
     assert torch.isfinite(loss) and all(g is not None for g in grads.values())
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm", "moe"])
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
 def test_lm_loss_refuses_unported_families(family):
-    extra = {"moe": tmc.MoEConfig(), "vlm": tmc.VLMConfig()}
+    extra = {"vlm": tmc.VLMConfig()}
     cfg = tmc.ModelConfig(family=family, **(
         {family: extra[family]} if family in extra else {}))
     with pytest.raises(NotImplementedError):
