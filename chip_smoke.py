@@ -209,9 +209,9 @@ Phases; any failure exits non-zero and prints no result:
      differs; a 2-block full-width model at B = 1,
      card vs CPU: loss to TRAIN_LOSS_RTOL, every leaf's gradient the
      same two ways.  Last,
-     the reference's SIM recipe at half its depth (900 of its 1800
-     steps, peak lr 5e-4, B = 2; cut to keep the run within its time
-     limit): the
+     the reference's SIM recipe at a quarter of its depth (450 of its
+     1800 steps, peak lr 5e-4, B = 2; cut to keep the run within its
+     time limit): the
      loss every 200 steps and the wall, the mean of the last 100 losses
      below that of the first 50, the trained server's frame F1 against
      the ground-truth boxes of held-out clips (and of the training clips)
@@ -329,7 +329,29 @@ Phases; any failure exits non-zero and prints no result:
      each family (``MOE_NARROW``) card vs CPU, plain and mixed, held
      the same way.  Phase 2 checks and times flash at dbrx's causal
      prefill shapes (G = 6, T = 128 and the mixed 96) and decode at its
-     serving step and kv_len edges, at every type.
+     serving step and kv_len edges, at every type;
+ 24. the reference's last five architectures at full published width
+     and depth, float32, seed 0, each freed before the next:
+     whisper-medium (24 + 24 layers) on 8 requests of 1500 stub frames
+     and a 32-token prompt, 16 greedy tokens through
+     ``registry.prefill`` / ``decode_step`` (flash in the encoder, in
+     the decoder's causal prefill and in every cross-attention, at T_q
+     = 1 each step; decode each step), and ``encode_mixed`` at BETA
+     with 37 of the 75 frame spans pooled; llava-next-mistral-7b (32
+     layers) on 2 requests of 2880 image embeddings and a 128-token
+     prompt, plain and through ``mixed_prefill`` at BETA (half the 188
+     spans pooled), 16 greedy tokens; deepseek-7b, mistral-nemo-12b
+     and phi4-mini-3.8b through a warmed ``ServeEngine`` as phase 23
+     serves its models.  Each with its launches (no path may count
+     zero), prefill and decode-step ms (median of three) against the
+     step's byte bound, peak memory, the kernel route against the plain
+     route (``hold_routes``: greedy tokens equal but at near-ties), and
+     for whisper the traced share of a decode step's device time in the
+     cross-attention K / V projections.  Phase 2 checks and times flash
+     at whisper's encoder (8, 1500, 16, 64), its cross-attention at T_q
+     = 32 and 1 against 1500 keys and llava's causal (2, 3008, 32/8,
+     128), and decode at phi4-mini's G = 3, deepseek-7b's G = 1 at Dh =
+     128 and whisper's decoder step, at float32.
 
 Every printed line also goes to ``chiprun_out/chip_smoke.log`` and every
 number to ``chiprun_out/chip_smoke.json``.  Each serving path resets the launch counts just before it and reads them
@@ -343,8 +365,9 @@ multi-client run and burst wave of phase 14, named ``mc ...``, the
 two training runs of phase 15, ``train ...``, the LM training runs
 of phase 16, ``lm_train ...``, the exact lane of phase 17, the host- and
 device-cache simulations of phase 18, the int8 LM waves of phase 19,
-the calibration of phase 20, the half lanes of phases 21 and 22 and
-the MoE waves of phase 23, named by their config);
+the calibration of phase 20, the half lanes of phases 21 and 22, the
+MoE waves of phase 23 and the models of phase 24, named by their config
+and path);
 the ``int8_matmul`` row also gives phase 19's decode-step device us and
 bound, and every row but ``ssd_scan``'s its ``f16`` / ``bf16`` numbers.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -391,6 +414,13 @@ LM_MAX_LEN = 152
 LM_LONG_LENS = (8192, 6000, 4097, 2048, 513, 64, 1, 8192)
 SSD_TOL = 1e-4              # SSD scan, kernel vs plain, of the largest value
 SSM_B, SSM_T, SSM_NEW = 8, 1024, 16   # the SSM serving waves
+# phase 24: whisper-medium's requests (1500 stub frames of width 1024 and
+# a decoder prompt) and llava-next-mistral-7b's (2880 stub image
+# embeddings of width 1024 and a text prompt), each of MM_NEW greedy
+# tokens (the prefill's, then MM_NEW - 1 decode steps)
+WHISPER_B, WHISPER_T = 8, 32
+LLAVA_B, LLAVA_T = 2, 128
+MM_NEW = 16
 SSD_NS = (16, 32, 64, 128)  # the state sizes ssd_scan.cu is built for
 # the four kernels one ssd_scan call runs, in order
 SSD_STAGES = ("ssd_scores_kernel", "ssd_states_kernel", "ssd_pass_kernel",
@@ -413,12 +443,29 @@ DECODE_SHAPES = {
     "serving": ((LM_B, LM_MAX_LEN, 32, 8, 128), (LM_T + 1,) * LM_B),
     "dbrx": ((LM_B, LM_MAX_LEN, 48, 8, 128), (LM_T + 1,) * LM_B),
     "zamba2": ((SSM_B, SSM_T + SSM_NEW, 32, 32, 64), (SSM_T + 8,) * SSM_B),
-    "ragged": ((LM_B, LM_LONG_LENS[0], 32, 8, 128), LM_LONG_LENS)}
+    "ragged": ((LM_B, LM_LONG_LENS[0], 32, 8, 128), LM_LONG_LENS),
+    # phase 24's steps (float32 only): phi4-mini-3.8b (G = 3: the kernel
+    # rounds the group up to 4), deepseek-7b (MHA, G = 1 at Dh = 128) and
+    # whisper-medium's decoder (G = 1 at Dh = 64, its 32-token prompt)
+    "phi4": ((LM_B, LM_MAX_LEN, 24, 8, 128), (LM_T + 1,) * LM_B),
+    "deepseek7b": ((LM_B, LM_MAX_LEN, 32, 32, 128), (LM_T + 1,) * LM_B),
+    "whisper": ((WHISPER_B, WHISPER_T + MM_NEW + 8, 16, 16, 64),
+                (WHISPER_T + 1,) * WHISPER_B)}
+# flash_attention's phase-24 shapes (float32 only), name -> (B, T, S, H,
+# KV, Dh, causal): whisper-medium's encoder (S off the 64-key tile), its
+# cross-attention at the prompt's 32 query rows and at a decode step's
+# one, and llava-next-mistral-7b's causal prefill of 2880 image and 128
+# text tokens
+FLASH_MM = {"whisper_encoder": (8, 1500, 1500, 16, 16, 64, False),
+            "whisper_cross_T32": (8, 32, 1500, 16, 16, 64, False),
+            "whisper_cross_T1": (8, 1, 1500, 16, 16, 64, False),
+            "llava_causal": (2, 3008, 3008, 32, 8, 128, True)}
 # decode_attention's kv_len edges (B, S, H, KV, Dh), kv_len: no key, one
 # key, a split boundary, kv_len = S, runs wholly past kv_len, G = 1 over
 # four kv heads a block and over one (KV = 6), G = 4 / 8 / 16, and
 # dbrx-132b's G = 6 at its serving cache (no key, one, a split boundary,
-# the prompt, the full cache)
+# the prompt, the full cache), phi4-mini-3.8b's G = 3 and deepseek-7b's
+# G = 1 at Dh = 128 at theirs
 DECODE_EDGES = (((2, 256, 8, 2, 64), (0, 1)), ((2, 256, 8, 2, 64), (64, 256)),
                 ((3, 300, 8, 8, 32), (5, 150, 299)),
                 ((2, 200, 8, 1, 16), (33, 200)),
@@ -426,7 +473,9 @@ DECODE_EDGES = (((2, 256, 8, 2, 64), (0, 1)), ((2, 256, 8, 2, 64), (64, 256)),
                 ((3, 777, 8, 4, 16), (1, 511, 777)),
                 ((2, 200, 6, 6, 64), (77, 200)),
                 ((3, LM_MAX_LEN, 48, 8, 128), (0, 1, LM_MAX_LEN)),
-                ((2, LM_MAX_LEN, 48, 8, 128), (64, LM_T)))
+                ((2, LM_MAX_LEN, 48, 8, 128), (64, LM_T)),
+                ((3, LM_MAX_LEN, 24, 8, 128), (0, 1, LM_MAX_LEN)),
+                ((2, LM_MAX_LEN, 32, 32, 128), (64, LM_T)))
 E2E_RTOL = 1e-3             # 8-block forward, card vs CPU, relative
 OFFLOAD_FRAMES = 24         # frames of each phase-13 simulation
 # phase 13's simulations: (policy, video), each against the 4G trace
@@ -472,9 +521,11 @@ TRAIN_GRAD_TOL = 1e-3       # analytic vs autograd backward, of a leaf's max
 # plain route): the bound sits just above that.
 KINK_GRAD_TOL = 5e-3
 TRAIN_LOSS_RTOL = 1e-4      # the 2-block model's loss, card vs CPU
-# benchmarks/common.py's SIM recipe (1800 steps, peak lr 5e-4) at half its
-# depth, to keep the whole run within its time limit
-SIM_STEPS, SIM_PEAK_LR = 900, 5e-4
+# benchmarks/common.py's SIM recipe (1800 steps, peak lr 5e-4) at a
+# quarter of its depth, to keep the whole run within its time limit (at
+# 900 steps the last-100 mean loss read 0.37 against 3.91 over the first
+# 50: the check keeps a wide margin at 450)
+SIM_STEPS, SIM_PEAK_LR = 450, 5e-4
 F1_VIDEOS, F1_FRAMES, F1_SEED = ("walkS", "walkB", "cycleS"), 16, 23
 BWD_MARKS = ("window_attention_bwd", "flash_attention_bwd")
 # phase 16, LM training: causal GQA flash at Qwen3-4B's and the ~100M
@@ -795,6 +846,9 @@ def run(torch):
 
     # phase 23 ------------------------------------------------------------
     lat["moe"] = moe_phase(torch, dev, count)
+
+    # phase 24 ------------------------------------------------------------
+    lat["multimodal"] = mm_phase(torch, dev, count)
 
     out = []
     for name in KERNEL_SOURCES:
@@ -3118,8 +3172,10 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
     float32 tree over a half cache runs it), at the kv_len edges, at
     a ragged long cache and at dbrx-132b's serving step (G = 6);
     ``flash_attention`` at the LM prefills' causal GQA shapes (Qwen3-4B's
-    and dbrx-132b's, plain and mixed).  Each held by :func:`agree`.
-    Returns the extra rows, keyed with ``_f16`` / ``_bf16`` at half."""
+    and dbrx-132b's, plain and mixed).  At float32 also phase 24's
+    shapes: decode at phi4-mini's, deepseek-7b's and whisper's steps,
+    flash at ``FLASH_MM``.  Each held by :func:`agree`.  Returns the
+    extra rows, keyed with ``_f16`` / ``_bf16`` at half."""
     from repro_torch.kernels.build import FLOAT_SUFFIX
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.configs.dbrx_132b import CONFIG as DBRX
@@ -3193,7 +3249,8 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
             dec.decode_attention_plain(q, k, v, kl), DECODE_TOL)
     say(f"  decode_attention {suf} kv_len edges, max errors: "
         f"{ {k: float(f'{e:.3g}') for k, e in errs.items()} }")
-    for name in ("ragged", "zamba2", "dbrx"):
+    for name in ("ragged", "zamba2", "dbrx") + (
+            ("phi4", "deepseek7b", "whisper") if f32 else ()):
         extra[f"decode_attention_{name}{tag}"] = decode_case(name)
     r = decode_case("serving")
     put("decode_attention", *(r[key] for key in (
@@ -3203,35 +3260,45 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
         equal_frac=r["equal_frac"],
         **{k: r[k] for k in ("f32_q_max_abs_err",) if k in r})
 
+    def flash_case(name, b, T, S, h, kv, dh, causal):
+        """flash at (b, T, S, h / kv, dh): checked, timed (relaunches:
+        host clock and device time) beside the plain version and SDPA,
+        bounded by its bytes or its (query, key) pairs' products."""
+        q, k, v = rnd(b, T, h, dh), rnd(b, S, kv, dh), rnd(b, S, kv, dh)
+        err, eq = agree(
+            torch, f"flash_attention {suf} {name} {(b, T, S, h, kv, dh)} "
+            f"causal={causal}", flash.flash_attention_cuda(q, k, v, causal),
+            flash.flash_attention_plain(q, k, v, causal), ATTN_TOL)
+        k_ms = timed(torch, lambda: flash.KERNEL.relaunch(1))
+        d_us = device_us(torch, lambda: flash.KERNEL.relaunch(1),
+                         trace_name("flash_attention", dt))
+        p_ms = timed(torch, lambda: flash.flash_attention_plain(q, k, v,
+                                                                causal))
+        qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        l_ms = timed(torch, lambda: F.scaled_dot_product_attention(
+            qt_, kt, vt, is_causal=causal, enable_gqa=True))
+        pairs = (sum(min(t + 1, S) for t in range(T)) if causal
+                 else T * S)                  # the (query, key) pairs seen
+        b_ms, b_by = bound(es * (2 * q.numel() + 2 * k.numel()),
+                           products * 4 * b * h * pairs * dh, attn_peak)
+        row = {"shape": [b, T, S, h, kv, dh], "causal": causal,
+               "max_abs_err": err, "equal_frac": eq, "ms": k_ms,
+               "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "device_us": d_us}
+        say(f"  flash_attention {suf} {name} {row}")
+        return row
+
     # the LM prefills' causal GQA: Qwen3-4B (G = 4) and dbrx-132b (G = 6),
-    # the plain prefill and the mixed one at 4 of 8 spans pooled
+    # the plain prefill and the mixed one at 4 of 8 spans pooled; at
+    # float32 also phase 24's shapes (FLASH_MM)
     for model, (h, kv) in (("", (H, KV)), ("dbrx_", (DBRX.n_heads,
                                                     DBRX.n_kv_heads))):
         for T in (LM_T, LM_T - 32):
-            q, k, v = rnd(LM_B, T, h, Dh), rnd(LM_B, T, kv, Dh), \
-                rnd(LM_B, T, kv, Dh)
-            err, eq = agree(
-                torch, f"flash_attention {suf} {model}causal GQA {h}/{kv} "
-                f"T={T}", flash.flash_attention_cuda(q, k, v, causal=True),
-                flash.flash_attention_plain(q, k, v, causal=True), ATTN_TOL)
-            k_ms = timed(torch, lambda: flash.KERNEL.relaunch(1))
-            d_us = device_us(torch, lambda: flash.KERNEL.relaunch(1),
-                             trace_name("flash_attention", dt))
-            p_ms = timed(torch, lambda: flash.flash_attention_plain(
-                q, k, v, causal=True))
-            qt_, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            l_ms = timed(torch, lambda: F.scaled_dot_product_attention(
-                qt_, kt, vt, is_causal=True, enable_gqa=True))
-            pairs = T * (T + 1) // 2              # causal (query, key) pairs
-            b_ms, b_by = bound(es * (2 * q.numel() + 2 * k.numel()),
-                               products * 4 * LM_B * h * pairs * Dh,
-                               attn_peak)
-            row = {"shape": [LM_B, T, h, kv, Dh], "max_abs_err": err,
-                   "equal_frac": eq, "ms": k_ms, "plain_ms": p_ms,
-                   "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
-                   "device_us": d_us}
-            extra[f"flash_attention_{model}causal_T{T}{tag}"] = row
-            say(f"  flash_attention {suf} {model}causal GQA {row}")
+            extra[f"flash_attention_{model}causal_T{T}{tag}"] = flash_case(
+                f"{model}causal GQA", LM_B, T, T, h, kv, Dh, True)
+    for name, shape in (FLASH_MM.items() if f32 else ()):
+        extra[f"flash_attention_{name}"] = flash_case(name, *shape)
+        torch.cuda.empty_cache()
     return extra
 
 
@@ -5130,34 +5197,41 @@ def plain_lm_route(dispatch, flash, dec):
         dispatch.flash_attention, dispatch.decode_attention = saved
 
 
-def moe_forced(torch, cfg, params, device, toks, T, pack=None):
-    """A prefill of ``toks[:, :T]`` (mixed at BETA with ``pack``), then
-    decode teacher-forced on the rest: each step's last-row logits
-    (steps, B, V) on the CPU, and the routing log."""
+def forced_logits(torch, cfg, params, device, toks, T, pack=None,
+                  extra=None):
+    """A prefill of ``toks[:, :T]`` with the family's ``extra`` inputs
+    ("frames", "image_embeds"; mixed at BETA with ``pack``), then decode
+    teacher-forced on the rest: each step's last-row logits (steps, B,
+    V) on the CPU, and the routing log (empty without MoE layers)."""
     from repro_torch.core import seq_mixed_res as smr
     from repro_torch.models import moe, registry
     from repro_torch.models import transformer as tfm
+    extra = {k: v.to(device) for k, v in (extra or {}).items()}
     B, n = toks.shape[0], toks.shape[1] - T
+    T0 = T + (extra["image_embeds"].shape[1] if "image_embeds" in extra
+              else 0)                      # the prefill's sequence length
     with record_routes(torch, moe) as log, torch.no_grad():
-        state = registry.init_decode_state(cfg, B, T + n + 8, device=device)
+        state = registry.init_decode_state(cfg, B, T0 + n + 8, device=device)
         x = toks[:, :T].to(device)
         if pack is None:
-            h, state, _ = registry.prefill(cfg, params, {"tokens": x}, state)
+            h, state, _ = registry.prefill(cfg, params,
+                                           {"tokens": x, **extra}, state)
         else:
             h, state, _ = smr.mixed_prefill(
                 cfg, params, x, {k: v.to(device) for k, v in pack.items()},
-                BETA, state)
+                BETA, state, image_embeds=extra.get("image_embeds"))
         out = [tfm.logits_from_hidden(cfg, params, h[:, -1:])]
         for i in range(n):
             lg, state = registry.decode_step(
-                cfg, params, toks[:, T + i:T + i + 1].to(device), T + i,
+                cfg, params, toks[:, T + i:T + i + 1].to(device), T0 + i,
                 state)
             out.append(lg)
     return torch.stack([o[:, -1].float().cpu() for o in out]), log
 
 
 def hold_routes(torch, name, got, want, rtol):
-    """Two routes' teacher-forced logits and routing logs (``moe_forced``):
+    """Two routes' teacher-forced logits and routing logs
+    (``forced_logits``):
     each step's logits to ``rtol`` of its largest magnitude, and the same
     greedy token wherever ``want``'s top-2 margin exceeds twice the
     routes' difference in that row.  If the routes chose other experts
@@ -5181,10 +5255,10 @@ def hold_routes(torch, name, got, want, rtol):
            "routing_calls": len(clog), "first_routing_flip": None}
     say(f"    {name}: logits max relative error {rel:.3g} (limit {rtol}), "
         f"{out['greedy_flips']} of {flips.numel()} greedy tokens differ, "
-        f"{out['greedy_flips_at_ties']} of them at a near-tie; expert "
-        f"choices equal in " + ("all" if first is None else
-                                f"the first {first[0]}")
-        + f" of {len(clog)} routing calls")
+        f"{out['greedy_flips_at_ties']} of them at a near-tie" + (
+            "; expert choices equal in " + ("all" if first is None else
+                                            f"the first {first[0]}")
+            + f" of {len(clog)} routing calls" if clog else ""))
     if first is None:
         check(rel <= rtol, f"{name}: logits {rel} > {rtol}")
         check(not bool((flips & ~ties).any()),
@@ -5212,17 +5286,19 @@ def moe_narrow(cfg):
     return cfg.replace(**kw)
 
 
-def serve_moe(torch, cfg, dev):
-    """One MoE model (seed 0, full width) through a warmed ``ServeEngine``:
-    a plain and a mixed wave of LM_B x LM_T + LM_NEW (half the spans
-    pooled at BETA), each with its launches (dbrx: flash once a layer a
-    prefill, decode once a layer a step; deepseek-v2's MLA: neither),
-    prefill and decode-step ms; no steady first use; peak memory; the
-    decode step's byte bound and one MoE layer's experts timed alone at
-    the step's shape against their slabs' bytes; a traced wave of each
-    split into the experts, MLA's attention, flash, decode and the rest; for a model that runs kernels, the kernel route
-    held against the plain route on the card.  Returns (launches summed
-    over both waves, record)."""
+def serve_decoder(torch, cfg, dev, traced=("plain", "mixed")):
+    """One decoder LM (seed 0, full width; dense or MoE) through a warmed
+    ``ServeEngine``: a plain and a mixed wave of LM_B x LM_T + LM_NEW
+    (half the spans pooled at BETA), each with its launches (GQA: flash
+    once a layer a prefill, decode once a layer a step; deepseek-v2's
+    MLA: neither), prefill and decode-step ms; no steady first use; peak
+    memory; the decode step's byte bound (:func:`decode_weight_bytes`)
+    and, with MoE layers, one layer's experts timed alone at the step's
+    shape against their slabs' bytes; a traced wave of each kind in
+    ``traced`` split into the experts, MLA's attention, flash, decode and
+    the rest; for a model that runs kernels, the kernel route held
+    against the plain route on the card.  Returns (launches summed over
+    both waves, record)."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as flash
@@ -5237,9 +5313,12 @@ def serve_moe(torch, cfg, dev):
     att = (f"MLA rank {cfg.mla.kv_lora_rank}" if cfg.mla is not None else
            f"GQA {cfg.n_heads}/{cfg.n_kv_heads} Dh={cfg.head_dim}")
     m = cfg.moe
-    say(f"  {cfg.name}: {cfg.n_layers} layers D={cfg.d_model}, {att}, "
-        f"{m.n_experts} experts top-{m.top_k} ({m.n_shared_experts} shared, "
-        f"{m.first_dense_layers} dense layers first)")
+    say(f"  {cfg.name}: {cfg.n_layers} layers D={cfg.d_model}, {att}" + (
+        f", {m.n_experts} experts top-{m.top_k} ({m.n_shared_experts} "
+        f"shared, {m.first_dense_layers} dense layers first)" if m else
+        f", d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        f"{' tied' if cfg.tied_embeddings else ''}, partial rotary "
+        f"{cfg.partial_rotary_factor}"))
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = registry.init_params(cfg, gen, device=dev)
@@ -5293,47 +5372,50 @@ def serve_moe(torch, cfg, dev):
     check(eng.stats.steady_compiles == 0, f"{cfg.name}: steady-state first "
           f"uses {eng.stats.steady_compile_keys}")
     out["steady_compiles"] = 0
-    # a decode step's byte bound: every weight but the embedding table
-    # (the step gathers LM_B of its rows) read once; and one MoE layer's
-    # experts at the step's shape (capacity slots an expert), timed alone
-    # against their slabs' bytes
-    step_gb = 4 * (n_params - params["embed"]["tok"].numel()) / 1e9
+    # a decode step's byte bound: the weights it reads, once; and one MoE
+    # layer's experts at the step's shape (capacity slots an expert),
+    # timed alone against their slabs' bytes
+    step_gb = decode_weight_bytes(cfg, params) / 1e9
     out["decode_bound_ms"] = step_gb * 1e9 / PEAK_BYTES * 1e3
-    ffn = params["blocks"][-1]["ffn"]
-    xs = torch.randn((m.n_experts, moe.expert_capacity(cfg, LM_B),
-                      cfg.d_model), generator=gen, device=dev)
-    slab_gb = 4 * sum(ffn[k].numel() for k in ("w_gate", "w_up",
-                                               "w_down")) / 1e9
-    out["experts_at_decode"] = {
-        "shape": list(xs.shape), "ms": timed(torch, lambda: moe.expert_ffn(
-            ffn, xs)), "bound_ms": slab_gb * 1e9 / PEAK_BYTES * 1e3}
-    del xs
     say(f"    decode step byte bound {out['decode_bound_ms']:.2f} ms "
-        f"({step_gb:.2f} GB: every weight but the embedding table); one "
-        f"MoE layer's experts at the step's shape "
-        f"{tuple(out['experts_at_decode']['shape'])}: "
-        f"{out['experts_at_decode']['ms']:.3f} ms against "
-        f"{out['experts_at_decode']['bound_ms']:.3f} ms of slab bytes "
-        f"({slab_gb:.2f} GB)")
+        f"({step_gb:.2f} GB of weights)")
+    if m is not None:
+        ffn = params["blocks"][-1]["ffn"]
+        xs = torch.randn((m.n_experts, moe.expert_capacity(cfg, LM_B),
+                          cfg.d_model), generator=gen, device=dev)
+        slab_gb = 4 * sum(ffn[k].numel() for k in ("w_gate", "w_up",
+                                                   "w_down")) / 1e9
+        out["experts_at_decode"] = {
+            "shape": list(xs.shape), "ms": timed(
+                torch, lambda: moe.expert_ffn(ffn, xs)),
+            "bound_ms": slab_gb * 1e9 / PEAK_BYTES * 1e3}
+        del xs
+        say(f"    one MoE layer's experts at the step's shape "
+            f"{tuple(out['experts_at_decode']['shape'])}: "
+            f"{out['experts_at_decode']['ms']:.3f} ms against "
+            f"{out['experts_at_decode']['bound_ms']:.3f} ms of slab bytes "
+            f"({slab_gb:.2f} GB)")
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     say(f"    peak memory {out['peak_gb']:.2f} GB of the card's "
         f"{card_gb:.2f} GB; 0 steady first uses")
 
     # one traced wave of each kind, the experts and MLA's attention marked
+    marks = (("moe_experts",) if m else ()) + (
+        ("mla_attention",) if cfg.mla else ())
     saved = moe.expert_ffn, attn.mla_attend
     moe.expert_ffn = _marked(torch, moe.expert_ffn, "moe_experts")
     attn.mla_attend = _marked(torch, attn.mla_attend, "mla_attention")
     try:
         for kind, wmask in (("plain", None), ("mixed", mask)):
+            if kind not in traced:
+                continue
             prof = profile_wave(
                 torch, f"{cfg.name}_{kind}",
                 lambda: lm_wave(eng, cfg, prompts, mask=wmask),
-                out[kind]["median_s"],
-                marks=("moe_experts", "mla_attention"))
+                out[kind]["median_s"], marks=marks)
             fam = prof["families_ms"]
-            split = {k: fam.get(k, 0.0) for k in (
-                "moe_experts", "mla_attention", "flash_attention",
-                "decode_attention")}
+            split = {k: fam.get(k, 0.0) for k in marks + (
+                "flash_attention", "decode_attention")}
             split["other"] = prof["device_ms"] - sum(split.values())
             out[kind]["profile"] = dict(prof, split_ms=split)
             say(f"    {kind} trace split (device ms): " + ", ".join(
@@ -5347,10 +5429,10 @@ def serve_moe(torch, cfg, dev):
             [np.stack(prompts), np.asarray(out["plain"]["tokens"])[:, :-1]],
             axis=1))
         t0 = time.perf_counter()
-        kern = moe_forced(torch, cfg, params, dev, toks, LM_T)
+        kern = forced_logits(torch, cfg, params, dev, toks, LM_T)
         with plain_lm_route(dispatch, flash, dec):
             dispatch.reset_launch_counts()
-            plain = moe_forced(torch, cfg, params, dev, toks, LM_T)
+            plain = forced_logits(torch, cfg, params, dev, toks, LM_T)
             check(not any(dispatch.launch_counts().values()),
                   f"{cfg.name}: the plain route launched a kernel")
         out["route_check"] = hold_routes(
@@ -5393,8 +5475,8 @@ def moe_card_vs_cpu(torch, cfg, dev):
     for kind, pk in (("plain", None), ("mixed", pack)):
         out[kind] = hold_routes(
             torch, f"{narrow.name} narrow {kind}, card vs CPU",
-            moe_forced(torch, narrow, p_gpu, dev, toks, LM_T, pk),
-            moe_forced(torch, narrow, p_cpu, "cpu", toks, LM_T, pk),
+            forced_logits(torch, narrow, p_gpu, dev, toks, LM_T, pk),
+            forced_logits(torch, narrow, p_cpu, "cpu", toks, LM_T, pk),
             LM_RTOL)
     del p_gpu, p_cpu
     torch.cuda.empty_cache()
@@ -5404,7 +5486,7 @@ def moe_card_vs_cpu(torch, cfg, dev):
 def moe_phase(torch, dev, count):
     """Phase 23: dbrx-132b and deepseek-v2-236b at full published width,
     depth cut to MOE_LAYERS (float32 weights of 57.1 and 53.2 GB), each
-    served by :func:`serve_moe` and freed before the next; then each
+    served by :func:`serve_decoder` and freed before the next; then each
     family's narrow config card vs CPU."""
     from repro_torch.configs.dbrx_132b import CONFIG as DBRX
     from repro_torch.configs.deepseek_v2_236b import CONFIG as DSV2
@@ -5414,7 +5496,7 @@ def moe_phase(torch, dev, count):
         f"{LM_NEW} tokens")
     out = {}
     for c in (DBRX, DSV2):
-        launches, out[c.name] = serve_moe(
+        launches, out[c.name] = serve_decoder(
             torch, c.replace(n_layers=MOE_LAYERS), dev)
         count(c.name, launches)
     out["card_vs_cpu"] = {c.name: moe_card_vs_cpu(torch, c, dev)
@@ -5423,6 +5505,321 @@ def moe_phase(torch, dev, count):
     say(f"  phase 23: {out['phase_s']:.1f} s")
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# the reference's last five architectures (phase 24: whisper-medium,
+# llava-next-mistral-7b, deepseek-7b, mistral-nemo-12b, phi4-mini-3.8b)
+
+
+def decode_weight_bytes(cfg, params):
+    """Bytes of the weights one decode step reads: every decoder layer,
+    the final norm and the head (the token table when it is tied: the
+    logits read it whole); not the table's gathered rows of an untied
+    model, nor whisper's encoder and ``dec_pos`` or a VLM's projector."""
+    layers = params["dec_blocks"] if cfg.encdec else params["blocks"]
+    head = params["embed"] if cfg.tied_embeddings else params["lm_head"]
+    return 4 * sum(t.numel() for t in tree_tensors(
+        [layers, params["final_norm"], head]))
+
+
+def mm_greedy(torch, cfg, params, prompt, extra, pack=None):
+    """MM_NEW greedy tokens of a batch through ``registry.prefill`` (with
+    the family's ``extra`` inputs; ``mixed_prefill`` at BETA with
+    ``pack``) and ``registry.decode_step``, each token read back to the
+    host as the engine reads it.  Returns (tokens (B, MM_NEW), each
+    step's last-row logits (MM_NEW, B, V) on the CPU, prefill s, decode s
+    a step), host clock, synchronised."""
+    from repro_torch.core import seq_mixed_res as smr
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as tfm
+    B, T = prompt.shape
+    T0 = T + (extra["image_embeds"].shape[1] if "image_embeds" in extra
+              else 0)
+    with torch.no_grad():
+        state = registry.init_decode_state(cfg, B, T0 + MM_NEW + 8,
+                                           device=prompt.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if pack is None:
+            h, state, _ = registry.prefill(cfg, params,
+                                           {"tokens": prompt, **extra}, state)
+        else:
+            h, state, _ = smr.mixed_prefill(
+                cfg, params, prompt, pack, BETA, state,
+                image_embeds=extra.get("image_embeds"))
+        logits = [tfm.logits_from_hidden(cfg, params, h[:, -1:])]
+        tok = logits[0][:, -1].argmax(-1, keepdim=True)
+        toks = [tok.cpu()]
+        t1 = time.perf_counter()
+        for i in range(MM_NEW - 1):
+            lg, state = registry.decode_step(cfg, params, tok, T0 + i, state)
+            logits.append(lg)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+            toks.append(tok.cpu())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (torch.cat(toks, dim=1),
+            torch.stack([lg[:, -1].float().cpu() for lg in logits]),
+            t1 - t0, (t2 - t1) / (MM_NEW - 1))
+
+
+def mm_path(torch, cfg, params, name, prompt, extra, want, pack=None):
+    """One served path of phase 24: a greedy run with the launches
+    counted (they must be ``want`` = (flash, decode), nothing else) and
+    two more, the prefill and decode-step ms the medians of the three;
+    then the plain route teacher-forced on the kernel run's tokens, held
+    by :func:`hold_routes`.  Returns (launches, record)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as flash
+    dispatch.reset_launch_counts()          # the path starts here
+    runs = [mm_greedy(torch, cfg, params, prompt, extra, pack)]
+    launches = dispatch.launch_counts()     # ... and ends here
+    toks, logits = runs[0][:2]
+    got = (launches["flash_attention"], launches["decode_attention"])
+    check(got == want and sum(launches.values()) == sum(want),
+          f"{name}: launches {launches}, want flash / decode {want}")
+    check(bool(torch.isfinite(logits).all()), f"{name}: non-finite logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{name}: token out of the vocabulary")
+    runs += [mm_greedy(torch, cfg, params, prompt, extra, pack)
+             for _ in range(2)]
+    rec = {"launches": launches, "tokens": toks.tolist(),
+           "prefill_ms": statistics.median(r[2] for r in runs) * 1e3,
+           "decode_step_ms": statistics.median(r[3] for r in runs) * 1e3}
+    check(all(torch.equal(r[0], toks) for r in runs[1:]),
+          f"{name}: greedy tokens differ between runs")
+    full = torch.cat([prompt.cpu(), toks[:, :-1]], dim=1)
+    t0 = time.perf_counter()
+    with plain_lm_route(dispatch, flash, dec):
+        dispatch.reset_launch_counts()
+        plain = forced_logits(torch, cfg, params, prompt.device, full,
+                              prompt.shape[1], pack, extra)
+        check(not any(dispatch.launch_counts().values()),
+              f"{name}: the plain route launched a kernel")
+    rec["route_check"] = hold_routes(
+        torch, f"{name} kernel vs plain route (teacher-forced on the "
+        f"kernel run's tokens)", (logits, []), plain, LM_RTOL)
+    rec["route_check"]["s"] = time.perf_counter() - t0
+    say(f"    {name}: launches flash {got[0]}, decode {got[1]}; prefill "
+        f"{rec['prefill_ms']:.2f} ms, decode {rec['decode_step_ms']:.2f} "
+        f"ms/step (median of three)")
+    return launches, rec
+
+
+def mm_model(torch, cfg, dev):
+    """Seed-0 weights of ``cfg`` on the card after freeing the last
+    model's: (params, record with their count, GB and the step's byte
+    bound)."""
+    from repro_torch.models import registry
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_tensors(params))
+    rec = {"n_layers": cfg.n_layers, "n_params": n, "weight_gb": 4 * n / 1e9,
+           "decode_weight_gb": decode_weight_bytes(cfg, params) / 1e9}
+    rec["decode_bound_ms"] = rec["decode_weight_gb"] * 1e9 / PEAK_BYTES * 1e3
+    say(f"    init {n} parameters ({rec['weight_gb']:.2f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s; a decode step reads "
+        f"{rec['decode_weight_gb']:.3f} GB of them: byte bound "
+        f"{rec['decode_bound_ms']:.3f} ms")
+    return params, gen, rec
+
+
+def serve_whisper(torch, cfg, dev, count):
+    """whisper-medium at full width and depth: WHISPER_B requests of 1500
+    stub frames and a WHISPER_T-token prompt through :func:`mm_path`
+    (flash: the encoder's layers, then each decoder layer's causal
+    self-attention and cross-attention at the prefill, and the
+    cross-attention at T_q = 1 every step; decode: every layer every
+    step); ``encode_mixed`` at BETA with 37 of 75 spans pooled, against
+    the plain encoder and the plain route; a traced run of the decode
+    steps with the cross-attention K / V projections marked."""
+    from repro_torch.core import seq_mixed_res as smr
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.models import attention as attn
+    from repro_torch.models import registry
+    from repro_torch.models import whisper as whs
+    n_enc, n_dec = cfg.encdec.n_encoder_layers, cfg.n_layers
+    S = cfg.encdec.encoder_seq_len
+    say(f"  {cfg.name}: {n_enc} + {n_dec} layers D={cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim}, vocab {cfg.vocab_size} "
+        f"tied; {WHISPER_B} requests of {S} frames + {WHISPER_T} tokens, "
+        f"{MM_NEW} greedy tokens")
+    params, gen, out = mm_model(torch, cfg, dev)
+    frames = torch.randn((WHISPER_B, S, cfg.d_model), generator=gen,
+                         device=dev)
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (WHISPER_B, WHISPER_T)),
+                             device=dev)
+    steps = MM_NEW - 1
+    launches, out["plain"] = mm_path(
+        torch, cfg, params, cfg.name, prompt, {"frames": frames},
+        (n_enc + 2 * n_dec + n_dec * steps, n_dec * steps))
+    count(cfg.name, launches)
+    # the cross-attention's K / V projections: 2 GEMMs of (B S, D) x (D,
+    # kv_dim) a layer every step, against float32's peak outside the
+    # tensor cores (TF32 is off)
+    kv_ops = 2 * 2 * WHISPER_B * S * cfg.d_model * cfg.kv_dim * n_dec
+    out["cross_kv_ops_bound_ms"] = kv_ops / PEAK_FP32 * 1e3
+
+    # the traced decode steps: the K / V projections' share
+    with torch.no_grad():
+        state = registry.init_decode_state(cfg, WHISPER_B,
+                                           WHISPER_T + MM_NEW + 8,
+                                           device=dev)
+        _, state, _ = registry.prefill(cfg, params, {"tokens": prompt,
+                                                     "frames": frames}, state)
+        tok = prompt[:, -1:]
+
+        def run_steps():
+            st = state
+            for i in range(steps):
+                lg, st = registry.decode_step(cfg, params, tok,
+                                              WHISPER_T + i, st)
+                lg[:, -1].argmax(-1).cpu()
+        saved = attn.cross_kv
+        attn.cross_kv = _marked(torch, attn.cross_kv, "cross_kv")
+        try:
+            prof = profile_wave(torch, f"{cfg.name}_decode", run_steps,
+                                out["plain"]["decode_step_ms"] * steps / 1e3,
+                                marks=("cross_kv",))
+        finally:
+            attn.cross_kv = saved
+    fam = prof["families_ms"]
+    out["decode_profile"] = dict(prof, cross_kv_share=fam.get(
+        "cross_kv", 0.0) / prof["device_ms"])
+    say(f"    decode steps traced: cross-attention K / V projections "
+        f"{fam.get('cross_kv', 0.0) / steps:.3f} of "
+        f"{prof['device_ms'] / steps:.3f} device ms a step "
+        f"({out['decode_profile']['cross_kv_share']:.3f}; their float32 "
+        f"operations bound {out['cross_kv_ops_bound_ms']:.3f} ms); byte "
+        f"bound of the step's weights {out['decode_bound_ms']:.3f} ms")
+
+    # the encoder's frame pooling at BETA, half the spans pooled
+    part = smr.seq_partition(cfg, S)
+    mask = np.zeros(part.n_spans, np.int32)
+    mask[:part.n_spans // 2] = 1
+    pack = {k: torch.as_tensor(v.astype(np.int64), device=dev) for k, v in
+            smr.build_seq_pack(mask, int(mask.sum()), part).items()}
+    with torch.no_grad():
+        dispatch.reset_launch_counts()      # the path starts here
+        enc_mixed = smr.encode_mixed(cfg, params, frames, pack, BETA)
+        enc_launches = dispatch.launch_counts()  # ... and ends here
+        check(enc_launches["flash_attention"] == n_enc
+              and sum(enc_launches.values()) == n_enc,
+              f"encode_mixed: launches {enc_launches}, want {n_enc} flash")
+        count(f"{cfg.name} encode_mixed", enc_launches)
+        with plain_lm_route(dispatch, flash, dec):
+            enc_plain_route = smr.encode_mixed(cfg, params, frames, pack,
+                                               BETA)
+        enc_full = whs.encode(cfg, params, frames)
+        rel = rel_err(enc_mixed, enc_plain_route)
+        check(rel <= LM_RTOL, f"encode_mixed: kernel vs plain route {rel}")
+        times = {}
+        for key, fn in (("encode_ms", lambda: whs.encode(cfg, params,
+                                                         frames)),
+                        ("encode_mixed_ms", lambda: smr.encode_mixed(
+                            cfg, params, frames, pack, BETA))):
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            times[key] = statistics.median(walls)
+    out["encode_mixed"] = dict(
+        times, n_low=int(mask.sum()), n_spans=part.n_spans,
+        frames_pooled=part.n_tokens(int(mask.sum())), launches=enc_launches,
+        route_rel=rel, rel_to_full=rel_err(enc_mixed, enc_full))
+    say(f"    encode_mixed beta {BETA}, {int(mask.sum())} of {part.n_spans} "
+        f"spans pooled ({part.n_tokens(int(mask.sum()))} of {S} frames "
+        f"through {smr.layers_before_rp(cfg, BETA, n_enc)} layers): "
+        f"{times['encode_mixed_ms']:.2f} ms against the full encoder's "
+        f"{times['encode_ms']:.2f} ms; flash "
+        f"{enc_launches['flash_attention']}; kernel vs plain route "
+        f"{rel:.3g}; {out['encode_mixed']['rel_to_full']:.3g} from the "
+        f"full-resolution encoder (the pooling's own change)")
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    say(f"    peak memory {out['peak_gb']:.2f} GB")
+    del params, frames, state, enc_mixed, enc_plain_route, enc_full
+    return out
+
+
+def serve_llava(torch, cfg, dev, count):
+    """llava-next-mistral-7b at full width and depth: LLAVA_B requests of
+    2880 stub image embeddings and a LLAVA_T-token prompt through
+    :func:`mm_path`, plain (flash once a layer at the causal prefill of
+    3008 tokens, decode once a layer a step) and through
+    ``mixed_prefill`` at BETA with half of the 188 spans (the image's
+    first 94) pooled."""
+    from repro_torch.core import seq_mixed_res as smr
+    n_img = cfg.vlm.n_image_tokens
+    say(f"  {cfg.name}: {cfg.n_layers} layers D={cfg.d_model}, GQA "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} Dh={cfg.head_dim}; {LLAVA_B} "
+        f"requests of {n_img} image embeddings (width "
+        f"{cfg.vlm.vision_hidden}) + {LLAVA_T} tokens, {MM_NEW} greedy "
+        f"tokens")
+    params, gen, out = mm_model(torch, cfg, dev)
+    extra = {"image_embeds": torch.randn(
+        (LLAVA_B, n_img, cfg.vlm.vision_hidden), generator=gen, device=dev)}
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (LLAVA_B, LLAVA_T)), device=dev)
+    part = smr.seq_partition(cfg, n_img + LLAVA_T)
+    mask = np.zeros(part.n_spans, np.int32)
+    mask[:part.n_spans // 2] = 1
+    pack = {k: torch.as_tensor(v.astype(np.int64), device=dev) for k, v in
+            smr.build_seq_pack(mask, int(mask.sum()), part).items()}
+    want = (cfg.n_layers, cfg.n_layers * (MM_NEW - 1))
+    for kind, pk in (("plain", None), ("mixed", pack)):
+        launches, out[kind] = mm_path(
+            torch, cfg, params, f"{cfg.name} {kind}", prompt, extra, want,
+            pk)
+        count(cfg.name if pk is None else f"{cfg.name} mixed", launches)
+    out["mixed"]["pooled_tokens"] = part.n_tokens(int(mask.sum()))
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    say(f"    mixed prefill: {part.n_tokens(int(mask.sum()))} of "
+        f"{part.seq_len} tokens through "
+        f"{smr.layers_before_rp(cfg, BETA, cfg.n_layers)} layers; peak "
+        f"memory {out['peak_gb']:.2f} GB")
+    del params, extra
+    return out
+
+
+def mm_phase(torch, dev, count):
+    """Phase 24: whisper-medium and llava-next-mistral-7b through the
+    registry (:func:`serve_whisper`, :func:`serve_llava`), then
+    deepseek-7b, mistral-nemo-12b and phi4-mini-3.8b through
+    :func:`serve_decoder`, every one at full published width and depth
+    in float32, each freed before the next."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    say(f"phase 24: the last five architectures at full width and depth, "
+        f"float32: whisper-medium, llava-next-mistral-7b, deepseek-7b, "
+        f"mistral-nemo-12b, phi4-mini-3.8b")
+    out = {"whisper-medium": serve_whisper(
+        torch, get_config("whisper-medium"), dev, count)}
+    torch.cuda.empty_cache()
+    out["llava-next-mistral-7b"] = serve_llava(
+        torch, get_config("llava-next-mistral-7b"), dev, count)
+    for name in ("deepseek-7b", "mistral-nemo-12b", "phi4-mini-3.8b"):
+        torch.cuda.empty_cache()
+        launches, out[name] = serve_decoder(torch, get_config(name), dev,
+                                            traced=())
+        count(name, launches)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 24: {out['phase_s']:.1f} s")
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

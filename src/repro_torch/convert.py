@@ -1,6 +1,7 @@
-"""Parameters for the port: conversion of ViTDet, dense- and MoE-LM,
-SSM-LM and hybrid trees from the reference (the LMs' scan-stacked layers
-become per-layer lists) and of the offload estimator's MLP, and a seeded
+"""Parameters for the port: conversion of ViTDet, dense-, MoE- and VLM-LM,
+SSM-LM, hybrid and whisper trees from the reference (the LMs'
+scan-stacked layers become per-layer lists) and of the offload
+estimator's MLP, and a seeded
 PyTorch init of ViTDet with the reference's shapes and distributions
 (the LMs' are in ``models``).
 
@@ -222,12 +223,13 @@ def _head(tree: Mapping, device) -> Dict:
 
 def lm_params_from_jax(tree: Mapping, cfg: ModelConfig,
                        device: str = "cuda") -> Dict:
-    """The reference's dense or MoE ``init_lm_params`` tree (scan-stacked
-    ``dense_blocks`` then ``moe_blocks``, each with a leading (L, ...)
-    axis; numpy or array leaves) -> the port's per-layer parameters: GQA
-    ``w_q | w_k | w_v`` (and their biases) fused once into ``w_qkv``
-    (``b_qkv``), MLA's leaves as they are, a MoE layer's (L, E, D, F)
-    expert slabs as its (E, D, F) slice."""
+    """The reference's dense, MoE or VLM ``init_lm_params`` tree
+    (scan-stacked ``dense_blocks`` then ``moe_blocks``, each with a
+    leading (L, ...) axis; numpy or array leaves) -> the port's per-layer
+    parameters: GQA ``w_q | w_k | w_v`` (and their biases) fused once into
+    ``w_qkv`` (``b_qkv``), MLA's leaves as they are, a MoE layer's (L, E,
+    D, F) expert slabs as its (E, D, F) slice, a VLM's ``projector`` as
+    it is."""
     from repro_torch.models import transformer as tfm
     tfm.check_decoder(cfg)
     n_dense = tfm.n_dense_layers(cfg)
@@ -241,7 +243,41 @@ def lm_params_from_jax(tree: Mapping, cfg: ModelConfig,
                        "ln2": _tensors(b["ln2"], device),
                        "attn": attn,
                        "ffn": _tensors(b["ffn"], device)})
-    return dict(_head(tree, device), blocks=blocks)
+    out = dict(_head(tree, device), blocks=blocks)
+    if "projector" in tree:
+        out["projector"] = _tensors(tree["projector"], device)
+    return out
+
+
+def whisper_params_from_jax(tree: Mapping, cfg: ModelConfig,
+                            device: str = "cuda") -> Dict:
+    """The reference's ``init_whisper_params`` tree -> the port's
+    (``models.whisper``): the scan-stacked encoder and decoder layers as
+    per-layer lists, each self-attention's q / k / v weights and biases
+    fused into ``w_qkv`` / ``b_qkv``, the cross-attention's weights as
+    they are; ``dec_pos``, the norms and the (tied) token table."""
+    def enc(i):
+        b = _layer(tree["enc_blocks"], i)
+        return {"ln1": _tensors(b["ln1"], device),
+                "attn": _fused_attn(b["attn"], device),
+                "ln2": _tensors(b["ln2"], device),
+                "ffn": _tensors(b["ffn"], device)}
+
+    def dec(i):
+        b = _layer(tree["dec_blocks"], i)
+        return {"ln1": _tensors(b["ln1"], device),
+                "self_attn": _fused_attn(b["self_attn"], device),
+                "ln_x": _tensors(b["ln_x"], device),
+                "cross_attn": _tensors(b["cross_attn"], device),
+                "ln2": _tensors(b["ln2"], device),
+                "ffn": _tensors(b["ffn"], device)}
+
+    return dict(_head(tree, device),
+                enc_blocks=[enc(i) for i in
+                            range(cfg.encdec.n_encoder_layers)],
+                enc_norm=_tensors(tree["enc_norm"], device),
+                dec_pos=_t(tree["dec_pos"], device),
+                dec_blocks=[dec(i) for i in range(cfg.n_layers)])
 
 
 def ssm_params_from_jax(tree: Mapping, cfg: ModelConfig,

@@ -14,11 +14,15 @@ WHICH spans are pooled is data carried by three gather-index arrays built
 on the host by :func:`build_seq_pack` (numpy, byte-equal to the
 reference's).  The mixed sequence keeps temporal order, so index
 causality inside the standard causal attention is position causality.
+A VLM's projected image tokens join the text in one sequence ahead of
+it, pooled by the same spans; whisper pools its encoder frames
+(:func:`encode_mixed`), non-causal 1-D regions, and leaves its decoder
+untouched.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -26,6 +30,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import transformer as tfm
+from repro_torch.models import whisper as whs
 from repro_torch.models.config import ModelConfig
 
 
@@ -167,20 +172,22 @@ def restore_kv_caches(caches: Dict, restore_idx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# mixed-granularity forward and prefill of the decoder families (dense and
-# MoE, GQA or MLA; the SSM and hybrid families have none in the reference
-# either: its run_blocks knows no mamba layer)
+# mixed-granularity forward and prefill of the decoder families (dense,
+# MoE and VLM, GQA or MLA; the SSM and hybrid families have none in the
+# reference either: its run_blocks knows no mamba layer)
 
 
 def mixed_forward_hidden(cfg: ModelConfig, params: Dict,
                          tokens: torch.Tensor, pack: Dict[str, torch.Tensor],
-                         beta: int):
+                         beta: int,
+                         image_embeds: Optional[torch.Tensor] = None):
     """Training / eval forward with mixed-granularity lower layers:
     layers [0, Lb) attend causally over the pooled sequence, a broadcast
     restore, then the rest at full resolution (beta 0 is the plain
     forward).  A MoE layer's capacity follows the pooled token count.
-    Returns (hidden (B, T, D), aux)."""
-    x = tfm.embed_inputs(cfg, params, tokens)
+    A VLM's ``image_embeds`` go ahead of the tokens (``pack`` then spans
+    both).  Returns (hidden (B, T, D), aux)."""
+    x = tfm.embed_inputs(cfg, params, tokens, image_embeds)
     B, T, _ = x.shape
     Lb = layers_before_rp(cfg, beta, cfg.n_layers)
     aux = 0.0
@@ -204,7 +211,8 @@ def mixed_forward_hidden(cfg: ModelConfig, params: Dict,
 
 
 def mixed_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                  pack: Dict[str, torch.Tensor], beta: int, caches: Dict):
+                  pack: Dict[str, torch.Tensor], beta: int, caches: Dict,
+                  image_embeds: Optional[torch.Tensor] = None):
     """Serving prefill with mixed-granularity lower layers.
 
     Pre-RP layers attend over the pooled sequence and write pooled cache
@@ -212,10 +220,11 @@ def mixed_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     in every stack they fall in, so the returned caches are
     FULL-resolution for every layer — decode proceeds exactly as after a
     plain prefill.  ``pack``: the :func:`build_seq_pack` arrays as
-    integer tensors on the tokens' device.  Returns (hidden, caches,
-    aux).
+    integer tensors on the tokens' device, over the whole sequence: a
+    VLM's projected ``image_embeds`` and then the tokens.  Returns
+    (hidden, caches, aux).
     """
-    x = tfm.embed_inputs(cfg, params, tokens)
+    x = tfm.embed_inputs(cfg, params, tokens, image_embeds)
     B, T, _ = x.shape
     Lb = layers_before_rp(cfg, beta, cfg.n_layers)
     d = cfg.mixed_res.downsample
@@ -261,6 +270,31 @@ def mixed_forward_ssm(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
         x = restore_sequence(run(xm, blocks[:Lb]), pack["restore_idx"])
     x = run(x, blocks[Lb:])
     return L.apply_norm(cfg, params["final_norm"], x), 0.0
+
+
+# ---------------------------------------------------------------------------
+# whisper: encoder frame pooling (non-causal 1-D regions); the decoder is
+# untouched
+
+
+def encode_mixed(cfg: ModelConfig, params: Dict, frames: torch.Tensor,
+                 pack: Dict[str, torch.Tensor], beta: int) -> torch.Tensor:
+    """Whisper's encoder with mixed-granularity lower layers: the frames
+    plus their sinusoidal positions pooled by ``pack``, encoder layers
+    [0, Lb) over the pooled sequence (the flash kernel, not causal, on
+    the card), a broadcast restore, then the rest at full resolution.
+    Returns the encoder output (B, T_enc, D)."""
+    Lb = layers_before_rp(cfg, beta, cfg.encdec.n_encoder_layers)
+    x = whs.frames_with_positions(frames)
+    blocks = params["enc_blocks"]
+    if Lb > 0:
+        xm = pack_sequence(x, pack["mix_idx"], cfg.mixed_res.downsample)
+        for p in blocks[:Lb]:
+            xm = whs.enc_block(cfg, p, xm)
+        x = restore_sequence(xm, pack["restore_idx"])
+    for p in blocks[Lb:]:
+        x = whs.enc_block(cfg, p, x)
+    return L.apply_norm(cfg, params["enc_norm"], x)
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,11 @@ Usage:
       [--mixed --beta 2 --low-frac 0.5] [--quant int8|fp16|bf16] \\
       [--device cpu]
 
-``--arch`` is one of ``repro_torch.configs.ARCH_MODULES`` (qwen3-4b,
-dbrx-132b, deepseek-v2-236b, mamba2-370m, zamba2-1.2b); the SSM and
-hybrid families serve the plain path (``--mixed`` is turned off for
-them, as in the reference).  The MoE configs serve float32 only.
+``--arch`` is one of the LM archs of ``repro_torch.configs.ARCH_MODULES``;
+the SSM and hybrid families serve the plain path (``--mixed`` is turned
+off for them, as in the reference), a VLM its text decoder, and the MoE
+configs float32 only.  whisper-medium raises before any weight is drawn
+(``serve.engine.check_servable``: the engine passes no encoder frames).
 ``--quant int8`` serves ``quant.ptq.quantize_lm_params``'s tree (int8
 attention and MLP projections, float32 activations); ``fp16`` / ``bf16``
 cast the whole tree (``qtensor.cast_tree``: half activations, the
@@ -33,7 +34,8 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import registry
 from repro_torch.quant import qtensor as qt
 from repro_torch.quant.ptq import DTYPES, quantize_lm_params
-from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.engine import (ServeConfig, ServeEngine,
+                                     check_servable)
 from repro_torch.serve.request import Request
 
 
@@ -63,7 +65,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    if cfg.family in ("ssm", "hybrid", "encdec", "vit"):
+    check_servable(cfg)
+    if cfg.family in ("ssm", "hybrid", "vit"):
         print(f"[serve] mixed prefill demo targets decoder LMs; "
               f"{args.arch} family={cfg.family} runs the plain path")
         args.mixed = False

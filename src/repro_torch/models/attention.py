@@ -1,6 +1,7 @@
-"""Attention (the ``repro.models.attention`` subset the ViT, dense-LM and
-hybrid serving paths run): fused QKV projection, global, causal and window
-scaled dot-product attention, and the LM's KV-cache prefill and decode.
+"""Attention (the ``repro.models.attention`` subset the ViT, LM, hybrid
+and whisper serving paths run): fused QKV projection, global, causal and
+window scaled dot-product attention, the LM's KV-cache prefill and
+decode, whisper's cross-attention and DeepSeek-V2's MLA.
 Layouts: activations (B, T, D); q/k/v (B, T, H, Dh); caches
 (B, max_len, KV, Dh).
 
@@ -137,9 +138,10 @@ def attention_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                       kv_len: Optional[torch.Tensor] = None,
                       win_valid: Optional[torch.Tensor] = None,
                       rope=None, causal: bool = False) -> torch.Tensor:
-    """Full-sequence attention without a cache: the ViT's layers (no
-    rotation, not causal) and the hybrid LM's shared block without a
-    cache (``rope``: the positions' ``layers.rope_table``, causal).
+    """Full-sequence attention without a cache: the ViT's and whisper's
+    encoder layers (no rotation, not causal) and the hybrid LM's shared
+    block without a cache (``rope``: the positions' ``layers.rope_table``,
+    causal).
     ``window`` > 0 selects window attention over runs of ``window``
     tokens, else global attention; ``kv_len`` / ``win_valid`` carry a
     padded sequence's validity."""
@@ -220,6 +222,46 @@ def attention_decode(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     cache["k"][:, pos] = k[:, 0]
     cache["v"][:, pos] = v[:, 0]
     return _out_proj(cfg, p, sdpa(q, cache["k"], cache["v"], kv_len=kv_len))
+
+
+# ---------------------------------------------------------------------------
+# cross attention (the whisper decoder)
+
+
+def init_cross_attention(cfg: ModelConfig, generator: torch.Generator,
+                         device="cuda") -> Dict[str, torch.Tensor]:
+    """Seeded cross-attention weights, w_q / w_k / w_v / w_o drawn in the
+    reference's order, kept apart and without biases (as the reference
+    keeps them, whatever ``attention_bias`` says)."""
+    D = cfg.d_model
+    return {"w_q": L.dense_init(D, cfg.q_dim, generator, device),
+            "w_k": L.dense_init(D, cfg.kv_dim, generator, device),
+            "w_v": L.dense_init(D, cfg.kv_dim, generator, device),
+            "w_o": L.dense_init(cfg.q_dim, D, generator, device)}
+
+
+def cross_kv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+             enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention keys and values (B, S, KV, Dh) of the encoder
+    output enc_out (B, S, D)."""
+    B, S, _ = enc_out.shape
+    shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
+    return ((enc_out @ p["w_k"]).reshape(shape),
+            (enc_out @ p["w_v"]).reshape(shape))
+
+
+def cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
+                    x: torch.Tensor, enc_out: torch.Tensor) -> torch.Tensor:
+    """Queries from x (B, T, D) over keys and values projected from the
+    encoder output enc_out (B, S, D) on every call (:func:`cross_kv`),
+    as the reference does; no rotation, no mask.  The plain ``sdpa``
+    route: the flash kernel on the card, at T query rows against S keys
+    (T = 1 at each decode step)."""
+    B, T, _ = x.shape
+    q = (x @ p["w_q"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k, v = cross_kv(cfg, p, enc_out)
+    out = sdpa(q, k, v, causal=False)
+    return out.reshape(B, T, cfg.q_dim) @ p["w_o"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Norms, rotary embeddings, MLPs, the token embedding and ``remat`` (the
-``repro.models.layers`` subset the ViT and LM paths run).
+"""Norms, rotary and sinusoidal positions, MLPs, the token embedding and
+``remat`` (the ``repro.models.layers`` subset the ViT and LM paths run).
 Parameters are plain dicts of tensors; projection weights may be int8
 ``QuantTensor``s (``quant.qtensor.matmul``).
 """
@@ -151,6 +151,17 @@ def apply_rope(x: torch.Tensor,
     x1, x2 = x_rot.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+
+def sinusoidal_positions(n_pos: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper's sinusoidal position table (n_pos, dim) in float32: sines
+    of the first dim / 2 frequencies, then their cosines."""
+    half = dim // 2
+    inv = torch.exp(-torch.arange(half, dtype=torch.float32, device=device)
+                    * (math.log(10000.0) / (half - 1)))
+    pos = (torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+           * inv[None, :])
+    return torch.cat([torch.sin(pos), torch.cos(pos)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

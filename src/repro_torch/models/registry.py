@@ -9,12 +9,14 @@ port of ``repro.models.registry``).
   decode_step(cfg, params, token, pos, state)  -> (logits, state)
   count_params_analytic(cfg)                   analytic N (6 N D FLOPs)
 
-The dense and MoE decoders (``models.transformer``, GQA or MLA
-attention), the pure SSM LM (``models.ssm_lm``), the Mamba-2 +
-shared-attention hybrid (``models.hybrid``) and the ViT's parameters
-(``convert.init_vitdet_params``) are ported; VLM and encoder-decoder
-configs raise, in the order ``ROADMAP.md`` gives for their port (the
-parameter counts cover every family: arithmetic only).
+Every family of the reference serves: the dense, MoE and VLM decoders
+(``models.transformer``, GQA or MLA attention; a VLM prefill takes
+``batch["image_embeds"]``), the pure SSM LM (``models.ssm_lm``), the
+Mamba-2 + shared-attention hybrid (``models.hybrid``), the
+encoder-decoder (``models.whisper``: ``batch["frames"]`` at prefill, the
+state ``(enc_out, caches)``) and the ViT's parameters
+(``convert.init_vitdet_params``).  The training forward and loss of the
+encoder-decoder and VLM families raise: ``ROADMAP.md`` queues them.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import ssm_lm
 from repro_torch.models import transformer as tfm
+from repro_torch.models import whisper as whs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import ssm_dims
 
@@ -38,7 +41,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return ssm_lm.init_ssm_params(cfg, generator, device)
     if cfg.family == "hybrid":
         return hyb.init_hybrid_params(cfg, generator, device)
-    return tfm.init_lm_params(cfg, generator, device)
+    if cfg.family == "encdec":
+        return whs.init_whisper_params(cfg, generator, device)
+    return tfm.init_lm_params(cfg, generator, device)   # dense / moe / vlm
 
 
 # ---------------------------------------------------------------------------
@@ -48,13 +53,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def forward_hidden(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
                    remat: bool = False) -> Tuple[torch.Tensor, Any]:
     """batch: {"tokens": (B, T)}.  The SSM and hybrid families run their
-    scans on the training route (``mamba2.ssd_chunked``)."""
+    scans on the training route (``mamba2.ssd_chunked``).  The
+    encoder-decoder and VLM families raise: their training forward
+    (with ``frames`` / ``image_embeds``) is not ported."""
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's training forward "
+            f"(the reference's decode_train / forward_hidden with its "
+            f"frames or image embeddings) is not ported; ROADMAP.md "
+            f"(Queue 1, item 7.6) queues it")
     if cfg.family == "ssm":
         return ssm_lm.forward_hidden(cfg, params, batch["tokens"],
                                      remat=remat)
     if cfg.family == "hybrid":
         return hyb.forward_hidden(cfg, params, batch["tokens"], remat=remat)
-    tfm.check_decoder(cfg)               # encdec and vlm raise
     return tfm.forward_hidden(cfg, params, batch["tokens"], remat=remat)
 
 
@@ -118,16 +130,24 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         return hyb.init_stacked_states(cfg, batch, dtype, device)
     if cfg.family == "hybrid":
         return hyb.init_hybrid_caches(cfg, batch, max_len, dtype, device)
+    if cfg.family == "encdec":      # enc_out joins the state at prefill
+        return whs.init_dec_caches(cfg, batch, max_len, dtype, device)
     return tfm.init_caches(cfg, batch, max_len, dtype, device)
 
 
 def prefill(cfg: ModelConfig, params: Dict, batch: Dict[str, Any], state):
+    """batch: {"tokens": (B, T)} plus the family's extra: "frames" (B,
+    T_enc, D) for the encoder-decoder (required), "image_embeds" (B, N,
+    vision_hidden) for a VLM (optional: without it the text decoder)."""
     if cfg.family == "ssm":
         return ssm_lm.prefill(cfg, params, batch["tokens"], state)
     if cfg.family == "hybrid":
         return hyb.prefill(cfg, params, batch["tokens"], state)
-    tfm.check_decoder(cfg)
-    return tfm.prefill(cfg, params, batch["tokens"], state)
+    if cfg.family == "encdec":
+        return whs.prefill(cfg, params, batch["tokens"], batch["frames"],
+                           state)
+    return tfm.prefill(cfg, params, batch["tokens"], state,
+                       image_embeds=batch.get("image_embeds"))
 
 
 def decode_step(cfg: ModelConfig, params: Dict, token: torch.Tensor,
@@ -136,7 +156,8 @@ def decode_step(cfg: ModelConfig, params: Dict, token: torch.Tensor,
         return ssm_lm.decode_step(cfg, params, token, pos, state)
     if cfg.family == "hybrid":
         return hyb.decode_step(cfg, params, token, pos, state)
-    tfm.check_decoder(cfg)
+    if cfg.family == "encdec":
+        return whs.decode_step(cfg, params, token, pos, state)
     return tfm.decode_step(cfg, params, token, pos, state)
 
 

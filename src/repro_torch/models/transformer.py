@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly, dense and MoE families (the
+"""Decoder-only LM assembly, dense, MoE and VLM families (the
 ``repro.models.transformer`` subset the LM serving engine and trainer
 run).
 
@@ -13,21 +13,24 @@ k_rope (L, B, S, rope dims); a layer writes its slice of them in place.
 A MoE config's first ``moe.first_dense_layers`` layers carry a dense
 FFN of width ``moe.d_ff_dense``, the rest the MoE FFN
 (``models.moe.moe_local``), whose load-balance aux every forward sums.
-An MLA config's layers attend through ``attention.mla_forward``.
+An MLA config's layers attend through ``attention.mla_forward``.  A VLM
+config carries the reference's projector (``w1 b1 w2 b2``), which maps
+stub image embeddings (B, N_img, vision_hidden) into d_model ahead of the
+token embeddings (``embed_inputs``); without them it is its text decoder.
 
 Entry points: ``init_lm_params`` / ``embed_inputs`` / ``forward_hidden``
 (training) / ``logits_from_hidden`` / ``init_caches`` / ``prefill`` /
 ``decode_step`` and ``run_blocks``, which runs an arbitrary [start, end)
 layer slice across the dense-to-MoE boundary (the mixed-granularity
-prefill splits the backbone at its restoration point).  VLM and
-encoder-decoder configs raise: their port follows in the order
-``ROADMAP.md`` gives.
+prefill splits the backbone at its restoration point).  Encoder-decoder
+configs raise here: ``models.whisper`` serves them.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -36,14 +39,13 @@ from repro_torch.models.config import ModelConfig
 
 
 def check_decoder(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense or MoE decoder (the ported
-    families)."""
-    if cfg.family not in ("dense", "moe") or cfg.vlm or cfg.encdec:
+    """Raise unless ``cfg`` is a dense, MoE or VLM decoder (the
+    encoder-decoder family runs ``models.whisper``)."""
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (vlm={cfg.vlm is not None}, "
-            f"encdec={cfg.encdec is not None}) is not ported to "
-            f"repro_torch; ROADMAP.md (Queue 1, \"the other LM families\") "
-            f"lists the order in which they follow")
+            f"{cfg.name}: family {cfg.family!r} is not a decoder-only LM; "
+            f"the encoder-decoder family runs models.whisper through "
+            f"models.registry")
 
 
 def n_dense_layers(cfg: ModelConfig) -> int:
@@ -87,9 +89,17 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
     embed = L.init_embedding(cfg, generator, device)
     blocks = [init_block(cfg, generator, device, layer_kind(cfg, i))
               for i in range(cfg.n_layers)]
-    return {"embed": embed, "blocks": blocks,
-            "final_norm": L.init_norm(cfg, device),
-            "lm_head": L.init_lm_head(cfg, generator, device)}
+    params = {"embed": embed, "blocks": blocks,
+              "final_norm": L.init_norm(cfg, device),
+              "lm_head": L.init_lm_head(cfg, generator, device)}
+    if cfg.vlm is not None:
+        D = cfg.d_model
+        params["projector"] = {
+            "w1": L.dense_init(cfg.vlm.vision_hidden, D, generator, device),
+            "b1": torch.zeros(D, device=device),
+            "w2": L.dense_init(D, D, generator, device),
+            "b2": torch.zeros(D, device=device)}
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -164,9 +174,19 @@ def forward_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
     return L.apply_norm(cfg, params["final_norm"], x), aux_total
 
 
-def embed_inputs(cfg: ModelConfig, params: Dict,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    return L.embed_tokens(params["embed"], tokens)
+def embed_inputs(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                 image_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The token embeddings (B, T, D); for a VLM config given
+    ``image_embeds`` (B, N, vision_hidden), the projected image tokens
+    ``gelu(e @ w1 + b1) @ w2 + b2`` (tanh GELU, the reference's
+    ``jax.nn.gelu`` default) ahead of them: (B, N + T, D)."""
+    x = L.embed_tokens(params["embed"], tokens)
+    if cfg.vlm is not None and image_embeds is not None:
+        pr = params["projector"]
+        v = F.gelu(image_embeds @ pr["w1"] + pr["b1"], approximate="tanh")
+        x = torch.cat([(v @ pr["w2"] + pr["b2"]).to(x.dtype), x], dim=1)
+    return x
 
 
 def logits_from_hidden(cfg: ModelConfig, params: Dict,
@@ -239,10 +259,12 @@ def run_blocks(cfg: ModelConfig, params: Dict, x: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-            caches: Dict) -> Tuple[torch.Tensor, Dict, float]:
-    """Prefill the caches with tokens (B, T); returns (final hidden
-    states (B, T, D), caches, aux)."""
-    x = embed_inputs(cfg, params, tokens)
+            caches: Dict, image_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict, float]:
+    """Prefill the caches with tokens (B, T), after a VLM's N projected
+    ``image_embeds`` when given; returns (final hidden states (B, N + T,
+    D), caches, aux)."""
+    x = embed_inputs(cfg, params, tokens, image_embeds)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     x, caches, aux = run_blocks(cfg, params, x, positions, 0, cfg.n_layers,

@@ -22,9 +22,12 @@ The engine batches requests into **waves**:
 
 PyTorch runs eagerly, so a key's "compile" is its first run; ``warmup``
 runs every key of the grid once and ``stats.steady_compiles`` counts a
-first run after it.  Any family the registry serves runs here: dense
-and MoE decoders, the pure SSM LM and the Mamba-2 hybrid (plain waves
-only for the last two, :data:`NO_MIXED_FAMILIES`).  On the card a GQA
+first run after it.  Every decoder family the registry serves runs here:
+dense, MoE and VLM decoders (a VLM serves its text decoder: a request
+carries no image embeddings, as in the reference), the pure SSM LM and
+the Mamba-2 hybrid (plain waves only for the last two,
+:data:`NO_MIXED_FAMILIES`).  The encoder-decoder family is refused at
+construction (:func:`check_servable`).  On the card a GQA
 prefill's causal attention runs the flash kernel and every decode step's
 cache read the decode kernel, once per layer (MLA's attention runs
 einsums, as in the reference); a mamba layer's prefill runs the
@@ -62,6 +65,22 @@ from repro_torch.serve.scheduler import form_wave
 NO_MIXED_FAMILIES = ("ssm", "hybrid")
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for an encoder-decoder config: a request is a token prompt
+    and carries no encoder frames.  The reference's engine passes only
+    ``{"tokens": ...}`` to ``registry.prefill``
+    (``src/repro/serve/engine.py``), which raises ``KeyError: 'frames'``
+    at the first prefill of such a config; the port refuses it up
+    front."""
+    if cfg is not None and cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: ServeEngine serves token prompts and passes no "
+            f"encoder frames (neither does the reference's engine, whose "
+            f"first prefill raises KeyError: 'frames'); serve the "
+            f"encoder-decoder family through registry.prefill with "
+            f"batch['frames'] and registry.decode_step")
+
+
 @dataclass
 class ServeConfig:
     max_batch: int = 8
@@ -85,6 +104,7 @@ class ServeEngine:
     """Single-replica engine over one model's params."""
 
     def __init__(self, cfg: ModelConfig, params, sc: ServeConfig = None):
+        check_servable(cfg)
         self.cfg = cfg
         self.sc = sc or ServeConfig()
         self.device = torch.device(self.sc.device)

@@ -52,7 +52,13 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.quant.calibrate", "repro_torch.quant",
             "repro_torch.core.mixed_res", "repro_torch.convert",
             "repro_torch.models.moe", "repro_torch.configs.dbrx_132b",
-            "repro_torch.configs.deepseek_v2_236b")
+            "repro_torch.configs.deepseek_v2_236b",
+            "repro_torch.models.whisper",
+            "repro_torch.configs.whisper_medium",
+            "repro_torch.configs.llava_next_mistral_7b",
+            "repro_torch.configs.deepseek_7b",
+            "repro_torch.configs.mistral_nemo_12b",
+            "repro_torch.configs.phi4_mini_3p8b")
 
 
 def test_every_port_module_imports_without_jax():

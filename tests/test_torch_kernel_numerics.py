@@ -174,12 +174,13 @@ def flash_3xtf32(q, k, v, causal=False, tile=64):
 
 
 # (B, T, S, H, KV, Dh): GQA groups 1, 3, 4 and 6 (dbrx-132b's 48 / 8 at
-# its mixed prefill's T = 96), T and S off the 64-key tile, S < T, and
-# every head width the kernel builds
+# its mixed prefill's T = 96), T and S off the 64-key tile, S < T, every
+# head width the kernel builds, and whisper's decode-step cross-attention
+# (one query row against the 1500 encoder frames)
 FLASH_SHAPES = [(1, 130, 130, 4, 4, 16), (2, 100, 77, 8, 2, 32),
                 (1, 200, 150, 4, 1, 64), (1, 70, 200, 2, 2, 128),
                 (1, 64, 64, 4, 1, 64), (1, 70, 130, 6, 2, 32),
-                (1, 96, 96, 12, 2, 128)]
+                (1, 96, 96, 12, 2, 128), (1, 1, 1500, 4, 4, 64)]
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -5,7 +5,11 @@ reference on the same parameters (``init_lm_params`` converted by
 and the same numpy-seeded inputs.
 
 Configs: qwen3-4b ``REDUCED`` (G = 1) and a narrow GQA variant (3
-layers, D = 64, 8 query heads over 2 kv heads, Dh = 32).  Tolerances:
+layers, D = 64, 8 query heads over 2 kv heads, Dh = 32); the ``REDUCED``
+configs of the other dense archs at their published head layouts:
+deepseek-7b (MHA, G = 1), mistral-nemo-12b (G = 4, q_dim 64 != D = 96,
+untied head) and phi4-mini-3.8b (G = 3, q_dim 96 != D = 64, a 0.75
+partial rotary: 12 of 16 channels, tied head).  Tolerances:
 single layers 1e-5 absolute (float32, another summation order); whole
 forwards, logits and caches 1e-4 (the same error, through a few
 layers).  Pack plans are integer data and must be byte-equal.
@@ -39,12 +43,18 @@ LAYER_TOL = 1e-5
 MODEL_TOL = 1e-4
 ARCH = "qwen3-4b"
 NARROW = dict(n_layers=3, n_heads=8, n_kv_heads=2, head_dim=32)
-CONFIGS = {"reduced": {}, "narrow_gqa": NARROW}
+# config name -> (arch, overrides of its REDUCED config)
+CONFIGS = {"reduced": (ARCH, {}), "narrow_gqa": (ARCH, NARROW),
+           "deepseek-7b": ("deepseek-7b", {}),
+           "mistral-nemo-12b": ("mistral-nemo-12b",
+                                dict(n_kv_heads=1, d_model=96)),
+           "phi4-mini-3.8b": ("phi4-mini-3.8b",
+                              dict(n_heads=6, n_kv_heads=2))}
 
 
 def _cfgs(name):
-    return (jget_reduced(ARCH).replace(**CONFIGS[name]),
-            get_reduced(ARCH).replace(**CONFIGS[name]))
+    arch, kw = CONFIGS[name]
+    return jget_reduced(arch).replace(**kw), get_reduced(arch).replace(**kw)
 
 
 def _t(a):
@@ -83,27 +93,42 @@ def model(request):
 
 
 def test_configs_copy_the_reference():
+    """Every arch of the reference (its ten LMs and ViTDet-L), full and
+    reduced, field for field; an unknown name raises KeyError."""
+    from repro.configs import ARCH_MODULES as JARCHS
     from repro.configs import get_config as jget_config
+    from repro_torch.configs import ARCH_MODULES
+    assert sorted(ARCH_MODULES) == sorted(JARCHS)
+    assert len(ARCH_MODULES) == 11
     for get, jget in ((get_config, jget_config),
                       (get_reduced, jget_reduced)):
-        for arch in (ARCH, "vitdet-l", "mamba2-370m", "zamba2-1.2b",
-                     "dbrx-132b", "deepseek-v2-236b"):
+        for arch in JARCHS:
             assert dataclasses.asdict(get(arch)) == \
                 dataclasses.asdict(jget(arch))
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("whisper-medium")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
 
 
 def test_unported_families_raise():
-    from repro_torch.models.config import EncDecConfig, VLMConfig
-    for cfg in (get_reduced(ARCH).replace(family="vlm", vlm=VLMConfig()),
-                get_reduced(ARCH).replace(family="encdec",
-                                          encdec=EncDecConfig())):
+    """What stays refused: ServeEngine on the encoder-decoder family (it
+    passes no frames; the reference's engine raises KeyError: 'frames' at
+    its first prefill), and the training forward and loss of the
+    encoder-decoder and VLM families (ROADMAP.md queues them)."""
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
+    for arch in ("whisper-medium", "llava-next-mistral-7b"):
+        cfg = get_reduced(arch)
+        params = registry.init_params(cfg, torch.Generator().manual_seed(0),
+                                      "cpu")
+        batch = {"tokens": torch.zeros((1, 16), dtype=torch.long)}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.init_decode_state(cfg, 1, 8, device="cpu")
+            registry.forward_hidden(cfg, params, batch)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.init_params(cfg, torch.Generator().manual_seed(0),
-                                 "cpu")
+            registry.lm_loss(cfg, params, batch)
+        if cfg.family == "encdec":
+            with pytest.raises(NotImplementedError, match="frames"):
+                ServeEngine(cfg, params, ServeConfig(device="cpu"))
+        else:                                   # a VLM serves its text
+            ServeEngine(cfg, params, ServeConfig(device="cpu"))
 
 
 def test_seeded_init_has_the_reference_shapes_and_scales():
@@ -163,6 +188,25 @@ def test_apply_rope_full_and_partial(partial):
            jL.rope_frequencies(32, 1e6, partial), 1e-7)
 
 
+def test_phi4_partial_rotary_turns_96_of_128_channels():
+    """phi4-mini-3.8b's published head: 0.75 of Dh = 128 rotates the
+    leading 96 channels in pairs (c, c + 48), as the reference does, and
+    passes the last 32 through untouched."""
+    cfg = get_config("phi4-mini-3.8b")
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((1, 9, 2, cfg.head_dim)).astype(np.float32)
+    pos = np.arange(100, 109, dtype=np.int32)[None]
+    table = tL.rope_table(_t(pos), cfg.head_dim, cfg.rope_theta,
+                          cfg.partial_rotary_factor)
+    assert 2 * table[0].shape[-1] == 96
+    got = tL.apply_rope(_t(x), table)
+    _close(got, jL.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                              cfg.rope_theta, cfg.partial_rotary_factor),
+           LAYER_TOL)
+    assert torch.equal(got[..., 96:], _t(x)[..., 96:])
+    assert bool((got[..., :96] != _t(x)[..., :96]).any())
+
+
 def test_swiglu_mlp():
     jcfg, tcfg = _cfgs("narrow_gqa")
     p = jax.tree_util.tree_map(
@@ -177,18 +221,19 @@ def test_swiglu_mlp():
 def test_attention_prefill_and_decode_with_qk_norm(name):
     """One attention layer: prefill T tokens into a cache, then decode
     two tokens; outputs and the cache written in place against the
-    reference's functional update."""
+    reference's functional update (qk norms where the config has them,
+    phi4-mini's partial rotary)."""
     jcfg, tcfg = _cfgs(name)
     rng = np.random.default_rng(4)
     p = jax.tree_util.tree_map(np.asarray, jattn.init_attention(
         jcfg, jax.random.PRNGKey(5), jnp.float32))
-    p["q_norm"] = (1 + 0.1 * rng.standard_normal(p["q_norm"].shape)
-                   ).astype(np.float32)
-    p["k_norm"] = (1 + 0.1 * rng.standard_normal(p["k_norm"].shape)
-                   ).astype(np.float32)
     tp = {"w_qkv": _t(np.concatenate([p["w_q"], p["w_k"], p["w_v"]], 1)),
-          "w_o": _t(p["w_o"]), "q_norm": _t(p["q_norm"]),
-          "k_norm": _t(p["k_norm"])}
+          "w_o": _t(p["w_o"])}
+    for k in ("q_norm", "k_norm"):          # qwen3's; the others have none
+        if k in p:
+            p[k] = (1 + 0.1 * rng.standard_normal(p[k].shape)
+                    ).astype(np.float32)
+            tp[k] = _t(p[k])
     B, T, S = 2, 12, 20
     x = rng.standard_normal((B, T, tcfg.d_model)).astype(np.float32)
     pos = np.broadcast_to(np.arange(T), (B, T))
@@ -196,7 +241,8 @@ def test_attention_prefill_and_decode_with_qk_norm(name):
     jout, jcache = jattn.attention_prefill(jcfg, p, jnp.asarray(x),
                                            jnp.asarray(pos), jcache)
     tcache = tattn.init_kv_cache(tcfg, B, S, device="cpu")
-    rope = tL.rope_table(_t(pos), tcfg.head_dim, tcfg.rope_theta)
+    rope = tL.rope_table(_t(pos), tcfg.head_dim, tcfg.rope_theta,
+                         tcfg.partial_rotary_factor)
     tout = tattn.attention_prefill(tcfg, tp, _t(x), rope, tcache)
     _close(tout, jout, LAYER_TOL)
     for step in range(2):
@@ -204,7 +250,7 @@ def test_attention_prefill_and_decode_with_qk_norm(name):
         jout, jcache = jattn.attention_decode(jcfg, p, jnp.asarray(xd),
                                               T + step, jcache)
         rope = tL.rope_table(torch.full((B, 1), T + step), tcfg.head_dim,
-                             tcfg.rope_theta)
+                             tcfg.rope_theta, tcfg.partial_rotary_factor)
         kv_len = torch.full((B,), T + step + 1, dtype=torch.int32)
         tout = tattn.attention_decode(tcfg, tp, _t(xd), T + step, rope,
                                       tcache, kv_len)
