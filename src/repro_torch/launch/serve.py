@@ -10,13 +10,15 @@ Usage:
 
 ``--arch`` is one of the LM archs of ``repro_torch.configs.ARCH_MODULES``;
 the SSM and hybrid families serve the plain path (``--mixed`` is turned
-off for them, as in the reference), a VLM its text decoder, and the MoE
-configs float32 only.  whisper-medium raises before any weight is drawn
+off for them, as in the reference), a VLM its text decoder.
+whisper-medium raises before any weight is drawn
 (``serve.engine.check_servable``: the engine passes no encoder frames).
 ``--quant int8`` serves ``quant.ptq.quantize_lm_params``'s tree (int8
-attention and MLP projections, float32 activations); ``fp16`` / ``bf16``
-cast the whole tree (``qtensor.cast_tree``: half activations, the
-kernels' half entry points, float32 caches).  Each prints the tree's
+attention and MLP projections, float32 activations; a MoE layer's
+experts and router stay float, and deepseek-v2-236b, whose int8 lane
+fails in the reference, is refused before any weight is drawn); ``fp16`` / ``bf16`` cast the whole
+tree (``qtensor.cast_tree``: half activations, the kernels' half entry
+points, float32 caches), MoE trees included.  Each prints the tree's
 size before and after.
 
 Exits 0 only if every request got ``--max-new`` tokens.
@@ -33,7 +35,8 @@ import torch
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import registry
 from repro_torch.quant import qtensor as qt
-from repro_torch.quant.ptq import DTYPES, quantize_lm_params
+from repro_torch.quant.ptq import (DTYPES, check_lm_int8,
+                                    quantize_lm_params)
 from repro_torch.serve.engine import (ServeConfig, ServeEngine,
                                      check_servable)
 from repro_torch.serve.request import Request
@@ -60,21 +63,19 @@ def main(argv=None) -> int:
                     default="fp32",
                     help="serving weight lane: int8 quantizes the "
                     "projection weights (per-output-channel, "
-                    "repro_torch.quant), fp16/bf16 cast the whole tree")
+                    "repro_torch.quant; MoE experts stay float, MLA trees "
+                    "are refused), fp16/bf16 cast the whole tree")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     check_servable(cfg)
+    if args.quant == "int8":
+        check_lm_int8(cfg)
     if cfg.family in ("ssm", "hybrid", "vit"):
         print(f"[serve] mixed prefill demo targets decoder LMs; "
               f"{args.arch} family={cfg.family} runs the plain path")
         args.mixed = False
-    if cfg.family == "moe" and args.quant != "fp32":
-        raise NotImplementedError(
-            f"--quant {args.quant} on {args.arch}: the MoE family's int8 and "
-            f"half lanes are not ported (the reference leaves its (L, E, D, "
-            f"F) expert slabs float); ROADMAP.md (Queue 1) lists them")
     dev = torch.device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = registry.init_params(cfg, gen, device=dev)

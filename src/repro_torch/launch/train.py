@@ -7,10 +7,12 @@ Usage:
       --reduced --steps 200 --batch 8 --seq 256 [--ckpt-dir DIR] \\
       [--resume] [--device cpu]
 
-``--arch`` is one of ``repro_torch.configs.ARCH_MODULES`` (qwen3-4b,
-mamba2-370m, zamba2-1.2b).  Without ``--device cpu`` it trains on the
-card, where every dense layer's causal attention launches the flash
-kernel (its ``autograd.Function``).  The reference's ``--backend``
+``--arch`` is one of ``repro_torch.configs.ARCH_MODULES`` (every LM
+arch of the reference: dense, MoE, SSM, hybrid, whisper-medium, whose
+batches carry stub encoder frames, and llava-next-mistral-7b, whose
+batches carry stub image embeddings).  Without ``--device cpu`` it
+trains on the card, where every causal or cross attention of a GQA
+layer launches the flash kernel (its ``autograd.Function``).  The reference's ``--backend``
 chooses its kernel lane; the port routes by device, so it is refused.
 ``--model-par`` takes 1 only (one card, no mesh).
 
@@ -42,7 +44,11 @@ def synthetic_batches(cfg: ModelConfig, batch: int, seq: int,
                       ) -> Iterator[Dict[str, np.ndarray]]:
     """Markov-chain token stream with a learnable bigram structure: each
     token of an ``active_vocab``-sized head of the vocabulary has four
-    likely successors, taken with probability 0.9."""
+    likely successors, taken with probability 0.9.  An encoder-decoder
+    batch also carries "frames" (batch, encoder_seq_len, d_model) and a
+    VLM batch "image_embeds" (batch, n_image_tokens, vision_hidden),
+    float32 standard normals drawn after the batch's tokens from the
+    same generator, as the reference draws them."""
     rng = np.random.default_rng(seed)
     V = min(cfg.vocab_size, active_vocab)
     succ = rng.integers(0, V, (V, 4))
@@ -55,8 +61,17 @@ def synthetic_batches(cfg: ModelConfig, batch: int, seq: int,
             nxt = succ[toks[:, t], pick[:, t]]
             rand = rng.integers(0, V, (batch,))
             toks[:, t + 1] = np.where(r[:, t] < 0.9, nxt, rand)
-        yield {"tokens": toks[:, :-1].astype(np.int32),
+        out = {"tokens": toks[:, :-1].astype(np.int32),
                "labels": toks[:, 1:].astype(np.int32)}
+        if cfg.family == "encdec":
+            out["frames"] = rng.normal(
+                0, 1, (batch, cfg.encdec.encoder_seq_len, cfg.d_model)
+            ).astype(np.float32)
+        if cfg.family == "vlm":
+            out["image_embeds"] = rng.normal(
+                0, 1, (batch, cfg.vlm.n_image_tokens, cfg.vlm.vision_hidden)
+            ).astype(np.float32)
+        yield out
 
 
 # ---------------------------------------------------------------------------

@@ -271,7 +271,10 @@ def cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 # decoupled RoPE key k_rope.  Scores are taken against c_kv directly:
 # q_nope is mapped through W_uk into latent space (weight absorption) and
 # the latent output through W_uv.  No kernel: the reference runs these
-# products as einsums in float32 outside any Pallas call.
+# products as einsums in float32 outside any Pallas call.  On a half tree
+# the projections and the latents run in the tree's type and the latent
+# cache keeps its own type; the scores and the latent output are float32,
+# as in the reference.
 
 
 def init_mla(cfg: ModelConfig, generator: torch.Generator,

@@ -5,7 +5,10 @@ Top-k routing in float32, static-capacity dispatch tables (an expert
 takes at most ``capacity`` tokens, in the order of the flattened (token,
 k) assignments; the rest are dropped), the experts as batched SwiGLU
 matmuls over (E, C, D) slabs, and DeepSeek-V2's always-on shared
-experts.  The expert-parallel ``moe_sharded`` needs a mesh and waits for
+experts.  On a half tree, as in the reference, the router logits are
+computed in the tree's type and routed in float32, the expert ``bmm``s
+and the shared experts run in the type, and the float32 gate table is
+cast to it.  The expert-parallel ``moe_sharded`` needs a mesh and waits for
 the mesh code (``ROADMAP.md``, Queue 1).
 
 Two departures in mechanism, none in result:

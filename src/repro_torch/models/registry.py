@@ -9,14 +9,15 @@ port of ``repro.models.registry``).
   decode_step(cfg, params, token, pos, state)  -> (logits, state)
   count_params_analytic(cfg)                   analytic N (6 N D FLOPs)
 
-Every family of the reference serves: the dense, MoE and VLM decoders
-(``models.transformer``, GQA or MLA attention; a VLM prefill takes
-``batch["image_embeds"]``), the pure SSM LM (``models.ssm_lm``), the
-Mamba-2 + shared-attention hybrid (``models.hybrid``), the
-encoder-decoder (``models.whisper``: ``batch["frames"]`` at prefill, the
+Every family of the reference serves and trains: the dense, MoE and VLM
+decoders (``models.transformer``, GQA or MLA attention; a VLM's prefill
+and training forward take ``batch["image_embeds"]``), the pure SSM LM
+(``models.ssm_lm``), the Mamba-2 + shared-attention hybrid
+(``models.hybrid``), the encoder-decoder (``models.whisper``:
+``batch["frames"]`` at prefill and in ``decode_train``, the serving
 state ``(enc_out, caches)``) and the ViT's parameters
-(``convert.init_vitdet_params``).  The training forward and loss of the
-encoder-decoder and VLM families raise: ``ROADMAP.md`` queues them.
+(``convert.init_vitdet_params``).  ``lm_loss`` scores the last T_text
+positions of a VLM's image + text sequence, as the reference does.
 """
 from __future__ import annotations
 
@@ -52,22 +53,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def forward_hidden(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
                    remat: bool = False) -> Tuple[torch.Tensor, Any]:
-    """batch: {"tokens": (B, T)}.  The SSM and hybrid families run their
-    scans on the training route (``mamba2.ssd_chunked``).  The
-    encoder-decoder and VLM families raise: their training forward
-    (with ``frames`` / ``image_embeds``) is not ported."""
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family's training forward "
-            f"(the reference's decode_train / forward_hidden with its "
-            f"frames or image embeddings) is not ported; ROADMAP.md "
-            f"(Queue 1, item 7.6) queues it")
+    """batch: {"tokens": (B, T)} plus the family's extra: "frames" (B,
+    T_enc, D) for the encoder-decoder (required), "image_embeds" (B, N,
+    vision_hidden) for a VLM (optional: without it the text decoder).
+    The SSM and hybrid families run their scans on the training route
+    (``mamba2.ssd_chunked``)."""
+    if cfg.family == "encdec":
+        return whs.decode_train(cfg, params, batch["tokens"],
+                                batch["frames"], remat)
     if cfg.family == "ssm":
         return ssm_lm.forward_hidden(cfg, params, batch["tokens"],
                                      remat=remat)
     if cfg.family == "hybrid":
         return hyb.forward_hidden(cfg, params, batch["tokens"], remat=remat)
-    return tfm.forward_hidden(cfg, params, batch["tokens"], remat=remat)
+    return tfm.forward_hidden(cfg, params, batch["tokens"], remat=remat,
+                              image_embeds=batch.get("image_embeds"))
 
 
 CE_CHUNK_ELEMS = 64 * 2 ** 20      # chunk the CE when T*V exceeds this
@@ -102,11 +102,16 @@ def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy + ``moe.router_aux_coef`` times the MoE
     load-balance aux (0 for the other families).  ``batch``: "tokens" (B, T), optional "labels" (B, T)
-    (default: the tokens shifted left, a 0 last) and "loss_mask" (B, T).
+    (default: the tokens shifted left, a 0 last) and "loss_mask" (B, T),
+    plus the family's extra (:func:`forward_hidden`).  Only the last T
+    positions are scored: a VLM's image tokens come first.  The reference
+    slices the logits; the head is row-wise, so slicing the hidden
+    states before it gives the same loss without the image rows' logits.
     Returns (loss, {"ce", "aux"})."""
     hidden, aux = forward_hidden(cfg, params, batch, remat)
-    logits = tfm.logits_from_hidden(cfg, params, hidden)
     tokens = batch["tokens"]
+    logits = tfm.logits_from_hidden(cfg, params,
+                                    hidden[:, -tokens.shape[1]:])
     targets = batch.get("labels")
     if targets is None:
         targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],

@@ -36,6 +36,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.quant import qtensor as qt
 
 
 def check_decoder(cfg: ModelConfig) -> None:
@@ -79,15 +80,23 @@ def init_block(cfg: ModelConfig, generator: torch.Generator, device,
 
 
 def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
-                   device="cuda") -> Dict:
+                   device="cuda", dtype: Optional[torch.dtype] = None
+                   ) -> Dict:
     """Seeded init with the reference's shapes and distributions:
     truncated normal in (-2, 2) std / sqrt(fan_in) for dense weights,
     normal std 0.02 for the embedding, ones for norm scales.  q, k and v
     weights are drawn apart and stored fused as ``w_qkv``.  Tensors are
-    drawn on ``generator.device`` and moved to ``device``."""
+    drawn on ``generator.device`` and moved to ``device``.  ``dtype``:
+    each piece (the embedding, a block, the head) is cast to it as soon
+    as it is drawn, so the tree equals ``qtensor.cast_tree`` of the
+    float32 tree while at most one float32 block is alive."""
     check_decoder(cfg)
-    embed = L.init_embedding(cfg, generator, device)
-    blocks = [init_block(cfg, generator, device, layer_kind(cfg, i))
+
+    def cast(tree):
+        return tree if dtype is None else qt.cast_tree(tree, dtype)
+
+    embed = cast(L.init_embedding(cfg, generator, device))
+    blocks = [cast(init_block(cfg, generator, device, layer_kind(cfg, i)))
               for i in range(cfg.n_layers)]
     params = {"embed": embed, "blocks": blocks,
               "final_norm": L.init_norm(cfg, device),
@@ -99,7 +108,7 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
             "b1": torch.zeros(D, device=device),
             "w2": L.dense_init(D, D, generator, device),
             "b2": torch.zeros(D, device=device)}
-    return params
+    return cast(params)
 
 
 # ---------------------------------------------------------------------------
@@ -157,14 +166,17 @@ def rope_for(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def forward_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
-                   remat: bool = False) -> Tuple[torch.Tensor, object]:
-    """Training / eval forward: the final hidden states (B, T, D) and the
-    summed MoE aux (0.0 for the dense family).  ``remat``: each block's
-    activations are recomputed in the backward (``layers.remat``; the
-    reference's ``jax.checkpoint`` of its scan body), so its flash
-    forward runs twice a step."""
+                   remat: bool = False,
+                   image_embeds: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, object]:
+    """Training / eval forward: the final hidden states (B, T, D), or (B,
+    N + T, D) after a VLM's N projected ``image_embeds`` (RoPE runs over
+    all N + T positions), and the summed MoE aux (0.0 for the dense
+    family).  ``remat``: each block's activations are recomputed in the
+    backward (``layers.remat``; the reference's ``jax.checkpoint`` of its
+    scan body), so its flash forward runs twice a step."""
     check_decoder(cfg)
-    x = embed_inputs(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens, image_embeds)
     B, T, _ = x.shape
     rope = rope_for(cfg, torch.arange(T, device=x.device).expand(B, T))
     aux_total = 0.0

@@ -1,5 +1,6 @@
 """Whisper-medium style encoder-decoder (the port of
-``repro.models.whisper``, its serving entry points).
+``repro.models.whisper``: its serving entry points and the
+teacher-forced training forward).
 
 The conv / mel frontend is a stub, as in the reference: ``frames`` are
 precomputed frame embeddings (B, T_enc, d_model).  Sinusoidal positions
@@ -16,9 +17,11 @@ Dh), a layer writing its slice in place.  The serving state is
 ``(enc_out, caches)``.  On the card the encoder's and the
 cross-attention's attention run the flash kernel (at T_q = 1 against the
 encoder frames at each decode step), the decoder's prefill the flash
-kernel causal and each decode step the decode kernel.  The teacher-forced
-training forward (``decode_train``) is not ported: ``ROADMAP.md`` queues
-it.
+kernel causal and each decode step the decode kernel.  The
+teacher-forced training forward (``decode_train``) runs the encoder, then
+every decoder layer without a cache (causal self-attention through the
+flash kernel's ``autograd.Function`` on the card, then cross-attention
+over the encoder output).
 """
 from __future__ import annotations
 
@@ -80,24 +83,31 @@ def frames_with_positions(frames: torch.Tensor) -> torch.Tensor:
     return frames + pos[None]
 
 
-def encode(cfg: ModelConfig, params: Dict,
-           frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, T_enc, D) stub embeddings -> the encoder output."""
+def encode(cfg: ModelConfig, params: Dict, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    """frames (B, T_enc, D) stub embeddings -> the encoder output.
+    ``remat``: each layer's activations are recomputed in the backward
+    (``layers.remat``), as the reference's ``encode`` checkpoints its
+    scan body under ``ctx.remat``."""
     x = frames_with_positions(frames)
     for p in params["enc_blocks"]:
-        x = enc_block(cfg, p, x)
+        x = L.remat(enc_block, remat, cfg, p, x)
     return L.apply_norm(cfg, params["enc_norm"], x)
 
 
 def _dec_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
-               enc_out: torch.Tensor, cache: Dict[str, torch.Tensor],
+               enc_out: torch.Tensor,
+               cache: Optional[Dict[str, torch.Tensor]] = None,
                pos: Optional[int] = None,
                kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One decoder layer: causal self-attention writing ``cache`` in
-    place (a prefill at [0, T) when ``pos`` is None, else one token at
-    ``pos``), cross-attention over ``enc_out``, the MLP."""
+    """One decoder layer: causal self-attention, without a cache
+    (training) or writing ``cache`` in place (a prefill at [0, T) when
+    ``pos`` is None, else one token at ``pos``), cross-attention over
+    ``enc_out``, the MLP."""
     h = L.apply_norm(cfg, p["ln1"], x)
-    if pos is None:
+    if cache is None:
+        x = x + attn.attention_forward(cfg, p["self_attn"], h, causal=True)
+    elif pos is None:
         x = x + attn.attention_prefill(cfg, p["self_attn"], h, None, cache)
     else:
         x = x + attn.attention_decode(cfg, p["self_attn"], h, pos, None,
@@ -105,6 +115,25 @@ def _dec_block(cfg: ModelConfig, p: Dict, x: torch.Tensor,
     x = x + attn.cross_attention(cfg, p["cross_attn"],
                                  L.apply_norm(cfg, p["ln_x"], x), enc_out)
     return x + L.apply_mlp(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
+
+
+def decode_train(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                 frames: torch.Tensor, remat: bool = False
+                 ) -> Tuple[torch.Tensor, float]:
+    """The teacher-forced training forward: encode ``frames`` (B, T_enc,
+    D), then run the decoder over the tokens (B, T) embedded plus
+    ``dec_pos[:T]``.  Returns (final hidden states (B, T, D), aux 0.0).
+    ``remat`` recomputes each encoder and each decoder layer in the
+    backward: the reference checkpoints the scan bodies of both
+    ``encode`` and ``decode_train`` under ``ctx.remat``, so on the card
+    every flash call of the forward (the encoder's, the decoder's causal
+    self-attention and its cross-attention) runs twice a step."""
+    enc_out = encode(cfg, params, frames, remat)
+    T = tokens.shape[1]
+    x = L.embed_tokens(params["embed"], tokens) + params["dec_pos"][None, :T]
+    for p in params["dec_blocks"]:
+        x = L.remat(_dec_block, remat, cfg, p, x, enc_out)
+    return L.apply_norm(cfg, params["final_norm"], x), 0.0
 
 
 def init_dec_caches(cfg: ModelConfig, batch: int, max_len: int,

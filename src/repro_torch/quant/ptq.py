@@ -16,7 +16,8 @@ QuantTensors' outputs too (the ``int8+fp16`` lane); "fp16" / "bf16"
 weights cast the whole tree, as in the reference.  The half trees run
 through the kernels' half entry points (``kernels.dispatch``).
 :func:`quantize_lm_params` is the LM serving lane's counterpart: the
-attention and MLP projections of every block.
+attention and MLP projections of every block (a MoE layer's experts and
+router stay float, as in the reference).
 """
 from __future__ import annotations
 
@@ -110,6 +111,22 @@ def quantize_vitdet_params(params, out_dtype=torch.float32):
 LM_TARGETS = frozenset({"w_qkv", "w_o", "w_up", "w_down", "w_gate"})
 
 
+INT8_MLA_REFUSAL = (
+    "the reference's int8 LM lane cannot serve MLA attention or shared "
+    "experts: it quantizes MLA's w_o and the shared experts' weights, then "
+    "multiplies them with a plain @ (repro/models/attention.py:457, "
+    "repro/models/moe.py:117-119) and raises TypeError at the first "
+    "forward")
+
+
+def check_lm_int8(cfg: ModelConfig) -> None:
+    """Raise before any weight is drawn when ``cfg``'s int8 lane is one
+    the reference cannot serve (:func:`quantize_lm_params`)."""
+    if cfg.mla is not None or (cfg.moe is not None
+                               and cfg.moe.n_shared_experts):
+        raise NotImplementedError(f"{cfg.name}: {INT8_MLA_REFUSAL}")
+
+
 def quantize_lm_params(params):
     """The LM serving lane's tree walk: per-output-channel int8
     QuantTensors (float32 outputs) for the attention and MLP projections
@@ -119,16 +136,26 @@ def quantize_lm_params(params):
     through.  Per-column scales make the fused ``w_qkv``'s codes and
     scales those of ``w_q``, ``w_k`` and ``w_v`` quantized apart, and a
     layer's those of the reference's scan-stacked weight at that layer
-    (its per-(layer, column) scales).  A tree with MoE layers raises:
-    the reference's walk leaves its 4-D expert stacks float, and the
-    port's per-layer (E, D, F) slabs would be quantized instead."""
-    if any("router" in b.get("ffn", {}) for b in params.get("blocks", ())):
-        raise NotImplementedError(
-            "quantize_lm_params: MoE layers' int8 lane is not ported "
-            "(ROADMAP.md, Queue 1)")
+    (its per-(layer, column) scales).
+
+    A MoE layer's FFN (the dict that holds a ``router``) stays float: the
+    reference quantizes only rank-2 and rank-3 leaves, and its expert
+    stacks are 4-D (L, E, D, F).  The port selects by position, since its
+    per-layer (E, D, F) slabs are 3-D and a rank test would take them.
+    A tree with MLA attention or shared experts (deepseek-v2) raises: the
+    reference's walk turns MLA's ``w_o`` and the shared experts into
+    QuantTensors that its forward multiplies with a plain ``@``
+    (``repro/models/attention.py:457``, ``repro/models/moe.py:117-119``),
+    so its lane raises ``TypeError`` at the first forward."""
+    for b in params.get("blocks", ()):
+        if "w_dkv" in b.get("attn", {}) or "shared" in b.get("ffn", {}):
+            raise NotImplementedError(
+                f"quantize_lm_params: {INT8_MLA_REFUSAL}")
 
     def walk(node):
         if isinstance(node, dict):
+            if "router" in node:          # a MoE FFN: router and slabs float
+                return node
             return {k: (qt.quantize_weight(v) if k in LM_TARGETS
                         else walk(v)) for k, v in node.items()}
         if isinstance(node, (list, tuple)):

@@ -112,22 +112,25 @@ def test_configs_copy_the_reference():
 def test_unported_families_raise():
     """What stays refused: ServeEngine on the encoder-decoder family (it
     passes no frames; the reference's engine raises KeyError: 'frames' at
-    its first prefill), and the training forward and loss of the
-    encoder-decoder and VLM families (ROADMAP.md queues them)."""
+    its first prefill).  The training forward of both families runs
+    (``tests/test_torch_lm_train.py`` holds it to the reference):
+    whisper's needs its frames, as the reference's ``batch["frames"]``
+    does, and a VLM batch without image embeddings trains the text
+    decoder."""
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     for arch in ("whisper-medium", "llava-next-mistral-7b"):
         cfg = get_reduced(arch)
         params = registry.init_params(cfg, torch.Generator().manual_seed(0),
                                       "cpu")
         batch = {"tokens": torch.zeros((1, 16), dtype=torch.long)}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.forward_hidden(cfg, params, batch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.lm_loss(cfg, params, batch)
         if cfg.family == "encdec":
+            with pytest.raises(KeyError, match="frames"):
+                registry.forward_hidden(cfg, params, batch)
             with pytest.raises(NotImplementedError, match="frames"):
                 ServeEngine(cfg, params, ServeConfig(device="cpu"))
         else:                                   # a VLM serves its text
+            hidden, aux = registry.forward_hidden(cfg, params, batch)
+            assert hidden.shape == (1, 16, cfg.d_model) and aux == 0.0
             ServeEngine(cfg, params, ServeConfig(device="cpu"))
 
 

@@ -8,9 +8,13 @@ converted by ``convert.{lm,ssm,hybrid}_params_from_jax``; the
 reference's gradient trees go through the same converters, so gradients
 compare leaf for leaf).
 
-Models are the reduced qwen3-4b and mamba2-370m and a 6-layer reduced
-zamba2-1.2b (its shared block runs at layer 5), with norm scales, biases,
-``D`` and ``dt_bias`` moved off their init values.  Tolerances: losses
+Models are the reduced qwen3-4b and mamba2-370m, a 6-layer reduced
+zamba2-1.2b (its shared block runs at layer 5), reduced whisper-medium
+(2 + 2 layers over 64 stub frames), llava-next-mistral-7b (16 stub image
+embeddings ahead of the text; the loss scores the text tail), dbrx-132b
+(2 MoE layers) and deepseek-v2-236b (MLA, a dense layer, then a MoE
+layer with shared experts; the loss carries the MoE aux), with norm
+scales, biases, ``D`` and ``dt_bias`` moved off their init values.  Tolerances: losses
 1e-5 relative, every gradient leaf 1e-4 of its largest; three train
 steps' losses 1e-4 relative and parameters 1e-4 of each leaf's largest;
 AdamW 1e-6 relative.
@@ -61,10 +65,20 @@ GRAD_TOL = 1e-4          # of each leaf's largest
 STEP_TOL = 1e-4
 ADAM_RTOL = 1e-6
 ARCHS = ("qwen3-4b", "mamba2-370m", "zamba2-1.2b")
-LAYERS = {"qwen3-4b": 2, "mamba2-370m": 2, "zamba2-1.2b": 6}
+# the loss and gradient checks also run the encoder-decoder and the VLM
+LOSS_ARCHS = ARCHS + ("whisper-medium", "llava-next-mistral-7b")
+LAYERS = {"qwen3-4b": 2, "mamba2-370m": 2, "zamba2-1.2b": 6,
+          "whisper-medium": 2, "llava-next-mistral-7b": 2, "dbrx-132b": 2,
+          "deepseek-v2-236b": 2}
 CONVERT = {"dense": convert.lm_params_from_jax,
            "ssm": convert.ssm_params_from_jax,
-           "hybrid": convert.hybrid_params_from_jax}
+           "hybrid": convert.hybrid_params_from_jax,
+           "encdec": convert.whisper_params_from_jax,
+           "vlm": convert.lm_params_from_jax,
+           "moe": convert.lm_params_from_jax}
+# whisper's cross-attention LayerNorm and the biases of its attention and
+# MLP, and the VLM projector's
+BIASES = ("ln_x", "b_q", "b_k", "b_v", "b_o", "b_up", "b_down", "b1", "b2")
 
 
 def _t(a):
@@ -78,7 +92,7 @@ def _perturb(tree, rng):
         if isinstance(t, dict):
             return {k: walk(v, path + (k,)) for k, v in t.items()}
         if any("norm" in k or k in ("ln", "ln1", "ln2", "conv_b", "D",
-                                    "dt_bias") for k in path):
+                                    "dt_bias") + BIASES for k in path):
             return (t + 0.1 * rng.standard_normal(t.shape)).astype(t.dtype)
         return t
     return walk(tree)
@@ -94,7 +108,7 @@ def _model(arch):
     return jcfg, tcfg, tree
 
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=LOSS_ARCHS)
 def model(request):
     return _model(request.param)
 
@@ -106,10 +120,19 @@ def _port_tree(tcfg, tree):
 
 
 def _batch(cfg, B, T, seed, mask=True):
+    """Tokens (B, T), a loss mask, and the family's stub inputs: encoder
+    frames or image embeddings, standard normals."""
     rng = np.random.default_rng(seed)
     b = {"tokens": rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)}
     if mask:
         b["loss_mask"] = (rng.random((B, T)) < 0.7).astype(np.float32)
+    if cfg.encdec is not None:
+        b["frames"] = rng.standard_normal(
+            (B, cfg.encdec.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    if cfg.vlm is not None:
+        b["image_embeds"] = rng.standard_normal(
+            (B, cfg.vlm.n_image_tokens, cfg.vlm.vision_hidden)
+        ).astype(np.float32)
     return b
 
 
@@ -221,13 +244,23 @@ def test_ssm_training_route_never_reaches_ssd_scan(monkeypatch):
     assert torch.isfinite(loss) and all(g is not None for g in grads.values())
 
 
-@pytest.mark.parametrize("family", ["encdec", "vlm"])
-def test_lm_loss_refuses_unported_families(family):
-    extra = {"vlm": tmc.VLMConfig()}
-    cfg = tmc.ModelConfig(family=family, **(
-        {family: extra[family]} if family in extra else {}))
-    with pytest.raises(NotImplementedError):
-        registry.forward_hidden(cfg, {}, {"tokens": torch.zeros(1, 4).long()})
+def test_whisper_remat_runs_encoder_and_decoder_forwards_again(
+        monkeypatch):
+    """Under remat the reference checkpoints the scan bodies of both
+    ``encode`` and ``decode_train``: every attention forward (the
+    encoder's, the decoder's causal self-attention and its
+    cross-attention) runs twice a step, once without."""
+    calls = []
+    plain = tflash.flash_attention_plain
+    monkeypatch.setattr(tflash, "flash_attention_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    jcfg, tcfg, tree = _model("whisper-medium")
+    batch = _batch(tcfg, 1, 16, 8)
+    per_forward = tcfg.encdec.n_encoder_layers + 2 * tcfg.n_layers
+    for remat in (False, True):
+        calls.clear()
+        _port_value_and_grad(tcfg, tree, batch, remat)
+        assert len(calls) == per_forward * (2 if remat else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +281,11 @@ def _train_config(accum):
 
 @pytest.mark.parametrize("arch,accum", [("qwen3-4b", 1), ("qwen3-4b", 2),
                                         ("mamba2-370m", 2),
-                                        ("zamba2-1.2b", 1)])
+                                        ("zamba2-1.2b", 1),
+                                        ("whisper-medium", 1),
+                                        ("llava-next-mistral-7b", 2),
+                                        ("dbrx-132b", 1),
+                                        ("deepseek-v2-236b", 2)])
 def test_train_steps_match_reference(arch, accum):
     jcfg, tcfg, tree = _model(arch)
     batches = [_batch(tcfg, 4, 32, seed=10 + s, mask=False)
@@ -267,10 +304,11 @@ def test_train_steps_match_reference(arch, accum):
     params = CONVERT[tcfg.family](tree, tcfg, "cpu")
     opt = adam.init_adam(tckpt.flatten(params))
     step = ttr.make_train_step(tcfg, ttr.TrainConfig(**_train_config(accum)))
-    got = []
+    got, lrs = [], []
     for b in batches:
         params, opt, m = step(params, opt, {k: _t(v) for k, v in b.items()})
         got.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
         assert set(m) == set(jtr_metric_keys(accum))
     assert opt.step == 3 and int(jo.step) == 3
     np.testing.assert_allclose(got, want, rtol=STEP_TOL)
@@ -278,8 +316,29 @@ def test_train_steps_match_reference(arch, accum):
     # plain tensors again, as the reference's arrays: the serving routes
     # without a backward take them outside no_grad
     assert all(p.grad is None and not p.requires_grad for p in flat.values())
-    _close_leaves(flat, _port_tree(tcfg, jax.tree_util.tree_map(
-        np.asarray, jp)), STEP_TOL)
+    ref = _port_tree(tcfg, jax.tree_util.tree_map(np.asarray, jp))
+    if tcfg.attention_bias:
+        _split_key_bias(tcfg, flat, ref, lrs)
+    _close_leaves(flat, ref, STEP_TOL)
+
+
+def _split_key_bias(tcfg, got, want, lrs):
+    """Move the key columns of every fused ``b_qkv`` out of ``got`` and
+    ``want`` and hold them apart.  Their exact gradient is zero (adding
+    q . b_k to every key's logit leaves the softmax as it is), so each
+    package's gradient there is rounding noise, which AdamW's step m /
+    sqrt(v) scales up to a full step: the two may part by both packages'
+    largest moves, lr (1 + weight_decay |p|) a step each (|m / sqrt(v)|
+    <= 1 for these three steps at b1 = 0.9, b2 = 0.95)."""
+    q, kv = tcfg.q_dim, tcfg.kv_dim
+    for name in [k for k in want if k.endswith("b_qkv")]:
+        g, w = got[name].detach(), want[name]
+        keep = torch.cat([torch.arange(q), torch.arange(q + kv, q + 2 * kv)])
+        move = sum(lrs) * (1 + _train_config(1)["weight_decay"]
+                           * float(w.abs().max()))
+        err = float((g[q:q + kv] - w[q:q + kv]).abs().max())
+        assert err <= 2 * move, (name, err, move)
+        got[name], want[name] = g[keep], w[keep]
 
 
 @pytest.mark.parametrize("flag", ["sp", "compress_pod_grads"])
@@ -447,7 +506,11 @@ def test_adam_groups_bound_their_temporaries(monkeypatch):
 
 @pytest.mark.parametrize("arch,reduced", [("qwen3-4b", True),
                                           ("qwen3-4b", False),
-                                          ("mamba2-370m", False)])
+                                          ("mamba2-370m", False),
+                                          ("zamba2-1.2b", True),
+                                          ("dbrx-132b", True),
+                                          ("whisper-medium", True),
+                                          ("llava-next-mistral-7b", True)])
 def test_synthetic_batches_match_reference(arch, reduced):
     get = jconfigs.get_reduced if reduced else jconfigs.get_config
     cfg = get(arch)
@@ -641,6 +704,17 @@ def test_launch_train_trains_and_resumes(tmp_path):
     assert "resumed from step 120" in out.stdout
     assert "step 120 loss" in out.stdout and "step 119" not in out.stdout
     assert tckpt.latest_step(str(tmp_path)) == 125
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b",
+                                  "dbrx-132b"])
+def test_launch_train_runs_every_family(arch, capsys):
+    """``launch.train`` on the encoder-decoder (frames in every batch),
+    the VLM (image embeddings) and a MoE config: finite losses, exit 0."""
+    assert tlaunch.main(["--arch", arch, "--reduced", "--device", "cpu",
+                         "--steps", "3", "--batch", "2", "--seq", "16"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] step 2 loss" in out and "done:" in out
 
 
 @pytest.mark.parametrize("bad", [["--backend", "xla"],

@@ -13,7 +13,17 @@ expert choices byte-equal; gates and aux 1e-6; single layers 1e-5
 absolute (float32, another summation order); whole models, caches and
 the mixed paths 1e-4.  Greedy tokens must be equal unless the
 reference's top-2 margin at the first differing step lies below 1e-4.
+
+The serving lanes: dbrx's int8 tree (attention int8, codes and scales
+equal to the reference's; router and expert slabs float), deepseek-v2's
+int8 lane refused up front (the reference's raises TypeError at its
+first forward), fp16 / bf16 trees of both and a float32 tree over a bf16
+cache, each through both engines: greedy tokens and prefill logits held
+by ``_hold_routes`` (the half limits of ``tests/test_torch_half_lm.py``),
+unless the two packages' routes chose other experts at a near-tie
+(``route_tie``: 1e-5 for a float32 router, 8 u L p_k for a half one).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -28,6 +38,8 @@ from repro.models import attention as jattn
 from repro.models import moe as jmoe
 from repro.models import registry as jregistry
 from repro.models import transformer as jtfm
+from repro.quant import ptq as jptq
+from repro.quant import qtensor as jqt
 from repro.serve.engine import ServeConfig as JServeConfig
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro.serve.request import Request as JRequest
@@ -40,6 +52,7 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import registry
 from repro_torch.models import transformer as ttfm
 from repro_torch.offload.simulator import to_device
+from repro_torch.quant import qtensor as qt
 from repro_torch.quant.ptq import quantize_lm_params
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 from repro_torch.serve.request import Request
@@ -81,14 +94,18 @@ def _tokens(rng, cfg, B, n):
     return rng.integers(0, cfg.vocab_size, (B, n)).astype(np.int32)
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def model(request):
-    jcfg, tcfg = jget_reduced(request.param), get_reduced(request.param)
+def _load(arch):
+    jcfg, tcfg = jget_reduced(arch), get_reduced(arch)
     tree = _perturb_norms(
         _np(jtfm.init_lm_params(jcfg, jax.random.PRNGKey(0))),
         np.random.default_rng(1))
     return (jcfg, tcfg, jax.tree_util.tree_map(jnp.asarray, tree),
             convert.lm_params_from_jax(tree, tcfg, "cpu"))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    return _load(request.param)
 
 
 # ---------------------------------------------------------------------------
@@ -447,19 +464,337 @@ def test_launch_serve_on_cpu(arch, capsys):
     assert "[serve] 3 requests, 9 tokens" in out and "mixed=on" in out
 
 
-@pytest.mark.parametrize("quant", ["int8", "bf16"])
-def test_moe_quant_lanes_refuse(quant):
-    """The MoE int8 and half lanes are not ported: the launcher and the
-    int8 tree walk raise rather than quantize expert slabs the reference
-    leaves float."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlaunch.main(["--arch", "dbrx-132b", "--reduced", "--device", "cpu",
-                      "--quant", quant])
-    tcfg = get_reduced("deepseek-v2-236b")
-    params = registry.init_params(tcfg, torch.Generator().manual_seed(0),
-                                  "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize_lm_params(params)
+# ---------------------------------------------------------------------------
+# the int8 and half serving lanes
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def test_dbrx_int8_tree_equals_reference():
+    """dbrx-132b's int8 tree: the attention projections (fused ``w_qkv``,
+    ``w_o``) carry the reference's codes and scales, layer for layer; the
+    router and the (E, D, F) expert slabs are the float tree's own
+    tensors, as the reference leaves its 4-D expert stacks float."""
+    jcfg, tcfg, jp, tp = _load("dbrx-132b")
+    got = quantize_lm_params(tp)
+    want = convert.lm_params_from_jax(_np(jptq.quantize_lm_params(jp)),
+                                      tcfg, "cpu")
+    gl, wl, fl = dict(_leaves(got)), dict(_leaves(want)), dict(_leaves(tp))
+    assert gl.keys() == wl.keys() == fl.keys()
+    n_quant = 0
+    for path, g in gl.items():
+        w = wl[path]
+        assert type(g) is type(w), path
+        if isinstance(g, qt.QuantTensor):
+            n_quant += 1
+            assert path.rsplit("/", 1)[-1] in ("w_qkv", "w_o"), path
+            assert torch.equal(g.q, w.q) and torch.equal(g.scale, w.scale)
+        else:
+            assert g is fl[path] and torch.equal(g, w), path
+    assert n_quant == 2 * tcfg.n_layers
+    for b in got["blocks"]:
+        assert all(b["ffn"][k] is not None and b["ffn"][k].dtype
+                   == torch.float32 for k in ("router", "w_gate", "w_up",
+                                              "w_down"))
+
+
+def test_deepseek_v2_int8_lane_refused_up_front():
+    """The reference's int8 walk quantizes MLA's ``w_o`` and the shared
+    experts, which its forward multiplies with a plain ``@``: TypeError
+    at the first forward.  The port refuses the tree before any forward,
+    naming both lines, and so does the launcher."""
+    jcfg, tcfg, jp, tp = _load("deepseek-v2-236b")
+    jq = jptq.quantize_lm_params(jp)
+    toks = jnp.asarray(_tokens(np.random.default_rng(16), tcfg, 1, 8))
+    with pytest.raises(TypeError):
+        jtfm.prefill(jcfg, jq, toks, jtfm.init_caches(jcfg, 1, 16,
+                                                      jnp.float32))
+    for line in ("attention.py:457", "moe.py:117-119"):
+        with pytest.raises(NotImplementedError, match=line):
+            quantize_lm_params(tp)
+    with pytest.raises(NotImplementedError, match="TypeError"):
+        tlaunch.main(["--arch", "deepseek-v2-236b", "--reduced",
+                      "--device", "cpu", "--quant", "int8"])
+    # the launcher refuses before any weight is drawn: at full width too
+    from repro_torch.configs import get_config
+    from repro_torch.quant.ptq import check_lm_int8
+    with pytest.raises(NotImplementedError, match="attention.py:457"):
+        check_lm_int8(get_config("deepseek-v2-236b"))
+    check_lm_int8(get_config("dbrx-132b"))
+
+
+# the tree / cache types of each lane (reference, port) and its
+# prefill-logit limit, of the largest |logit|: the half trees'
+# tests/test_torch_half_lm.py limits (the half type's rounding of the
+# largest logit); the int8 tree's activations stay float32 and its codes
+# are equal (above), so float32's MODEL_TOL; a float32 tree over a bf16
+# cache reads the cache's rounding only in decode, so its prefill is
+# float32's
+LANES = {
+    "int8": ((jnp.float32, jnp.float32), (torch.float32, torch.float32),
+             MODEL_TOL),
+    "fp16": ((jnp.float16, jnp.float32), (torch.float16, torch.float32),
+             4e-3),
+    "bf16": ((jnp.bfloat16, jnp.float32), (torch.bfloat16, torch.float32),
+             3e-2),
+    "bf16-cache": ((jnp.float32, jnp.bfloat16),
+                   (torch.float32, torch.bfloat16), MODEL_TOL),
+}
+# the half types' unit roundoff
+UNIT = {torch.float16: 2.0 ** -11, torch.bfloat16: 2.0 ** -8,
+        jnp.float16: 2.0 ** -11, jnp.bfloat16: 2.0 ** -8}
+ROUTE_TIE = 1e-5        # a float32 router's near-tie (chip_smoke.py's)
+HALF_ROUTE_ULPS = 8
+
+
+def route_tie(logits, probs, k, unit):
+    """Each token's routing near-tie bound: the gap between its k-th and
+    (k+1)-th expert's probability below which two routes may order them
+    apart.  A float32 router: ROUTE_TIE.  A half router (``unit`` its
+    type's unit roundoff u) computes each logit l as a float32 sum
+    rounded once to the type, from a hidden state that each route also
+    rounded to the type: two roundings a route, each within u |l|, so
+    the routes' logits differ by at most eps = 4 u L (L the token's
+    largest |logit|).  Shifting every logit by at most eps moves the log
+    of a probability ratio by at most 2 eps, so p_k and p_(k+1) can swap
+    only if p_k - p_(k+1) <= p_k (1 - exp(-2 eps)) <= 2 eps p_k = 8 u L
+    p_k (HALF_ROUTE_ULPS)."""
+    if unit is None:
+        return np.full(logits.shape[0], ROUTE_TIE)
+    top = -np.sort(-probs, axis=-1)
+    return HALF_ROUTE_ULPS * unit * np.abs(logits).max(-1) * top[:, k - 1]
+
+
+@contextlib.contextmanager
+def _record_routes(mod, name, to_np, unit):
+    """``mod.<name>`` (the package's ``route``) recording, call by call,
+    each token's chosen experts (sorted), the gap between its k-th and
+    (k+1)-th expert's probability and its near-tie bound."""
+    saved, log = getattr(mod, name), []
+
+    def route(cfg, router_w, x_flat):
+        out = saved(cfg, router_w, x_flat)
+        k = cfg.moe.top_k
+        logits = to_np(x_flat @ router_w).astype(np.float32)
+        probs = np.exp(logits - logits.max(-1, keepdims=True))
+        probs /= probs.sum(-1, keepdims=True)
+        top = -np.sort(-probs, axis=-1)
+        log.append((np.sort(to_np(out[0]), axis=-1), top[:, k - 1] - top[:, k],
+                    route_tie(logits, probs, k, unit)))
+        return out
+    setattr(mod, name, route)
+    try:
+        yield log
+    finally:
+        setattr(mod, name, saved)
+
+
+def _forced(reg, tfm_, cfg, params, state, prompt, tokens, to_np):
+    """Teacher-forced logits of one request: the prefill's last row, then
+    one a decode step on each of ``tokens`` but the last."""
+    hidden, state, _ = reg.prefill(cfg, params, {"tokens": prompt}, state)
+    out = [to_np(tfm_.logits_from_hidden(cfg, params, hidden[:, -1:]))]
+    for step, tok in enumerate(tokens[:-1], start=1):
+        lg, state = reg.decode_step(cfg, params, tok,
+                                    prompt.shape[1] + step - 1, state)
+        out.append(to_np(lg))
+    return [o.reshape(-1).astype(np.float32) for o in out]
+
+
+def _ref_np(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _port_np(a):
+    return a.float().numpy()
+
+
+def _ref_forced(jcfg, jp, jcache, unit, prompt, tokens):
+    """The reference teacher-forced eagerly (its layer scans run as
+    loops), with its routing log."""
+    state = jregistry.init_decode_state(jcfg, 1, T + NEW + 8, jcache)
+    with jax.disable_jit(), _record_routes(jmoe, "_route", _ref_np,
+                                           unit) as log:
+        lg = _forced(jregistry, jtfm, jcfg, jp, state,
+                     jnp.asarray(prompt)[None],
+                     [jnp.asarray([[t]], jnp.int32) for t in tokens],
+                     _ref_np)
+    return lg, log
+
+
+def _port_forced(tcfg, tp, tcache, unit, prompt, tokens):
+    state = registry.init_decode_state(tcfg, 1, T + NEW + 8, tcache, "cpu")
+    with torch.no_grad(), _record_routes(tmoe, "route", _port_np,
+                                         unit) as log:
+        lg = _forced(registry, ttfm, tcfg, tp, state,
+                     torch.as_tensor(prompt)[None],
+                     [torch.tensor([[t]], dtype=torch.int32)
+                      for t in tokens], _port_np)
+    return lg, log
+
+
+def _hold_routes(got, want, tol, step=None):
+    """The port's and the reference's teacher-forced (logits, routing
+    log) of one request.  If every routing call chose the same experts:
+    the prefill logits to ``tol`` of their largest, and at ``step`` (the
+    first greedy token that differs) the reference's top-2 margin at most
+    twice the packages' difference.  Else the first call whose choices
+    differ may differ only at tokens whose reference gap is within its
+    near-tie bound (a flipped expert moves the logits far more than
+    rounding, so they are then not held).  Returns whether the routes
+    agreed."""
+    (glg, glog), (wlg, wlog) = got, want
+    assert len(glog) == len(wlog)
+    for (gi, _, _), (wi, gap, tie) in zip(glog, wlog):
+        rows = (gi != wi).any(-1)
+        if rows.any():
+            assert (gap[rows] <= tie[rows]).all(), (gap[rows], tie[rows])
+            return False
+    rel = np.abs(glg[0] - wlg[0]).max() / np.abs(wlg[0]).max()
+    assert rel <= tol, rel
+    if step is not None:
+        margin = float(np.diff(np.sort(wlg[step])[-2:])[0])
+        assert margin <= 2 * float(np.abs(glg[step] - wlg[step]).max()), \
+            (step, margin)
+    return True
+
+
+LANE_CASES = [("dbrx-132b", "int8"), ("dbrx-132b", "fp16"),
+              ("dbrx-132b", "bf16"), ("deepseek-v2-236b", "fp16"),
+              ("deepseek-v2-236b", "bf16"), ("dbrx-132b", "bf16-cache"),
+              ("deepseek-v2-236b", "bf16-cache")]
+
+
+def _lane_trees(jp, tp, lane):
+    (jdt, jcache), (tdt, tcache), _ = LANES[lane]
+    if lane == "int8":
+        return jptq.quantize_lm_params(jp), quantize_lm_params(tp)
+    if jdt == jnp.float32:
+        return jp, tp
+    return jqt.cast_tree(jp, jdt), qt.cast_tree(tp, tdt)
+
+
+@pytest.mark.parametrize("arch,lane", LANE_CASES)
+def test_lane_engine_matches_reference(arch, lane):
+    """Three requests padded to the B = 4 bucket through both engines on
+    the lane's tree and cache: greedy tokens equal, the first request's
+    prefill logits within the lane's limit, each by :func:`_hold_routes`
+    (teacher-forced on the reference's tokens) unless the routes chose
+    other experts at a near-tie."""
+    jcfg, tcfg, jp, tp = _load(arch)
+    jp, tp = _lane_trees(jp, tp, lane)
+    (jdt, jcache), (tdt, tcache), tol = LANES[lane]
+    unit = UNIT.get(tdt)
+    kw = dict(max_batch=4, max_len=T + NEW + 8, buckets=(T,))
+    jeng = JServeEngine(jcfg, jp, JServeConfig(cache_dtype=jcache, **kw))
+    teng = ServeEngine(tcfg, tp, ServeConfig(device="cpu",
+                                             cache_dtype=tcache, **kw))
+    rng = np.random.default_rng(17)
+    prompts = [_tokens(rng, tcfg, 1, T)[0] for _ in range(3)]
+    for rid, p in enumerate(prompts):
+        jeng.submit(JRequest(rid=rid, prompt=p, max_new_tokens=NEW))
+        teng.submit(Request(rid=rid, prompt=p, max_new_tokens=NEW))
+    teng.warmup()
+    want = {r.rid: r.tokens for r in jeng.run()}
+    got = {r.rid: r.tokens for r in teng.run()}
+    assert teng.stats.steady_compiles == 0
+    assert sorted(got) == sorted(want) == [0, 1, 2]
+    for rid, w in want.items():
+        g = got[rid]
+        assert len(g) == len(w) == NEW
+        if rid and g == w:
+            continue
+        step = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b),
+                    None)
+        port = _port_forced(tcfg, tp, tcache, unit, prompts[rid], w)
+        assert all(np.isfinite(x).all() for x in port[0])
+        _hold_routes(port, _ref_forced(jcfg, jp, jcache, UNIT.get(jdt),
+                                       prompts[rid], w), tol, step)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_half_routing_tables_and_moe_match_reference(arch, dtype):
+    """A half MoE FFN on the same half inputs: router logits computed in
+    the type and routed in float32, expert choices equal to the
+    reference's but at near-ties (:func:`route_tie`), its dispatch tables
+    on the reference's routing byte-equal (the gate table float32), and
+    ``moe_local`` (the expert ``bmm``s and the shared experts in the
+    type, gates cast to it) within the half lane's limit."""
+    jcfg, tcfg = jget_reduced(arch), get_reduced(arch)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    p = _moe_params(jcfg, seed=8)
+    jp = jqt.cast_tree(jax.tree_util.tree_map(jnp.asarray, p), jdt)
+    tp = qt.cast_tree(_tmoe(p), tdt)
+    x = np.random.default_rng(9).standard_normal(
+        (2, 48, tcfg.d_model)).astype(np.float32)
+    jx, tx = jnp.asarray(x).astype(jdt), _t(x).to(tdt)
+    xf = (jx.reshape(96, -1), tx.reshape(96, -1))
+    with _record_routes(jmoe, "_route", _ref_np, UNIT[tdt]) as jlog:
+        ji, jg, ja = jmoe._route(jcfg, jp["router"], xf[0])
+    with _record_routes(tmoe, "route", _port_np, UNIT[tdt]) as tlog:
+        ti, tg, ta = tmoe.route(tcfg, tp["router"], xf[1])
+    assert tg.dtype == ta.dtype == torch.float32
+    (_, gap, tie), rows = jlog[0], (tlog[0][0] != jlog[0][0]).any(-1)
+    assert (gap[rows] <= tie[rows]).all()
+    same = ~rows
+    assert np.array_equal(ti.numpy()[same], np.asarray(ji)[same])
+    cap = tmoe.expert_capacity(tcfg, 96)
+    want = jmoe._dispatch_tables(jcfg, ji, jg, 0, tcfg.moe.n_experts, cap)
+    got = tmoe.dispatch_tables(tcfg, _t(ji).long(), _t(jg), cap)
+    for g, w in zip(got, want):
+        assert g.numpy().tobytes() == np.asarray(w).tobytes()
+    assert got[1].dtype == torch.float32
+    tout, _ = tmoe.moe_local(tcfg, tp, tx)
+    assert tout.dtype == tdt
+    if not rows.any():
+        jout, _ = jmoe.moe_local(jcfg, jp, jx)
+        jout = np.asarray(jout.astype(jnp.float32))
+        rel = np.abs(tout.float().numpy() - jout).max() / np.abs(jout).max()
+        assert rel <= LANES["fp16" if dtype == "float16" else "bf16"][2]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_init_cast_as_drawn_equals_cast_tree(arch, dtype):
+    """``init_lm_params(dtype=)`` casts each piece as it is drawn (a
+    full-width half tree is built without the whole float32 tree): the
+    same tree, byte for byte, as ``cast_tree`` of the float32 draws."""
+    tcfg, dt = get_reduced(arch), getattr(torch, dtype)
+    want = qt.cast_tree(ttfm.init_lm_params(
+        tcfg, torch.Generator().manual_seed(4), "cpu"), dt)
+    got = ttfm.init_lm_params(tcfg, torch.Generator().manual_seed(4), "cpu",
+                              dtype=dt)
+    gl, wl = dict(_leaves(got)), dict(_leaves(want))
+    assert gl.keys() == wl.keys()
+    assert all(g.dtype == dt and torch.equal(g, wl[k]) for k, g in gl.items())
+
+
+def test_moe_lanes_through_the_launcher(capsys):
+    """``launch.serve --quant`` on reduced dbrx-132b: bf16 and int8 print
+    the reference launcher's MiB line (its tree's bytes before and after)
+    and serve every request."""
+    jcfg = jget_reduced("dbrx-132b")
+    jparams = jregistry.init_params(jcfg, jax.random.PRNGKey(0))
+    for lane, tree in (("bf16", jqt.cast_tree(jparams, jnp.bfloat16)),
+                       ("int8", jptq.quantize_lm_params(jparams))):
+        sizes = (f"{jqt.tree_bytes(jparams) / 2**20:.1f} MiB -> "
+                 f"{jqt.tree_bytes(tree) / 2**20:.1f} MiB")
+        assert tlaunch.main(["--arch", "dbrx-132b", "--reduced", "--device",
+                             "cpu", "--quant", lane, "--requests", "3",
+                             "--prompt-len", "32", "--max-new", "3"]) == 0
+        out = capsys.readouterr().out
+        assert f"[serve] quant={lane}: {sizes}" in out, out
+        assert "[serve] 3 requests, 9 tokens" in out
 
 
 @pytest.mark.cuda
@@ -480,3 +815,4 @@ def test_moe_on_card_matches_cpu(arch):
         out.append((h.cpu(), lg.cpu()))
     for a, b in zip(*out):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-3
+

@@ -1,6 +1,6 @@
 """The encoder-decoder and VLM families on the card against the CPU
-(skipped where there is no card; ``chip_smoke.py`` phase 24 serves the
-published configs at full width and depth):
+(skipped where there is no card; ``chip_smoke.py`` phases 24 and 25 run the
+published configs at full width):
 
     PYTHONPATH=src python3 -m pytest -q -m cuda tests/test_torch_multimodal_card.py
 
@@ -96,3 +96,27 @@ def test_multimodal_on_card_matches_cpu(arch):
         want = _run(cfg, p_cpu, "cpu", batch, pack)
         for step, (g, w) in enumerate(zip(got, want)):
             assert _rel(g, w) <= RTOL, (arch, pack is not None, step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-mistral-7b"])
+def test_multimodal_train_step_on_card_matches_cpu(arch):
+    """One ``make_train_step`` step (remat on: the flash Function's
+    forward runs twice) of the reduced config on ``synthetic_batches``'
+    frames or image embeddings, card against CPU: the loss to 1e-4
+    relative."""
+    _card()
+    from repro_torch.launch import train as lt
+    from repro_torch.train import trainer as tr
+    cfg = get_reduced(arch)
+    batch = next(lt.synthetic_batches(cfg, B, T, seed=0))
+    losses = []
+    for dev in ("cpu", "cuda"):
+        params, opt = tr.init_train_state(
+            cfg, torch.Generator().manual_seed(0), dev)
+        step = tr.make_train_step(cfg, tr.TrainConfig(peak_lr=1e-3,
+                                                      warmup_steps=1))
+        _, _, m = step(params, opt, {k: torch.as_tensor(v, device=dev)
+                                     for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
