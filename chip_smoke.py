@@ -133,9 +133,9 @@ Phases; any failure exits non-zero and prints no result:
      ViTDet-L server as ``launch/offload.py`` makes it (weights from
      seed 0, top-k 32, score threshold 0, B = 1, warmed over the plan
      space the policies can reach): anchor the inference-delay model to
-     the card's median full-resolution ``infer``, profile ``walkS`` (8
-     frames, the first 2 warm the motion model, x the 21 sample
-     configs), fit the size and
+     the card's median full-resolution ``infer``, profile ``walkS``
+     (PROFILE_FRAMES = 5 frames, the first 2 warm the motion model, x
+     the 21 sample configs; the launcher profiles 8), fit the size and
      accuracy ``MLPEstimator``s on the card, then run ``Simulation`` for
      TrackB2B, ViTMAlis and ViTMAlis+Reuse on ``cycleS`` and
      ViTMAlis+Reuse on ``parkS`` (24 frames each, the 4G trace).  Per
@@ -209,7 +209,7 @@ Phases; any failure exits non-zero and prints no result:
      differs; a 2-block full-width model at B = 1,
      card vs CPU: loss to TRAIN_LOSS_RTOL, every leaf's gradient the
      same two ways.  Last,
-     the reference's SIM recipe at 250 of its 1800 steps (peak lr
+     the reference's SIM recipe at 200 of its 1800 steps (peak lr
      5e-4, B = 2; cut to keep the run within its
      time limit): the
      loss every 200 steps and the wall, the mean of the last 100 losses
@@ -224,7 +224,7 @@ Phases; any failure exits non-zero and prints no result:
      and gradients against autograd through the plain version to
      GRAD_TOL, and the forward's error against float64 beside the plain
      version's; the ~100M qwen3-family run of ``examples/train_lm_100m.py``
-     through ``launch.train.train`` (150 of the example's 300 steps at
+     through ``launch.train.train`` (60 of the example's 300 steps at
      B = 4, T = 256; the mean of the last 10 losses 0.1 below the
      first), its last
      checkpoint restored bit-equal (``AdamState.step`` and moments) and a
@@ -390,7 +390,32 @@ Phases; any failure exits non-zero and prints no result:
      Phase 2 checks and times flash at whisper's training shapes (causal
      (8, 64, 16, 64) and 64 queries against 1500 keys) and ``int8_matmul``
      at dbrx's two attention GEMMs at M = 8 and 1024 (bit-equal, device
-     us, bound, ``torch._int_mm``).
+     us, bound, ``torch._int_mm``);
+ 26. the kernel autotuner (``kernels/autotune.py``).  Before phase 1 the
+     script points ``REPRO_AUTOTUNE_CACHE`` at a fresh ``build/
+     chip_smoke_autotune``, so every run sweeps from empty; the warmups
+     of the earlier phases sweep the window / flash / int8 GEMM tiles
+     (``ServerModel.warmup``) and the decode cluster size
+     (``ServeEngine.warmup``), and their launches count under the path
+     ``autotune``.  Phase 2 runs before any sweep, so its rows are the
+     default tiles'.  (a) Every candidate tile of the four kernels against
+     its plain version under the kernel's limit (ATTN_TOL, DECODE_TOL,
+     one half ULP at HALF_EQUAL, int8 bit-equal) at ViTDet-L's
+     full-resolution shapes (float32, fp16, bf16; the int8+fp16-p1
+     GEMMs), Qwen3-4B's decode step and the other phase-2 rows' shapes,
+     each candidate's device us (CUDA events, best of TILE_REPS) beside
+     the default's, the fastest and the winner the warmups cached; (b)
+     8-block full-width ViTDet-L servers (float32, bf16, int8+fp16-p1)
+     and a 4-layer full-width Qwen3-4B engine warmed, then, after
+     ``clear_memory_cache``, warmed again: 0 sweeps, the same winners
+     from disk, the cache file unchanged; (c) with ``REPRO_AUTOTUNE=0``
+     and ``refresh_from_env`` every lookup gives the default tile and a
+     sweep does nothing; (d) A B B A, default tiles against tuned ones:
+     each server's full-resolution wave and a decode step, host ms and
+     device ms, the tuned outputs within the card-vs-CPU limits of the
+     default ones (phases 4, 6, 8 and 21 compare card vs CPU at the
+     tuned tiles); the host cost of a lookup.  Fails if any candidate of
+     any sweep of the run raised.
 
 Every printed line also goes to ``chiprun_out/chip_smoke.log`` and every
 number to ``chiprun_out/chip_smoke.json``.  Each serving path resets the launch counts just before it and reads them
@@ -407,7 +432,8 @@ device-cache simulations of phase 18, the int8 LM waves of phase 19,
 the calibration of phase 20, the half lanes of phases 21 and 22, the
 MoE waves of phase 23, the models of phase 24 and phase 25's training
 runs, ``lm_train <config>``, and MoE lanes, ``<config> <lane>
-[mixed]``, named by their config and path);
+[mixed]``, named by their config and path, and every autotuner sweep of
+the run, ``autotune``);
 the ``int8_matmul`` row also gives phase 19's decode-step device us and
 bound, and every row but ``ssd_scan``'s its ``f16`` / ``bf16`` numbers.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -522,6 +548,10 @@ DECODE_EDGES = (((2, 256, 8, 2, 64), (0, 1)), ((2, 256, 8, 2, 64), (64, 256)),
                 ((2, LM_MAX_LEN, 32, 32, 128), (64, LM_T)))
 E2E_RTOL = 1e-3             # 8-block forward, card vs CPU, relative
 OFFLOAD_FRAMES = 24         # frames of each phase-13 simulation
+# frames of phase 13's walkS profile, the first PROFILE_SKIP warming the
+# motion model: 3 x 21 sample configs (the launcher's 8 frames give 126
+# samples; cut to keep the whole run within its time limit)
+PROFILE_FRAMES = 5
 # phase 13's simulations: (policy, video), each against the 4G trace
 OFFLOAD_RUNS = (("TrackB2B", "cycleS"), ("ViTMAlis", "cycleS"),
                 ("ViTMAlis+Reuse", "cycleS"), ("ViTMAlis+Reuse", "parkS"))
@@ -545,10 +575,10 @@ MC_SEED = 17
 # the ten (0.7^10 = 2.8%) give the SIM ones (16 x 2.8% = 45%)
 MC_SLOW_WINDOWS = 2
 MC_CROSS_CLIENTS, MC_CROSS_FRAMES = 2, 12   # phase 14's card-vs-CPU runs
-ALPHA_REPS = 5              # timed waves per B behind the measured alpha
+ALPHA_REPS = 3              # timed waves per B behind the measured alpha
 QUANT_E2E_RTOL = 0.05       # 8-block quantized forward, card vs CPU
 # phase 15, training
-TRAIN_STEPS = 10            # full-width ViTDet-L steps
+TRAIN_STEPS = 6             # full-width ViTDet-L steps
 GRAD_TOL = 1e-4             # Function vs plain autograd, of the largest grad
 TRAIN_GRAD_TOL = 1e-3       # analytic vs autograd backward, of a leaf's max
 # A step in other float32 arithmetic (the plain versions, the CPU) takes
@@ -565,11 +595,11 @@ TRAIN_GRAD_TOL = 1e-3       # analytic vs autograd backward, of a leaf's max
 # plain route): the bound sits just above that.
 KINK_GRAD_TOL = 5e-3
 TRAIN_LOSS_RTOL = 1e-4      # the 2-block model's loss, card vs CPU
-# benchmarks/common.py's SIM recipe (1800 steps, peak lr 5e-4) at 250 of
+# benchmarks/common.py's SIM recipe (1800 steps, peak lr 5e-4) at 200 of
 # its steps, to keep the whole run within its time limit (at 900 steps
 # the last-100 mean loss read 0.37 against 3.91 over the first 50, at
-# step 200 of 450 1.71: the check keeps a wide margin at 250)
-SIM_STEPS, SIM_PEAK_LR = 250, 5e-4
+# step 200 of 450 1.71: the check keeps a wide margin at 200)
+SIM_STEPS, SIM_PEAK_LR = 200, 5e-4
 F1_VIDEOS, F1_FRAMES, F1_SEED = ("walkS", "walkB", "cycleS"), 16, 23
 BWD_MARKS = ("window_attention_bwd", "flash_attention_bwd")
 # phase 16, LM training: causal GQA flash at Qwen3-4B's and the ~100M
@@ -579,9 +609,10 @@ LM_FLASH_SHAPES = ((1, 1024, 32, 8, 128), (4, 256, 10, 2, 64))
 LM_100M = dict(name="qwen3-100m", n_layers=12, d_model=640, n_heads=10,
                n_kv_heads=2, head_dim=64, d_ff=2048, vocab_size=32768,
                max_seq_len=4096)
-# the example's run at half its 300 steps (to keep the whole script within
-# its time limit; at step 100 the loss already sits 2.2 below the first)
-LM_100M_STEPS, LM_100M_B, LM_100M_T = 150, 4, 256
+# the example's run at a fifth of its 300 steps (to keep the whole script
+# within its time limit; at step 100 the loss already sits 2.2 below the
+# first, and the check asks for 0.1)
+LM_100M_STEPS, LM_100M_B, LM_100M_T = 60, 4, 256
 LM_100M_RESUME = 10         # steps of the resumed run
 LM_TRAIN_T = 1024           # full-width LM steps' sequence length
 LM_TRAIN_STEPS = 3          # full-width Qwen3-4B steps at B = 1
@@ -658,6 +689,11 @@ HALF_E2E = (("int8", "fp16", 1), ("bf16", "fp32", 0))   # card vs CPU
 # own rounding; int8 rows at a rounding tie), tests/test_torch_half_vit.py
 HALF_E2E_RTOL = {"int8+fp16-p1": 0.05, "fp16": 3e-3, "bf16": 2.5e-2}
 QUANT_SPEC = ("int8", "fp32", 1)
+TILE_REPS = 10              # phase 26: a candidate's device us, best of
+AB_REPS = 3                 # phase 26 (d): host-timed calls a measurement
+# phase 26: the autotuner's cache, emptied at the start of every run so
+# that every run sweeps from empty and reads no other run's winners
+AUTOTUNE_CACHE = ROOT / "build" / "chip_smoke_autotune"
 # the GEMMs of the quantized full-width model, (K, N): patch embed,
 # fused QKV, w_o, MLP up, MLP down (15 heads of 64 after pruning)
 GEMM_SHAPES = ((768, 1024), (1024, 2880), (960, 1024), (1024, 4096),
@@ -740,6 +776,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke runs only on the GPU",
               file=sys.stderr)
         return 2
+    # the autotuner's cache: a fresh directory, so that the run sweeps
+    # from empty and reads no winner of another run or card
+    shutil.rmtree(AUTOTUNE_CACHE, ignore_errors=True)
+    AUTOTUNE_CACHE.mkdir(parents=True)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(AUTOTUNE_CACHE)
+    os.environ.pop("REPRO_AUTOTUNE", None)
     global LOG
     OUT_DIR.mkdir(exist_ok=True)
     LOG = open(OUT_DIR / "chip_smoke.log", "w")
@@ -939,6 +981,11 @@ def run(torch):
     # phase 25 ------------------------------------------------------------
     lat["last_lanes"] = last_lanes_phase(torch, dev, count, lat["moe"])
 
+    # phase 26 ------------------------------------------------------------
+    lat["autotune"] = autotune_phase(torch, dev, count)
+    from repro_torch.kernels import autotune
+    count("autotune", autotune.SWEEP_LAUNCHES)   # every sweep of the run
+
     out = []
     for name in KERNEL_SOURCES:
         src, replaces = KERNEL_SOURCES[name]
@@ -993,15 +1040,12 @@ def gemm_checks(torch, i8, qt, dev, gen, n_layers, dt):
                          DEVICE_NAMES["int8_matmul"])
         # the other output tile width, checked and timed for the record
         tile = i8.tile_n(N, K)
-        chosen = i8.tile_n
-        i8.tile_n = lambda n, k: 384 - tile
-        try:
-            other = i8.int8_matmul_cuda(xq, wq, sx, sw, dt)
-            check(torch.equal(other, want), f"int8_matmul {suf} {M}x{K}x{N}"
-                  f": the {384 - tile}-wide tile differs from plain")
-            o_ms = timed(torch, lambda: i8.KERNEL.relaunch(1))
-        finally:
-            i8.tile_n = chosen
+        check(i8.tile_for(M, N, K) == {"bn": tile}, "phase 2 runs before "
+              "any sweep: the default tile")
+        other = i8.int8_matmul_cuda(xq, wq, sx, sw, dt, bn=384 - tile)
+        check(torch.equal(other, want), f"int8_matmul {suf} {M}x{K}x{N}"
+              f": the {384 - tile}-wide tile differs from plain")
+        o_ms = timed(torch, lambda: i8.KERNEL.relaunch(1))
         p_ms = timed(torch, lambda: i8.int8_matmul_plain(xq, wq, sx, sw, dt))
         l_ms = timed(torch, lambda: torch._int_mm(xq, wq))
         xf = torch.randn((M, K), generator=gen, device=dev).to(dt)
@@ -1536,7 +1580,7 @@ def serve_offload(torch, cfg, dev, count):
     say(f"  clips + ground truth {t_gt:.1f} s; full-res B=1 infer median "
         f"{anchor * 1e3:.2f} ms (the delay model's anchor)")
     t0 = time.perf_counter()
-    data = lo.build_profile_dataset(srv, part, patch)
+    data = lo.build_profile_dataset(srv, part, patch, PROFILE_FRAMES)
     t_prof = time.perf_counter() - t0
     t0 = time.perf_counter()
     size_e, acc_e, metrics = lo.fit_estimators(data, dev)
@@ -4227,7 +4271,7 @@ def kernel_breakdown(torch, fn, names, n=20):
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 key = next((k for k in names if k in e.name), None)
-                if key:
+                if key is not None:         # "" matches every kernel
                     us[key] += e.time_range.elapsed_us() / calls
         if all(us.values()):
             return us
@@ -6405,6 +6449,402 @@ def last_lanes_phase(torch, dev, count, moe_fp32):
     say(f"  phase 25: {out['phase_s']:.1f} s ((A) {out['t_a_s']:.1f}, (B) "
         f"{out['t_b_s']:.1f})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the kernel autotuner (phase 26)
+
+
+def tile_key(tile) -> str:
+    return json.dumps(tile, sort_keys=True)
+
+
+def grid_rows(torch, kernel, name, grid, default, run, want, close,
+              bucket=None):
+    """Phase 26 (a): every tile of ``grid`` through ``run(tile)`` against
+    the plain result ``want`` (``close`` raises past the kernel's limit),
+    each timed (device us by CUDA events, best of TILE_REPS, the
+    candidates in turns, each launch queued behind a spin kernel: the
+    sweep's timer); prints each beside the default, the fastest here and
+    the winner the warmups cached for ``bucket``."""
+    from repro_torch.kernels import autotune
+    errs = []
+    for tile in grid:
+        got = run(tile)
+        torch.cuda.synchronize()
+        errs.append(close(f"phase 26: {name} {tile}", got, want))
+    times = autotune.time_candidates(
+        [lambda t=t: run(t) for t in grid], TILE_REPS)
+    rows = [{"tile": t, "max_abs_err": e, "us": us}
+            for t, e, us in zip(grid, errs, times)]
+    by = {tile_key(r["tile"]): r["us"] for r in rows}
+    fast = min(rows, key=lambda r: r["us"])["tile"]
+    cached = autotune.lookup(kernel, bucket) if bucket else None
+    say(f"  {name}: " + "; ".join(
+        f"{r['tile']} {r['us']:.2f} us" for r in rows)
+        + f" | default {default} {by[tile_key(default)]:.2f} us, fastest "
+        f"{fast}" + (f", cached winner {cached} "
+                     f"{by[tile_key(cached)]:.2f} us" if cached else
+                     (", no cached winner" if bucket else "")))
+    return {"candidates": rows, "default": default, "fastest": fast,
+            "cached_winner": cached, "bucket": bucket}
+
+
+def tile_checks(torch, dev):
+    """Phase 26 (a): every candidate tile of the four swept kernels held
+    against the plain version under the kernel's existing limit (1e-4 at
+    float32 attention, 1e-5 at decode, one ULP at >= 99% equal at half,
+    bit-equal int8), at ViTDet-L's full-resolution shapes (window and
+    flash at float32, fp16 and bf16; the int8+fp16-p1 GEMMs at M = 8192)
+    and Qwen3-4B's decode step, and at the other phase-2 rows' shapes
+    (flash at dbrx's G = 6 and phase 24 / 25's, decode at dbrx's, phi4's,
+    deepseek-7b's and whisper's steps, the LM GEMMs at M = 8): their
+    times give PERF.md's winners."""
+    from repro_torch.configs.dbrx_132b import CONFIG as DBRX
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    from repro_torch.configs.vitdet_l import CONFIG as VIT
+    from repro_torch.core import vit_backbone as vb
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.window_attention import ops as win
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    part = vb.vit_partition(VIT)
+    w2, H, Dh = part.window ** 2, VIT.n_heads, VIT.head_dim
+    T = part.grid_h * part.grid_w
+    out = {}
+
+    def attn_close(tol):
+        return lambda n, got, want: agree(torch, n, got, want, tol)[0]
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    for dt in (torch.float32, torch.float16, torch.bfloat16):
+        suf = {torch.float32: "f32", torch.float16: "f16",
+               torch.bfloat16: "bf16"}[dt]
+        # window: the fused QKV's column views, as a full-res wave has them
+        qkv = rnd((B, T, 3 * H * Dh), dt)
+        q, k, v = (qkv[..., i * H * Dh:(i + 1) * H * Dh].view(B, T, H, Dh)
+                   for i in range(3))
+        out[f"window_attention vit {suf}"] = grid_rows(
+            torch, "window_attention", f"window_attention vit {suf} "
+            f"({B}, {T}, {H}, {Dh}) w2={w2}",
+            win.tile_grid(B, T, H, Dh, w2), win.DEFAULT_TILE,
+            lambda t: win.window_attention_cuda(q, k, v, w2, **t),
+            win.window_attention_plain(q, k, v, w2), attn_close(ATTN_TOL),
+            autotune.window_bucket(B, T, H, Dh, w2, dt))
+        out[f"flash_attention vit {suf}"] = grid_rows(
+            torch, "flash_attention", f"flash_attention vit {suf} "
+            f"({B}, {T}, {H}, {Dh})", flash.tile_grid(Dh, dt),
+            flash.default_tile(Dh, dt),
+            lambda t: flash.flash_attention_cuda(q, k, v, False, **t),
+            flash.flash_attention_plain(q, k, v, False),
+            attn_close(ATTN_TOL),
+            autotune.flash_bucket(B, T, T, H, H, Dh, False, dt))
+        del qkv, q, k, v
+        # flash at dbrx-132b's causal prefill (G = 6), and (float32) the
+        # shapes of phases 24 and 25
+        shapes = {"dbrx": (LM_B, LM_T, LM_T, 48, 8, 128, True)}
+        if dt == torch.float32:
+            shapes.update(FLASH_MM)
+        for nm, (b, t, s_, h, kv, dh, causal) in shapes.items():
+            q, k, v = rnd((b, t, h, dh), dt), rnd((b, s_, kv, dh), dt), \
+                rnd((b, s_, kv, dh), dt)
+            out[f"flash_attention {nm} {suf}"] = grid_rows(
+                torch, "flash_attention", f"flash_attention {nm} {suf} "
+                f"({b}, {t}, {s_}, {h}/{kv}, {dh}) causal={causal}",
+                flash.tile_grid(dh, dt), flash.default_tile(dh, dt),
+                lambda t_, q=q, k=k, v=v, c=causal:
+                flash.flash_attention_cuda(q, k, v, c, **t_),
+                flash.flash_attention_plain(q, k, v, causal),
+                attn_close(ATTN_TOL),
+                autotune.flash_bucket(b, t, s_, h, kv, dh, causal, dt))
+        # decode: Qwen3-4B's step (its kernels-line row) and the others'
+        names = ("serving", "dbrx") + (("phi4", "deepseek7b", "whisper")
+                                       if dt == torch.float32 else ())
+        sms = dec.sm_count(dev)
+        for nm in names:
+            (b, S, h, kv, dh), lens = DECODE_SHAPES[nm]
+            q, k, v = rnd((b, 1, h, dh), dt), rnd((b, S, kv, dh), dt), \
+                rnd((b, S, kv, dh), dt)
+            kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out[f"decode_attention {nm} {suf}"] = grid_rows(
+                torch, "decode_attention", f"decode_attention {nm} {suf} "
+                f"({b}, {S}, {h}/{kv}, {dh}) kv_len {lens[0]}",
+                dec.tile_grid(b, kv, h // kv, S, sms),
+                dec.default_tile(b, kv, h // kv, S, sms),
+                lambda t_, q=q, k=k, v=v, kl=kl:
+                dec.decode_attention_cuda(q, k, v, kl, **t_),
+                dec.decode_attention_plain(q, k, v, kl),
+                attn_close(DECODE_TOL),
+                autotune.decode_bucket(b, S, h, kv, dh, dt))
+        torch.cuda.empty_cache()
+
+    def same(n, got, want):
+        check(torch.equal(got, want), f"{n}: kernel differs from plain")
+        return 0.0
+
+    gemms = [(f"vit {K}x{N}", GEMM_M, K, N, torch.float16)
+             for K, N in GEMM_SHAPES]
+    gemms += [(f"qwen3-4b {n}", LM_B, K, N, torch.float32)
+              for n, K, N in lm_gemms(QWEN)]
+    D = DBRX.d_model
+    gemms += [(f"dbrx-132b {n} M={M}", M, K, N, torch.float32)
+              for n, K, N in (("qkv", D, DBRX.q_dim + 2 * DBRX.kv_dim),
+                              ("o", DBRX.q_dim, D))
+              for M in (LM_B, LM_B * LM_T)]
+    for nm, M, K, N, odt in gemms:
+        xq = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        wq = torch.randint(-127, 128, (N, K), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8).t()
+        sx = torch.rand(M, generator=gen, device=dev) * 0.02 + 1e-3
+        sw = torch.rand(N, generator=gen, device=dev) * 0.02 + 1e-3
+        out[f"int8_matmul {nm}"] = grid_rows(
+            torch, "int8_matmul", f"int8_matmul {nm} ({M}, {K}, {N}) -> "
+            f"{str(odt).replace('torch.', '')}", i8.TILE_GRID,
+            {"bn": i8.tile_n(N, K)},
+            lambda t_, xq=xq, wq=wq, sx=sx, sw=sw, odt=odt:
+            i8.int8_matmul_cuda(xq, wq, sx, sw, odt, **t_),
+            i8.int8_matmul_plain(xq, wq, sx, sw, odt), same,
+            autotune.matmul_bucket(M, N, K, torch.int8, torch.int8))
+    return out
+
+
+def vit_ab_server(torch, cfg, dev, spec):
+    """Phase 26: an 8-block full-width ViTDet-L ``ServerModel`` (seed 0;
+    ``spec`` a QuantSpec tuple or None), warmed at full resolution for
+    B buckets 1 and 2, and its full-resolution wave's forward."""
+    from repro_torch import convert
+    from repro_torch.offload.simulator import ServerModel
+    from repro_torch.quant.ptq import QuantSpec
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = convert.init_vitdet_params(cfg, gen, device=dev)
+    srv = ServerModel(cfg, params, b_buckets=(1, 2), device=dev,
+                      quant=QuantSpec(*spec) if spec else None)
+    del params
+    space = [(0, 0, 0, 0)]
+    srv.warmup(space, (1, 2))
+    imgs = torch.rand((B, *cfg.vit.img_size, 3), generator=gen, device=dev)
+
+    def fwd():
+        from repro_torch.core import vit_backbone as vb
+        with torch.no_grad():
+            return vb.forward_det(srv.cfg, srv.params, imgs)
+    return srv, space, fwd
+
+
+def flat_out(torch, o):
+    """The tensors of a forward's outputs (nested tuples / lists / dicts;
+    other leaves skipped) as one float32 vector."""
+    if isinstance(o, torch.Tensor):
+        return o.float().reshape(-1)
+    if isinstance(o, dict):
+        o = list(o.values())
+    if not isinstance(o, (list, tuple)):
+        return torch.zeros(0, device="cuda")
+    return torch.cat([flat_out(torch, x) for x in o])
+
+
+def ab_time(torch, fn, reps=AB_REPS):
+    """Host ms (median of ``reps`` calls, each synchronised) and device ms
+    (the kernels' device time in a trace of two calls) of ``fn``, and
+    its output."""
+    o = fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+    dev_us = kernel_breakdown(torch, fn, ("",), 2)[""]
+    return statistics.median(host), dev_us / 1e3, o
+
+
+def autotune_phase(torch, dev, count):
+    """Phase 26, the kernel autotuner: (a) every candidate tile against
+    the plain version (:func:`tile_checks`); (b) an 8-block full-width
+    ViTDet-L server (float32) and a 4-layer full-width Qwen3-4B engine,
+    warmed, then after ``clear_memory_cache`` warmed again: 0 sweeps and
+    the same winners from disk; (c) with ``REPRO_AUTOTUNE=0`` every
+    lookup gives the default tile; (d) A B B A, the default tiles (A,
+    ``REPRO_AUTOTUNE=0``) against the tuned ones (B): full-resolution
+    waves of the float32, bf16 and int8+fp16-p1 servers and a decode
+    step, host and device ms, the tuned outputs within the card-vs-CPU
+    limits of the default ones (phases 4, 6, 8 and 21 ran card vs CPU
+    at the tuned tiles); the host cost of a lookup.  Fails if any
+    candidate of any sweep of the run raised."""
+    from repro_torch import convert
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    from repro_torch.configs.vitdet_l import CONFIG as VIT
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.int8_matmul import ops as i8
+    from repro_torch.kernels.window_attention import ops as win
+    from repro_torch.models import registry
+    t_phase = time.perf_counter()
+    out = {"warmups": {**autotune.STATS,
+                       "launches": dict(autotune.SWEEP_LAUNCHES)},
+           "cache": str(autotune.cache_path())}
+    say(f"phase 26: the kernel autotuner (cache {autotune.cache_path()}); "
+        f"the run's warmups swept {autotune.STATS['sweeps']} buckets, "
+        f"{autotune.STATS['candidates']} candidates in "
+        f"{autotune.STATS['sweep_s']:.2f} s (+ {autotune.STATS['inputs_s']:.2f}"
+        f" s making inputs), launches {json.dumps(autotune.SWEEP_LAUNCHES)}")
+    t0 = time.perf_counter()
+    out["tiles"] = tile_checks(torch, dev)
+    out["tiles_s"] = time.perf_counter() - t0
+    say(f"  (a) {len(out['tiles'])} shapes, every candidate within its "
+        f"limit: {out['tiles_s']:.1f} s")
+
+    # (b) servers and an engine, warmed twice
+    t0 = time.perf_counter()
+    cut = VIT.replace(n_layers=8)
+    lanes = {}
+    for name, spec in (("float32", None), ("bf16", ("bf16", "fp32", 0)),
+                       ("int8+fp16-p1", ("int8", "fp16", 1))):
+        lanes[name] = vit_ab_server(torch, cut, dev, spec)
+    qcut = QWEN.replace(n_layers=4)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = registry.init_params(qcut, gen, device=dev)
+    eng, _ = lm_engine(torch, qcut, params, dev)
+    del params
+    state = eng._state(LM_B)
+    toks = eng._tokens(np.ones((LM_B, 1)))
+    step = eng._get_decode(LM_B)
+
+    def decode_step():
+        with torch.no_grad():
+            return step(toks, LM_T, state)
+
+    part = lanes["float32"][0].part
+    w2, T = part.window ** 2, part.grid_h * part.grid_w
+    sms = dec.sm_count(dev)
+
+    def tiles():
+        """The tiles the A/B workloads resolve, per lane."""
+        r = {}
+        for name, (srv, _, _) in lanes.items():
+            c, dt = srv.cfg, srv.act_dtype
+            r[f"{name} window"] = win.tile_for(B, T, c.n_heads, c.head_dim,
+                                               w2, dt)
+            r[f"{name} flash"] = flash.tile_for(B, T, T, c.n_heads,
+                                                c.n_heads, c.head_dim,
+                                                False, dt)
+            if name.startswith("int8"):
+                for K, N in GEMM_SHAPES[1:]:
+                    r[f"{name} gemm {K}x{N}"] = i8.tile_for(B * T, N, K)
+        r["qwen3-4b decode"] = dec.tile_for(
+            LM_B, LM_MAX_LEN, QWEN.n_heads, QWEN.n_kv_heads, QWEN.head_dim,
+            torch.float32, sms)
+        return r
+
+    won = tiles()
+    disk = autotune.cache_path().read_text()
+    autotune.clear_memory_cache()
+    sweeps = autotune.STATS["sweeps"]
+    for srv, space, _ in lanes.values():
+        srv.warmup(space, (1, 2))
+    eng.warmup()
+    again = tiles()
+    check(autotune.STATS["sweeps"] == sweeps, f"phase 26 (b): the second "
+          f"warmup swept {autotune.STATS['sweeps'] - sweeps} buckets")
+    check(again == won, f"phase 26 (b): winners {won} then {again}")
+    check(autotune.cache_path().read_text() == disk,
+          "phase 26 (b): the second warmup changed the cache file")
+    out["winners"] = won
+    out["second_warmup_sweeps"] = autotune.STATS["sweeps"] - sweeps
+    say(f"  (b) second warmup after clear_memory_cache: 0 sweeps, the same "
+        f"winners from disk: {json.dumps(won)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) and (d): the default tiles with REPRO_AUTOTUNE=0
+    def defaults(on):
+        if on:
+            os.environ[autotune.ENV_VAR] = "0"
+        else:
+            os.environ.pop(autotune.ENV_VAR, None)
+        autotune.refresh_from_env()
+
+    defaults(True)
+    try:
+        dflt = tiles()
+        want = {}
+        for name, (srv, _, _) in lanes.items():
+            c, dt = srv.cfg, srv.act_dtype
+            want[f"{name} window"] = win.DEFAULT_TILE
+            want[f"{name} flash"] = flash.default_tile(c.head_dim, dt)
+            if name.startswith("int8"):
+                for K, N in GEMM_SHAPES[1:]:
+                    want[f"{name} gemm {K}x{N}"] = {"bn": i8.tile_n(N, K)}
+        want["qwen3-4b decode"] = dec.default_tile(
+            LM_B, QWEN.n_kv_heads, QWEN.n_heads // QWEN.n_kv_heads,
+            LM_MAX_LEN, sms)
+        check(dflt == want, f"phase 26 (c): REPRO_AUTOTUNE=0 resolves "
+              f"{dflt}, not the defaults {want}")
+        check(autotune.tune_decode(LM_B, LM_MAX_LEN, QWEN.n_heads,
+                                   QWEN.head_dim, KV=QWEN.n_kv_heads,
+                                   device=dev) is None
+              and autotune.STATS["sweeps"] == sweeps,
+              "phase 26 (c): a sweep ran with REPRO_AUTOTUNE=0")
+    finally:
+        defaults(False)
+    out["defaults"] = dflt
+    say(f"  (c) REPRO_AUTOTUNE=0: every lookup the default: "
+        f"{json.dumps(dflt)}")
+
+    rtol = {"float32": E2E_RTOL, **HALF_E2E_RTOL, "qwen3-4b": LM_RTOL}
+    work = {f"vit {n} full-res wave": (fn, n) for n, (_, _, fn)
+            in lanes.items()}
+    work["qwen3-4b decode step"] = (decode_step, "qwen3-4b")
+    ab = {}
+    for wname, (fn, lane) in work.items():
+        runs = {}
+        for tag in ("A", "B", "B", "A"):
+            defaults(tag == "A")
+            try:
+                h, d, o = ab_time(torch, fn)
+            finally:
+                defaults(False)
+            runs.setdefault(tag, []).append((h, d, flat_out(torch, o)))
+        a, b = runs["A"][0][2], runs["B"][0][2]
+        err = float((b - a).abs().max() / a.abs().max().clamp_min(1e-30))
+        check(bool(torch.isfinite(b).all()) and err <= rtol[lane],
+              f"phase 26 (d) {wname}: tuned vs default {err} > "
+              f"{rtol[lane]}")
+        ab[wname] = {tag: [(h, d) for h, d, _ in r]
+                     for tag, r in runs.items()}
+        ab[wname]["rel_err"] = err
+        say(f"  (d) {wname}: default host / device ms "
+            + ", ".join(f"{h:.3f} / {d:.3f}" for h, d, _ in runs["A"])
+            + "; tuned " + ", ".join(f"{h:.3f} / {d:.3f}"
+                                     for h, d, _ in runs["B"])
+            + f"; tuned vs default {err:.3g} of the largest (limit "
+            f"{rtol[lane]})")
+    out["ab"] = ab
+
+    # the host cost of a lookup in steady state (a memo hit)
+    n = 100000
+    t = time.perf_counter()
+    for _ in range(n):
+        dec.tile_for(LM_B, LM_MAX_LEN, QWEN.n_heads, QWEN.n_kv_heads,
+                     QWEN.head_dim, torch.float32, sms)
+    out["lookup_us"] = (time.perf_counter() - t) / n * 1e6
+    say(f"  a lookup in steady state: {out['lookup_us']:.3f} us on the "
+        f"host (memo hit, {n} calls)")
+    check(not autotune.FAILURES, f"phase 26: candidates raised in a sweep: "
+          f"{autotune.FAILURES}")
+    out["sweep_log"] = autotune.SWEEP_LOG
+    del lanes, eng, state
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 26: {out['phase_s']:.1f} s")
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -22,7 +22,14 @@
 //  - A block of 4 warps owns 64 MT query rows of one (batch row, head),
 //    MT 16-row m-tiles a warp; the TPU's sequential kv grid axis becomes
 //    a loop over 64-key tiles of the matching kv head.  Grid (T / 64 MT,
-//    H, B); MT = 2 at Dh <= 64, 1 at Dh = 128.
+//    H, B).  MT is a template parameter: the default is m_tiles(Dh), 2 at
+//    Dh <= 64 and 1 at Dh = 128, and at Dh = 64 the wrapper may launch MT
+//    = 1, where the autotuner's sweep found it faster at the call's shape
+//    bucket (kernels/autotune.py, kernels/flash_attention/ops.py:
+//    F32_TILES): a block of 64 query rows wastes less of a short T (one
+//    query row a step of whisper's cross-attention).  MT = 2 at Dh = 128
+//    spilled (1140 / 868 bytes of spill stores / loads, ptxas: O, P V
+//    and S of two m-tiles want ~320 registers) and is not built.
 //  - S = Q K^T and O += P V run as mma.sync m16n8k8 tiles in the 3xTF32
 //    scheme into float32 accumulators; S (16 MT x 64 a warp) and O
 //    (16 MT x Dh) stay in registers.
@@ -59,8 +66,8 @@
 //  - Causal: key tiles wholly above the diagonal are skipped; only tiles
 //    that straddle it or S test the mask.
 // Shared memory: Q plus two stages of K and V, (64 MT + 4 x 64) x (Dh + 4)
-// floats: 104 KB at Dh = 64, MT = 2 (two blocks an SM), 169 KB at
-// Dh = 128.
+// floats: 104 KB at Dh = 64, MT = 2 (two blocks an SM), 87 KB at MT = 1;
+// 169 KB at Dh = 128.
 //
 // Element types (common.cuh): q, k, v and out all float32, fp16 or bf16,
 // exported as flash_attention_{f32,f16,bf16}.  Float32 runs the kernel
@@ -81,7 +88,7 @@
 //    only way to the half tensor cores' full rate.  A block of 128 query
 //    rows of one (batch row, head) has two consumer warpgroups of 64
 //    rows and one producer warp.  The producer's lane 0 loads Q once and
-//    keeps a ring of three K / V stages full with TMA (4D maps over
+//    keeps a ring of STAGES K / V stages full with TMA (4D maps over
 //    (Dh, heads, tokens, batch) built per call, so the fused QKV product's
 //    column views go in as they are), each stage completing on a "full"
 //    mbarrier and reused once all eight consumer warps have arrived on
@@ -90,9 +97,12 @@
 //    two such panels, Dh = 16 or 32 one panel whose extra columns TMA
 //    fills with zeros (exact zeros in Q K^T, unstored in O).  Rows past T
 //    or S read as zero; masked scores are -inf.
-//  - S = Q K^T: wgmma with Q and K both K-major in shared memory, 128
-//    keys a tile at Dh <= 64 (64 at Dh = 128, where O takes 64 registers
-//    a thread).  The online softmax is the float32 kernel's in registers,
+//  - S = Q K^T: wgmma with Q and K both K-major in shared memory, BN
+//    keys a tile.  BN and STAGES are template parameters: the default is
+//    BN = 128 at Dh <= 64 (64 at Dh = 128, where O takes 64 registers a
+//    thread) and three stages; the wrapper may launch BN 64 / 128 and two
+//    or three stages where the autotuner's sweep found one faster at the
+//    call's shape bucket (ops.py: HALF_TILES; BN = 128 only at Dh <= 64).  The online softmax is the float32 kernel's in registers,
 //    in base 2, with its -inf handling; the scale multiplies the row max
 //    of the raw scores once and folds into p = 2^(s scale - max) as one
 //    FMA, and 2^x is one MUFU op (ex2.approx.ftz).  The score
@@ -146,10 +156,10 @@ struct Args {
 // alone takes 64 registers a tile)
 __host__ __device__ constexpr int m_tiles(int dh) { return dh <= 64 ? 2 : 1; }
 
-template <int DH, typename E>
+template <int DH, int MT, typename E>
 __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1)
     flash_attention_kernel(const Args<E> a) {
-  constexpr int LD = DH + 4, ND = DH / 8, NJ = kBK / 8, MT = m_tiles(DH);
+  constexpr int LD = DH + 4, ND = DH / 8, NJ = kBK / 8;
   constexpr int BQ = 64 * MT;  // query rows a block
   extern __shared__ __align__(16) float sm[];
   float* Qs = sm;               // BQ x LD
@@ -361,14 +371,14 @@ __global__ void __launch_bounds__(kThreads, DH <= 64 ? 2 : 1)
   }
 }
 
-template <int DH, typename E>
+template <int DH, int MT, typename E>
 cudaError_t launch(const Args<E>& a, int B, cudaStream_t stream) {
-  constexpr int BQ = 64 * m_tiles(DH);
+  constexpr int BQ = 64 * MT;
   const size_t smem = sizeof(float) * (BQ + 4 * kBK) * (DH + 4);
-  cudaError_t e = repro_allow_smem(flash_attention_kernel<DH, E>, smem);
+  cudaError_t e = repro_allow_smem(flash_attention_kernel<DH, MT, E>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.T + BQ - 1) / BQ, a.H, B);
-  flash_attention_kernel<DH, E><<<grid, kThreads, smem, stream>>>(a);
+  flash_attention_kernel<DH, MT, E><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -379,18 +389,19 @@ bool aligned16(const void* p) {
 // ---------------------------------------------------------------------------
 // fp16 / bf16: TMA loads, wgmma on the half tensor cores.
 
-// Tile sizes of the half kernel for head width DH.  Shared rows are 128
-// bytes, 64 half columns, the 128-byte swizzle's row: a head of DH > 64
-// takes DH / 64 such panels, and one of DH < 64 is zero-filled by TMA to
-// one panel (its extra columns add exact zeros to Q K^T, and their
-// outputs are not stored).
-template <int DH>
+// Tile sizes of the half kernel for head width DH, BN_ keys a tile and a
+// ring of ST_ stages.  Shared rows are 128 bytes, 64 half columns, the
+// 128-byte swizzle's row: a head of DH > 64 takes DH / 64 such panels, and
+// one of DH < 64 is zero-filled by TMA to one panel (its extra columns add
+// exact zeros to Q K^T, and their outputs are not stored).
+template <int DH, int BN_, int ST_>
 struct HalfTile {
   static constexpr int DP = DH < 64 ? 64 : DH;  // staged head width
   static constexpr int NP = DP / 64;            // 64-column panels
   static constexpr int BQ = 128;                // query rows: 2 warpgroups
-  static constexpr int BN = DP == 64 ? 128 : 64;  // keys a tile
-  static constexpr int STAGES = 3;
+  static constexpr int BN = BN_;                // keys a tile
+  static constexpr int STAGES = ST_;
+  static_assert(BN == 64 || (BN == 128 && DP == 64), "BN");
   static constexpr int Q_PANEL = BQ * 128, KV_PANEL = BN * 128;  // bytes
   static constexpr int Q_BYTES = NP * Q_PANEL, KV_BYTES = NP * KV_PANEL;
   static constexpr int STAGE = 2 * KV_BYTES;    // K then V
@@ -403,14 +414,14 @@ constexpr int kHalfConsumers = 2;                        // warpgroups
 constexpr int kHalfThreads = kHalfConsumers * 128 + 32;  // + producer warp
 constexpr int kSched = 1;   // named barriers kSched + wg: the issue turns
 
-template <int DH, typename E>
+template <int DH, int BN_, int ST_, typename E>
 __global__ void __launch_bounds__(kHalfThreads, 1)
     flash_attention_kernel_half(const __grid_constant__ CUtensorMap mq,
                                 const __grid_constant__ CUtensorMap mk,
                                 const __grid_constant__ CUtensorMap mv,
                                 E* __restrict__ out, int T, int S, int H,
                                 int KV, float scale_log2, int causal) {
-  using L = HalfTile<DH>;
+  using L = HalfTile<DH, BN_, ST_>;
   constexpr int BQ = L::BQ, BN = L::BN, NP = L::NP, ST = L::STAGES;
   constexpr int NS = BN / 8;      // 8-key blocks of a score row
   extern __shared__ uint8_t smem_raw[];
@@ -667,13 +678,13 @@ bool head_map(CUtensorMap* map, const E* base, int DH, int heads, int rows,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH, typename E>
+template <int DH, int BN, int ST, typename E>
 cudaError_t launch_half(const E* q, const E* k, const E* v, E* out, int B,
                         int T, int S, int H, int KV, long long sqb,
                         long long sqt, long long skb, long long skt,
                         long long svb, long long svt, float scale_log2,
                         int causal, cudaStream_t stream) {
-  using L = HalfTile<DH>;
+  using L = HalfTile<DH, BN, ST>;
   CUtensorMap mq, mk, mv;
   int rows = S;
   if (S == 0) {  // no key: no K / V tile is loaded; their maps are q's
@@ -687,38 +698,45 @@ cudaError_t launch_half(const E* q, const E* k, const E* v, E* out, int B,
       !head_map(&mk, k, DH, KV, rows, B, skt, skb, L::BN) ||
       !head_map(&mv, v, DH, KV, rows, B, svt, svb, L::BN))
     return cudaErrorInvalidValue;
-  cudaError_t e = repro_allow_smem(flash_attention_kernel_half<DH, E>, L::SMEM);
+  auto* kernel = flash_attention_kernel_half<DH, BN, ST, E>;
+  cudaError_t e = repro_allow_smem(kernel, L::SMEM);
   if (e != cudaSuccess) return e;
   dim3 grid((T + L::BQ - 1) / L::BQ, H, B);
-  flash_attention_kernel_half<DH, E><<<grid, kHalfThreads, L::SMEM, stream>>>(
-      mq, mk, mv, out, T, S, H, KV, scale_log2, causal);
+  kernel<<<grid, kHalfThreads, L::SMEM, stream>>>(mq, mk, mv, out, T, S, H,
+                                                   KV, scale_log2, causal);
   return cudaGetLastError();
 }
 
 // TMA's terms: 16-byte-aligned bases and byte strides (the wrapper copies
-// a view that misses them)
+// a view that misses them).  (bn, stages) picks the tile: 128 or 64 keys
+// (64 only at Dh = 128), two or three stages.
 template <typename E>
 int entry_half(const E* q, const E* k, const E* v, E* out, int B, int T_,
                int S, int H, int KV, int Dh, long long sqb, long long sqt,
                long long skb, long long skt, long long svb, long long svt,
-               float scale, int causal, cudaStream_t st) {
+               float scale, int causal, int bn, int stages, cudaStream_t st) {
   constexpr int V = Vec16<E>::N;
   if (!aligned16(q) || !aligned16(k) || !aligned16(v) ||
       (sqb | sqt | skb | skt | svb | svt) % V || !(scale > 0.0f))
     return cudaErrorInvalidValue;
   const float sl = scale * kLog2e;
-  switch (Dh) {
-    case 16: return launch_half<16>(q, k, v, out, B, T_, S, H, KV, sqb, sqt,
-                                    skb, skt, svb, svt, sl, causal, st);
-    case 32: return launch_half<32>(q, k, v, out, B, T_, S, H, KV, sqb, sqt,
-                                    skb, skt, svb, svt, sl, causal, st);
-    case 64: return launch_half<64>(q, k, v, out, B, T_, S, H, KV, sqb, sqt,
-                                    skb, skt, svb, svt, sl, causal, st);
-    case 128: return launch_half<128>(q, k, v, out, B, T_, S, H, KV, sqb,
-                                      sqt, skb, skt, svb, svt, sl, causal,
-                                      st);
-    default: return cudaErrorInvalidValue;
-  }
+#define REPRO_FLASH_HALF(DH, BN, ST)                                         \
+  if (Dh == DH && bn == BN && stages == ST)                                  \
+    return launch_half<DH, BN, ST>(q, k, v, out, B, T_, S, H, KV, sqb, sqt,  \
+                                   skb, skt, svb, svt, sl, causal, st)
+#define REPRO_FLASH_HALF_64(DH)                                              \
+  REPRO_FLASH_HALF(DH, 128, 3);                                              \
+  REPRO_FLASH_HALF(DH, 128, 2);                                              \
+  REPRO_FLASH_HALF(DH, 64, 3);                                               \
+  REPRO_FLASH_HALF(DH, 64, 2)
+  REPRO_FLASH_HALF_64(16);
+  REPRO_FLASH_HALF_64(32);
+  REPRO_FLASH_HALF_64(64);
+  REPRO_FLASH_HALF(128, 64, 3);
+  REPRO_FLASH_HALF(128, 64, 2);
+#undef REPRO_FLASH_HALF_64
+#undef REPRO_FLASH_HALF
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -727,7 +745,7 @@ template <typename E>
 int entry(const E* q, const E* k, const E* v, E* out, int B, int T_, int S,
           int H, int KV, int Dh, long long sqb, long long sqt, long long skb,
           long long skt, long long svb, long long svt, float scale,
-          int causal, int device, void* stream) {
+          int causal, int mt, int bn, int stages, int device, void* stream) {
   cudaError_t e = repro_begin(device);
   if (e != cudaSuccess) return e;
   if (KV <= 0 || H % KV) return cudaErrorInvalidValue;
@@ -735,7 +753,7 @@ int entry(const E* q, const E* k, const E* v, E* out, int B, int T_, int S,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if constexpr (sizeof(E) != 4) {
     return entry_half(q, k, v, out, B, T_, S, H, KV, Dh, sqb, sqt, skb, skt,
-                      svb, svt, scale, causal, st);
+                      svb, svt, scale, causal, bn, stages, st);
   } else {
     constexpr int V = Vec16<E>::N;   // 16-byte vectors: strides in elements
     const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
@@ -743,13 +761,13 @@ int entry(const E* q, const E* k, const E* v, E* out, int B, int T_, int S,
     const Args<E> a{q,   k,   v,   out, T_,  S,   H,
                     KV,  sqb, sqt, skb, skt, svb, svt,
                     scale * kLog2e, causal, vec};
-    switch (Dh) {
-      case 16: return launch<16>(a, B, st);
-      case 32: return launch<32>(a, B, st);
-      case 64: return launch<64>(a, B, st);
-      case 128: return launch<128>(a, B, st);
-      default: return cudaErrorInvalidValue;
-    }
+    // mt m-tiles a warp: m_tiles(Dh) at every width, or 1 at Dh = 64
+    if (Dh == 16 && mt == 2) return launch<16, 2>(a, B, st);
+    if (Dh == 32 && mt == 2) return launch<32, 2>(a, B, st);
+    if (Dh == 64 && mt == 2) return launch<64, 2>(a, B, st);
+    if (Dh == 64 && mt == 1) return launch<64, 1>(a, B, st);
+    if (Dh == 128 && mt == 1) return launch<128, 1>(a, B, st);
+    return cudaErrorInvalidValue;
   }
 }
 
@@ -758,9 +776,10 @@ int entry(const E* q, const E* k, const E* v, E* out, int B, int T_, int S,
       const T* q, const T* k, const T* v, T* out, int B, int T_, int S,      \
       int H, int KV, int Dh, long long sqb, long long sqt, long long skb,    \
       long long skt, long long svb, long long svt, float scale, int causal,  \
-      int device, void* stream) {                                            \
+      int mt, int bn, int stages, int device, void* stream) {                \
     return entry<T>(q, k, v, out, B, T_, S, H, KV, Dh, sqb, sqt, skb, skt,   \
-                    svb, svt, scale, causal, device, stream);                \
+                    svb, svt, scale, causal, mt, bn, stages, device,         \
+                    stream);                                                 \
   }
 
 REPRO_FLOAT_TYPES(REPRO_FLASH_ENTRY)

@@ -89,6 +89,16 @@
 //    flight do not hide.
 // The half kernel takes 16-byte-aligned bases and strides; the wrapper
 // copies a view that misses them, and counts the copy.
+//
+// Windows a block (wb, both types): one (window, head) a block is the
+// default and the kernels above, unchanged.  Where w2 <= 64 and Dh <= 64
+// the wrapper may launch wb = 2 or 4 windows of one head a block, where
+// the autotuner's sweep found it faster at the call's shape bucket
+// (kernels/autotune.py): the block walks its windows with two buffers,
+// and the next window's cp.async copies go out before the current
+// window's arithmetic (window_attention_kernel_wb / _half_wb).  Twice the
+// shared memory a block: two blocks an SM at float32 (104 KB), four at
+// half (54 KB).
 #include <math.h>
 
 #include <cstdint>
@@ -299,6 +309,53 @@ cudaError_t launch(const Args<T>& a, int n_items, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// wb windows of one head a block (w2 <= 64, Dh <= 64): block x serves head
+// x % H of windows [wb (x / H), wb (x / H) + wb) of the B * W, with two
+// buffers; window i + 1's copies go out before window i's arithmetic.
+template <int WB, typename T>
+__global__ void __launch_bounds__(128, 2)
+    window_attention_kernel_wb(const Args<T> a, int n_bw) {
+  const int h = blockIdx.x % a.H, bw0 = blockIdx.x / a.H * WB;
+  const int n = min(WB, n_bw - bw0);
+  const int w2p = (a.w2 + 15) / 16 * 16, ld = a.Dh + 4;
+  const int bufn = 3 * w2p * ld;                 // floats a buffer
+  extern __shared__ __align__(16) float sm[];
+  // pad rows (w2 <= row < w2p) of q, k and v in both buffers are zero: no
+  // copy writes them
+  const int pr = w2p - a.w2;
+  for (int idx = threadIdx.x; idx < 6 * pr * a.Dh; idx += blockDim.x) {
+    const int m = idx / (pr * a.Dh), r = idx % (pr * a.Dh);
+    sm[(m / 3) * bufn + (m % 3) * w2p * ld + (a.w2 + r / a.Dh) * ld +
+       r % a.Dh] = 0.0f;
+  }
+  const int it0 = bw0 * a.H + h;
+  if (item_valid(a, it0)) load_item(a, it0, sm, w2p, ld);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    const int it = it0 + i * a.H;
+    if (i + 1 < n && item_valid(a, it + a.H))
+      load_item(a, it + a.H, sm + ((i + 1) & 1) * bufn, w2p, ld);
+    cp_async_commit();
+    cp_async_wait<1>();   // window i's rows have landed
+    __syncthreads();
+    attend<8, 8>(a, it, sm + (i & 1) * bufn, w2p, ld);
+    __syncthreads();      // every warp is done with buffer i & 1
+  }
+}
+
+template <int WB, typename T>
+cudaError_t launch_wb(const Args<T>& a, int n_bw, cudaStream_t stream) {
+  const int w2p = (a.w2 + 15) / 16 * 16;
+  const size_t smem = sizeof(float) * 2 * 3 * w2p * (a.Dh + 4);
+  cudaError_t e = repro_allow_smem(window_attention_kernel_wb<WB, T>, smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks =
+      static_cast<long long>((n_bw + WB - 1) / WB) * a.H;
+  window_attention_kernel_wb<WB, T>
+      <<<static_cast<int>(blocks), 2 * w2p, smem, stream>>>(a, n_bw);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // fp16 / bf16: half rows in shared memory, m16n8k16 half tensor cores.
 
@@ -342,7 +399,7 @@ __device__ __forceinline__ void stage_half(const Args<E>& a, int it, E* buf,
 // product, float32 sums), the row softmax in float32 in base 2, O =
 // P_hi V + P_lo V (half_mma.cuh), rows divided by their sum and rounded
 // once; zeros for a pad window.
-template <int NT, int ND, typename E>
+template <int NT, int ND, int VWAIT = 0, typename E>
 __device__ __forceinline__ void attend_half(const Args<E>& a, int it,
                                             const E* buf,
                                             const HalfBuf& hb) {
@@ -429,10 +486,10 @@ __device__ __forceinline__ void attend_half(const Args<E>& a, int it,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
 
-  // O = P_hi V + P_lo V per k16 step of keys, once V has landed;
-  // ldmatrix.trans gives V's B fragments of two neighbouring 8-feature
-  // tiles
-  cp_async_wait<0>();
+  // O = P_hi V + P_lo V per k16 step of keys, once V has landed (VWAIT:
+  // the copy groups of a next window still in flight); ldmatrix.trans
+  // gives V's B fragments of two neighbouring 8-feature tiles
+  cp_async_wait<VWAIT>();
   __syncthreads();
   float o[ND][4];
 #pragma unroll
@@ -526,6 +583,70 @@ cudaError_t launch_half(const Args<E>& a, int n_items, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// wb windows of one head a block at half (w2 <= 64, Dh <= 64), as
+// window_attention_kernel_wb: two buffers; window i + 1's q / k and v copy
+// groups go out before window i's arithmetic, whose S waits for its own
+// q and k (three groups may stay in flight) and P V for its v (two).
+template <int WB, typename E>
+__global__ void __launch_bounds__(128, 4)
+    window_attention_kernel_half_wb(const Args<E> a, int n_bw) {
+  const HalfBuf hb(a.w2, a.Dh);
+  extern __shared__ __align__(16) uint8_t smh[];
+  E* const sm = reinterpret_cast<E*>(smh);
+  const int h = blockIdx.x % a.H, bw0 = blockIdx.x / a.H * WB;
+  const int n = min(WB, n_bw - bw0);
+  // pad rows and the pad column block of every row, in both buffers, are
+  // zero: no copy writes them
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const int pr = hb.w2p - a.w2, cb = hb.dp / 8;
+  for (int idx = threadIdx.x; idx < 6 * pr * cb; idx += blockDim.x) {
+    const int m = idx / (pr * cb), r = idx % (pr * cb);
+    *reinterpret_cast<uint4*>(sm + (m / 3) * hb.elems +
+                              ((m % 3) * hb.w2p + a.w2 + r / cb) * hb.ld +
+                              (r % cb) * 8) = zero;
+  }
+  if (hb.dp != a.Dh)
+    for (int idx = threadIdx.x; idx < 6 * a.w2; idx += blockDim.x) {
+      const int m = idx / a.w2;
+      *reinterpret_cast<uint4*>(sm + (m / 3) * hb.elems +
+                                ((m % 3) * hb.w2p + idx % a.w2) * hb.ld +
+                                a.Dh) = zero;
+    }
+  const int it0 = bw0 * a.H + h;
+  const bool v0 = item_valid(a, it0);
+  if (v0) stage_half(a, it0, sm, hb, 0, 2);
+  cp_async_commit();
+  if (v0) stage_half(a, it0, sm, hb, 2, 3);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    const int it = it0 + i * a.H;
+    const bool nx = i + 1 < n && item_valid(a, it + a.H);
+    E* const nb = sm + ((i + 1) & 1) * hb.elems;
+    if (nx) stage_half(a, it + a.H, nb, hb, 0, 2);
+    cp_async_commit();
+    if (nx) stage_half(a, it + a.H, nb, hb, 2, 3);
+    cp_async_commit();
+    cp_async_wait<3>();   // window i's q and k have landed
+    __syncthreads();
+    attend_half<8, 8, 2>(a, it, sm + (i & 1) * hb.elems, hb);
+    __syncthreads();      // every warp is done with buffer i & 1
+  }
+}
+
+template <int WB, typename E>
+cudaError_t launch_half_wb(const Args<E>& a, int n_bw, cudaStream_t stream) {
+  const HalfBuf hb(a.w2, a.Dh);
+  const size_t smem = sizeof(E) * 2 * hb.elems;
+  cudaError_t e =
+      repro_allow_smem(window_attention_kernel_half_wb<WB, E>, smem);
+  if (e != cudaSuccess) return e;
+  const long long blocks =
+      static_cast<long long>((n_bw + WB - 1) / WB) * a.H;
+  window_attention_kernel_half_wb<WB, E>
+      <<<static_cast<int>(blocks), 2 * hb.w2p, smem, stream>>>(a, n_bw);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -536,11 +657,12 @@ template <typename T>
 int entry(const T* q, const T* k, const T* v, const int* win_valid, T* out,
           int B, int W, int w2, int H, int KV, int Dh, long long sqb,
           long long sqt, long long skb, long long skt, long long svb,
-          long long svt, float scale, int device, void* stream) {
+          long long svt, float scale, int wb, int device, void* stream) {
   cudaError_t e = repro_begin(device);
   if (e != cudaSuccess) return e;
   if (KV <= 0 || H % KV || w2 <= 0 || w2 > 128 || Dh <= 0 || Dh % 8 ||
-      Dh > 128)
+      Dh > 128 || (wb != 1 && wb != 2 && wb != 4) ||
+      (wb > 1 && (w2 > 64 || Dh > 64)))
     return cudaErrorInvalidValue;
   if (B == 0 || W == 0 || H == 0) return cudaSuccess;
   constexpr int V = Vec16<T>::N;   // 16-byte vectors: strides in elements
@@ -550,13 +672,18 @@ int entry(const T* q, const T* k, const T* v, const int* win_valid, T* out,
                   Dh,  sqb, sqt, skb,       skt, svb, svt, scale, vec};
   const long long n_items = static_cast<long long>(B) * W * H;
   if (n_items > 0x7fffffff) return cudaErrorInvalidValue;
+  const int n_bw = B * W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (sizeof(T) != 4) {   // half rows: 16-byte copies only
     if (!vec) return cudaErrorInvalidValue;
+    if (wb == 2) return launch_half_wb<2>(a, n_bw, s);
+    if (wb == 4) return launch_half_wb<4>(a, n_bw, s);
     if (w2 <= 64 && Dh <= 64)
       return launch_half<8, 8>(a, static_cast<int>(n_items), s);
     return launch_half<16, 16>(a, static_cast<int>(n_items), s);
   } else {
+    if (wb == 2) return launch_wb<2>(a, n_bw, s);
+    if (wb == 4) return launch_wb<4>(a, n_bw, s);
     if (w2 <= 64 && Dh <= 64)
       return launch<8, 8>(a, static_cast<int>(n_items), s);
     return launch<16, 16>(a, static_cast<int>(n_items), s);
@@ -568,9 +695,9 @@ int entry(const T* q, const T* k, const T* v, const int* win_valid, T* out,
       const T* q, const T* k, const T* v, const int* win_valid, T* out,     \
       int B, int W, int w2, int H, int KV, int Dh, long long sqb,           \
       long long sqt, long long skb, long long skt, long long svb,            \
-      long long svt, float scale, int device, void* stream) {               \
+      long long svt, float scale, int wb, int device, void* stream) {       \
     return entry<T>(q, k, v, win_valid, out, B, W, w2, H, KV, Dh, sqb, sqt, \
-                    skb, skt, svb, svt, scale, device, stream);             \
+                    skb, skt, svb, svt, scale, wb, device, stream);         \
   }
 
 REPRO_FLOAT_TYPES(REPRO_WINDOW_ENTRY)

@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.build import (FLOAT_TYPES, F, I, L, P, CudaKernel,
                                        check_cuda, head_rows, stream_of)
 from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
@@ -52,6 +53,9 @@ def plan(B: int, KV: int, G: int, S: int, sms: int) -> Tuple[int, int]:
     that shares the keys of one (batch row, kv head, group of up to
     MAX_GROUP query heads) -- or of KV_PER_BLOCK adjacent kv heads where
     each has one query head -- and the most keys one of its blocks takes.
+    This is the default; the autotuner may find another cluster size
+    faster at a shape bucket (:func:`tile_grid`, :func:`split_for`), and
+    the wrapper then launches that one.
 
     A short cache, whose splits then hold at most SHORT_SPLIT keys, is cut
     until every SM has BLOCKS_PER_SM blocks: the step is one wave of
@@ -81,6 +85,76 @@ def plan(B: int, KV: int, G: int, S: int, sms: int) -> Tuple[int, int]:
     return max(1, -(-S // keys)), keys
 
 
+def sm_count(device) -> int:
+    """The card's SMs, read once a device."""
+    dev = torch.device(device)
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    sms = _SMS.get(idx)
+    if sms is None:
+        sms = _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return sms
+
+
+def split_keys(n: int, S: int) -> int:
+    """The keys a split of ``n`` takes over a cache of S slots, as
+    :func:`plan` derives them: S / n rounded up to ``KEY_ALIGN``."""
+    keys = max(1, -(-S // n))
+    return -(-keys // KEY_ALIGN) * KEY_ALIGN
+
+
+def default_tile(B: int, KV: int, G: int, S: int, sms: int) -> dict:
+    """The cluster size :func:`plan` picks."""
+    return {"n_split": plan(B, KV, G, S, sms)[0]}
+
+
+def tile_grid(B: int, KV: int, G: int, S: int, sms: int) -> tuple:
+    """The cluster sizes the kernel takes at this shape, the default
+    first: :func:`plan`'s and each of 1, 2, 4, 8 whose even split
+    (``split_keys``) leaves no block of the cluster without a key slot
+    and, split at all, holds at least ``MIN_KEYS_PER_SPLIT`` slots.  The
+    kernel's ring streams a split of any length in tiles, so no split
+    overflows it.  Like the plan, the grid never reads kv_len."""
+    grid = [default_tile(B, KV, G, S, sms)]
+    for n in (1, 2, 4, 8):
+        keys = split_keys(n, S)
+        if ({"n_split": n} not in grid and n <= MAX_CLUSTER
+                and max(1, -(-S // keys)) == n
+                and (n == 1 or keys >= MIN_KEYS_PER_SPLIT)):
+            grid.append({"n_split": n})
+    return tuple(grid)
+
+
+def split_for(n: int, B: int, KV: int, G: int, S: int,
+              sms: int) -> Tuple[int, int]:
+    """(n_split, keys_per_split) of cluster size ``n``: :func:`plan`'s own
+    where it is plan's size, else the even split."""
+    n0, keys0 = plan(B, KV, G, S, sms)
+    return (n0, keys0) if n == n0 else (n, split_keys(n, S))
+
+
+def _bucket(B, S, H, KV, Dh, dtype, sms) -> str:
+    return autotune.decode_bucket(B, S, H, KV, Dh, dtype)
+
+
+def _default(B, S, H, KV, Dh, dtype, sms) -> dict:
+    return default_tile(B, KV, H // KV, S, sms)
+
+
+def _valid(tile, B, S, H, KV, Dh, dtype, sms) -> bool:
+    return tile in tile_grid(B, KV, H // KV, S, sms)
+
+
+def tile_for(B: int, S: int, H: int, KV: int, Dh: int,
+             dtype: torch.dtype, sms: int) -> dict:
+    """The resolved cluster size of a call (the cache's type ``dtype``):
+    the tuned winner of its bucket where one is cached and valid here,
+    else :func:`plan`'s."""
+    return autotune.resolve(
+        ("decode_attention", B, S, H, KV, Dh, dtype, sms),
+        _bucket, _default, _valid)
+
+
 def _aligned(t: torch.Tensor, *strides: int) -> bool:
     """16-byte aligned start and strides (in elements of ``t``)."""
     return t.data_ptr() % 16 == 0 and all(
@@ -89,7 +163,10 @@ def _aligned(t: torch.Tensor, *strides: int) -> bool:
 
 def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_len: torch.Tensor,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None, *,
+                          n_split: Optional[int] = None) -> torch.Tensor:
+    """``n_split``: the cluster size; None resolves it
+    (:func:`tile_for`)."""
     B, T, H, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     if (T != 1 or KV < 1 or H % KV or k.shape != v.shape or k.shape[0] != B
@@ -113,11 +190,14 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention: the cache must have dense heads "
                          "and 16-byte aligned rows (it is read in place)")
     dev = q.device
-    sms = _SMS.get(dev.index)
-    if sms is None:
-        sms = _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    n, keys = plan(B, KV, H // KV, S, sms)
+    sms = sm_count(dev)
+    G = H // KV
+    if n_split is None:
+        n_split = tile_for(B, S, H, KV, Dh, cache_dt, sms)["n_split"]
+    elif {"n_split": n_split} not in tile_grid(B, KV, G, S, sms):
+        raise ValueError(f"decode_attention: n_split {n_split} at S {S}; the "
+                         f"kernel takes {tile_grid(B, KV, G, S, sms)}")
+    n, keys = split_for(n_split, B, KV, G, S, sms)
     out = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=dev)
     scale = Dh ** -0.5 if scale is None else scale
     KERNEL(q, k, v, kv_len, out, Q_TYPE[q.dtype], B, S, H, KV, Dh, n, keys,

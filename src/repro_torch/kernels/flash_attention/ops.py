@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.build import (HALF_TYPES, F, I, L, P, CudaKernel,
                                        aligned_rows, check_cuda, head_rows,
                                        stream_of)
@@ -39,13 +40,72 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
 
 KERNEL = CudaKernel("flash_attention", "flash_attention",
                     [P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, F, I, I,
-                     P])
+                     I, I, I, P])
 HEAD_DIMS = (16, 32, 64, 128)
+
+# The tiles csrc/flash_attention.cu is built for, by precision and head
+# width, the default first.  Float32: 16-row m-tiles a warp (64 mt query
+# rows a block); Dh 16 / 32 keep their one tile, and Dh = 128's mt = 2
+# spilled (ptxas) and is left out.  Half: keys a tile and stages of the
+# TMA ring; at Dh = 128 a 128-key tile's scores and O do not fit the
+# registers, so 64 only.  The autotuner sweeps these grids.
+F32_TILES = {16: ({"mt": 2},), 32: ({"mt": 2},),
+             64: ({"mt": 2}, {"mt": 1}), 128: ({"mt": 1},)}
+_HALF_64 = ({"bn": 128, "stages": 3}, {"bn": 128, "stages": 2},
+            {"bn": 64, "stages": 3}, {"bn": 64, "stages": 2})
+HALF_TILES = {16: _HALF_64, 32: _HALF_64, 64: _HALF_64,
+              128: ({"bn": 64, "stages": 3}, {"bn": 64, "stages": 2})}
+
+
+def m_tiles(Dh: int) -> int:
+    """The float32 kernel's default m-tiles a warp (``m_tiles`` in the
+    source): two where the registers allow, one at Dh = 128."""
+    return 2 if Dh <= 64 else 1
+
+
+def precision(dtype: torch.dtype) -> str:
+    """The autotuner's grid of a type: ``half`` or ``float32``."""
+    return "half" if dtype in HALF_TYPES else "float32"
+
+
+def tile_grid(Dh: int, dtype: torch.dtype) -> tuple:
+    """The tiles the kernel takes at head width ``Dh`` and type ``dtype``,
+    the default first."""
+    return (HALF_TILES if dtype in HALF_TYPES else F32_TILES).get(Dh, ())
+
+
+def default_tile(Dh: int, dtype: torch.dtype) -> dict:
+    """The tile the kernel launches with no tuned winner: ``m_tiles(Dh)``
+    at float32; 128 keys (64 at Dh = 128) and three stages at half."""
+    if dtype in HALF_TYPES:
+        return {"bn": 128 if Dh <= 64 else 64, "stages": 3}
+    return {"mt": m_tiles(Dh)}
+
+
+def _default(B, T, S, H, KV, Dh, causal, dtype) -> dict:
+    return default_tile(Dh, dtype)
+
+
+def _valid(tile, B, T, S, H, KV, Dh, causal, dtype) -> bool:
+    return tile in tile_grid(Dh, dtype)
+
+
+def tile_for(B: int, T: int, S: int, H: int, KV: int, Dh: int, causal: bool,
+             dtype: torch.dtype) -> dict:
+    """The resolved tile of a call: the tuned winner of its bucket where
+    one is cached, else the default (``autotune.resolve``, memoised)."""
+    return autotune.resolve(
+        ("flash_attention", B, T, S, H, KV, Dh, causal, dtype),
+        autotune.flash_bucket, _default, _valid)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = False,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None, *,
+                         mt: Optional[int] = None, bn: Optional[int] = None,
+                         stages: Optional[int] = None) -> torch.Tensor:
+    """``mt`` (float32) or ``bn`` / ``stages`` (fp16 / bf16) pick the
+    tile; None resolves it (:func:`tile_for`)."""
     B, T, H, Dh = q.shape
     S, KV = k.shape[1], k.shape[2]
     if (H % KV or k.shape != v.shape or k.shape[0] != B or k.shape[3] != Dh
@@ -56,6 +116,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = head_rows(q), head_rows(k), head_rows(v)
     check_cuda("flash_attention", q, k, v)
     dt = KERNEL.check_dtype("flash_attention", q, k, v)
+    given = {n: x for n, x in (("mt", mt), ("bn", bn), ("stages", stages))
+             if x is not None}
+    if given:
+        tile = {**default_tile(Dh, dt), **given}
+        if tile not in tile_grid(Dh, dt):
+            raise ValueError(f"flash_attention: tile {given} at Dh {Dh}, "
+                             f"{dt}; the kernel takes {tile_grid(Dh, dt)}")
+    else:
+        tile = tile_for(B, T, S, H, KV, Dh, bool(causal), dt)
     if dt in HALF_TYPES:
         q, k, v = (aligned_rows(KERNEL, t) for t in (q, k, v))
     scale = Dh ** -0.5 if scale is None else scale
@@ -63,6 +132,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KERNEL(q, k, v, out, B, T, S,
            H, KV, Dh, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
            v.stride(0), v.stride(1), float(scale), int(bool(causal)),
+           tile.get("mt", 0), tile.get("bn", 0), tile.get("stages", 0),
            q.device.index, stream_of(q), dtype=dt)
     return out
 

@@ -20,10 +20,11 @@ K that is a multiple of 16: the wrapper zero-pads a K that is not
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.build import I, P, CudaKernel, check_cuda, stream_of
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_plain  # noqa: F401
 
@@ -41,6 +42,33 @@ def tile_n(N: int, K: int) -> int:
     128, where the output's bytes bound it: two 128 x 128 blocks share an
     SM, and one's epilogue overlaps the other's main loop."""
     return 256 if 2 * N * K >= BALANCE * (4 * N + K) else 128
+
+
+# the tile widths csrc/int8_matmul.cu is built for (Tile<BN>); tile_n()
+# picks the default, and the autotuner may find the other faster at a
+# shape bucket
+TILE_GRID = ({"bn": 128}, {"bn": 256})
+
+
+def _bucket(M, N, K) -> str:
+    return autotune.matmul_bucket(M, N, K, torch.int8, torch.int8)
+
+
+def _default(M, N, K) -> dict:
+    return {"bn": tile_n(N, K)}
+
+
+def _valid(tile, M, N, K) -> bool:
+    return tile in TILE_GRID
+
+
+def tile_for(M: int, N: int, K: int) -> dict:
+    """The resolved tile width of an (M, K) x (K, N) product: the tuned
+    winner of its bucket where one is cached, else :func:`tile_n`'s.  The
+    bucket is the reference's (int8, int8) key, whatever the output type:
+    the int8+fp16 and int8+fp32 lanes share winners."""
+    return autotune.resolve(("int8_matmul", M, N, K), _bucket, _default,
+                            _valid)
 
 
 def pad_k(xq: torch.Tensor, wq: torch.Tensor
@@ -62,7 +90,10 @@ def pad_k(xq: torch.Tensor, wq: torch.Tensor
 
 def int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
                      sw: torch.Tensor,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     out_dtype: torch.dtype = torch.float32, *,
+                     bn: Optional[int] = None) -> torch.Tensor:
+    """``bn``: the output tile's width, 128 or 256; None resolves it
+    (:func:`tile_for`)."""
     check_cuda("int8_matmul", xq, wq, sx, sw)
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise ValueError(f"int8_matmul: int8 operands, got {xq.dtype} and "
@@ -83,6 +114,11 @@ def int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     if not xq.is_contiguous() or not wq.t().is_contiguous():
         raise ValueError("int8_matmul: xq must be row-major and wq the "
                          "transpose of a row-major (N, K) matrix")
+    if bn is None:
+        bn = tile_for(M, N, K)["bn"]
+    elif {"bn": bn} not in TILE_GRID:
+        raise ValueError(f"int8_matmul: tile width {bn}, not one of "
+                         f"{TILE_GRID}")
     xq, wq = pad_k(xq, wq)
     if xq.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("int8_matmul: xq and wq must start 16-byte aligned "
@@ -91,6 +127,6 @@ def int8_matmul_cuda(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
     if M and N:
         K = xq.shape[1]
-        KERNEL(xq, wq, sx, sw, out, M, N, K, tile_n(N, K), xq.device.index,
+        KERNEL(xq, wq, sx, sw, out, M, N, K, bn, xq.device.index,
                stream_of(xq), dtype=out_dtype)
     return out

@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels.build import (HALF_TYPES, F, I, L, P, CudaKernel,
                                        aligned_rows, check_cuda, head_rows,
                                        stream_of)
@@ -43,13 +44,46 @@ from repro_torch.kernels.window_attention.ref import (  # noqa: F401
 
 KERNEL = CudaKernel("window_attention", "window_attention",
                     [P, P, P, P, P, I, I, I, I, I, I, L, L, L, L, L, L, F,
-                     I, P])
+                     I, I, P])
 MAX_WINDOW = MAX_HEAD_DIM = 128   # the kernel's register tiles
+MULTI_MAX = 64                    # wb > 1: windows and heads of at most 64
+DEFAULT_TILE = {"wb": 1}          # one (window, head) a block
+
+
+def tile_grid(B: int, T: int, H: int, Dh: int, window: int) -> tuple:
+    """The tiles the kernel takes for this shape, the default first:
+    ``wb`` windows of one head a block, 1, 2 or 4; above 1 only where
+    window and head width are at most ``MULTI_MAX`` and the call has at
+    least ``wb`` windows (the reference's rule)."""
+    grid = [DEFAULT_TILE]
+    if window <= MULTI_MAX and Dh <= MULTI_MAX:
+        grid += [{"wb": wb} for wb in (2, 4) if wb <= B * (T // window)]
+    return tuple(grid)
+
+
+def _default(B, T, H, Dh, window, dtype) -> dict:
+    return DEFAULT_TILE
+
+
+def _valid(tile, B, T, H, Dh, window, dtype) -> bool:
+    return tile in tile_grid(B, T, H, Dh, window)
+
+
+def tile_for(B: int, T: int, H: int, Dh: int, window: int,
+             dtype: torch.dtype) -> dict:
+    """The resolved tile of a call: the tuned winner of its bucket where
+    one is cached and valid here, else one window a block."""
+    return autotune.resolve(
+        ("window_attention", B, T, H, Dh, window, dtype),
+        autotune.window_bucket, _default, _valid)
 
 
 def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           window: int, win_valid: Optional[torch.Tensor] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None, *,
+                          wb: Optional[int] = None) -> torch.Tensor:
+    """``wb``: windows of one head a block; None resolves it
+    (:func:`tile_for`)."""
     B, T, H, Dh = q.shape
     KV = k.shape[2]
     if T % window or H % KV or k.shape != v.shape or k.shape[:2] != (B, T):
@@ -70,6 +104,12 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         valid_arg = wv
     check_cuda("window_attention", *tensors)
     dt = KERNEL.check_dtype("window_attention", q, k, v)
+    if wb is None:
+        wb = tile_for(B, T, H, Dh, window, dt)["wb"]
+    elif {"wb": wb} not in tile_grid(B, T, H, Dh, window):
+        raise ValueError(f"window_attention: wb {wb} at window {window}, "
+                         f"head {Dh}, {B * (T // window)} windows; the kernel "
+                         f"takes {tile_grid(B, T, H, Dh, window)}")
     if dt in HALF_TYPES:
         q, k, v = (aligned_rows(KERNEL, t) for t in (q, k, v))
     scale = Dh ** -0.5 if scale is None else scale
@@ -77,7 +117,7 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KERNEL(q, k, v, valid_arg, out,
            B, T // window, window, H, KV, Dh, q.stride(0), q.stride(1),
            k.stride(0), k.stride(1), v.stride(0), v.stride(1), float(scale),
-           q.device.index, stream_of(q), dtype=dt)
+           wb, q.device.index, stream_of(q), dtype=dt)
     return out
 
 

@@ -99,19 +99,20 @@ def sample_configs():
             if c.quality in (70, 85, 100) and c.beta in (0, 1, 2, 4)]
 
 
-def build_profile_dataset(server: ServerModel, part: Partition, patch: int
+def build_profile_dataset(server: ServerModel, part: Partition, patch: int,
+                          frames: int = PROFILE_FRAMES
                           ) -> Dict[str, np.ndarray]:
     """Offline profiling: (features, payload KiB, F1 against the frame's
     full-resolution output) for every sample config on every frame past
-    the motion model's warm-up."""
+    the motion model's warm-up, over ``frames`` frames of each clip."""
     size = server.cfg.vit.img_size[0]
     codec = MixedResCodec(part, patch, part.downsample)
     X, y_size, y_acc = [], [], []
     for name in PROFILE_VIDEOS:
-        frames, gts = sv.make_clip(name, PROFILE_FRAMES, size=size,
-                                   seed=PROFILE_SEED)
+        clip, gts = sv.make_clip(name, frames, size=size,
+                                 seed=PROFILE_SEED)
         analyzer = mo.RegionMotionAnalyzer(part, patch)
-        for fi, frame in enumerate(frames):
+        for fi, frame in enumerate(clip):
             m, m_f = analyzer.update(frame)
             if fi < PROFILE_SKIP:
                 continue

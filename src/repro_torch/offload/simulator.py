@@ -52,7 +52,10 @@ A half tree (``quant=QuantSpec("int8", "fp16", 1)``, the reference's
 shipped point, or fp16 / bf16 weights) serves its grid in ``act_dtype``:
 activations, zero tiles and cached tiles in that type, the kernels'
 half entry points, detections decoded in float32, and the same grid
-keys as float32.  Not ported yet: the kernel autotuner.
+keys as float32.  On the card ``warmup`` first sweeps the tiles of the
+window, flash and int8 GEMM kernels at every attention and GEMM shape of
+its grid (``kernels.autotune``; winners cached on disk by device kind),
+as the reference's does; off the card it sweeps nothing.
 """
 from __future__ import annotations
 
@@ -68,7 +71,7 @@ from repro_torch.core import mixed_res as mr
 from repro_torch.core import partition as pt
 from repro_torch.core import vit_backbone as vb
 from repro_torch.core.partition import LOW, REUSE, Partition, RegionPlan
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import autotune, dispatch
 from repro_torch.models.config import ModelConfig
 from repro_torch.offload import detection as det
 from repro_torch.offload import motion as mo
@@ -79,7 +82,7 @@ from repro_torch.offload.faults import (DegradationLadder, FaultInjector,
 from repro_torch.offload.optimizer import SystemState
 from repro_torch.offload.tracker import LKTracker
 from repro_torch.quant import ptq
-from repro_torch.quant.qtensor import to_device
+from repro_torch.quant.qtensor import QuantTensor, _leaves, to_device
 from repro_torch.serve.request import (FeatureCache, ServingStats,
                                        StaleCacheEpoch)
 from repro_torch.serve.scheduler import SoloScheduler
@@ -260,10 +263,14 @@ class ServerModel:
         (:meth:`default_plan_space`), collapsed onto the (length bucket,
         beta, capture, B bucket) grid exactly as the reference does.
         Returns the number of keys warmed; afterwards
-        ``stats.steady_compiles`` counts every further first use.
+        ``stats.steady_compiles`` counts every further first use.  On the
+        card the kernels' tiles are swept first
+        (:meth:`_autotune_kernels`), before any key runs.
         """
         t0 = time.perf_counter()
         before = self.stats.compiles
+        if self.device.type == "cuda":
+            self._autotune_kernels(batch_buckets or self.b_buckets)
         space = dict.fromkeys(tuple(p) for p in plan_space)
         self.full_capture = max(
             [self.full_capture] + [cap for (n_low, n_reuse, _, cap) in space
@@ -276,6 +283,37 @@ class ServerModel:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.stats.finish_warmup(t0, before, time.perf_counter())
+
+    def _autotune_kernels(self, batch_buckets) -> None:
+        """Sweep the window / flash tiles at every (B bucket, length
+        bucket) attention shape of the grid and at full resolution, in
+        the grid's ``act_dtype`` (an fp16 grid never reuses float32
+        winners), and, when the tree holds ``QuantTensor``s, the int8
+        GEMM's at the grid's GEMM shapes (fused QKV, w_o, the MLP at
+        every sequence length): the reference's ``_autotune_kernels``.
+        A bucket whose winner is on disk is not swept again."""
+        part, cfg = self.part, self.cfg
+        w2 = part.window * part.window
+        T_full = part.grid_h * part.grid_w
+        dt, dev = self.act_dtype, self.device
+        for b in batch_buckets:
+            for lb in self.length_edges:
+                autotune.tune_window(b, lb * w2, cfg.n_heads, cfg.head_dim,
+                                     w2, dtype=dt, device=dev)
+            autotune.tune_window(b, T_full, cfg.n_heads, cfg.head_dim, w2,
+                                 dtype=dt, device=dev)
+            autotune.tune_flash(b, T_full, T_full, cfg.n_heads,
+                                cfg.head_dim, dtype=dt, device=dev)
+        if any(isinstance(leaf, QuantTensor)
+               for leaf in _leaves(self.params)):
+            qkv_n = cfg.q_dim + 2 * cfg.kv_dim
+            shapes = {(cfg.d_model, qkv_n), (cfg.q_dim, cfg.d_model),
+                      (cfg.d_model, cfg.d_ff), (cfg.d_ff, cfg.d_model)}
+            for b in batch_buckets:
+                for T in {T_full} | {lb * w2 for lb in self.length_edges}:
+                    for (K, N) in sorted(shapes):
+                        autotune.tune_matmul(b * T, N, K, out_dtype=dt,
+                                             device=dev)
 
     def _warm(self, lb: int, beta: int, cap: int, batch: int) -> None:
         H, W = self.cfg.vit.img_size

@@ -33,7 +33,9 @@ cache read the decode kernel, once per layer (MLA's attention runs
 einsums, as in the reference); a mamba layer's prefill runs the
 ``ssd_scan`` kernel (``kernels.dispatch``).  Caches and states are
 updated in place.  A MoE wave's pad slots copy slot 0 and compete for
-expert capacity, as in the reference.
+expert capacity, as in the reference.  On the card ``warmup`` first
+sweeps the decode kernel's cluster size at every B bucket's cache
+(``kernels.autotune``), as the reference's sweeps its block size.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ import torch
 
 from repro_torch.core import seq_mixed_res as smr
 from repro_torch.core.partition import batch_bucket, bucket_n_low
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import autotune, dispatch
 from repro_torch.models import registry
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -289,6 +291,14 @@ class ServeEngine:
             if (n_low + n_reuse) > 0 and beta > 0)
         if pools and self.cfg.family in NO_MIXED_FAMILIES:
             self._refuse_mixed()
+        if self.device.type == "cuda" and self._decodes_on_kernel():
+            # sweep the decode kernel's cluster size at every B bucket's
+            # cache shape before any key runs, as the reference does
+            cfg = self.cfg
+            for B in batch_buckets:
+                autotune.tune_decode(B, sc.max_len, cfg.n_heads,
+                                     cfg.head_dim, KV=cfg.n_kv_heads,
+                                     dtype=sc.cache_dtype, device=self.device)
         with torch.no_grad():
             for B in batch_buckets:
                 self._get_decode(B)(self._tokens(np.zeros((B, 1))), lens[0],
@@ -303,6 +313,12 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.stats.finish_warmup(t0, before, time.perf_counter())
+
+    def _decodes_on_kernel(self) -> bool:
+        """Whether a decode step reads its caches through the decode
+        kernel: every family with GQA attention layers (an SSM LM has
+        none; MLA attends with einsums, as in the reference)."""
+        return self.cfg.family != "ssm" and self.cfg.mla is None
 
     # ------------------------------------------------------------------
     def _form_wave(self) -> Optional[List[Request]]:

@@ -58,7 +58,8 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.configs.llava_next_mistral_7b",
             "repro_torch.configs.deepseek_7b",
             "repro_torch.configs.mistral_nemo_12b",
-            "repro_torch.configs.phi4_mini_3p8b")
+            "repro_torch.configs.phi4_mini_3p8b",
+            "repro_torch.kernels.autotune")
 
 
 def test_every_port_module_imports_without_jax():
