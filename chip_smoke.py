@@ -138,7 +138,7 @@ Phases; any failure exits non-zero and prints no result:
      the 21 sample configs; the launcher profiles 8), fit the size and
      accuracy ``MLPEstimator``s on the card, then run ``Simulation`` for
      TrackB2B, ViTMAlis and ViTMAlis+Reuse on ``cycleS`` and
-     ViTMAlis+Reuse on ``parkS`` (24 frames each, the 4G trace).  Per
+     ViTMAlis+Reuse on ``parkS`` (OFFLOAD_FRAMES = 20 each, the 4G trace).  Per
      run: offloads, the server's wall time per offload, the modelled
      Eq. (2) terms, F1, payload size, REUSE offloads, client host ms per
      frame and launches per kernel.  No key may first run after warmup,
@@ -415,7 +415,28 @@ Phases; any failure exits non-zero and prints no result:
      device ms, the tuned outputs within the card-vs-CPU limits of the
      default ones (phases 4, 6, 8 and 21 compare card vs CPU at the
      tuned tiles); the host cost of a lookup.  Fails if any candidate of
-     any sweep of the run raised.
+     any sweep of the run raised;
+ 27. the device mesh (``launch/mesh.py``, ``distributed/sharding.py``,
+     ``distributed/pipeline.py``, ``models/moe.moe_sharded``, the mesh
+     step of ``train/trainer.py``, ``train/elastic.py``) at world size 1:
+     an NCCL process group of one rank in this process (a free local
+     port), destroyed at the phase's end, and the (1, 1) mesh.  (a)
+     Full-width Qwen3-4B at MESH_LAYERS layers (seed 0, B=1, T=1024,
+     remat): two steps of ``make_train_step(cfg, tc, mesh)`` against two
+     of the mesh-free step from a copy of the same tree, parameters,
+     moments and losses bit-equal (every collective over one rank is the
+     identity and ``gather_leaf`` returns the leaf), each step's host ms
+     and the peak GB, the mesh steps' flash launches (path ``lm_train
+     qwen3-4b mesh (1, 1)``), and the mesh step's parameters saved with
+     their shardings; (b) one full-width dbrx-132b MoE layer in bf16 (16 x 6144
+     x 10752 slabs, 8 x 128 tokens): a forward and a backward through
+     ``moe_sharded`` at ep = 1 against ``moe_local``, outputs, aux and
+     every gradient bit-equal; (c) ``compressed_psum`` over the one-rank
+     world bit-equal to ``quantize_roundtrip``; (d) a 1-stage GPipe
+     forward against the sequential stack (2e-5); (e) ``elastic_restart``
+     from (a)'s checkpoint of the mesh step's parameters, every leaf
+     bit-equal (the moments' sharded round trip is the CPU and card
+     tests').
 
 Every printed line also goes to ``chiprun_out/chip_smoke.log`` and every
 number to ``chiprun_out/chip_smoke.json``.  Each serving path resets the launch counts just before it and reads them
@@ -547,7 +568,7 @@ DECODE_EDGES = (((2, 256, 8, 2, 64), (0, 1)), ((2, 256, 8, 2, 64), (64, 256)),
                 ((3, LM_MAX_LEN, 24, 8, 128), (0, 1, LM_MAX_LEN)),
                 ((2, LM_MAX_LEN, 32, 32, 128), (64, LM_T)))
 E2E_RTOL = 1e-3             # 8-block forward, card vs CPU, relative
-OFFLOAD_FRAMES = 24         # frames of each phase-13 simulation
+OFFLOAD_FRAMES = 20         # frames of each phase-13 simulation
 # frames of phase 13's walkS profile, the first PROFILE_SKIP warming the
 # motion model: 3 x 21 sample configs (the launcher's 8 frames give 126
 # samples; cut to keep the whole run within its time limit)
@@ -565,7 +586,7 @@ DET_RTOL = 1e-3             # its detections, card vs CPU, relative
 # B buckets and the clips' seed (bench_multiclient's)
 MC_VIDEOS = ("walkS", "cycleS", "driveN", "walkB")
 MC_SLOW_VIDEOS = ("parkS", "parkS", "parkS", "driveN")
-MC_FRAMES, MC_SLOW_FRAMES = 12, 20
+MC_FRAMES, MC_SLOW_FRAMES = 8, 20
 MC_B_BUCKETS = (1, 2, 4)
 MC_SEED = 17
 # run B's uplink: bench_multiclient's SLOW_UPLINK compounds ten
@@ -574,7 +595,7 @@ MC_SEED = 17
 # windows (0.7^2 = 49% of the uplink) give its payloads the transit time
 # the ten (0.7^10 = 2.8%) give the SIM ones (16 x 2.8% = 45%)
 MC_SLOW_WINDOWS = 2
-MC_CROSS_CLIENTS, MC_CROSS_FRAMES = 2, 12   # phase 14's card-vs-CPU runs
+MC_CROSS_CLIENTS, MC_CROSS_FRAMES = 2, 8    # phase 14's card-vs-CPU runs
 ALPHA_REPS = 3              # timed waves per B behind the measured alpha
 QUANT_E2E_RTOL = 0.05       # 8-block quantized forward, card vs CPU
 # phase 15, training
@@ -654,7 +675,7 @@ MOE_NARROW = {
 # layers and narrow widths
 WHISPER_TRAIN_B, WHISPER_TRAIN_T = 8, 64
 LLAVA_TRAIN_B, LLAVA_TRAIN_T, LLAVA_TRAIN_LAYERS = 2, 128, 8
-MM_TRAIN_STEPS = 3
+MM_TRAIN_STEPS = 2
 MM_NARROW = {
     "whisper-medium": dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4,
                            head_dim=64, d_ff=1024, vocab_size=4096,
@@ -689,6 +710,7 @@ HALF_E2E = (("int8", "fp16", 1), ("bf16", "fp32", 0))   # card vs CPU
 # own rounding; int8 rows at a rounding tie), tests/test_torch_half_vit.py
 HALF_E2E_RTOL = {"int8+fp16-p1": 0.05, "fp16": 3e-3, "bf16": 2.5e-2}
 QUANT_SPEC = ("int8", "fp32", 1)
+MESH_LAYERS = 4             # phase 27 (a): full-width Qwen3-4B layers
 TILE_REPS = 10              # phase 26: a candidate's device us, best of
 AB_REPS = 3                 # phase 26 (d): host-timed calls a measurement
 # phase 26: the autotuner's cache, emptied at the start of every run so
@@ -877,6 +899,7 @@ def run(torch):
             + "".join(f" {k}={v}" for k, v in extra.items()))
         return r
 
+    t_phase = time.perf_counter()
     gemm, lm_kernels = {}, {}
     for dt in build.FLOAT_TYPES:
         g, lm = kernel_checks(torch, F, dev, gen, cfg, part, lay, arrays, lb,
@@ -886,6 +909,8 @@ def run(torch):
         torch.cuda.empty_cache()
     from repro_torch.configs.dbrx_132b import CONFIG as DBRX
     lm_kernels["int8_matmul_dbrx"] = moe_int8_gemm_checks(torch, DBRX, dev)
+    say(f"  phase 2: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
 
     # each serving path's launch counts, reset just before it and read
     # just after: kernel -> {path: launches}
@@ -938,6 +963,7 @@ def run(torch):
     lat["ssm"]["card_vs_cpu"] = {
         c.name: lm_cross_check(torch, c, dev, phase=12, T=2 * 256)
         for c in (MAMBA.replace(n_layers=4), ZAMBA.replace(n_layers=6))}
+    say(f"  phases 3-12: {time.perf_counter() - t_phase:.1f} s")
 
     # phase 13 ------------------------------------------------------------
     lat["offload"] = serve_offload(torch, cfg, dev, count)
@@ -985,6 +1011,9 @@ def run(torch):
     lat["autotune"] = autotune_phase(torch, dev, count)
     from repro_torch.kernels import autotune
     count("autotune", autotune.SWEEP_LAUNCHES)   # every sweep of the run
+
+    # phase 27 ------------------------------------------------------------
+    lat["mesh"] = mesh_phase(torch, dev, count)
 
     out = []
     for name in KERNEL_SOURCES:
@@ -6843,6 +6872,296 @@ def autotune_phase(torch, dev, count):
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"  phase 26: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the device mesh (phase 27)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _tree_equal(torch, what, got, want):
+    """Every leaf bit-equal (shapes and dtypes too); the names that differ
+    and their largest relative difference otherwise."""
+    check(set(got) == set(want),
+          f"{what}: leaves {sorted(set(got) ^ set(want))}")
+    bad = {}
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            d = (g.float() - w.float()).abs().max() if g.shape == w.shape \
+                else float("inf")
+            bad[k] = float(d) / max(float(w.float().abs().max()), 1e-30)
+    check(not bad, f"{what}: {len(bad)} leaves not bit-equal, worst "
+          f"{max(bad.items(), key=lambda kv: kv[1]) if bad else None}")
+
+
+def mesh_train_steps(torch, dev, mesh, count, ckpt_dir):
+    """Phase 27 (a): full-width Qwen3-4B cut to MESH_LAYERS layers (seed
+    0), two steps of ``make_train_step(cfg, tc, mesh)`` on the (1, 1)
+    mesh against two of the mesh-free step from a copy of the same tree:
+    parameters and both moments bit-equal (every collective over one rank
+    is the identity and ``gather_leaf`` returns the leaf itself); each
+    step's host ms and the peak GB; the mesh step's parameters saved with
+    their shardings for (e)."""
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as lt
+    from repro_torch.optim import adam
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import trainer as tr
+
+    cfg = QWEN.replace(n_layers=MESH_LAYERS)
+    data = lt.synthetic_batches(cfg, 1, LM_TRAIN_T, seed=SEED)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                next(data).items()} for _ in range(2)]
+    params = tr.registry.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    copy = {k: v.clone() for k, v in ckpt.flatten(params).items()}
+    tc = tr.TrainConfig(remat=True)
+    out = {"layers": MESH_LAYERS, "B": 1, "T": LM_TRAIN_T}
+    runs = {}
+    for name, m in (("mesh_free", None), ("mesh", mesh)):
+        p = params if m is None else ckpt.unflatten(copy, params)
+        if m is None:
+            o = adam.init_adam(ckpt.flatten(p))
+        else:
+            p, o = tr.shard_train_state(cfg, m, p)
+        step = tr.make_train_step(cfg, tc, m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        walls, losses = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            p, o, met = step(p, o, b)
+            losses.append(float(met["loss"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = dispatch.launch_counts()
+        if m is not None:
+            count("lm_train qwen3-4b mesh (1, 1)", launches)
+        runs[name] = (p, o)
+        out[name] = {"step_ms": walls, "losses": losses,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": {k: v for k, v in launches.items() if v}}
+        check(all(np.isfinite(losses)), f"phase 27 (a) {name}: {losses}")
+        check(launches["flash_attention"] == 2 * 2 * MESH_LAYERS and
+              sum(launches.values()) == launches["flash_attention"],
+              f"phase 27 (a) {name}: launches {launches}")
+        say(f"  (a) {name} step: {cfg.n_layers}-layer full-width "
+            f"{cfg.name}, B=1, T={LM_TRAIN_T}, remat: losses "
+            + " ".join(f"{x:.6f}" for x in losses) + "; host ms "
+            + " ".join(f"{w:.1f}" for w in walls) + f"; peak "
+            f"{out[name]['peak_gb']:.2f} GB; launches {out[name]['launches']}")
+    (pf, of), (pm, om) = runs["mesh_free"], runs["mesh"]
+    check(out["mesh"]["losses"] == out["mesh_free"]["losses"],
+          f"phase 27 (a): losses {out['mesh']['losses']} vs "
+          f"{out['mesh_free']['losses']}")
+    _tree_equal(torch, "phase 27 (a) parameters", ckpt.flatten(pm),
+                ckpt.flatten(pf))
+    _tree_equal(torch, "phase 27 (a) first moments", om.m, of.m)
+    _tree_equal(torch, "phase 27 (a) second moments", om.v, of.v)
+    check(om.step == of.step == 2, f"steps {om.step} {of.step}")
+    say(f"  (a) mesh step vs mesh-free step: {len(om.m)} parameters and "
+        f"both moments bit-equal after 2 steps")
+    del runs, pf, of, copy, params
+    named = shd.to_named(mesh, tr.train_shardings(cfg, mesh,
+                                                  tr.shape_tree(cfg))[0])
+    t0 = time.perf_counter()
+    ckpt.save(pm, str(ckpt_dir), 2, named)
+    out["save_s"] = time.perf_counter() - t0
+    out["save_gb"] = sum(4 * v.numel() for v in ckpt.flatten(pm).values()) \
+        / 1e9
+    return cfg, out, ckpt.flatten(pm)
+
+
+def mesh_moe_layer(torch, dev, mesh):
+    """Phase 27 (b): one full-width dbrx-132b MoE layer in bf16 (16 x 6144
+    x 10752 slabs, seed 0), a forward and a backward of sum(out * w) +
+    aux through ``moe_sharded`` at ep = 1 against ``moe_local`` on the
+    same inputs: outputs, aux and every gradient (slabs, router, x)
+    bit-equal."""
+    from repro_torch.configs.dbrx_132b import CONFIG as DBRX
+    from repro_torch.models import moe
+    from repro_torch.quant import qtensor as qt
+    from repro_torch.train import checkpoint as ckpt
+
+    cfg = DBRX
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = qt.cast_tree(moe.init_moe(cfg, gen, dev), torch.bfloat16)
+    N = LM_B * LM_T
+    x = torch.randn((LM_B, LM_T, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    w = torch.randn((LM_B, LM_T, cfg.d_model), generator=gen, device=dev)
+    res = {}
+    for name in ("local", "sharded"):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in ckpt.flatten(p).items()}
+        xs = x.clone().requires_grad_(True)
+        tree = ckpt.unflatten(leaves, p)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "local":
+            o, aux = moe.moe_local(cfg, tree, xs)
+        else:
+            o, aux = moe.moe_sharded(cfg, tree, xs, mesh)
+        (torch.sum(o.float() * w) + aux).backward()
+        torch.cuda.synchronize()
+        res[name] = {"out": o.detach(), "aux": aux.detach(),
+                     "grads": {**{k: v.grad for k, v in leaves.items()},
+                               "x": xs.grad},
+                     "ms": (time.perf_counter() - t0) * 1e3}
+        del leaves, xs, tree, o, aux
+    loc, sh = res["local"], res["sharded"]
+    check(torch.equal(sh["out"], loc["out"]) and
+          torch.equal(sh["aux"], loc["aux"]),
+          "phase 27 (b): moe_sharded's output or aux differs from moe_local")
+    _tree_equal(torch, "phase 27 (b) gradients", sh["grads"], loc["grads"])
+    out = {"tokens": N, "slab": [cfg.moe.n_experts, cfg.d_model,
+                                 cfg.moe.d_ff_expert],
+           "aux": float(loc["aux"]), "ms_local": loc["ms"],
+           "ms_sharded": sh["ms"]}
+    say(f"  (b) {cfg.name} MoE layer, bf16, {N} tokens, slabs "
+        f"{tuple(out['slab'])}: moe_sharded (ep 1) vs moe_local: output, "
+        f"aux {out['aux']:.6f} and {len(sh['grads'])} gradients bit-equal; "
+        f"forward + backward {sh['ms']:.1f} / {loc['ms']:.1f} ms (first "
+        f"calls)")
+    del res, p
+    return out
+
+
+def mesh_psum(torch, dev):
+    """Phase 27 (c): ``compressed_psum`` over the one-rank world against
+    ``quantize_roundtrip`` on the card, with an error carried in: mean
+    and new error bit-equal (a 64M-element gradient)."""
+    import torch.distributed as dist
+    from repro_torch.optim import grad_compression as gc
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    x = torch.randn((1 << 26,), generator=gen, device=dev)
+    err = torch.randn((1 << 26,), generator=gen, device=dev) * 1e-3
+    mean, e1 = gc.compressed_psum(x, dist.group.WORLD, err)
+    deq, e2 = gc.quantize_roundtrip(x, err)
+    check(torch.equal(mean, deq) and torch.equal(e1, e2),
+          "phase 27 (c): compressed_psum differs from quantize_roundtrip")
+    say(f"  (c) compressed_psum on one rank vs quantize_roundtrip, "
+        f"{x.numel()} elements: mean and error bit-equal")
+    return {"elements": x.numel()}
+
+
+def mesh_pipeline(torch, dev):
+    """Phase 27 (d): the GPipe forward on a 1-stage mesh against the
+    sequential stack, 8 tanh layers at Qwen3-4B's width, 4 microbatches
+    (2e-5, as ``tests/test_pipeline.py``)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed import pipeline as pl
+    d = 2560
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    params = {"w": torch.randn((8, d, d), generator=gen, device=dev)
+              / d ** 0.5,
+              "b": torch.randn((8, d), generator=gen, device=dev) * 0.01}
+    x = torch.randn((8, 128, d), generator=gen, device=dev)
+
+    def layer(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("stage",))
+    y = pl.pipeline_forward(mesh, layer, params, x, 4)
+    want = x
+    for i in range(8):
+        want = layer({k: v[i] for k, v in params.items()}, want)
+    err = float((y - want).abs().max())
+    check(err <= 2e-5 * (1 + float(want.abs().max())),
+          f"phase 27 (d): pipeline vs sequential {err}")
+    say(f"  (d) 1-stage GPipe forward (8 layers of {d}, 4 microbatches) vs "
+        f"the sequential stack: max abs diff {err:.3g} (bubble "
+        f"{pl.bubble_fraction(4, 1):.2f})")
+    return {"max_abs_err": err}
+
+
+def mesh_restart(torch, cfg, dev, ckpt_dir, want):
+    """Phase 27 (e): ``elastic_restart`` over the one-rank world from (a)'s
+    checkpoint of the mesh step's parameters (with both moments the
+    round trip moves three times the bytes, and rank 0 hashes each on
+    one thread; the moments' sharded round trip is
+    ``tests/test_torch_mesh.py``'s and ``tests/test_torch_mesh_card.py``'s):
+    a (1, 1) mesh planned, every restored leaf bit-equal."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import elastic
+    from repro_torch.train import trainer as tr
+    like = ckpt.unflatten({k: torch.empty(0, device=dev) for k in want},
+                          tr.shape_tree(cfg))
+
+    def shardings(m):
+        return shd.to_named(m, tr.train_shardings(cfg, m,
+                                                  tr.shape_tree(cfg))[0])
+
+    t0 = time.perf_counter()
+    mesh, p = elastic.elastic_restart(cfg, str(ckpt_dir), [0], 1,
+                                      lambda: like, shardings,
+                                      device_type=dev.type)
+    wall = time.perf_counter() - t0
+    check(shd.mesh_shape(mesh) == {"data": 1, "model": 1},
+          f"phase 27 (e): mesh {shd.mesh_shape(mesh)}")
+    _tree_equal(torch, "phase 27 (e) parameters", ckpt.flatten(p), want)
+    say(f"  (e) elastic_restart on the one-rank world from (a)'s "
+        f"checkpoint: {len(want)} parameters bit-equal; restore "
+        f"{wall:.1f} s")
+    return {"restore_s": wall}
+
+
+def mesh_phase(torch, dev, count):
+    """Phase 27, the device mesh at world size 1: an NCCL process group of
+    one rank in this process (a free local port), the (1, 1) mesh, then
+    (a) to (e); the group is destroyed at the end, and a failure in any
+    part fails the run."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("phase 27: the device mesh at world size 1 (NCCL, (1, 1) mesh): "
+        "sharded train step, expert-parallel MoE, compressed psum, GPipe, "
+        "elastic restart")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    ckpt_dir = ROOT / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        mesh = mesh_lib.make_local_mesh(1, 1)
+        out = {}
+        cfg, out["train"], want = mesh_train_steps(torch, dev, mesh, count,
+                                                   ckpt_dir)
+        say(f"  (a) the parameters ({out['train']['save_gb']:.2f} GB) saved "
+            f"with their shardings in {out['train']['save_s']:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["moe"] = mesh_moe_layer(torch, dev, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["psum"] = mesh_psum(torch, dev)
+        out["pipeline"] = mesh_pipeline(torch, dev)
+        out["restart"] = mesh_restart(torch, cfg, dev, ckpt_dir, want)
+        del want
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 27: {out['phase_s']:.1f} s")
     return out
 
 

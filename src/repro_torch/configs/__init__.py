@@ -3,11 +3,16 @@ ten LM archs and the paper's ViTDet-L), each a copy of the reference's.
 
 ``get_config(name)`` returns the full published config and
 ``get_reduced(name)`` the CPU smoke-test variant, as in
-``repro.configs``; an unknown name raises ``KeyError``.
+``repro.configs``; an unknown name raises ``KeyError``.  ``SHAPES`` are
+the reference's assigned input shapes and ``cells()`` its 40 (arch x
+shape) cells, long_500k only for sub-quadratic archs
+(``shape_runnable``).
 """
 from __future__ import annotations
 
 import importlib
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
 
 from repro_torch.models.config import ModelConfig, reduced
 
@@ -25,6 +30,8 @@ ARCH_MODULES = {
     "vitdet-l": "repro_torch.configs.vitdet_l",
 }
 
+ASSIGNED = [a for a in ARCH_MODULES if a != "vitdet-l"]
+
 
 def _module(name: str):
     if name not in ARCH_MODULES:
@@ -41,3 +48,36 @@ def get_reduced(name: str) -> ModelConfig:
     if hasattr(mod, "REDUCED"):
         return mod.REDUCED
     return reduced(mod.CONFIG)
+
+
+# ---------------------------------------------------------------------------
+# assigned input shapes
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_runnable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:
+    """(runnable, reason).  long_500k needs sub-quadratic decode."""
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch: 512k-context decode is "
+                       "quadratic-KV-bound; skipped per assignment")
+    return True, ""
+
+
+def cells() -> List[Tuple[str, str]]:
+    """All 40 assigned (arch, shape) cells (including recorded skips)."""
+    return [(a, s) for a in ASSIGNED for s in SHAPES]

@@ -123,15 +123,17 @@ def init_vitdet_params(cfg: ModelConfig, generator: torch.Generator,
     weights, normal std 0.02 for the position grid, zeros for biases
     (class bias -4, the focal prior), ones for norm scales.  Tensors are
     drawn on ``generator.device`` and moved to ``device``."""
-    gdev = generator.device
+    meta = torch.device(device).type == "meta"     # shapes only
+    gdev = "meta" if meta else generator.device
     v = cfg.vit
     D, F_, C = cfg.d_model, cfg.d_ff, v.out_channels
     part = vb.vit_partition(cfg)
 
     def trunc(shape, fan_in):
         t = torch.empty(shape, device=gdev)
-        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
-                                    generator=generator)
+        if not meta:
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                        generator=generator)
         return (t / math.sqrt(fan_in)).to(device)
 
     def zeros(n, fill=0.0):
@@ -160,7 +162,8 @@ def init_vitdet_params(cfg: ModelConfig, generator: torch.Generator,
 
     patch_dim = v.patch_size * v.patch_size * 3
     pos = torch.empty((part.grid_h, part.grid_w, D), device=gdev)
-    torch.nn.init.normal_(pos, 0.0, 0.02, generator=generator)
+    if not meta:
+        torch.nn.init.normal_(pos, 0.0, 0.02, generator=generator)
     params = {
         "patch_embed": {"w": dense(patch_dim, D), "b": zeros(D)},
         "pos_emb": pos.to(device),

@@ -77,7 +77,7 @@ def disable_tf32() -> None:
 def on_card(x: torch.Tensor) -> bool:
     if x.is_cuda:
         return True
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):   # meta: the plain ops' shapes
         return False
     raise ValueError(f"no kernel route for device {x.device}")
 

@@ -26,11 +26,21 @@ def dense_init(k: int, n: int, generator: torch.Generator,
     return slab_init((k, n), generator, device)
 
 
+def is_meta(device) -> bool:
+    """Whether ``device`` is the meta device: an init there draws nothing
+    and builds the tree's shapes only (``distributed.sharding`` reads
+    them at full width without the memory)."""
+    return torch.device(device).type == "meta"
+
+
 def slab_init(shape: Tuple[int, ...], generator: torch.Generator,
               device="cuda", scale: Optional[float] = None) -> torch.Tensor:
     """A weight of any rank >= 2 drawn as the reference's ``dense_init``
     draws it: truncated normal in (-2, 2) times ``scale``, by default
-    1 / sqrt(shape[0]) (for an (E, D, F) expert slab, the expert count)."""
+    1 / sqrt(shape[0]) (for an (E, D, F) expert slab, the expert count).
+    On the meta device nothing is drawn: the shape alone."""
+    if is_meta(device):
+        return torch.empty(shape, device="meta")
     t = torch.empty(shape, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     t = t.div_(math.sqrt(shape[0])) if scale is None else t.mul_(scale)
@@ -56,6 +66,9 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator,
 def init_embedding(cfg: ModelConfig, generator: torch.Generator,
                    device="cuda") -> Dict[str, torch.Tensor]:
     """The token table, normal with std 0.02."""
+    if is_meta(device):
+        return {"tok": torch.empty((cfg.vocab_size, cfg.d_model),
+                                   device="meta")}
     tok = torch.empty((cfg.vocab_size, cfg.d_model), device=generator.device)
     torch.nn.init.normal_(tok, 0.0, 0.02, generator=generator)
     return {"tok": tok.to(device)}

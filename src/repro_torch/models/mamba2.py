@@ -42,12 +42,13 @@ def init_mamba2(cfg: ModelConfig, generator: torch.Generator,
     ``generator.device`` and moved to ``device``."""
     s = cfg.ssm
     d_inner, H, conv_ch = ssm_dims(cfg)
-    gdev = generator.device
+    gdev = "meta" if L.is_meta(device) else generator.device
     proj_out = 2 * d_inner + 2 * s.n_groups * s.d_state + H
     w_in = L.dense_init(cfg.d_model, proj_out, generator, device)
-    conv_w = torch.randn((s.d_conv, conv_ch), generator=generator,
+    gen = None if L.is_meta(device) else generator
+    conv_w = torch.randn((s.d_conv, conv_ch), generator=gen,
                          device=gdev) * 0.1
-    u = torch.rand((H,), generator=generator, device=gdev)
+    u = torch.rand((H,), generator=gen, device=gdev)
     dt = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min))
                    + math.log(s.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))          # inverse softplus

@@ -2,8 +2,8 @@
 port of ``repro.models.registry``).
 
   init_params(cfg, generator, device)
-  forward_hidden(cfg, params, batch, remat)    -> (hidden, aux)   training
-  lm_loss(cfg, params, batch, remat)           -> (loss, {"ce", "aux"})
+  forward_hidden(cfg, params, batch, remat, ctx) -> (hidden, aux) training
+  lm_loss(cfg, params, batch, remat, ctx)      -> (loss, {"ce", "aux"})
   init_decode_state(cfg, batch, max_len, dtype, device)
   prefill(cfg, params, batch, state)           -> (hidden, state, aux)
   decode_step(cfg, params, token, pos, state)  -> (logits, state)
@@ -31,6 +31,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whs
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mamba2 import ssm_dims
+from repro_torch.models.transformer import LOCAL, ParallelCtx
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -52,12 +53,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def forward_hidden(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
-                   remat: bool = False) -> Tuple[torch.Tensor, Any]:
+                   remat: bool = False, ctx: ParallelCtx = LOCAL
+                   ) -> Tuple[torch.Tensor, Any]:
     """batch: {"tokens": (B, T)} plus the family's extra: "frames" (B,
     T_enc, D) for the encoder-decoder (required), "image_embeds" (B, N,
     vision_hidden) for a VLM (optional: without it the text decoder).
     The SSM and hybrid families run their scans on the training route
-    (``mamba2.ssd_chunked``)."""
+    (``mamba2.ssd_chunked``).  ``ctx`` reaches the decoder families
+    (expert parallelism, the ``sp`` carry); the other families' loops
+    keep their carry whole on a mesh, a layout that changes no number."""
     if cfg.family == "encdec":
         return whs.decode_train(cfg, params, batch["tokens"],
                                 batch["frames"], remat)
@@ -67,7 +71,8 @@ def forward_hidden(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
     if cfg.family == "hybrid":
         return hyb.forward_hidden(cfg, params, batch["tokens"], remat=remat)
     return tfm.forward_hidden(cfg, params, batch["tokens"], remat=remat,
-                              image_embeds=batch.get("image_embeds"))
+                              image_embeds=batch.get("image_embeds"),
+                              ctx=ctx)
 
 
 CE_CHUNK_ELEMS = 64 * 2 ** 20      # chunk the CE when T*V exceeds this
@@ -98,7 +103,7 @@ def _ce_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
-            remat: bool = False
+            remat: bool = False, ctx: ParallelCtx = LOCAL
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy + ``moe.router_aux_coef`` times the MoE
     load-balance aux (0 for the other families).  ``batch``: "tokens" (B, T), optional "labels" (B, T)
@@ -107,8 +112,19 @@ def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
     positions are scored: a VLM's image tokens come first.  The reference
     slices the logits; the head is row-wise, so slicing the hidden
     states before it gives the same loss without the image rows' logits.
-    Returns (loss, {"ce", "aux"})."""
-    hidden, aux = forward_hidden(cfg, params, batch, remat)
+    Returns (loss, {"ce", "aux"}).
+
+    On a mesh (``ctx.mesh``; ``batch`` is this rank's rows) the loss is
+    the reference's global masked mean: the mask's count is summed over
+    the data axes, not averaged per rank.  The returned loss is then this
+    rank's TERM of the global loss, (its rows' NLL sum / the global count
+    + coef * aux / n_data) / ep: the terms summed over every rank give
+    the reference's loss, whose aux gradient is that of the mean of the
+    data shards' aux (``moe.moe_sharded``), and the collectives'
+    backwards sum their gradients.  ``ce`` is then the global mean and
+    ``aux`` data shard 0's (what the reference's host reads); neither
+    carries a gradient."""
+    hidden, aux = forward_hidden(cfg, params, batch, remat, ctx)
     tokens = batch["tokens"]
     logits = tfm.logits_from_hidden(cfg, params,
                                     hidden[:, -tokens.shape[1]:])
@@ -119,10 +135,33 @@ def lm_loss(cfg: ModelConfig, params: Dict, batch: Dict[str, Any],
     nll = _ce_nll(logits, targets)
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else mask.to(nll.dtype)
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=nll.device)
     aux_coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
-    return loss + aux_coef * aux, {"ce": loss, "aux": aux}
+    if ctx.mesh is None:
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return loss + aux_coef * aux, {"ce": loss, "aux": aux}
+    return _mesh_loss(ctx, torch.sum(nll * mask), torch.sum(mask), aux,
+                      aux_coef)
+
+
+def _mesh_loss(ctx: ParallelCtx, nll_sum: torch.Tensor,
+               count: torch.Tensor, aux: torch.Tensor, aux_coef: float):
+    """:func:`lm_loss`'s rank term and its global metrics."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    mesh = ctx.mesh
+    sizes = shd.mesh_shape(mesh)
+    n_dp, ep = shd.dp_size(mesh), sizes[ctx.model_axis]
+    count = shd.reduce_over(count.detach().clone(), mesh, ctx.data_axes)
+    count = torch.clamp(count, min=1.0)
+    term = (nll_sum / count + aux_coef * (aux / n_dp)) / ep
+    with torch.no_grad():
+        ce = shd.reduce_over(nll_sum.detach().clone(), mesh,
+                             ctx.data_axes) / count
+        aux0 = aux.detach().clone()
+        if dist.get_world_size() > 1:
+            dist.broadcast(aux0, src=0)
+    return term, {"ce": ce, "aux": aux0}
 
 
 # ---------------------------------------------------------------------------

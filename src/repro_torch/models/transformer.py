@@ -13,6 +13,9 @@ k_rope (L, B, S, rope dims); a layer writes its slice of them in place.
 A MoE config's first ``moe.first_dense_layers`` layers carry a dense
 FFN of width ``moe.d_ff_dense``, the rest the MoE FFN
 (``models.moe.moe_local``), whose load-balance aux every forward sums.
+On a mesh (``ParallelCtx``) a MoE layer runs ``moe.moe_sharded``
+(expert parallel over ``model``) and, with ``sp``, the residual stream
+between blocks is kept as d_model pieces over ``model``.
 An MLA config's layers attend through ``attention.mla_forward``.  A VLM
 config carries the reference's projector (``w1 b1 w2 b2``), which maps
 stub image embeddings (B, N_img, vision_hidden) into d_model ahead of the
@@ -27,7 +30,8 @@ configs raise here: ``models.whisper`` serves them.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +41,49 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant import qtensor as qt
+
+
+@dataclass(frozen=True)
+class ParallelCtx:
+    """Mesh and axis names threaded through the model code (the
+    reference's); no mesh runs on one device.  ``remat``: each block
+    recomputed in the backward.  ``sp``: sequence parallelism, the
+    residual stream between blocks stored as d_model pieces over
+    ``model_axis`` (when d_model divides), so remat's saved carry is
+    sharded; a block all-gathers it at entry and keeps its own piece at
+    exit.  It changes no number."""
+    mesh: Any = None
+    data_axes: Tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    use_ep: bool = True
+    remat: bool = False
+    sp: bool = False
+
+    def _sp_on(self, width: int) -> bool:
+        if self.mesh is None or not self.sp:
+            return False
+        n = self.mesh.size(self.mesh.mesh_dim_names.index(self.model_axis))
+        return n > 1 and width % n == 0
+
+    def hidden(self, x: torch.Tensor) -> torch.Tensor:
+        """The layout of a (B, T, D) residual-stream carry: under ``sp``
+        this rank's d_model piece, else ``x``."""
+        if not self._sp_on(x.shape[-1]):
+            return x
+        from repro_torch.distributed.sharding import Spec, shard_leaf
+        return shard_leaf(self.mesh, x, Spec(None, None, self.model_axis))
+
+    def full(self, x: torch.Tensor, width: int) -> torch.Tensor:
+        """The whole carry of d_model ``width`` back from :meth:`hidden`'s
+        layout (under ``sp`` an all-gather over ``model``, whose backward
+        reduce-scatters)."""
+        if not self._sp_on(width):
+            return x
+        from repro_torch.distributed.sharding import Spec, gather_leaf
+        return gather_leaf(x, self.mesh, Spec(None, None, self.model_axis))
+
+
+LOCAL = ParallelCtx()
 
 
 def check_decoder(cfg: ModelConfig) -> None:
@@ -115,10 +162,15 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
 # blocks
 
 
-def _ffn(cfg: ModelConfig, p: Dict, h: torch.Tensor):
+def _ffn(cfg: ModelConfig, p: Dict, h: torch.Tensor,
+         ctx: ParallelCtx = LOCAL):
     """The block's FFN on its normed input: (output, aux); aux is the MoE
-    load-balance term, 0.0 for a dense FFN."""
+    load-balance term, 0.0 for a dense FFN.  On a mesh with ``use_ep`` a
+    MoE FFN is expert parallel (``moe.moe_sharded``)."""
     if "router" in p:
+        if ctx.mesh is not None and ctx.use_ep:
+            return moe_lib.moe_sharded(cfg, p, h, ctx.mesh, ctx.data_axes,
+                                       ctx.model_axis)
         return moe_lib.moe_local(cfg, p, h)
     return L.apply_mlp(cfg, p, h), 0.0
 
@@ -143,18 +195,21 @@ def block_forward(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope,
     return x + f, aux
 
 
-def train_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope):
+def train_block(cfg: ModelConfig, p: Dict, x: torch.Tensor, rope,
+                ctx: ParallelCtx = LOCAL):
     """Pre-norm block without a cache: causal attention (GQA through
     ``dispatch.flash_attention``, the kernel's ``autograd.Function`` on
-    the card; MLA's einsums), then the FFN.  Returns (x, aux)."""
+    the card; MLA's einsums), then the FFN.  ``x`` is the carry in
+    ``ctx.hidden``'s layout, and so is the result.  Returns (x, aux)."""
+    x = ctx.full(x, cfg.d_model)
     h = L.apply_norm(cfg, p["ln1"], x)
     if cfg.mla is not None:
         x = x + attn.mla_forward(cfg, p["attn"], h, rope)
     else:
         x = x + attn.attention_forward(cfg, p["attn"], h, rope=rope,
                                        causal=True)
-    f, aux = _ffn(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x))
-    return x + f, aux
+    f, aux = _ffn(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], x), ctx)
+    return ctx.hidden(x + f), aux
 
 
 def rope_for(cfg: ModelConfig, positions: torch.Tensor):
@@ -167,22 +222,26 @@ def rope_for(cfg: ModelConfig, positions: torch.Tensor):
 
 def forward_hidden(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, *,
                    remat: bool = False,
-                   image_embeds: Optional[torch.Tensor] = None
+                   image_embeds: Optional[torch.Tensor] = None,
+                   ctx: ParallelCtx = LOCAL
                    ) -> Tuple[torch.Tensor, object]:
     """Training / eval forward: the final hidden states (B, T, D), or (B,
     N + T, D) after a VLM's N projected ``image_embeds`` (RoPE runs over
     all N + T positions), and the summed MoE aux (0.0 for the dense
     family).  ``remat``: each block's activations are recomputed in the
     backward (``layers.remat``; the reference's ``jax.checkpoint`` of its
-    scan body), so its flash forward runs twice a step."""
+    scan body), so its flash forward runs twice a step.  ``ctx``: the
+    mesh, for expert parallelism and the ``sp`` carry."""
     check_decoder(cfg)
     x = embed_inputs(cfg, params, tokens, image_embeds)
     B, T, _ = x.shape
     rope = rope_for(cfg, torch.arange(T, device=x.device).expand(B, T))
+    x = ctx.hidden(x)
     aux_total = 0.0
     for p in params["blocks"]:
-        x, aux = L.remat(train_block, remat, cfg, p, x, rope)
+        x, aux = L.remat(train_block, remat, cfg, p, x, rope, ctx)
         aux_total = aux_total + aux
+    x = ctx.full(x, cfg.d_model)
     return L.apply_norm(cfg, params["final_norm"], x), aux_total
 
 

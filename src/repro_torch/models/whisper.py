@@ -59,8 +59,10 @@ def init_whisper_params(cfg: ModelConfig, generator: torch.Generator,
     enc = [enc_layer() for _ in range(cfg.encdec.n_encoder_layers)]
     embed = L.init_embedding(cfg, generator, device)
     dec_pos = torch.empty((cfg.max_seq_len, cfg.d_model),
-                          device=generator.device)
-    torch.nn.init.normal_(dec_pos, 0.0, 0.02, generator=generator)
+                          device="meta" if L.is_meta(device)
+                          else generator.device)
+    if not L.is_meta(device):
+        torch.nn.init.normal_(dec_pos, 0.0, 0.02, generator=generator)
     return {"enc_blocks": enc, "enc_norm": L.init_norm(cfg, device),
             "embed": embed, "dec_pos": dec_pos.to(device),
             "dec_blocks": [dec_layer() for _ in range(cfg.n_layers)],

@@ -63,15 +63,19 @@ def groups(params: Tree) -> Iterator[List[str]]:
 def adam_update(grads: Tree, state: AdamState, params: Tree, *,
                 lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
                 eps: float = 1e-8, weight_decay: float = 0.0,
-                grad_clip: Optional[float] = 1.0
+                grad_clip: Optional[float] = 1.0,
+                gnorm: Optional[torch.Tensor] = None
                 ) -> Tuple[Tree, AdamState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place on ``params``, ``state.m`` and
     ``state.v``; returns (params, the state with its step advanced,
-    {"grad_norm"})."""
+    {"grad_norm"}).  ``gnorm``: the gradients' global norm when they are
+    local pieces of a sharded tree (``train.trainer`` sums it across the
+    mesh); by default :func:`global_norm` of ``grads``."""
     if any(p.dtype != torch.float32 for p in params.values()):
         raise ValueError("adam_update: float32 parameters only")
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     if grad_clip is not None:
         scale = torch.clamp(grad_clip / (gnorm + 1e-12), max=1.0)
     else:

@@ -14,9 +14,13 @@ Layout on disk, the reference's:
   * async save: ``save_async`` copies the leaves to host memory at once
     and writes them on a daemon thread.
 
-The reference also reshards at restore, onto the target mesh of an
-elastic restart; one card has no mesh, so ``restore`` takes no
-shardings and puts each leaf on the device of the leaf it replaces.
+On a mesh (``shardings``: a tree of ``distributed.sharding.
+NamedSharding``, ``to_named(mesh, train_shardings(...))``), ``save``
+gathers each leaf to full size and rank 0 alone writes it, in the same
+format and with the same hashes as a single-device save; ``restore``
+gives each rank its piece of every saved leaf, whatever mesh wrote it
+(the resharding of an elastic restart).  Without shardings each leaf
+lands on the device of the leaf it replaces.
 
 A tree is nested dicts, lists, tuples and named tuples of tensors (the
 port's parameter trees, ``convert``; ``(params, optim.adam.AdamState)``);
@@ -97,12 +101,20 @@ def _dtype_name(leaf) -> str:
 
 
 def _sha(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
+    """The first 16 hex digits of the sha256 of the array's bytes (read
+    in place: no copy of a contiguous array)."""
+    return hashlib.sha256(memoryview(np.ascontiguousarray(arr))
+                          ).hexdigest()[:16]
 
 
-def save(tree: Any, directory: str, step: int) -> str:
+def save(tree: Any, directory: str, step: int,
+         shardings: Any = None) -> str:
     """Synchronous save of a tree of tensors or numpy arrays.  Returns
-    the checkpoint's path."""
+    the checkpoint's path.  With ``shardings`` (``tree`` holds this
+    rank's pieces) every rank joins the gathers, rank 0 writes the full
+    leaves, and all return once the manifest is published."""
+    if shardings is not None:
+        return _save_sharded(tree, directory, step, shardings)
     ckpt = Path(directory) / f"step_{step:08d}"
     ckpt.mkdir(parents=True, exist_ok=True)
     manifest: Dict[str, Any] = {"step": step, "leaves": {}}
@@ -121,6 +133,25 @@ def save(tree: Any, directory: str, step: int) -> str:
     tmp.write_text(json.dumps(manifest))
     os.replace(tmp, ckpt / "manifest.json")      # atomic publish
     return str(ckpt)
+
+
+def _save_sharded(tree: Any, directory: str, step: int,
+                  shardings: Any) -> str:
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as shd
+    named = flatten(shardings)
+    host = {}
+    with torch.no_grad():
+        for name, leaf in flatten(tree).items():
+            if isinstance(leaf, torch.Tensor):
+                sh = named[name]
+                leaf = shd.gather_leaf(leaf, sh.mesh, sh.spec).cpu()
+            host[name] = leaf
+    path = str(Path(directory) / f"step_{step:08d}")
+    if dist.get_rank() == 0:
+        path = save(host, directory, step)
+    dist.barrier()
+    return path
 
 
 _save_threads: List[threading.Thread] = []
@@ -165,10 +196,12 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(tree_like: Any, directory: str, step: Optional[int] = None,
-            verify: bool = True) -> Any:
+            shardings: Any = None, verify: bool = True) -> Any:
     """Restore into the structure of ``tree_like`` (the latest step by
     default); each leaf lands on the device of the leaf it replaces.
-    Raises ``IOError`` on a leaf whose bytes do not match its hash."""
+    ``shardings``: a ``NamedSharding`` tree for the TARGET mesh; each
+    rank keeps its piece of every full saved leaf.  Raises ``IOError``
+    on a leaf whose bytes do not match its hash."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -176,6 +209,7 @@ def restore(tree_like: Any, directory: str, step: Optional[int] = None,
     ckpt = Path(directory) / f"step_{step:08d}"
     manifest = json.loads((ckpt / "manifest.json").read_text())
     shards: Dict[str, Any] = {}
+    named = flatten(shardings) if shardings is not None else {}
     out = {}
     try:
         for name, like in flatten(tree_like).items():
@@ -186,19 +220,26 @@ def restore(tree_like: Any, directory: str, step: Optional[int] = None,
             if verify and _sha(arr) != meta["sha"]:
                 raise IOError(f"checkpoint corruption in {name} "
                               f"({meta['shard']})")
-            dtype = getattr(torch, meta["dtype"])
-            t = torch.from_numpy(np.array(arr))
-            if dtype in _VIEW_AS:
-                t = t.view(_VIEW_AS[dtype][0]).view(dtype)
-            if isinstance(like, (int, float)):
-                out[name] = type(like)(t.item())
-            else:
-                out[name] = t.to(like.device if isinstance(
-                    like, torch.Tensor) else "cpu")
+            out[name] = _leaf(arr, meta["dtype"], like, named.get(name))
     finally:
         for f in shards.values():
             f.close()
     return unflatten(out, tree_like)
+
+
+def _leaf(arr: np.ndarray, dtype_name: str, like, sharding):
+    """A restored leaf: the Python number ``like`` is, or a tensor (this
+    rank's piece under ``sharding``) on ``like``'s device."""
+    dtype = getattr(torch, dtype_name)
+    t = torch.from_numpy(arr if arr.flags.writeable else np.array(arr))
+    if dtype in _VIEW_AS:
+        t = t.view(_VIEW_AS[dtype][0]).view(dtype)
+    if isinstance(like, (int, float)):
+        return type(like)(t.item())
+    if sharding is not None:
+        from repro_torch.distributed.sharding import shard_leaf
+        t = shard_leaf(sharding.mesh, t, sharding.spec)
+    return t.to(like.device if isinstance(like, torch.Tensor) else "cpu")
 
 
 def prune_old(directory: str, keep: int = 3) -> None:

@@ -59,7 +59,9 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.configs.deepseek_7b",
             "repro_torch.configs.mistral_nemo_12b",
             "repro_torch.configs.phi4_mini_3p8b",
-            "repro_torch.kernels.autotune")
+            "repro_torch.kernels.autotune",
+            "repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.pipeline", "repro_torch.launch.mesh")
 
 
 def test_every_port_module_imports_without_jax():
@@ -70,6 +72,16 @@ def test_every_port_module_imports_without_jax():
     names = out.stdout.split()
     assert len(names) >= 25
     assert set(REQUIRED) <= set(names), sorted(set(REQUIRED) - set(names))
+
+
+def test_mesh_test_workers_import_no_reference():
+    """The gloo worlds of ``test_torch_mesh.py`` run the port alone."""
+    tree = ast.parse((ROOT / "tests" / "torch_mesh_worker.py").read_text())
+    roots = {a.name.split(".")[0] for n in ast.walk(tree)
+             if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    assert "jax" not in roots and "repro" not in roots, sorted(roots)
 
 
 def test_chip_smoke_imports_no_reference():
