@@ -437,6 +437,21 @@ Phases; any failure exits non-zero and prints no result:
      from (a)'s checkpoint of the mesh step's parameters, every leaf
      bit-equal (the moments' sharded round trip is the CPU and card
      tests').
+ 28. the dry-run (``launch/{specs,costing,dryrun}.py``,
+     ``roofline/{model,collectives}.py``) against the card, on phase 27's
+     cell: (a) that step run once on the card under ``FlopCounterMode``
+     (an NCCL group of one rank; path ``lm_train qwen3-4b dry-run
+     check``) and counted by the dry-run on a fake group of one rank
+     (fake tensors, plain versions): the dry-run's GEMM FLOPs outside the
+     flash forward's plain version, which the card runs in its kernel
+     out of the counter's sight, equal the card's exactly, the
+     attention's share printed apart; (b) the dry-run's t_compute and
+     t_memory at the H100 constants (FLOPs at the float32 peak: the
+     step's GEMMs run in float32; the bytes also with the flash
+     kernel's analytic traffic in place of the plain forward's) beside
+     phase 27's measured step ms and their ratio, not gated; (c) the
+     production cell qwen3-4b decode_32k on the 256-rank ``pod1`` fake
+     mesh and its roofline terms.
 
 Every printed line also goes to ``chiprun_out/chip_smoke.log`` and every
 number to ``chiprun_out/chip_smoke.json``.  Each serving path resets the launch counts just before it and reads them
@@ -453,8 +468,9 @@ device-cache simulations of phase 18, the int8 LM waves of phase 19,
 the calibration of phase 20, the half lanes of phases 21 and 22, the
 MoE waves of phase 23, the models of phase 24 and phase 25's training
 runs, ``lm_train <config>``, and MoE lanes, ``<config> <lane>
-[mixed]``, named by their config and path, and every autotuner sweep of
-the run, ``autotune``);
+[mixed]``, named by their config and path, every autotuner sweep of
+the run, ``autotune``, and phase 28's counted step, ``lm_train qwen3-4b
+dry-run check``);
 the ``int8_matmul`` row also gives phase 19's decode-step device us and
 bound, and every row but ``ssd_scan``'s its ``f16`` / ``bf16`` numbers.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -1014,6 +1030,10 @@ def run(torch):
 
     # phase 27 ------------------------------------------------------------
     lat["mesh"] = mesh_phase(torch, dev, count)
+
+    # phase 28 ------------------------------------------------------------
+    lat["dryrun"] = dryrun_phase(torch, dev, count,
+                                 lat["mesh"]["train"]["mesh"]["step_ms"])
 
     out = []
     for name in KERNEL_SOURCES:
@@ -7162,6 +7182,151 @@ def mesh_phase(torch, dev, count):
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"  phase 27: {out['phase_s']:.1f} s")
+    return out
+
+
+def dryrun_phase(torch, dev, count, step_ms):
+    """Phase 28, the dry-run against the card, on phase 27's cell (the
+    MESH_LAYERS-layer full-width Qwen3-4B train step at B=1,
+    T=LM_TRAIN_T with remat, on the (1, 1) mesh):
+      (a) the step run once on the card under ``FlopCounterMode`` (an
+          NCCL group of one rank) against ``launch.dryrun``'s count of
+          the same cell on a fake group of one rank: the dry-run's GEMM
+          FLOPs outside the flash kernel's plain forward (which the card
+          runs in its kernel, out of the counter's sight) equal the
+          card's exactly; the attention's share is printed apart;
+      (b) the dry-run's roofline terms (H100 constants, the FLOPs at
+          the float32 peak: the step's GEMMs run in float32) beside phase
+          27's measured step ms (its second step), and their ratio, not
+          gated; bytes also with the flash kernel's analytic traffic in
+          place of the plain forward's;
+      (c) one production cell, qwen3-4b decode_32k on the 256-rank
+          ``pod1`` mesh, and its terms."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import SHAPES, ShapeSpec
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import costing, dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch import train as lt
+    from repro_torch.roofline import model as rm
+    from repro_torch.train import trainer as tr
+
+    t_phase = time.perf_counter()
+    say("phase 28: the dry-run (fake-tensor count, H100 roofline) against "
+        f"the card on phase 27's cell")
+    cfg = QWEN.replace(n_layers=MESH_LAYERS)
+    tc = tr.TrainConfig(remat=True)
+    out = {"layers": MESH_LAYERS, "B": 1, "T": LM_TRAIN_T}
+
+    # (a) the card's step under FlopCounterMode
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_local_mesh(1, 1)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in next(
+            lt.synthetic_batches(cfg, 1, LM_TRAIN_T, seed=SEED)).items()}
+        params = tr.registry.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        p, o = tr.shard_train_state(cfg, mesh, params)
+        del params
+        step = tr.make_train_step(cfg, tc, mesh)
+        dispatch.reset_launch_counts()
+        with FlopCounterMode(display=False) as fc:
+            p, o, met = step(p, o, batch)
+        torch.cuda.synchronize()
+        launches = dispatch.launch_counts()
+        count("lm_train qwen3-4b dry-run check", launches)
+        card_flops = fc.get_total_flops()
+        check(np.isfinite(float(met["loss"])), f"phase 28 (a): loss "
+              f"{float(met['loss'])}")
+        check(launches["flash_attention"] == 2 * MESH_LAYERS,
+              f"phase 28 (a): launches {launches}")
+        del p, o, step, batch, met
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with dryrun.fake_world(1):
+        mesh = mesh_lib.make_local_mesh(1, 1, device_type="cpu")
+        cell = sp.build_cell_from(
+            cfg, ShapeSpec("phase27", LM_TRAIN_T, 1, "train"), mesh,
+            accum=1)
+        cost, mem = costing.cell_cost(cell)
+    trace_s = time.perf_counter() - t0
+    attn = cost.regions.get("kernel:flash_attention",
+                            {"flops": 0.0, "bytes": 0.0})
+    outside = cost.flops - attn["flops"]
+    out["flops"] = {"card_flop_counter": card_flops,
+                    "dryrun_total": cost.flops,
+                    "dryrun_flash_forward": attn["flops"],
+                    "dryrun_outside_flash": outside}
+    say(f"  (a) GEMM FLOPs: card FlopCounterMode {card_flops:.6e}; dry-run "
+        f"{cost.flops:.6e} of which the flash forward's plain version "
+        f"{attn['flops']:.6e} ({attn['flops'] / cost.flops:.3f}), "
+        f"outside it {outside:.6e}; dry-run trace {trace_s:.1f} s")
+    check(outside == card_flops, f"phase 28 (a): dry-run FLOPs outside the "
+          f"flash forward {outside} != the card's {card_flops}")
+    say("  (a) dry-run GEMM FLOPs outside the flash forward equal the "
+        "card's FlopCounterMode exactly")
+
+    # (b) the roofline beside phase 27's measured step
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_fwd = 2 * MESH_LAYERS                   # remat runs each forward twice
+    kernel_b = n_fwd * costing.kernel_attn_bytes(
+        "prefill", 1, LM_TRAIN_T, LM_TRAIN_T, H, KV, Dh, 4)
+    flash_bytes = cost.bytes - attn["bytes"] + kernel_b
+    # the step's GEMMs run in float32 (TF32 off): the float32 peak
+    check(cell.dtype == torch.float32, f"phase 28 (b): {cell.dtype}")
+    terms = rm.roofline_terms(flops_per_device=cost.flops,
+                              bytes_per_device=cost.bytes,
+                              collective_bytes_per_device=cost.coll,
+                              n_chips=1, compute_dtype=cell.dtype)
+    t_mem_flash = flash_bytes / rm.HBM_BW
+    measured = step_ms[-1]
+    crit_ms = max(terms["t_compute"], t_mem_flash) * 1e3
+    out["roofline"] = {**terms, "t_memory_flash_kernel": t_mem_flash,
+                       "bytes_flash_kernel": flash_bytes,
+                       "measured_step_ms": measured,
+                       "ratio_measured_to_bound": measured / crit_ms,
+                       "memory": dataclasses.asdict(mem)}
+    say(f"  (b) roofline (H100 {rm.peak_flops(cell.dtype):.3g} FLOP/s "
+        f"float32, "
+        f"{rm.HBM_BW:.3g} B/s): t_compute {terms['t_compute'] * 1e3:.3f} ms"
+        f", t_memory {terms['t_memory'] * 1e3:.3f} ms (plain attention "
+        f"bytes {cost.bytes:.4e}), {t_mem_flash * 1e3:.3f} ms with the "
+        f"flash kernel's bytes ({flash_bytes:.4e}); phase 27's measured "
+        f"step {measured:.1f} ms, {measured / crit_ms:.2f}x the larger of "
+        f"t_compute and the flash t_memory; dry-run peak "
+        f"{mem.peak_bytes / 1e9:.2f} GB")
+
+    # (c) one production cell
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("qwen3-4b", "decode_32k", False)
+    check(rec["status"] == "ok", f"phase 28 (c): {rec}")
+    r = rec["roofline"]
+    out["decode_32k_pod1"] = {k: rec[k] for k in (
+        "n_chips", "memory", "collectives", "roofline", "model_flops",
+        "useful_flop_ratio")}
+    check(SHAPES["decode_32k"].global_batch == 128, "decode_32k batch")
+    say(f"  (c) qwen3-4b decode_32k pod1 ({rec['n_chips']} ranks, "
+        f"{time.perf_counter() - t0:.1f} s): t_compute "
+        f"{r['t_compute'] * 1e3:.4f} ms, t_memory "
+        f"{r['t_memory'] * 1e3:.3f} ms, t_collective "
+        f"{r['t_collective'] * 1e3:.3f} ms, bound {r['bound']}; "
+        f"{rec['memory']['total_with_donation'] / 1e9:.2f} GB a device")
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"  phase 28: {out['phase_s']:.1f} s")
     return out
 
 

@@ -99,7 +99,7 @@ def mesh_shape(mesh) -> Dict[str, int]:
     one."""
     if isinstance(mesh, Mapping):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 def fsdp_axis(mesh) -> str:

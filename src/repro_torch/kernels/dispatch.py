@@ -21,7 +21,10 @@ where a wrapper launched its kernel, so a run can show that it went
 through the kernels; ``launch_counts("f16")`` / ``("bf16")`` count the
 launches of its half entry point alone, and ``copy_counts`` the operands
 a half attention wrapper copied because its kernel's loads refuse the
-view.
+view.  While :func:`tag_plain_routes` is open, a route that takes its
+plain version names its kernel on the caller's stack for the call, so a
+counting mode can keep apart the work a kernel does on the card
+(``launch.costing``'s ``kernel:<name>`` regions).
 
 Every route takes float32, fp16 and bf16 tensors, as the reference's
 kernels do (they compute in float32 and return the input's type): on
@@ -35,7 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -64,6 +67,7 @@ QUANT_ENV_VAR = "REPRO_QUANT"
 
 _ENV_QUANT: Optional[str] = None        # cached REPRO_QUANT override
 _PROCESS_QUANT: Optional[str] = None    # set_quant_mode() default
+_PLAIN_TAGS: Optional[List[str]] = None  # tag_plain_routes() stack
 
 
 def disable_tf32() -> None:
@@ -80,6 +84,34 @@ def on_card(x: torch.Tensor) -> bool:
     if x.device.type in ("cpu", "meta"):   # meta: the plain ops' shapes
         return False
     raise ValueError(f"no kernel route for device {x.device}")
+
+
+@contextlib.contextmanager
+def tag_plain_routes(stack: List[str]):
+    """While open, each route that takes its plain version pushes its
+    kernel's name on ``stack`` for the call's duration."""
+    global _PLAIN_TAGS
+    prev, _PLAIN_TAGS = _PLAIN_TAGS, stack
+    try:
+        yield
+    finally:
+        _PLAIN_TAGS = prev
+
+
+@contextlib.contextmanager
+def _route(name: str, x: torch.Tensor):
+    """Yields whether ``x`` is on the card (any other device than the
+    card, the CPU or meta raises); on the plain route, the kernel's name
+    is on the :func:`tag_plain_routes` stack meanwhile."""
+    card, stack = on_card(x), _PLAIN_TAGS
+    if card or stack is None:
+        yield card
+        return
+    stack.append(name)
+    try:
+        yield card
+    finally:
+        stack.pop()
 
 
 def _no_vjp(name: str, *xs: Optional[torch.Tensor]) -> None:
@@ -191,17 +223,17 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      win_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, T, H, Dh); k/v: (B, T, KV, Dh); ``window`` tokens per
     window; ``win_valid`` (B,) valid-window counts (pad windows -> 0)."""
-    on_card(q)                      # any other device raises
     _float32_grads("window_attention", q, k, v)
-    return _win.WindowAttention.apply(q, k, v, window, win_valid)
+    with _route("window_attention", q):
+        return _win.WindowAttention.apply(q, k, v, window, win_valid)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False) -> torch.Tensor:
     """q: (B, T, H, Dh); k/v: (B, S, KV, Dh)."""
-    on_card(q)                      # any other device raises
     _float32_grads("flash_attention", q, k, v)
-    return _flash.FlashAttention.apply(q, k, v, causal)
+    with _route("flash_attention", q):
+        return _flash.FlashAttention.apply(q, k, v, causal)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -209,9 +241,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One-token decode: q (B, 1, H, Dh) against a (B, S, KV, Dh) cache
     with (B,) int32 valid lengths ``kv_len``."""
     _no_vjp("decode_attention", q, k, v)
-    if on_card(q):
-        return _decode.decode_attention_cuda(q, k, v, kv_len)
-    return _decode.decode_attention_plain(q, k, v, kv_len)
+    with _route("decode_attention", q) as card:
+        if card:
+            return _decode.decode_attention_cuda(q, k, v, kv_len)
+        return _decode.decode_attention_plain(q, k, v, kv_len)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -228,10 +261,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     f32 = torch.float32
     x, dt, A, Bm, Cm = (t.to(f32) for t in (x, dt, A, Bm, Cm))
     s0 = init_state.to(f32) if init_state is not None else None
-    if on_card(x):
-        y, s_fin = _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk, s0)
-    else:
-        y, s_fin = _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, s0)
+    with _route("ssd_scan", x) as card:
+        if card:
+            y, s_fin = _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, chunk, s0)
+        else:
+            y, s_fin = _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, chunk, s0)
     if init_state is not None:
         s_fin = s_fin.to(init_state.dtype)
     return y, s_fin
@@ -241,18 +275,18 @@ def avg_pool(x: torch.Tensor, d: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/d, W/d, C) mean pool."""
     if d == 1:
         return x
-    on_card(x)                      # any other device raises
     _float32_grads("avg_pool", x)
-    return _pool.AvgPool.apply(x, d)
+    with _route("avg_pool", x):
+        return _pool.AvgPool.apply(x, d)
 
 
 def nn_upsample(x: torch.Tensor, d: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H*d, W*d, C) nearest-neighbour upsample."""
     if d == 1:
         return x
-    on_card(x)                      # any other device raises
     _float32_grads("nn_upsample", x)
-    return _pool.NNUpsample.apply(x, d)
+    with _route("nn_upsample", x):
+        return _pool.NNUpsample.apply(x, d)
 
 
 def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
@@ -262,9 +296,10 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor,
     (K, N) int8 per-output-channel codes (K-contiguous, as
     ``QuantTensor`` keeps them), sx (M,) / sw (N,) float32 scales."""
     _no_vjp("int8_matmul", sx, sw)
-    if on_card(xq):
-        return _int8.int8_matmul_cuda(xq, wq, sx, sw, out_dtype)
-    return _int8.int8_matmul_plain(xq, wq, sx, sw, out_dtype)
+    with _route("int8_matmul", xq) as card:
+        if card:
+            return _int8.int8_matmul_cuda(xq, wq, sx, sw, out_dtype)
+        return _int8.int8_matmul_plain(xq, wq, sx, sw, out_dtype)
 
 
 def pack_pos(bank: torch.Tensor, pos_bank: torch.Tensor,
@@ -272,9 +307,10 @@ def pack_pos(bank: torch.Tensor, pos_bank: torch.Tensor,
     """Fused serving prologue: window-bank gather + positional add +
     pad-window zeroing.  Returns packed tokens (B, nw_pad * w2, C)."""
     _no_vjp("pack_pos", bank, pos_bank)
-    if on_card(bank):
-        return _fused.pack_pos_cuda(bank, pos_bank, win_src, nw)
-    return _fused.pack_pos_plain(bank, pos_bank, win_src, nw)
+    with _route("pack_pos", bank) as card:
+        if card:
+            return _fused.pack_pos_cuda(bank, pos_bank, win_src, nw)
+        return _fused.pack_pos_plain(bank, pos_bank, win_src, nw)
 
 
 def restore_gather(windows: torch.Tensor, out_src: torch.Tensor,
@@ -285,8 +321,9 @@ def restore_gather(windows: torch.Tensor, out_src: torch.Tensor,
     (window un-pack + LOW upsample + REUSE splice).  ``windows``: packed
     activations (B, nw_pad, w2, D).  Returns (B, nout * w2, D)."""
     _no_vjp("restore_gather", windows, reuse_tiles)
-    if on_card(windows):
-        return _fused.restore_gather_cuda(windows, out_src, out_map, window,
-                                          downsample, reuse_tiles)
-    return _fused.restore_gather_plain(windows, out_src, out_map, window,
-                                       downsample, reuse_tiles)
+    with _route("restore_gather", windows) as card:
+        if card:
+            return _fused.restore_gather_cuda(windows, out_src, out_map,
+                                              window, downsample, reuse_tiles)
+        return _fused.restore_gather_plain(windows, out_src, out_map,
+                                           window, downsample, reuse_tiles)

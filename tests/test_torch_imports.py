@@ -61,7 +61,10 @@ REQUIRED = ("repro_torch.quant.qtensor", "repro_torch.quant.ptq",
             "repro_torch.configs.phi4_mini_3p8b",
             "repro_torch.kernels.autotune",
             "repro_torch.distributed", "repro_torch.distributed.sharding",
-            "repro_torch.distributed.pipeline", "repro_torch.launch.mesh")
+            "repro_torch.distributed.pipeline", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.costing",
+            "repro_torch.launch.dryrun", "repro_torch.roofline",
+            "repro_torch.roofline.model", "repro_torch.roofline.collectives")
 
 
 def test_every_port_module_imports_without_jax():
