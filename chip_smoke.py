@@ -43,8 +43,10 @@ Phases; any failure exits non-zero and prints no result:
      for ``ssd_scan``).  ``flash_attention`` is checked to 1e-4, causal and
      not, at a causal-GQA T = 1000 and at every head width it builds (16,
      32, 64, 128; T and S off its 64-row tiles, S < T, GQA groups 1 and
-     4), then at the ViT shape (its kernels-line row) and the LM prefill's
-     causal GQA shapes (T = 128 and the mixed prefill's T = 96).  The
+     4), then at the ViT shape (its kernels-line row), the LM prefill's
+     causal GQA shapes (T = 128 and the mixed prefill's T = 96) and
+     Qwen3-4B's training shape (1, 1024, 32/8, 128), with the plain
+     analytic backward timed there.  The
      three float32 tensor-core kernels (window, flash, ``ssd_scan``) are
      bounded by their bytes or by three TF32 products per product at the
      TF32 peak (3xTF32), whichever is larger.  The whole phase runs
@@ -91,8 +93,8 @@ Phases; any failure exits non-zero and prints no result:
   7. serve full-width Qwen3-4B (36 layers, D=2560, GQA 32/8, weights
      from a seed) through ``repro_torch.serve.engine.ServeEngine``: warm
      up, then a plain wave and a mixed beta-2 wave (4 of 8 spans pooled)
-     of 8 requests x 128 prompt tokens x 16 new tokens.  Every request
-     must get 16 tokens, each wave must launch ``flash_attention`` 36
+     of 8 requests x 128 prompt tokens x 8 new tokens.  Every request
+     must get 8 tokens, each wave must launch ``flash_attention`` 36
      times (one prefill) and ``decode_attention`` 36 times per decode
      step, and no key may first run after warmup.  Wall time (median of
      three), prefill and decode-step times, and one traced wave of each
@@ -113,8 +115,8 @@ Phases; any failure exits non-zero and prints no result:
      device time of each of the scan's four kernels;
  10. serve full-width mamba2-370m (48 layers, D=1024, weights from a
      seed) through ``ServeEngine``: warm up, then plain waves of 8
-     requests x 1024 prompt tokens x 16 new tokens.  Every request must
-     get 16 tokens, a wave must launch ``ssd_scan`` 48 times (one
+     requests x 1024 prompt tokens x 8 new tokens.  Every request must
+     get 8 tokens, a wave must launch ``ssd_scan`` 48 times (one
      prefill), and no key may first run after warmup.  Wall time
      (median of three), prefill and decode-step times, one traced wave;
      then ``mixed_forward_ssm`` at beta 2 with half the spans pooled
@@ -208,11 +210,18 @@ Phases; any failure exits non-zero and prints no result:
      to KINK_GRAD_TOL, with the count of kink positions whose branch
      differs; a 2-block full-width model at B = 1,
      card vs CPU: loss to TRAIN_LOSS_RTOL, every leaf's gradient the
-     same two ways.  Last,
-     the reference's SIM recipe at 200 of its 1800 steps (peak lr
+     same two ways.  The four Functions' half gradients: at fp16 and
+     bf16, window at the padded shape with ``win_valid``, flash at the
+     ViT shape, ``avg_pool`` at the serving frame, ``nn_upsample`` at the
+     LOW windows, on the card (the half forward kernel, the reference's
+     VJP in plain PyTorch) against the CPU's plain forward and backward
+     on the same inputs and cotangent, outputs and gradients within one
+     ULP at >= HALF_EQUAL bit-equal, each half kernel launched (path
+     ``train half Functions``).  Last,
+     the reference's SIM recipe at 150 of its 1800 steps (peak lr
      5e-4, B = 2; cut to keep the run within its
      time limit): the
-     loss every 200 steps and the wall, the mean of the last 100 losses
+     loss and the wall, the mean of the last 100 losses
      below that of the first 50, the trained server's frame F1 against
      the ground-truth boxes of held-out clips (and of the training clips)
      beside the seed-0 model's,
@@ -224,22 +233,29 @@ Phases; any failure exits non-zero and prints no result:
      and gradients against autograd through the plain version to
      GRAD_TOL, and the forward's error against float64 beside the plain
      version's; the ~100M qwen3-family run of ``examples/train_lm_100m.py``
-     through ``launch.train.train`` (60 of the example's 300 steps at
+     through ``launch.train.train`` (40 of the example's 300 steps at
      B = 4, T = 256; the mean of the last 10 losses 0.1 below the
      first), its last
      checkpoint restored bit-equal (``AdamState.step`` and moments) and a
-     10-step resumed run; full-width Qwen3-4B (seed-0 weights, remat):
+     5-step resumed run; full-width Qwen3-4B (seed-0 weights, remat):
      the first step's gradients against the plain route on the card and
-     flash's float64 error on the step's own inputs, 3 steps at B = 1,
+     flash's float64 error on the step's own inputs, 2 steps at B = 1,
      T = 1024 and one at B = 2 over two microbatches (72 flash launches a
      microbatch: 36 forward, 36 in the remat recompute), step wall, peak
      memory below the card's, the forward / backward / AdamW device ms
      and a traced step's families (``profile_lm_train_qwen3.txt``);
+     then, the float32 state freed, full-depth Qwen3-4B at bf16
+     parameters (``init_train_state(dtype=)``, float32 moments),
+     LM_HALF_STEPS steps at B = 1, T = 1024: step wall, peak memory,
+     launches by type (every flash launch the bf16 kernel's; path
+     ``lm_train qwen3-4b bf16``), the forward / backward / AdamW device
+     ms and a traced step (``flash_attention_bwd``, ``adamw``);
      full-width mamba2-370m and zamba2-1.2b steps at B = 2 (no
      ``ssd_scan`` launch: the scans train through ``ssd_chunked``; 12
      flash launches a zamba2 step); 2-layer Qwen3, 2-layer mamba2 and
      6-layer zamba2 full-width steps card against CPU (loss to
-     TRAIN_LOSS_RTOL, every leaf to LM_GRAD_TOL of its largest);
+     TRAIN_LOSS_RTOL, every leaf to LM_GRAD_TOL of its largest), and the
+     2-layer Qwen3 at bf16 (loss and every leaf to LM_BF16_RTOL);
  17. the exact-shape mixed-resolution lane (``forward_features`` on
      region ids, ``mixed_res.pack_mixed`` / ``restore_full``) on
      full-width ViTDet-L at B = 2 (seeded weights): beta 0..4 with 8 of
@@ -263,7 +279,7 @@ Phases; any failure exits non-zero and prints no result:
      over a decode step's 36 blocks); full-width Qwen3-4B (phase 7's
      seed-0 weights) through ``quant.ptq.quantize_lm_params`` (weight GB
      before and after) served by ``ServeEngine`` in plain waves of 8 x
-     128 + 16 tokens: 5 ``int8_matmul`` launches a block in the prefill
+     128 + 8 tokens: 5 ``int8_matmul`` launches a block in the prefill
      and in each decode step, no steady-state first use, wall, prefill
      and decode-step ms beside phase 7's fp32 engine, greedy agreement
      with its tokens (printed, not gated); a 2-layer full-width int8
@@ -302,7 +318,7 @@ Phases; any failure exits non-zero and prints no result:
      tiles move in half float32's bytes);
  22. the LM half lanes: full-width Qwen3-4B (phase 7's weights and
      prompts) on a bf16 tree, an fp16 tree and a float32 tree over a
-     bf16 cache, plain waves of 8 x 128 + 16: weight GB, prefill and
+     bf16 cache, plain waves of 8 x 128 + 8: weight GB, prefill and
      decode-step ms beside phase 7's, flash at half in a half tree's
      prefill, decode at half in every step, finite bf16 logits (fp16's
      printed), greedy agreement with phase 7's tokens (printed); one
@@ -314,7 +330,7 @@ Phases; any failure exits non-zero and prints no result:
      layer first) at full published width, depth cut to MOE_LAYERS
      layers (float32 weights of 57.1 and 53.2 GB, seed 0, each freed
      before the next), each through a warmed ``ServeEngine``: a plain
-     and a mixed wave (half the spans pooled at BETA) of 8 x 128 + 16;
+     and a mixed wave (half the spans pooled at BETA) of 8 x 128 + 8;
      dbrx must launch flash once a layer a prefill and decode once a
      layer a step, deepseek-v2 neither (MLA's attention is einsums);
      no steady first use; prefill and decode-step ms against the
@@ -331,17 +347,17 @@ Phases; any failure exits non-zero and prints no result:
      the same way.  Phase 2 checks and times flash at dbrx's causal
      prefill shapes (G = 6, T = 128 and the mixed 96) and decode at its
      serving step and kv_len edges, at every type;
- 24. the reference's last five architectures at full published width
-     and depth, float32, seed 0, each freed before the next:
-     whisper-medium (24 + 24 layers) on 8 requests of 1500 stub frames
-     and a 32-token prompt, 16 greedy tokens through
+ 24. the reference's last five architectures at full published width,
+     MM_LAYERS layers each, float32, seed 0, each freed before the next:
+     whisper-medium (8 + 8 layers) on 8 requests of 1500 stub frames
+     and a 32-token prompt, MM_NEW greedy tokens through
      ``registry.prefill`` / ``decode_step`` (flash in the encoder, in
      the decoder's causal prefill and in every cross-attention, at T_q
      = 1 each step; decode each step), and ``encode_mixed`` at BETA
-     with 37 of the 75 frame spans pooled; llava-next-mistral-7b (32
-     layers) on 2 requests of 2880 image embeddings and a 128-token
+     with 37 of the 75 frame spans pooled; llava-next-mistral-7b on 2
+     requests of 2880 image embeddings and a 128-token
      prompt, plain and through ``mixed_prefill`` at BETA (half the 188
-     spans pooled), 16 greedy tokens; deepseek-7b, mistral-nemo-12b
+     spans pooled), MM_NEW greedy tokens; deepseek-7b, mistral-nemo-12b
      and phi4-mini-3.8b through a warmed ``ServeEngine`` as phase 23
      serves its models.  Each with its launches (no path may count
      zero), prefill and decode-step ms (medians of two runs, three in
@@ -354,8 +370,10 @@ Phases; any failure exits non-zero and prints no result:
      = 32 and 1 against 1500 keys and llava's causal (2, 3008, 32/8,
      128), and decode at phi4-mini's G = 3, deepseek-7b's G = 1 at Dh =
      128 and whisper's decoder step, at float32;
- 25. the LM families' last lanes.  (A) whisper-medium (24 + 24 layers)
-     and llava-next-mistral-7b (LLAVA_TRAIN_LAYERS of its 32 layers: the
+ 25. the LM families' last lanes.  (A) whisper-medium
+     (WHISPER_TRAIN_LAYERS + as many encoder layers of its 24 + 24, cut
+     to keep the whole run within its time limit) and
+     llava-next-mistral-7b (LLAVA_TRAIN_LAYERS of its 32 layers: the
      whole model's weights, gradients and AdamW moments would take 116
      GB) trained at full width from seed 0 through ``make_train_step``
      (remat) on ``launch.train.synthetic_batches``: 8 x (1500 stub frames
@@ -363,7 +381,7 @@ Phases; any failure exits non-zero and prints no result:
      step's loss and every gradient leaf against the plain route on the
      card (TRAIN_LOSS_RTOL, LM_GRAD_TOL), MM_TRAIN_STEPS finite steps
      (flash launches: every attention of a forward, twice under remat:
-     144 a whisper step, 16 a llava step), the step wall, peak memory,
+     48 a whisper step, 16 a llava step), the step wall, peak memory,
      one step's forward / backward / AdamW device ms and a traced step
      (``flash_attention_bwd`` marked); a 2-layer narrow config of each
      (``MM_NARROW``) card vs CPU over two steps (loss and every leaf
@@ -372,7 +390,7 @@ Phases; any failure exits non-zero and prints no result:
      and MOE_LAYERS layers (a half tree cast as it is drawn,
      ``init_lm_params(dtype=)``: the float32 tree and its cast do not fit
      together), each through a warmed ``ServeEngine``: a plain and a
-     mixed wave of 8 x 128 + 16 with their launches (dbrx at half: flash
+     mixed wave of 8 x 128 + 8 with their launches (dbrx at half: flash
      once a layer a prefill and decode once a layer a step, at the half
      type; int8: also ``int8_matmul`` twice a layer a prefill and a step;
      deepseek-v2: none), weight GB, prefill and decode-step ms against the
@@ -428,8 +446,10 @@ Phases; any failure exits non-zero and prints no result:
      identity and ``gather_leaf`` returns the leaf), each step's host ms
      and the peak GB, the mesh steps' flash launches (path ``lm_train
      qwen3-4b mesh (1, 1)``), and the mesh step's parameters saved with
-     their shardings; (b) one full-width dbrx-132b MoE layer in bf16 (16 x 6144
-     x 10752 slabs, 8 x 128 tokens): a forward and a backward through
+     their shardings; the same at bf16 parameters, bit-equal too (path
+     ``lm_train qwen3-4b mesh (1, 1) bfloat16``, the bf16 flash kernel
+     at every launch); (b) one full-width dbrx-132b MoE layer in bf16
+     (16 x 6144 x 10752 slabs, 8 x 128 tokens): a forward and a backward through
      ``moe_sharded`` at ep = 1 against ``moe_local``, outputs, aux and
      every gradient bit-equal; (c) ``compressed_psum`` over the one-rank
      world bit-equal to ``quantize_roundtrip``; (d) a 1-stage GPipe
@@ -439,17 +459,19 @@ Phases; any failure exits non-zero and prints no result:
      tests').
  28. the dry-run (``launch/{specs,costing,dryrun}.py``,
      ``roofline/{model,collectives}.py``) against the card, on phase 27's
-     cell: (a) that step run once on the card under ``FlopCounterMode``
-     (an NCCL group of one rank; path ``lm_train qwen3-4b dry-run
-     check``) and counted by the dry-run on a fake group of one rank
-     (fake tensors, plain versions): the dry-run's GEMM FLOPs outside the
-     flash forward's plain version, which the card runs in its kernel
-     out of the counter's sight, equal the card's exactly, the
-     attention's share printed apart; (b) the dry-run's t_compute and
-     t_memory at the H100 constants (FLOPs at the float32 peak: the
-     step's GEMMs run in float32; the bytes also with the flash
-     kernel's analytic traffic in place of the plain forward's) beside
-     phase 27's measured step ms and their ratio, not gated; (c) the
+     cell, at float32 and at bf16 parameters: (a) that step run once on
+     the card under ``FlopCounterMode`` (an NCCL group of one rank; paths
+     ``lm_train qwen3-4b dry-run check`` and ``... check bf16``) and
+     counted by the dry-run (``build_cell_from(dtype=)``) on a fake group
+     of one rank (fake tensors, plain versions): the dry-run's GEMM
+     FLOPs outside the flash forward's plain version, which the card
+     runs in its kernel out of the counter's sight, equal the card's
+     exactly, the attention's share printed apart; (b) the dry-run's
+     t_compute and t_memory at the H100 constants (FLOPs at the peak of
+     the step's type: float32 67 TFLOP/s with TF32 off, bf16 989; the
+     bytes also with the flash kernel's analytic traffic in place of the
+     plain forward's) beside phase 27's measured step ms at that type
+     and their ratio, not gated; (c) the
      production cell qwen3-4b decode_32k on the 256-rank ``pod1`` fake
      mesh and its roofline terms.
 
@@ -469,8 +491,8 @@ the calibration of phase 20, the half lanes of phases 21 and 22, the
 MoE waves of phase 23, the models of phase 24 and phase 25's training
 runs, ``lm_train <config>``, and MoE lanes, ``<config> <lane>
 [mixed]``, named by their config and path, every autotuner sweep of
-the run, ``autotune``, and phase 28's counted step, ``lm_train qwen3-4b
-dry-run check``);
+the run, ``autotune``, and phase 28's counted steps, ``lm_train qwen3-4b
+dry-run check [bf16]``);
 the ``int8_matmul`` row also gives phase 19's decode-step device us and
 bound, and every row but ``ssd_scan``'s its ``f16`` / ``bf16`` numbers.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -512,18 +534,25 @@ FLASH_CASES = ((2, 130, 77, 4, 4, 16), (2, 200, 300, 8, 2, 32),
 ATTN_TOL = 1e-4             # float32 attention, kernel vs plain, absolute
 DECODE_TOL = 1e-5           # float32 decode attention, another sum order
 LM_RTOL = 1e-3              # 4-layer Qwen3 logits, card vs CPU, relative
-LM_B, LM_T, LM_NEW = 8, 128, 16      # the LM serving waves
+# the LM serving waves (8 new tokens, cut from 16 to keep the whole run
+# within its time limit: a decode step's launches and ms do not depend
+# on the count)
+LM_B, LM_T, LM_NEW = 8, 128, 8
 LM_MAX_LEN = 152
 LM_LONG_LENS = (8192, 6000, 4097, 2048, 513, 64, 1, 8192)
 SSD_TOL = 1e-4              # SSD scan, kernel vs plain, of the largest value
-SSM_B, SSM_T, SSM_NEW = 8, 1024, 16   # the SSM serving waves
+SSM_B, SSM_T, SSM_NEW = 8, 1024, 8    # the SSM serving waves
 # phase 24: whisper-medium's requests (1500 stub frames of width 1024 and
 # a decoder prompt) and llava-next-mistral-7b's (2880 stub image
 # embeddings of width 1024 and a text prompt), each of MM_NEW greedy
-# tokens (the prefill's, then MM_NEW - 1 decode steps)
+# tokens (the prefill's, then MM_NEW - 1 decode steps), every model at
+# its first MM_LAYERS layers (whisper-medium: as many encoder layers).
+# Both cut (from 16 tokens and full depth) to keep the whole run within
+# its time limit: a decode step's launches a layer and a layer's ms do
+# not depend on them
 WHISPER_B, WHISPER_T = 8, 32
 LLAVA_B, LLAVA_T = 2, 128
-MM_NEW = 16
+MM_NEW, MM_LAYERS = 8, 8
 SSD_NS = (16, 32, 64, 128)  # the state sizes ssd_scan.cu is built for
 # the four kernels one ssd_scan call runs, in order
 SSD_STAGES = ("ssd_scores_kernel", "ssd_states_kernel", "ssd_pass_kernel",
@@ -593,9 +622,10 @@ PROFILE_FRAMES = 5
 OFFLOAD_RUNS = (("TrackB2B", "cycleS"), ("ViTMAlis", "cycleS"),
                 ("ViTMAlis+Reuse", "cycleS"), ("ViTMAlis+Reuse", "parkS"))
 # phase 13's card-vs-CPU simulations, (policy, video, frames): TrackB2B
-# offloads at frames 1 and 15, ViTMAlis+Reuse on parkS at 1 (full), 14
-# (LOW), 16 (REUSE) and 19 (LOW and REUSE)
-CROSS_RUNS = (("TrackB2B", "cycleS", 16), ("ViTMAlis+Reuse", "parkS", 20))
+# offloads at frame 1 (cut from 16 frames, which added one at frame 15,
+# to keep the whole run within its time limit), ViTMAlis+Reuse on parkS
+# at 1 (full), 14 (LOW), 16 (REUSE) and 19 (LOW and REUSE)
+CROSS_RUNS = (("TrackB2B", "cycleS", 8), ("ViTMAlis+Reuse", "parkS", 20))
 DET_RTOL = 1e-3             # its detections, card vs CPU, relative
 # phase 14, the multi-client edge: run A's clients (video, 4G trace index
 # = position), run B's slow-uplink clients, their frames, the server's
@@ -611,7 +641,7 @@ MC_SEED = 17
 # windows (0.7^2 = 49% of the uplink) give its payloads the transit time
 # the ten (0.7^10 = 2.8%) give the SIM ones (16 x 2.8% = 45%)
 MC_SLOW_WINDOWS = 2
-MC_CROSS_CLIENTS, MC_CROSS_FRAMES = 2, 8    # phase 14's card-vs-CPU runs
+MC_CROSS_CLIENTS, MC_CROSS_FRAMES = 2, 5    # phase 14's card-vs-CPU runs
 ALPHA_REPS = 3              # timed waves per B behind the measured alpha
 QUANT_E2E_RTOL = 0.05       # 8-block quantized forward, card vs CPU
 # phase 15, training
@@ -632,11 +662,12 @@ TRAIN_GRAD_TOL = 1e-3       # analytic vs autograd backward, of a leaf's max
 # plain route): the bound sits just above that.
 KINK_GRAD_TOL = 5e-3
 TRAIN_LOSS_RTOL = 1e-4      # the 2-block model's loss, card vs CPU
-# benchmarks/common.py's SIM recipe (1800 steps, peak lr 5e-4) at 200 of
+# benchmarks/common.py's SIM recipe (1800 steps, peak lr 5e-4) at 150 of
 # its steps, to keep the whole run within its time limit (at 900 steps
 # the last-100 mean loss read 0.37 against 3.91 over the first 50, at
-# step 200 of 450 1.71: the check keeps a wide margin at 200)
-SIM_STEPS, SIM_PEAK_LR = 200, 5e-4
+# step 200 of 450 1.71, over steps 100-200 of 200 2.54: the check keeps
+# a wide margin at 150)
+SIM_STEPS, SIM_PEAK_LR = 150, 5e-4
 F1_VIDEOS, F1_FRAMES, F1_SEED = ("walkS", "walkB", "cycleS"), 16, 23
 BWD_MARKS = ("window_attention_bwd", "flash_attention_bwd")
 # phase 16, LM training: causal GQA flash at Qwen3-4B's and the ~100M
@@ -646,15 +677,16 @@ LM_FLASH_SHAPES = ((1, 1024, 32, 8, 128), (4, 256, 10, 2, 64))
 LM_100M = dict(name="qwen3-100m", n_layers=12, d_model=640, n_heads=10,
                n_kv_heads=2, head_dim=64, d_ff=2048, vocab_size=32768,
                max_seq_len=4096)
-# the example's run at a fifth of its 300 steps (to keep the whole script
-# within its time limit; at step 100 the loss already sits 2.2 below the
-# first, and the check asks for 0.1)
-LM_100M_STEPS, LM_100M_B, LM_100M_T = 60, 4, 256
-LM_100M_RESUME = 10         # steps of the resumed run
+# the example's run at 40 of its 300 steps (to keep the whole script
+# within its time limit; at step 60 the last 10 losses' mean sat 2.1
+# below the first, and the check asks for 0.1)
+LM_100M_STEPS, LM_100M_B, LM_100M_T = 40, 4, 256
+LM_100M_RESUME = 5          # steps of the resumed run
 LM_TRAIN_T = 1024           # full-width LM steps' sequence length
-LM_TRAIN_STEPS = 3          # full-width Qwen3-4B steps at B = 1
+LM_TRAIN_STEPS = 2          # full-width Qwen3-4B steps at B = 1
 SSM_TRAIN_STEPS, SSM_TRAIN_B = 2, 2   # full-width mamba2 / zamba2 steps
 LM_CROSS_T = 128            # the few-layer card-vs-CPU steps
+LM_HALF_STEPS = 2           # full-depth bf16 Qwen3-4B steps at B = 1
 LM_GRAD_TOL = 1e-3          # LM step gradients, of each leaf's largest
 CALIB_FRAMES = 8            # phase 20's frames a scenario
 # phase 22: the lanes (name, tree dtype, cache dtype) and the bf16
@@ -689,7 +721,7 @@ MOE_NARROW = {
 # narrow card-vs-CPU configs keep the published layout (whisper's 1500
 # frames, llava's 2880 image embeddings of width 1024 and G = 4) at 2
 # layers and narrow widths
-WHISPER_TRAIN_B, WHISPER_TRAIN_T = 8, 64
+WHISPER_TRAIN_B, WHISPER_TRAIN_T, WHISPER_TRAIN_LAYERS = 8, 64, 8
 LLAVA_TRAIN_B, LLAVA_TRAIN_T, LLAVA_TRAIN_LAYERS = 2, 128, 8
 MM_TRAIN_STEPS = 2
 MM_NARROW = {
@@ -797,10 +829,16 @@ def check(cond: bool, msg: str) -> None:
 LOG = None                  # chiprun_out/chip_smoke.log, opened by main()
 
 
+T_START = time.perf_counter()
+
+
 def say(*a) -> None:
+    """A line to stdout and to the log, there after the seconds since the
+    script started."""
     print(*a, flush=True)
     if LOG is not None:
-        print(*a, file=LOG, flush=True)
+        print(f"[{time.perf_counter() - T_START:7.1f}]", *a, file=LOG,
+              flush=True)
 
 
 def main() -> int:
@@ -1032,8 +1070,9 @@ def run(torch):
     lat["mesh"] = mesh_phase(torch, dev, count)
 
     # phase 28 ------------------------------------------------------------
-    lat["dryrun"] = dryrun_phase(torch, dev, count,
-                                 lat["mesh"]["train"]["mesh"]["step_ms"])
+    lat["dryrun"] = dryrun_phase(
+        torch, dev, count, lat["mesh"]["train"]["mesh"]["step_ms"],
+        lat["mesh"]["train_bf16"]["mesh"]["step_ms"])
 
     out = []
     for name in KERNEL_SOURCES:
@@ -2702,6 +2741,85 @@ def function_grad_checks(torch, cfg, dev, gen):
     return out
 
 
+def half_function_grad_checks(torch, cfg, dev, gen, count):
+    """The four Functions with a backward at fp16 and bf16, at the
+    full-width ViTDet-L shapes (window at the padded wave with
+    ``win_valid``, flash at the global blocks' (B, T, H, Dh), at fp16 at
+    one image's (1, T, H, Dh), whose CPU side costs half as much,
+    avg_pool at the serving frame, nn_upsample at the LOW windows): on
+    the card the
+    half forward kernel and the reference's VJP in plain PyTorch (flash
+    and window in float32, cast to each operand's type; the pools in the
+    cotangent's type), against the same on CPU copies of the inputs and
+    cotangent (the plain forward and backward).  Outputs and gradients
+    within one ULP of the half type at >= HALF_EQUAL bit-equal
+    (``half_close``); the half kernels must launch (path ``train half
+    Functions``).  Nothing falls back: a half backward that fails fails
+    the run."""
+    from repro_torch.core import vit_backbone as vb
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.build import FLOAT_SUFFIX
+
+    KERNEL_OF = {"window": "window_attention", "flash": "flash_attention",
+                 "avg_pool": "avg_pool", "nn_upsample": "nn_upsample"}
+    part = vb.vit_partition(cfg)
+    w2, T = part.window ** 2, part.grid_h * part.grid_w
+    H, Dh = cfg.n_heads, cfg.head_dim
+    wv = torch.tensor([T // w2 - 16, T // w2 - 24], dtype=torch.int32)
+    flash_b = {torch.float16: 1, torch.bfloat16: B}
+
+    def cases(dt):
+        fb = flash_b[dt]
+        return {
+            "window": ((B, T, H, Dh), (B, T, H, Dh), lambda q, k, v: (
+                dispatch.window_attention(q, k, v, w2, wv.to(q.device))), 3),
+            "flash": ((fb, T, H, Dh), (fb, T, H, Dh),
+                      lambda q, k, v: dispatch.flash_attention(q, k, v), 3),
+            "avg_pool": ((B, *cfg.vit.img_size, 3),
+                         (B, cfg.vit.img_size[0] // 2,
+                          cfg.vit.img_size[1] // 2, 3),
+                         lambda x: dispatch.avg_pool(x, 2), 1),
+            "nn_upsample": ((B * part.n_regions, part.window, part.window,
+                             cfg.d_model),
+                            (B * part.n_regions, 2 * part.window,
+                             2 * part.window, cfg.d_model),
+                            lambda x: dispatch.nn_upsample(x, 2), 1)}
+    out = {}
+    torch.set_num_threads(os.cpu_count() or 1)
+    dispatch.reset_launch_counts()
+    for dt in flash_b:
+        for name, (shape, gshape, fn, n_in) in cases(dt).items():
+            xs = [torch.randn(shape, generator=gen, device=dev).to(dt)
+                  for _ in range(n_in)]
+            g = torch.randn(gshape, generator=gen, device=dev).to(dt)
+            runs = []
+            for d in (dev, "cpu"):
+                ins = [x.detach().to(d).requires_grad_(True) for x in xs]
+                o = fn(*ins)
+                o.backward(g.to(d))
+                runs.append([o.detach()] + [x.grad for x in ins])
+            row = {}
+            for what, got, want in zip(("out", "dq", "dk", "dv"), *runs):
+                row[what] = half_close(
+                    torch, f"{name} {dt} {what} card vs CPU", got.cpu(),
+                    want, ATTN_TOL if n_in == 3 else 0.0)
+            out[f"{name}_{str(dt)[6:]}"] = row
+            say(f"  half gradients, {name} {str(dt)[6:]} {tuple(shape)}: "
+                "card vs CPU (largest difference, bit-equal share) "
+                + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.5f}"
+                            for k, v in row.items()))
+            del xs, g, runs
+    launches = dispatch.launch_counts()
+    count("train half Functions", launches)
+    for dt in flash_b:
+        half = dispatch.launch_counts(FLOAT_SUFFIX[dt])
+        want = {k: 1 for k in KERNEL_OF.values()}
+        check(all(half[k] == v for k, v in want.items()),
+              f"half Functions: {dt} launches {half}, want {want}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def stage_ms(torch, cfg, flat, like, img, tgt):
     """One training step's forward, backward and AdamW device ms: CUDA
     events between the stages on the one stream they share."""
@@ -2796,7 +2914,9 @@ def train_phase(torch, cfg, dev, gen, count):
     say(f"phase 15: training {cfg.name} ({cfg.n_layers} blocks, D="
         f"{cfg.d_model}, {cfg.vit.img_size[0]} px, B={B}) and the SIM "
         f"recipe")
-    out = {"functions": function_grad_checks(torch, cfg, dev, gen)}
+    out = {"functions": function_grad_checks(torch, cfg, dev, gen),
+           "half_functions": half_function_grad_checks(torch, cfg, dev, gen,
+                                                       count)}
 
     # full-width steps through the kernels
     params = ts.seed0_params(cfg, dev)
@@ -3002,16 +3122,17 @@ def lm_grads(torch, registry, ckpt, cfg, params, batch, remat=True):
     return loss.detach(), grads
 
 
-def lm_leaves_close(what, got, want, out):
-    """Every leaf's gradient to LM_GRAD_TOL of its largest (the LM has no
+def lm_leaves_close(what, got, want, out, tol=LM_GRAD_TOL):
+    """Every leaf's gradient to ``tol`` of its largest (the LM has no
     ReLU: no kink tolerance applies); prints the worst leaves."""
-    errs = {k: rel_err(got[k].to(want[k].device), want[k]) for k in want}
+    errs = {k: rel_err(got[k].to(want[k].device).float(), want[k].float())
+            for k in want}
     top = sorted(errs, key=errs.get, reverse=True)[:4]
     out[what] = {k: errs[k] for k in top}
     say(f"  {what}: worst leaves " + ", ".join(
         f"{k} {errs[k]:.3g}" for k in top) + f" of their largest (limit "
-        f"{LM_GRAD_TOL}); {len(errs)} leaves")
-    check(errs[top[0]] <= LM_GRAD_TOL, f"{what}: {top[0]} {errs[top[0]]}")
+        f"{tol}); {len(errs)} leaves")
+    check(errs[top[0]] <= tol, f"{what}: {top[0]} {errs[top[0]]}")
 
 
 def lm_function_checks(torch, dev):
@@ -3242,6 +3363,91 @@ def lm_full_width(torch, cfg, dev, count):
     return out
 
 
+def lm_half_full_width(torch, cfg, dev, count, dt):
+    """Full-depth, full-width Qwen3-4B at ``dt`` parameters (float32 AdamW
+    moments, ``init_train_state(dtype=)``), seed 0: LM_HALF_STEPS steps at
+    B = 1, T = LM_TRAIN_T with remat after the float32 state is freed;
+    losses, step wall, peak memory, launches by type (the half flash
+    forward kernel must launch: path ``lm_train qwen3-4b bf16``), the
+    forward / backward / AdamW device ms and a traced step (its
+    ``flash_attention_bwd`` and ``adamw`` spans)."""
+    import gc
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.build import FLOAT_SUFFIX
+    from repro_torch.launch import train as lt
+    from repro_torch.models import registry
+    from repro_torch.optim import adam
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import trainer as tr
+
+    suf = FLOAT_SUFFIX[dt]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = tr.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev, dt)
+    data = lt.synthetic_batches(cfg, 1, LM_TRAIN_T, seed=SEED)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                next(data).items()} for _ in range(LM_HALF_STEPS)]
+    step = tr.make_train_step(cfg, tr.TrainConfig(remat=True))
+    dispatch.reset_launch_counts()
+    losses, walls = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    launches, by_type = dispatch.launch_counts(), dispatch.launch_counts(suf)
+    count(f"lm_train qwen3-4b {suf}", launches)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * cfg.n_layers                 # forward + remat recompute
+    kinds = {str(p.dtype) for p in ckpt.flatten(params).values()}
+    check(kinds == {str(dt)} and all(
+        v.dtype == torch.float32 for v in opt.m.values()),
+        f"{suf} state: parameters {kinds}")
+    check(all(np.isfinite(losses)), f"{suf} steps: losses {losses}")
+    check(launches["flash_attention"] == by_type["flash_attention"]
+          == per_step * LM_HALF_STEPS and sum(launches.values())
+          == launches["flash_attention"],
+          f"{suf} steps: launches {launches}, {suf} {by_type}")
+    out = {"losses": losses, "step_s": walls,
+           "step_ms": [w * 1e3 for w in walls], "peak_gb": peak / 1e9,
+           "held_before_gb": held / 1e9,
+           "launches": {k: v for k, v in launches.items() if v},
+           "launches_by_type": {s_: {k: v for k, v in
+                                     dispatch.launch_counts(s_).items() if v}
+                                for s_ in ("f32", "f16", "bf16")}}
+    out["stages_ms"] = lm_stage_ms(torch, registry, adam, ckpt, cfg, params,
+                                   opt, batches[0])
+
+    def traced():
+        step(params, opt, batches[0])
+        torch.cuda.synchronize()
+
+    out["profile"] = profile_wave(torch, f"lm_train_qwen3_{suf}", traced,
+                                  walls[-1],
+                                  marks=("flash_attention_bwd", "adamw"))
+    fam = out["profile"]["families_ms"]
+    say(f"  {cfg.name} at {suf} ({cfg.n_layers} layers), {LM_HALF_STEPS} "
+        f"steps at B=1, T={LM_TRAIN_T}, remat: losses " + " ".join(
+            f"{x:.4f}" for x in losses) + "; step ms " + " ".join(
+            f"{w * 1e3:.1f}" for w in walls) + f"; peak {peak / 1e9:.2f} GB "
+        f"({held / 1e9:.2f} GB held before); launches by type "
+        f"{out['launches_by_type']}")
+    say(f"  {cfg.name} {suf} step on the device: " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in out["stages_ms"].items())
+        + "; traced: flash_attention_bwd "
+        f"{fam.get('flash_attention_bwd', 0):.2f} ms, adamw "
+        f"{fam.get('adamw', 0):.2f} ms")
+    del params, opt, m, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def ssm_train_steps(torch, cfg, dev, count):
     """Full-width steps of an SSM / hybrid model, remat on: the scans take
     the training route (no ``ssd_scan`` launch); zamba2's shared block
@@ -3285,17 +3491,19 @@ def ssm_train_steps(torch, cfg, dev, count):
     return out
 
 
-def lm_card_vs_cpu(torch, cfg, dev):
+def lm_card_vs_cpu(torch, cfg, dev, dtype=None, rtol=TRAIN_LOSS_RTOL,
+                   grad_tol=LM_GRAD_TOL):
     """One training step's loss and gradients of a few full-width layers,
-    card against CPU (the plain versions): loss to TRAIN_LOSS_RTOL, every
-    leaf to LM_GRAD_TOL of its largest."""
+    card against CPU (the plain versions): loss to ``rtol``, every leaf
+    to ``grad_tol`` of its largest; parameters at ``dtype`` (None:
+    float32)."""
     from repro_torch.models import registry
     from repro_torch.offload.simulator import to_device
     from repro_torch.train import checkpoint as ckpt
 
     torch.set_num_threads(os.cpu_count() or 1)
     p_gpu = registry.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(SEED + 5), dev)
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 5), dev, dtype)
     p_cpu = to_device(p_gpu, torch.device("cpu"))
     toks = np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab_size, (1, LM_CROSS_T))
@@ -3305,12 +3513,13 @@ def lm_card_vs_cpu(torch, cfg, dev):
     loss_h, g_h = lm_grads(torch, registry, ckpt, cfg, p_cpu,
                            {"tokens": torch.as_tensor(toks)})
     rel = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
-    what = f"{cfg.n_layers}-layer {cfg.name} card vs CPU"
+    what = (f"{cfg.n_layers}-layer {cfg.name} "
+            f"{'' if dtype is None else str(dtype)[6:] + ' '}card vs CPU")
     out = {"loss_rel": rel, "s": time.perf_counter() - t0}
     say(f"  {what}, B=1, T={LM_CROSS_T}: loss rel {rel:.3g} (limit "
-        f"{TRAIN_LOSS_RTOL}); {out['s']:.1f} s")
-    check(rel <= TRAIN_LOSS_RTOL, f"{what}: loss {rel}")
-    lm_leaves_close(what, g_c, g_h, out)
+        f"{rtol}); {out['s']:.1f} s")
+    check(rel <= rtol, f"{what}: loss {rel}")
+    lm_leaves_close(what, g_c, g_h, out, grad_tol)
     del p_gpu, p_cpu, g_c, g_h
     torch.cuda.empty_cache()
     return out
@@ -3336,11 +3545,18 @@ def lm_train_phase(torch, dev, count):
     gc.collect()
     torch.cuda.empty_cache()
     out[QWEN.name] = lm_full_width(torch, QWEN, dev, count)
+    out[f"{QWEN.name} bf16"] = lm_half_full_width(torch, QWEN, dev, count,
+                                                  torch.bfloat16)
     for c in (MAMBA, ZAMBA):
         out[c.name] = ssm_train_steps(torch, c, dev, count)
     out["card_vs_cpu"] = {c.name: lm_card_vs_cpu(torch, c, dev) for c in (
         QWEN.replace(n_layers=2), MAMBA.replace(n_layers=2),
         ZAMBA.replace(n_layers=6))}
+    # the bf16 step's loss and gradients, held as the CPU tests hold the
+    # two packages' bf16 trees (tests/test_torch_half_train.py)
+    out["card_vs_cpu"]["qwen3-4b bf16"] = lm_card_vs_cpu(
+        torch, QWEN.replace(n_layers=2), dev, torch.bfloat16, LM_BF16_RTOL,
+        LM_BF16_RTOL)
     out["phase_s"] = time.perf_counter() - t_phase
     say(f"  phase 16: {out['phase_s']:.1f} s")
     return out
@@ -3353,7 +3569,8 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
     float32 tree over a half cache runs it), at the kv_len edges, at
     a ragged long cache and at dbrx-132b's serving step (G = 6);
     ``flash_attention`` at the LM prefills' causal GQA shapes (Qwen3-4B's
-    and dbrx-132b's, plain and mixed).  At float32 also phase 24's
+    and dbrx-132b's, plain and mixed) and at Qwen3-4B's training shape
+    (with the plain backward's ms).  At float32 also phase 24's
     shapes: decode at phi4-mini's, deepseek-7b's and whisper's steps,
     flash at ``FLASH_MM``.  Each held by :func:`agree`.  Returns the
     extra rows, keyed with ``_f16`` / ``_bf16`` at half."""
@@ -3441,10 +3658,12 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
         equal_frac=r["equal_frac"],
         **{k: r[k] for k in ("f32_q_max_abs_err",) if k in r})
 
-    def flash_case(name, b, T, S, h, kv, dh, causal):
+    def flash_case(name, b, T, S, h, kv, dh, causal, bwd=False):
         """flash at (b, T, S, h / kv, dh): checked, timed (relaunches:
         host clock and device time) beside the plain version and SDPA,
-        bounded by its bytes or its (query, key) pairs' products."""
+        bounded by its bytes or its (query, key) pairs' products; with
+        ``bwd`` also the plain analytic backward's ms (the Function's, in
+        float32, cast to the operands' type)."""
         q, k, v = rnd(b, T, h, dh), rnd(b, S, kv, dh), rnd(b, S, kv, dh)
         err, eq = agree(
             torch, f"flash_attention {suf} {name} {(b, T, S, h, kv, dh)} "
@@ -3466,6 +3685,10 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
                "max_abs_err": err, "equal_frac": eq, "ms": k_ms,
                "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
                "bound_by": b_by, "device_us": d_us}
+        if bwd:
+            g = rnd(b, T, h, dh)
+            row["plain_bwd_ms"] = timed(
+                torch, lambda: flash.flash_attention_bwd(q, k, v, g, causal))
         say(f"  flash_attention {suf} {name} {row}")
         return row
 
@@ -3477,6 +3700,11 @@ def lm_kernel_checks(torch, F, flash, dev, gen, put, dt):
         for T in (LM_T, LM_T - 32):
             extra[f"flash_attention_{model}causal_T{T}{tag}"] = flash_case(
                 f"{model}causal GQA", LM_B, T, T, h, kv, Dh, True)
+    # Qwen3-4B's training shape (phase 16's steps at float32 and bf16),
+    # with the plain backward's ms
+    extra[f"flash_attention_train_T{LM_TRAIN_T}{tag}"] = flash_case(
+        "train causal GQA", 1, LM_TRAIN_T, LM_TRAIN_T, H, KV, Dh, True,
+        bwd=True)
     for name, shape in (FLASH_MM.items() if f32 else ()):
         extra[f"flash_attention_{name}"] = flash_case(name, *shape)
         torch.cuda.empty_cache()
@@ -5865,7 +6093,7 @@ def mm_model(torch, cfg, dev):
 
 
 def serve_whisper(torch, cfg, dev, count):
-    """whisper-medium at full width and depth: WHISPER_B requests of 1500
+    """whisper-medium at full width: WHISPER_B requests of 1500
     stub frames and a WHISPER_T-token prompt through :func:`mm_path`
     (flash: the encoder's layers, then each decoder layer's causal
     self-attention and cross-attention at the prefill, and the
@@ -5989,7 +6217,7 @@ def serve_whisper(torch, cfg, dev, count):
 
 
 def serve_llava(torch, cfg, dev, count):
-    """llava-next-mistral-7b at full width and depth: LLAVA_B requests of
+    """llava-next-mistral-7b at full width: LLAVA_B requests of
     2880 stub image embeddings and a LLAVA_T-token prompt through
     :func:`mm_path`, plain (flash once a layer at the causal prefill of
     3008 tokens, decode once a layer a step) and through
@@ -6033,22 +6261,26 @@ def mm_phase(torch, dev, count):
     """Phase 24: whisper-medium and llava-next-mistral-7b through the
     registry (:func:`serve_whisper`, :func:`serve_llava`), then
     deepseek-7b, mistral-nemo-12b and phi4-mini-3.8b through
-    :func:`serve_decoder`, every one at full published width and depth
+    :func:`serve_decoder`, every one at full published width and
+    MM_LAYERS layers (:func:`cut_depth`)
     in float32, each freed before the next."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
-    say(f"phase 24: the last five architectures at full width and depth, "
-        f"float32: whisper-medium, llava-next-mistral-7b, deepseek-7b, "
-        f"mistral-nemo-12b, phi4-mini-3.8b")
+    say(f"phase 24: the last five architectures at full width, "
+        f"{MM_LAYERS} layers, float32: whisper-medium, "
+        f"llava-next-mistral-7b, deepseek-7b, mistral-nemo-12b, "
+        f"phi4-mini-3.8b")
     out = {"whisper-medium": serve_whisper(
-        torch, get_config("whisper-medium"), dev, count)}
+        torch, cut_depth(get_config("whisper-medium"), MM_LAYERS), dev,
+        count)}
     torch.cuda.empty_cache()
     out["llava-next-mistral-7b"] = serve_llava(
-        torch, get_config("llava-next-mistral-7b"), dev, count)
+        torch, cut_depth(get_config("llava-next-mistral-7b"), MM_LAYERS),
+        dev, count)
     for name in ("deepseek-7b", "mistral-nemo-12b", "phi4-mini-3.8b"):
         torch.cuda.empty_cache()
-        launches, out[name] = serve_decoder(torch, get_config(name), dev,
-                                            traced=())
+        launches, out[name] = serve_decoder(
+            torch, cut_depth(get_config(name), MM_LAYERS), dev, traced=())
         count(name, launches)
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
@@ -6166,6 +6398,13 @@ def mm_train(torch, cfg, dev, count, b, t):
     del params, opt, batches, m
     torch.cuda.empty_cache()
     return out
+
+
+def cut_depth(cfg, n):
+    """``cfg`` at its first ``n`` layers (an encoder-decoder's encoder
+    too)."""
+    return narrow_config(cfg, dict(n_layers=n, **(
+        {"encdec": dict(n_encoder_layers=n)} if cfg.encdec else {})))
 
 
 def narrow_config(cfg, widths):
@@ -6431,7 +6670,8 @@ def moe_lane_card_vs_cpu(torch, cfg, dev, lane):
 
 
 def last_lanes_phase(torch, dev, count, moe_fp32):
-    """Phase 25: (A) whisper-medium (full depth) and llava-next-mistral-7b
+    """Phase 25: (A) whisper-medium (WHISPER_TRAIN_LAYERS + as many encoder
+    layers) and llava-next-mistral-7b
     (LLAVA_TRAIN_LAYERS of 32) trained at full width (:func:`mm_train`)
     and their narrow configs card vs CPU over two steps; (B)
     dbrx-132b's bf16, fp16 and int8 lanes and deepseek-v2-236b's bf16 and
@@ -6449,14 +6689,16 @@ def last_lanes_phase(torch, dev, count, moe_fp32):
     from repro_torch.launch import serve as ls
 
     t_phase = time.perf_counter()
-    say(f"phase 25: the LM families' last lanes: whisper-medium and "
+    say(f"phase 25: the LM families' last lanes: whisper-medium "
+        f"({WHISPER_TRAIN_LAYERS} + {WHISPER_TRAIN_LAYERS} layers) and "
         f"llava-next-mistral-7b ({LLAVA_TRAIN_LAYERS} layers) training, the "
         f"MoE {MOE_LANES} serving lanes at {MOE_LAYERS} layers, narrow MoE "
         f"train steps")
     whisper, llava = (get_config("whisper-medium"),
                       get_config("llava-next-mistral-7b"))
-    out = {"whisper-medium": mm_train(torch, whisper, dev, count,
-                                      WHISPER_TRAIN_B, WHISPER_TRAIN_T),
+    out = {"whisper-medium": mm_train(
+               torch, cut_depth(whisper, WHISPER_TRAIN_LAYERS), dev, count,
+               WHISPER_TRAIN_B, WHISPER_TRAIN_T),
            "llava-next-mistral-7b": mm_train(
                torch, llava.replace(n_layers=LLAVA_TRAIN_LAYERS), dev, count,
                LLAVA_TRAIN_B, LLAVA_TRAIN_T)}
@@ -6922,17 +7164,19 @@ def _tree_equal(torch, what, got, want):
           f"{max(bad.items(), key=lambda kv: kv[1]) if bad else None}")
 
 
-def mesh_train_steps(torch, dev, mesh, count, ckpt_dir):
+def mesh_train_steps(torch, dev, mesh, count, ckpt_dir, dtype=None):
     """Phase 27 (a): full-width Qwen3-4B cut to MESH_LAYERS layers (seed
-    0), two steps of ``make_train_step(cfg, tc, mesh)`` on the (1, 1)
+    0), parameters at ``dtype`` (None: float32; AdamW moments float32),
+    two steps of ``make_train_step(cfg, tc, mesh)`` on the (1, 1)
     mesh against two of the mesh-free step from a copy of the same tree:
     parameters and both moments bit-equal (every collective over one rank
     is the identity and ``gather_leaf`` returns the leaf itself); each
-    step's host ms and the peak GB; the mesh step's parameters saved with
-    their shardings for (e)."""
+    step's host ms and the peak GB; with a ``ckpt_dir``, the mesh step's
+    parameters saved with their shardings for (e)."""
     from repro_torch.configs.qwen3_4b import CONFIG as QWEN
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.build import FLOAT_SUFFIX
     from repro_torch.launch import train as lt
     from repro_torch.optim import adam
     from repro_torch.train import checkpoint as ckpt
@@ -6943,10 +7187,12 @@ def mesh_train_steps(torch, dev, mesh, count, ckpt_dir):
     batches = [{k: torch.as_tensor(v, device=dev) for k, v in
                 next(data).items()} for _ in range(2)]
     params = tr.registry.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev, dtype)
     copy = {k: v.clone() for k, v in ckpt.flatten(params).items()}
     tc = tr.TrainConfig(remat=True)
-    out = {"layers": MESH_LAYERS, "B": 1, "T": LM_TRAIN_T}
+    tag = "" if dtype is None else f" {str(dtype)[6:]}"
+    out = {"layers": MESH_LAYERS, "B": 1, "T": LM_TRAIN_T,
+           "dtype": str(dtype or torch.float32)[6:]}
     runs = {}
     for name, m in (("mesh_free", None), ("mesh", mesh)):
         p = params if m is None else ckpt.unflatten(copy, params)
@@ -6966,7 +7212,7 @@ def mesh_train_steps(torch, dev, mesh, count, ckpt_dir):
             walls.append((time.perf_counter() - t0) * 1e3)
         launches = dispatch.launch_counts()
         if m is not None:
-            count("lm_train qwen3-4b mesh (1, 1)", launches)
+            count(f"lm_train qwen3-4b mesh (1, 1){tag}", launches)
         runs[name] = (p, o)
         out[name] = {"step_ms": walls, "losses": losses,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -6975,7 +7221,11 @@ def mesh_train_steps(torch, dev, mesh, count, ckpt_dir):
         check(launches["flash_attention"] == 2 * 2 * MESH_LAYERS and
               sum(launches.values()) == launches["flash_attention"],
               f"phase 27 (a) {name}: launches {launches}")
-        say(f"  (a) {name} step: {cfg.n_layers}-layer full-width "
+        if dtype is not None:
+            half = dispatch.launch_counts(FLOAT_SUFFIX[dtype])
+            check(half["flash_attention"] == launches["flash_attention"],
+                  f"phase 27 (a) {name}{tag}: half launches {half}")
+        say(f"  (a) {name}{tag} step: {cfg.n_layers}-layer full-width "
             f"{cfg.name}, B=1, T={LM_TRAIN_T}, remat: losses "
             + " ".join(f"{x:.6f}" for x in losses) + "; host ms "
             + " ".join(f"{w:.1f}" for w in walls) + f"; peak "
@@ -6989,9 +7239,11 @@ def mesh_train_steps(torch, dev, mesh, count, ckpt_dir):
     _tree_equal(torch, "phase 27 (a) first moments", om.m, of.m)
     _tree_equal(torch, "phase 27 (a) second moments", om.v, of.v)
     check(om.step == of.step == 2, f"steps {om.step} {of.step}")
-    say(f"  (a) mesh step vs mesh-free step: {len(om.m)} parameters and "
-        f"both moments bit-equal after 2 steps")
+    say(f"  (a) mesh step vs mesh-free step{tag}: {len(om.m)} parameters "
+        f"and both moments bit-equal after 2 steps")
     del runs, pf, of, copy, params
+    if ckpt_dir is None:
+        return cfg, out, None
     named = shd.to_named(mesh, tr.train_shardings(cfg, mesh,
                                                   tr.shape_tree(cfg))[0])
     t0 = time.perf_counter()
@@ -7168,6 +7420,10 @@ def mesh_phase(torch, dev, count):
             f"with their shardings in {out['train']['save_s']:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
+        _, out["train_bf16"], _ = mesh_train_steps(torch, dev, mesh, count,
+                                                   None, torch.bfloat16)
+        gc.collect()
+        torch.cuda.empty_cache()
         out["moe"] = mesh_moe_layer(torch, dev, mesh)
         gc.collect()
         torch.cuda.empty_cache()
@@ -7185,31 +7441,17 @@ def mesh_phase(torch, dev, count):
     return out
 
 
-def dryrun_phase(torch, dev, count, step_ms):
-    """Phase 28, the dry-run against the card, on phase 27's cell (the
-    MESH_LAYERS-layer full-width Qwen3-4B train step at B=1,
-    T=LM_TRAIN_T with remat, on the (1, 1) mesh):
-      (a) the step run once on the card under ``FlopCounterMode`` (an
-          NCCL group of one rank) against ``launch.dryrun``'s count of
-          the same cell on a fake group of one rank: the dry-run's GEMM
-          FLOPs outside the flash kernel's plain forward (which the card
-          runs in its kernel, out of the counter's sight) equal the
-          card's exactly; the attention's share is printed apart;
-      (b) the dry-run's roofline terms (H100 constants, the FLOPs at
-          the float32 peak: the step's GEMMs run in float32) beside phase
-          27's measured step ms (its second step), and their ratio, not
-          gated; bytes also with the flash kernel's analytic traffic in
-          place of the plain forward's;
-      (c) one production cell, qwen3-4b decode_32k on the 256-rank
-          ``pod1`` mesh, and its terms."""
+def dryrun_cell_check(torch, dev, count, cfg, dt, measured):
+    """Phase 28 (a) and (b) at parameter type ``dt`` (the docstring of
+    :func:`dryrun_phase`); ``measured``: phase 27's step ms at ``dt``."""
     import gc
 
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.configs import SHAPES, ShapeSpec
-    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    from repro_torch.configs import ShapeSpec
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.build import FLOAT_SUFFIX
     from repro_torch.launch import costing, dryrun
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import specs as sp
@@ -7217,13 +7459,9 @@ def dryrun_phase(torch, dev, count, step_ms):
     from repro_torch.roofline import model as rm
     from repro_torch.train import trainer as tr
 
-    t_phase = time.perf_counter()
-    say("phase 28: the dry-run (fake-tensor count, H100 roofline) against "
-        f"the card on phase 27's cell")
-    cfg = QWEN.replace(n_layers=MESH_LAYERS)
+    suf = FLOAT_SUFFIX[dt]
     tc = tr.TrainConfig(remat=True)
-    out = {"layers": MESH_LAYERS, "B": 1, "T": LM_TRAIN_T}
-
+    out = {}
     # (a) the card's step under FlopCounterMode
     gc.collect()
     torch.cuda.empty_cache()
@@ -7235,7 +7473,8 @@ def dryrun_phase(torch, dev, count, step_ms):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in next(
             lt.synthetic_batches(cfg, 1, LM_TRAIN_T, seed=SEED)).items()}
         params = tr.registry.init_params(
-            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev,
+            None if dt == torch.float32 else dt)
         p, o = tr.shard_train_state(cfg, mesh, params)
         del params
         step = tr.make_train_step(cfg, tc, mesh)
@@ -7244,12 +7483,14 @@ def dryrun_phase(torch, dev, count, step_ms):
             p, o, met = step(p, o, batch)
         torch.cuda.synchronize()
         launches = dispatch.launch_counts()
-        count("lm_train qwen3-4b dry-run check", launches)
+        count("lm_train qwen3-4b dry-run check"
+              + ("" if dt == torch.float32 else f" {suf}"), launches)
         card_flops = fc.get_total_flops()
-        check(np.isfinite(float(met["loss"])), f"phase 28 (a): loss "
+        check(np.isfinite(float(met["loss"])), f"phase 28 (a) {suf}: loss "
               f"{float(met['loss'])}")
-        check(launches["flash_attention"] == 2 * MESH_LAYERS,
-              f"phase 28 (a): launches {launches}")
+        check(launches["flash_attention"] == 2 * MESH_LAYERS
+              == dispatch.launch_counts(suf)["flash_attention"],
+              f"phase 28 (a) {suf}: launches {launches}")
         del p, o, step, batch, met
     finally:
         dist.destroy_process_group()
@@ -7261,9 +7502,10 @@ def dryrun_phase(torch, dev, count, step_ms):
         mesh = mesh_lib.make_local_mesh(1, 1, device_type="cpu")
         cell = sp.build_cell_from(
             cfg, ShapeSpec("phase27", LM_TRAIN_T, 1, "train"), mesh,
-            accum=1)
+            accum=1, dtype=dt)
         cost, mem = costing.cell_cost(cell)
     trace_s = time.perf_counter() - t0
+    check(cell.dtype == dt, f"phase 28 (b): cell {cell.dtype}, step {dt}")
     attn = cost.regions.get("kernel:flash_attention",
                             {"flops": 0.0, "bytes": 0.0})
     outside = cost.flops - attn["flops"]
@@ -7271,44 +7513,81 @@ def dryrun_phase(torch, dev, count, step_ms):
                     "dryrun_total": cost.flops,
                     "dryrun_flash_forward": attn["flops"],
                     "dryrun_outside_flash": outside}
-    say(f"  (a) GEMM FLOPs: card FlopCounterMode {card_flops:.6e}; dry-run "
-        f"{cost.flops:.6e} of which the flash forward's plain version "
-        f"{attn['flops']:.6e} ({attn['flops'] / cost.flops:.3f}), "
+    say(f"  (a) {suf} GEMM FLOPs: card FlopCounterMode {card_flops:.6e}; "
+        f"dry-run {cost.flops:.6e} of which the flash forward's plain "
+        f"version {attn['flops']:.6e} ({attn['flops'] / cost.flops:.3f}), "
         f"outside it {outside:.6e}; dry-run trace {trace_s:.1f} s")
-    check(outside == card_flops, f"phase 28 (a): dry-run FLOPs outside the "
-          f"flash forward {outside} != the card's {card_flops}")
-    say("  (a) dry-run GEMM FLOPs outside the flash forward equal the "
-        "card's FlopCounterMode exactly")
+    check(outside == card_flops, f"phase 28 (a) {suf}: dry-run FLOPs "
+          f"outside the flash forward {outside} != the card's {card_flops}")
+    say(f"  (a) {suf}: dry-run GEMM FLOPs outside the flash forward equal "
+        "the card's FlopCounterMode exactly")
 
-    # (b) the roofline beside phase 27's measured step
+    # (b) the roofline beside phase 27's measured step at this type
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     n_fwd = 2 * MESH_LAYERS                   # remat runs each forward twice
     kernel_b = n_fwd * costing.kernel_attn_bytes(
-        "prefill", 1, LM_TRAIN_T, LM_TRAIN_T, H, KV, Dh, 4)
+        "prefill", 1, LM_TRAIN_T, LM_TRAIN_T, H, KV, Dh, dt.itemsize)
     flash_bytes = cost.bytes - attn["bytes"] + kernel_b
-    # the step's GEMMs run in float32 (TF32 off): the float32 peak
-    check(cell.dtype == torch.float32, f"phase 28 (b): {cell.dtype}")
     terms = rm.roofline_terms(flops_per_device=cost.flops,
                               bytes_per_device=cost.bytes,
                               collective_bytes_per_device=cost.coll,
                               n_chips=1, compute_dtype=cell.dtype)
     t_mem_flash = flash_bytes / rm.HBM_BW
-    measured = step_ms[-1]
     crit_ms = max(terms["t_compute"], t_mem_flash) * 1e3
     out["roofline"] = {**terms, "t_memory_flash_kernel": t_mem_flash,
                        "bytes_flash_kernel": flash_bytes,
                        "measured_step_ms": measured,
                        "ratio_measured_to_bound": measured / crit_ms,
                        "memory": dataclasses.asdict(mem)}
-    say(f"  (b) roofline (H100 {rm.peak_flops(cell.dtype):.3g} FLOP/s "
-        f"float32, "
-        f"{rm.HBM_BW:.3g} B/s): t_compute {terms['t_compute'] * 1e3:.3f} ms"
-        f", t_memory {terms['t_memory'] * 1e3:.3f} ms (plain attention "
-        f"bytes {cost.bytes:.4e}), {t_mem_flash * 1e3:.3f} ms with the "
-        f"flash kernel's bytes ({flash_bytes:.4e}); phase 27's measured "
+    say(f"  (b) {suf} roofline (H100 {rm.peak_flops(cell.dtype):.3g} "
+        f"FLOP/s at {suf}, {rm.HBM_BW:.3g} B/s): t_compute "
+        f"{terms['t_compute'] * 1e3:.3f} ms, t_memory "
+        f"{terms['t_memory'] * 1e3:.3f} ms (plain attention bytes "
+        f"{cost.bytes:.4e}), {t_mem_flash * 1e3:.3f} ms with the flash "
+        f"kernel's bytes ({flash_bytes:.4e}); phase 27's measured {suf} "
         f"step {measured:.1f} ms, {measured / crit_ms:.2f}x the larger of "
         f"t_compute and the flash t_memory; dry-run peak "
         f"{mem.peak_bytes / 1e9:.2f} GB")
+    return out
+
+
+def dryrun_phase(torch, dev, count, step_ms, step_ms_bf16):
+    """Phase 28, the dry-run against the card, on phase 27's cell (the
+    MESH_LAYERS-layer full-width Qwen3-4B train step at B=1,
+    T=LM_TRAIN_T with remat, on the (1, 1) mesh), at float32 and at bf16
+    parameters (the dry-run's train cells' type, as the reference's):
+      (a) the step run once on the card under ``FlopCounterMode`` (an
+          NCCL group of one rank) against ``launch.dryrun``'s count of
+          the same cell (``build_cell_from(dtype=)``) on a fake group of
+          one rank: the dry-run's GEMM FLOPs outside the flash kernel's
+          plain forward (which the card runs in its kernel, out of the
+          counter's sight) equal the card's exactly; the attention's
+          share is printed apart;
+      (b) the dry-run's roofline terms (H100 constants, the FLOPs at the
+          peak of the cell's type: float32 67 TFLOP/s with TF32 off, bf16
+          989) beside phase 27's measured step ms at that type (its
+          second step), and their ratio, not gated; bytes also with the
+          flash kernel's analytic traffic in place of the plain
+          forward's;
+      (c) one production cell, qwen3-4b decode_32k on the 256-rank
+          ``pod1`` mesh, and its terms."""
+    import gc
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.qwen3_4b import CONFIG as QWEN
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    say("phase 28: the dry-run (fake-tensor count, H100 roofline) against "
+        f"the card on phase 27's cell")
+    cfg = QWEN.replace(n_layers=MESH_LAYERS)
+    out = {"layers": MESH_LAYERS, "B": 1, "T": LM_TRAIN_T}
+    for dt, measured in ((torch.float32, step_ms[-1]),
+                         (torch.bfloat16, step_ms_bf16[-1])):
+        out[str(dt)[6:]] = dryrun_cell_check(torch, dev, count, cfg, dt,
+                                             measured)
+        gc.collect()
+        torch.cuda.empty_cache()
 
     # (c) one production cell
     t0 = time.perf_counter()

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import math
 from types import SimpleNamespace
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -117,27 +117,32 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
 
 
 def init_vitdet_params(cfg: ModelConfig, generator: torch.Generator,
-                       device: str = "cuda") -> Dict:
+                       device: str = "cuda",
+                       dtype: Optional[torch.dtype] = None) -> Dict:
     """Seeded init with the reference's shapes and distributions:
     truncated normal in (-2, 2) std / sqrt(fan_in) for dense and conv
     weights, normal std 0.02 for the position grid, zeros for biases
     (class bias -4, the focal prior), ones for norm scales.  Tensors are
-    drawn on ``generator.device`` and moved to ``device``."""
+    drawn on ``generator.device`` in float32 and each is moved to
+    ``device`` and cast to ``dtype`` (None: float32) as it is drawn, as
+    the reference's; the position layouts are derived from the cast
+    grid."""
     meta = torch.device(device).type == "meta"     # shapes only
     gdev = "meta" if meta else generator.device
     v = cfg.vit
     D, F_, C = cfg.d_model, cfg.d_ff, v.out_channels
     part = vb.vit_partition(cfg)
+    dt = dtype or torch.float32
 
     def trunc(shape, fan_in):
         t = torch.empty(shape, device=gdev)
         if not meta:
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
                                         generator=generator)
-        return (t / math.sqrt(fan_in)).to(device)
+        return (t / math.sqrt(fan_in)).to(device, dt)
 
     def zeros(n, fill=0.0):
-        return torch.full((n,), fill, device=device)
+        return torch.full((n,), fill, device=device, dtype=dt)
 
     def dense(k, n):
         return trunc((k, n), k)
@@ -148,7 +153,7 @@ def init_vitdet_params(cfg: ModelConfig, generator: torch.Generator,
                 "b": zeros(cout, bias)}
 
     def norm():
-        return {"w": torch.ones(D, device=device), "b": zeros(D)}
+        return {"w": torch.ones(D, device=device, dtype=dt), "b": zeros(D)}
 
     def block():
         wq, wk, wv = dense(D, cfg.q_dim), dense(D, cfg.kv_dim), \
@@ -166,7 +171,7 @@ def init_vitdet_params(cfg: ModelConfig, generator: torch.Generator,
         torch.nn.init.normal_(pos, 0.0, 0.02, generator=generator)
     params = {
         "patch_embed": {"w": dense(patch_dim, D), "b": zeros(D)},
-        "pos_emb": pos.to(device),
+        "pos_emb": pos.to(device, dt),
         "blocks": [block() for _ in range(cfg.n_layers)],
         "final_norm": norm(),
         "head": {"lateral": [], "smooth": []},

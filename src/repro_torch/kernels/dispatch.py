@@ -6,7 +6,10 @@ There is no backend knob, and a kernel that fails to build or launch
 raises rather than falling back.  Window and flash attention and the two
 pools go through their ``torch.autograd.Function``s on both devices, so
 serving and training share one route and the CPU runs the same analytic
-backward as the card.
+backward as the card, at any of the three types: the forward is the
+half kernel on the card at fp16 / bf16, and the backward the
+reference's VJP (flash and window in float32, cast to each operand's
+type; the pools in the cotangent's type).
 
 The quant plane (``resolve_quant``) chooses how a ``QuantTensor`` weight
 multiplies (``quant.qtensor.matmul``): ``"native"`` runs the int8 GEMM
@@ -125,21 +128,6 @@ def _no_vjp(name: str, *xs: Optional[torch.Tensor]) -> None:
                            f"torch.no_grad()")
 
 
-_HALF = (torch.float16, torch.bfloat16)
-
-
-def _float32_grads(name: str, *xs: Optional[torch.Tensor]) -> None:
-    """Raise where autograd would differentiate a half operand through a
-    kernel's Function: they train in float32, as the reference's recipes
-    do (half operands serve without ``requires_grad`` or under
-    ``torch.no_grad()``)."""
-    if torch.is_grad_enabled() and any(
-            x is not None and x.requires_grad for x in xs) and any(
-            x is not None and x.dtype in _HALF for x in xs):
-        raise RuntimeError(f"{name}: gradients are float32 only, got "
-                           f"{[str(x.dtype) for x in xs if x is not None]}")
-
-
 def launch_counts(dtype: Optional[str] = None) -> Dict[str, int]:
     """Launches per kernel since the last reset; with ``dtype`` ("f32",
     "f16", "bf16"), those of that type's entry point alone (0 for a
@@ -223,7 +211,6 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      win_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, T, H, Dh); k/v: (B, T, KV, Dh); ``window`` tokens per
     window; ``win_valid`` (B,) valid-window counts (pad windows -> 0)."""
-    _float32_grads("window_attention", q, k, v)
     with _route("window_attention", q):
         return _win.WindowAttention.apply(q, k, v, window, win_valid)
 
@@ -231,7 +218,6 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False) -> torch.Tensor:
     """q: (B, T, H, Dh); k/v: (B, S, KV, Dh)."""
-    _float32_grads("flash_attention", q, k, v)
     with _route("flash_attention", q):
         return _flash.FlashAttention.apply(q, k, v, causal)
 
@@ -275,7 +261,6 @@ def avg_pool(x: torch.Tensor, d: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H/d, W/d, C) mean pool."""
     if d == 1:
         return x
-    _float32_grads("avg_pool", x)
     with _route("avg_pool", x):
         return _pool.AvgPool.apply(x, d)
 
@@ -284,7 +269,6 @@ def nn_upsample(x: torch.Tensor, d: int) -> torch.Tensor:
     """(B, H, W, C) -> (B, H*d, W*d, C) nearest-neighbour upsample."""
     if d == 1:
         return x
-    _float32_grads("nn_upsample", x)
     with _route("nn_upsample", x):
         return _pool.NNUpsample.apply(x, d)
 

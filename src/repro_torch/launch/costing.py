@@ -502,12 +502,9 @@ def _attn_site_saving(mode: str, b: int, t: int, s: int, h: int, kv: int,
     dt = torch.bfloat16 if dtype_bytes == 2 else torch.float32
     with FakeTensorMode():
         grad = mode == "train"
-        # the port trains in float32 (the kernels' gradients are float32
-        # only): a training site is counted at float32 and scaled
-        dtc = torch.float32 if grad else dt
-        q = torch.empty((b, t, h, dh), dtype=dtc, requires_grad=grad)
-        k = torch.empty((b, s, kv, dh), dtype=dtc, requires_grad=grad)
-        v = torch.empty((b, s, kv, dh), dtype=dtc, requires_grad=grad)
+        q = torch.empty((b, t, h, dh), dtype=dt, requires_grad=grad)
+        k = torch.empty((b, s, kv, dh), dtype=dt, requires_grad=grad)
+        v = torch.empty((b, s, kv, dh), dtype=dt, requires_grad=grad)
         if mode == "train":
             def f(q, k, v):
                 out = L.remat(lambda a, b_, c: sdpa(a, b_, c, causal=True),
@@ -523,7 +520,7 @@ def _attn_site_saving(mode: str, b: int, t: int, s: int, h: int, kv: int,
                     (q.shape[0],), s, dtype=torch.int32))
         with torch.set_grad_enabled(grad):
             cost, _, _ = trace_cost(f, q, k, v)
-    plain = cost.bytes * (dtype_bytes / 4 if dtc != dt else 1.0)
+    plain = cost.bytes
     kernel = kernel_attn_bytes(mode, b, t, s, h, kv, dh, dtype_bytes)
     return {"plain": plain, "kernel": kernel,
             "saved": max(plain - kernel, 0.0)}
@@ -538,8 +535,8 @@ def flash_correction(cfg: ModelConfig, shape: ShapeSpec, mesh,
     (every head of the rank's rows).  As the reference's, a train site
     assumes a kernel backward too; the port's backward is plain on the
     card as well, so there it is what such a kernel would save.
-    ``dtype_bytes``: the cell's element size (the reference's bf16 2; a
-    port train cell's float32 4).
+    ``dtype_bytes``: the cell's element size (bf16 2, as the
+    reference's; a float32 cell's 4).
 
     ``mixed_lb``/``t_mix``: with the mixed-granularity prefill variant,
     the first ``mixed_lb`` layers attend over ``t_mix`` tokens — the
@@ -582,7 +579,7 @@ def min_traffic_floor(cfg: ModelConfig, shape: ShapeSpec, mesh,
     flash kernel's attention IO.  Used as a floor under the byte
     substitution so that no number over-claims (the reference's formula;
     ``dtype_bytes`` is the parameters' and activations' element size:
-    the reference's bf16 2, a port train cell's float32 4)."""
+    bf16 2, as the reference's; a float32 cell's 4)."""
     from repro_torch.distributed import sharding as shd
     dp = shd.dp_size(mesh)
     tp = shd.mesh_shape(mesh)["model"]

@@ -16,11 +16,13 @@ port traces the same step eagerly instead:
     The port's layers are Python loops, so this direct count is exact in
     trip counts and the reference's probes are not run.
 
-The roofline prices the FLOPs at the cell's parameter type: a train
-cell's float32 at the card's float32 peak, a serving cell's bf16 at its
-tensor-core peak.  A record's ``layout`` says how the cell runs on the
-mesh; the serving cells' is a dry-run layout that gathers the weights
-and (decode) the cache, not a path the port runs.
+The roofline prices the FLOPs at the cell's parameter type: every cell,
+train and serving, holds bf16 parameters as the reference's do, priced
+at the card's bf16 tensor-core peak
+(``roofline.model.peak_flops(torch.bfloat16)``, 989 TFLOP/s).  A
+record's ``layout`` says how the cell runs on the mesh; the serving
+cells' is a dry-run layout that gathers the weights and (decode) the
+cache, not a path the port runs.
 
 The trace runs on the fake CPU device, so ``kernels/dispatch.py`` takes
 each kernel's plain version, as the reference's dry-run compiles its

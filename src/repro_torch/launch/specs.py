@@ -13,12 +13,11 @@ How the port runs each cell on a mesh:
 
   * train: ``train.trainer.make_train_step(cfg, tc, mesh)``, FSDP over
     ``data`` and expert-parallel MoE over ``model``, gathering each
-    block's weights as it runs.  The port trains in float32
-    (``optim.adam`` and the kernels' gradients are float32 only), so a
-    train cell's parameters are float32, where the reference's are
-    bf16; its AdamW moments are float32 in both.  The step takes the
-    global batch on every rank, as the port's launcher feeds it, and
-    each rank cuts its rows.
+    block's weights as it runs.  A train cell's parameters and float
+    inputs are ``PARAM_DTYPE`` (bf16), as the reference's, a mamba
+    block's ``A_log``, ``dt_bias`` and ``D`` float32; its AdamW moments
+    are float32 in both.  The step takes the global batch on every
+    rank, as the port's launcher feeds it, and each rank cuts its rows.
   * prefill / decode: the port's serving code has no tensor-parallel
     attention.  A rank serves its batch rows whole: each block's
     weights are gathered where the code reads them
@@ -45,18 +44,12 @@ from repro_torch.train import trainer as tr
 
 PARAM_DTYPE = torch.bfloat16
 CACHE_DTYPE = torch.bfloat16
-TRAIN_PARAM_DTYPE = torch.float32      # the port's training dtype
 
 
 def sds(shape, dtype) -> torch.Tensor:
     """A shape and a dtype without storage (a meta tensor)."""
     return torch.empty(tuple(int(s) for s in shape), dtype=dtype,
                        device="meta")
-
-
-def _cast(tree, dtype):
-    return shd._map(lambda _, x: x.to(dtype) if isinstance(x, torch.Tensor)
-                    and x.is_floating_point() else x, tree)
 
 
 def materialize(tree, device="cpu", real: bool = False):
@@ -93,9 +86,10 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec,
 
 
 def params_shape(cfg: ModelConfig, dtype: torch.dtype = PARAM_DTYPE) -> Any:
-    """The parameter tree on the meta device, floating leaves in
-    ``dtype``."""
-    return _cast(tr.shape_tree(cfg), dtype)
+    """The parameter tree on the meta device at ``dtype``, leaf dtypes
+    as the reference's ``params_shape`` (a mamba block's ``A_log``,
+    ``dt_bias`` and ``D`` float32)."""
+    return tr.shape_tree(cfg, dtype)
 
 
 def decode_state_shape(cfg: ModelConfig, batch: int, max_len: int) -> Any:
@@ -116,7 +110,8 @@ def decode_state_shape(cfg: ModelConfig, batch: int, max_len: int) -> Any:
 LAYOUTS = {
     "train": "the port's train step: FSDP over data (each block's "
              "weights gathered as it runs), expert-parallel MoE over "
-             "model, each rank's rows of the global batch; float32",
+             "model, each rank's rows of the global batch; parameters "
+             "at the cell's dtype, float32 moments",
     "prefill": "a dry-run layout, not a path the port runs on a mesh: "
                "each rank serves its batch rows with every head, "
                "gathering each block's weights as it reads them, and "
@@ -237,16 +232,17 @@ def _gathered(mesh, tree, specs, keep):
 def build_cell_from(cfg: ModelConfig, shape: ShapeSpec, mesh,
                     train_overrides: Optional[dict] = None,
                     opt: str = "base", accum: Optional[int] = None,
-                    arch_name: Optional[str] = None) -> Cell:
+                    arch_name: Optional[str] = None,
+                    dtype: torch.dtype = PARAM_DTYPE) -> Cell:
     """Cell from explicit config/shape (costing probes pass overridden
-    configs and forced accum counts); parameters in
-    ``TRAIN_PARAM_DTYPE`` for a train cell, else ``PARAM_DTYPE``."""
+    configs and forced accum counts); parameters and float inputs in
+    ``dtype`` (``PARAM_DTYPE``, the reference's, by default; a float32
+    train cell prices the port's float32 step)."""
     arch = arch_name or cfg.name
     var = _opt_variant(opt)
     train_overrides = {**var.get("train", {}), **(train_overrides or {})}
     accum_scale = var.get("accum_scale", 1)
     is_train = shape.kind == "train"
-    dtype = TRAIN_PARAM_DTYPE if is_train else PARAM_DTYPE
     p_shape = params_shape(cfg, dtype)
     pspecs = shd.param_specs(cfg, p_shape, mesh)
     if "tponly" in opt.split("+") and not is_train:

@@ -167,10 +167,12 @@ def _out_proj(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 
 def init_attention(cfg: ModelConfig, generator: torch.Generator,
-                   device="cuda") -> Dict[str, torch.Tensor]:
+                   device="cuda", dtype: Optional[torch.dtype] = None
+                   ) -> Dict[str, torch.Tensor]:
     """Seeded LM attention weights: q, k and v drawn apart (the
     reference's ``init_attention``) and stored fused as ``w_qkv``; ones
-    for the qk norms, zeros for the biases."""
+    for the qk norms, zeros for the biases; cast to ``dtype``
+    (``layers.as_dtype``)."""
     D = cfg.d_model
     p = {"w_qkv": torch.cat([L.dense_init(D, cfg.q_dim, generator, device),
                              L.dense_init(D, cfg.kv_dim, generator, device),
@@ -183,7 +185,7 @@ def init_attention(cfg: ModelConfig, generator: torch.Generator,
     if cfg.attention_bias:
         p.update(b_qkv=torch.zeros(cfg.q_dim + 2 * cfg.kv_dim, device=device),
                  b_o=torch.zeros(D, device=device))
-    return p
+    return L.as_dtype(p, dtype)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -229,15 +231,17 @@ def attention_decode(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 
 def init_cross_attention(cfg: ModelConfig, generator: torch.Generator,
-                         device="cuda") -> Dict[str, torch.Tensor]:
+                         device="cuda", dtype: Optional[torch.dtype] = None
+                         ) -> Dict[str, torch.Tensor]:
     """Seeded cross-attention weights, w_q / w_k / w_v / w_o drawn in the
     reference's order, kept apart and without biases (as the reference
-    keeps them, whatever ``attention_bias`` says)."""
+    keeps them, whatever ``attention_bias`` says); cast to ``dtype``."""
     D = cfg.d_model
-    return {"w_q": L.dense_init(D, cfg.q_dim, generator, device),
-            "w_k": L.dense_init(D, cfg.kv_dim, generator, device),
-            "w_v": L.dense_init(D, cfg.kv_dim, generator, device),
-            "w_o": L.dense_init(cfg.q_dim, D, generator, device)}
+    return L.as_dtype({"w_q": L.dense_init(D, cfg.q_dim, generator, device),
+                       "w_k": L.dense_init(D, cfg.kv_dim, generator, device),
+                       "w_v": L.dense_init(D, cfg.kv_dim, generator, device),
+                       "w_o": L.dense_init(cfg.q_dim, D, generator, device)},
+                      dtype)
 
 
 def cross_kv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -246,8 +250,8 @@ def cross_kv(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     output enc_out (B, S, D)."""
     B, S, _ = enc_out.shape
     shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
-    return ((enc_out @ p["w_k"]).reshape(shape),
-            (enc_out @ p["w_v"]).reshape(shape))
+    return (L.mm(enc_out, p["w_k"]).reshape(shape),
+            L.mm(enc_out, p["w_v"]).reshape(shape))
 
 
 def cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
@@ -256,12 +260,16 @@ def cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     encoder output enc_out (B, S, D) on every call (:func:`cross_kv`),
     as the reference does; no rotation, no mask.  The plain ``sdpa``
     route: the flash kernel on the card, at T query rows against S keys
-    (T = 1 at each decode step)."""
+    (T = 1 at each decode step).  Types mix as the reference's do: a
+    float32 encoder output under a half tree (float32 frames) gives
+    float32 keys and values, the attention computes in float32 and
+    returns the queries' type."""
     B, T, _ = x.shape
-    q = (x @ p["w_q"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
+    q = L.mm(x, p["w_q"]).reshape(B, T, cfg.n_heads, cfg.head_dim)
     k, v = cross_kv(cfg, p, enc_out)
-    out = sdpa(q, k, v, causal=False)
-    return out.reshape(B, T, cfg.q_dim) @ p["w_o"]
+    ct = torch.promote_types(q.dtype, k.dtype)      # the casts up are exact
+    out = sdpa(q.to(ct), k.to(ct), v.to(ct), causal=False).to(q.dtype)
+    return L.mm(out.reshape(B, T, cfg.q_dim), p["w_o"])
 
 
 # ---------------------------------------------------------------------------
@@ -278,23 +286,24 @@ def cross_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
 
 def init_mla(cfg: ModelConfig, generator: torch.Generator,
-             device="cuda") -> Dict[str, torch.Tensor]:
+             device="cuda", dtype: Optional[torch.dtype] = None
+             ) -> Dict[str, torch.Tensor]:
     """Seeded MLA weights, the reference's shapes and scales; ones for
-    the two latent norms."""
+    the two latent norms; cast to ``dtype``."""
     m = cfg.mla
     D, H = cfg.d_model, cfg.n_heads
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
 
     def w(k, n):
         return L.dense_init(k, n, generator, device)
-    return {"w_dq": w(D, m.q_lora_rank),
-            "q_norm": torch.ones(m.q_lora_rank, device=device),
-            "w_uq": w(m.q_lora_rank, H * qk_head),
-            "w_dkv": w(D, m.kv_lora_rank + m.qk_rope_head_dim),
-            "kv_norm": torch.ones(m.kv_lora_rank, device=device),
-            "w_uk": w(m.kv_lora_rank, H * m.qk_nope_head_dim),
-            "w_uv": w(m.kv_lora_rank, H * m.v_head_dim),
-            "w_o": w(H * m.v_head_dim, D)}
+    return L.as_dtype({"w_dq": w(D, m.q_lora_rank),
+                       "q_norm": torch.ones(m.q_lora_rank, device=device),
+                       "w_uq": w(m.q_lora_rank, H * qk_head),
+                       "w_dkv": w(D, m.kv_lora_rank + m.qk_rope_head_dim),
+                       "kv_norm": torch.ones(m.kv_lora_rank, device=device),
+                       "w_uk": w(m.kv_lora_rank, H * m.qk_nope_head_dim),
+                       "w_uv": w(m.kv_lora_rank, H * m.v_head_dim),
+                       "w_o": w(H * m.v_head_dim, D)}, dtype)
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,

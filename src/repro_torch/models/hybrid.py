@@ -45,24 +45,28 @@ def _is_shared(idx: int) -> bool:
 
 
 def init_mamba_blocks(cfg: ModelConfig, generator: torch.Generator,
-                      device="cuda") -> list:
-    return [{"ln": L.init_norm(cfg, device),
-             "mamba": m2.init_mamba2(cfg, generator, device)}
+                      device="cuda", dtype: Optional[torch.dtype] = None
+                      ) -> list:
+    return [{"ln": L.init_norm(cfg, device, dtype),
+             "mamba": m2.init_mamba2(cfg, generator, device, dtype)}
             for _ in range(cfg.n_layers)]
 
 
 def init_hybrid_params(cfg: ModelConfig, generator: torch.Generator,
-                       device="cuda") -> Dict:
-    """Seeded init with the reference's shapes and distributions."""
-    embed = L.init_embedding(cfg, generator, device)
-    blocks = init_mamba_blocks(cfg, generator, device)
-    shared = {"ln1": L.init_norm(cfg, device),
-              "attn": attn.init_attention(cfg, generator, device),
-              "ln2": L.init_norm(cfg, device),
-              "ffn": L.init_mlp(cfg, generator, device)}
+                       device="cuda", dtype: Optional[torch.dtype] = None
+                       ) -> Dict:
+    """Seeded init with the reference's shapes and distributions, each
+    piece cast to ``dtype`` as it is drawn (a mamba block's
+    ``FLOAT32_LEAVES`` stay float32, as the reference's)."""
+    embed = L.init_embedding(cfg, generator, device, dtype)
+    blocks = init_mamba_blocks(cfg, generator, device, dtype)
+    shared = {"ln1": L.init_norm(cfg, device, dtype),
+              "attn": attn.init_attention(cfg, generator, device, dtype),
+              "ln2": L.init_norm(cfg, device, dtype),
+              "ffn": L.init_mlp(cfg, generator, device, dtype=dtype)}
     return {"embed": embed, "mamba_blocks": blocks, "shared": shared,
-            "final_norm": L.init_norm(cfg, device),
-            "lm_head": L.init_lm_head(cfg, generator, device)}
+            "final_norm": L.init_norm(cfg, device, dtype),
+            "lm_head": L.init_lm_head(cfg, generator, device, dtype)}
 
 
 def init_stacked_states(cfg: ModelConfig, batch: int,

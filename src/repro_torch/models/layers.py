@@ -26,6 +26,14 @@ def dense_init(k: int, n: int, generator: torch.Generator,
     return slab_init((k, n), generator, device)
 
 
+def as_dtype(tree, dtype: Optional[torch.dtype]):
+    """``tree`` with its float leaves cast to ``dtype``; None keeps them
+    as drawn (float32).  The inits draw in float32 and cast each piece
+    as soon as it is drawn, as the reference's ``.astype(dtype)`` after
+    each float32 draw: at most one float32 piece is alive."""
+    return tree if dtype is None else qt.cast_tree(tree, dtype)
+
+
 def is_meta(device) -> bool:
     """Whether ``device`` is the meta device: an init there draws nothing
     and builds the tree's shapes only (``distributed.sharding`` reads
@@ -48,37 +56,52 @@ def slab_init(shape: Tuple[int, ...], generator: torch.Generator,
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator,
-             device="cuda", d_ff: Optional[int] = None
-             ) -> Dict[str, torch.Tensor]:
+             device="cuda", d_ff: Optional[int] = None,
+             dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """SwiGLU (gate, up, down) or the plain GELU MLP with zero biases;
-    hidden width ``d_ff`` (default ``cfg.d_ff``)."""
+    hidden width ``d_ff`` (default ``cfg.d_ff``); cast to ``dtype``."""
     D, F_ = cfg.d_model, d_ff or cfg.d_ff
     if cfg.activation == "silu":
-        return {"w_gate": dense_init(D, F_, generator, device),
-                "w_up": dense_init(D, F_, generator, device),
-                "w_down": dense_init(F_, D, generator, device)}
-    return {"w_up": dense_init(D, F_, generator, device),
-            "b_up": torch.zeros(F_, device=device),
-            "w_down": dense_init(F_, D, generator, device),
-            "b_down": torch.zeros(D, device=device)}
+        return as_dtype({"w_gate": dense_init(D, F_, generator, device),
+                         "w_up": dense_init(D, F_, generator, device),
+                         "w_down": dense_init(F_, D, generator, device)},
+                        dtype)
+    return as_dtype({"w_up": dense_init(D, F_, generator, device),
+                     "b_up": torch.zeros(F_, device=device),
+                     "w_down": dense_init(F_, D, generator, device),
+                     "b_down": torch.zeros(D, device=device)}, dtype)
 
 
 def init_embedding(cfg: ModelConfig, generator: torch.Generator,
-                   device="cuda") -> Dict[str, torch.Tensor]:
-    """The token table, normal with std 0.02."""
+                   device="cuda", dtype: Optional[torch.dtype] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The token table, normal with std 0.02; cast to ``dtype``."""
     if is_meta(device):
-        return {"tok": torch.empty((cfg.vocab_size, cfg.d_model),
-                                   device="meta")}
-    tok = torch.empty((cfg.vocab_size, cfg.d_model), device=generator.device)
-    torch.nn.init.normal_(tok, 0.0, 0.02, generator=generator)
-    return {"tok": tok.to(device)}
+        tok = torch.empty((cfg.vocab_size, cfg.d_model), device="meta")
+    else:
+        tok = torch.empty((cfg.vocab_size, cfg.d_model),
+                          device=generator.device)
+        torch.nn.init.normal_(tok, 0.0, 0.02, generator=generator)
+    return as_dtype({"tok": tok.to(device)}, dtype)
 
 
 def init_lm_head(cfg: ModelConfig, generator: torch.Generator,
-                 device="cuda") -> Dict[str, torch.Tensor]:
+                 device="cuda", dtype: Optional[torch.dtype] = None
+                 ) -> Dict[str, torch.Tensor]:
     if cfg.tied_embeddings:
         return {}
-    return {"w": dense_init(cfg.d_model, cfg.vocab_size, generator, device)}
+    return as_dtype({"w": dense_init(cfg.d_model, cfg.vocab_size, generator,
+                                     device)}, dtype)
+
+
+def mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the two operands' promoted type, as jnp's ``@`` mixes
+    them (a float32 input against half weights runs in float32; the
+    casts up are exact).  ``qtensor.matmul`` is the other rule: the
+    reference's projections cast the input down to a half weight's
+    type."""
+    ct = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(ct), w.to(ct))
 
 
 # ---------------------------------------------------------------------------
@@ -105,11 +128,12 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return out.to(dt)
 
 
-def init_norm(cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+def init_norm(cfg: ModelConfig, device, dtype: Optional[torch.dtype] = None
+              ) -> Dict[str, torch.Tensor]:
+    p = {"w": torch.ones(cfg.d_model, device=device)}
     if cfg.norm == "layernorm":
-        return {"w": torch.ones(cfg.d_model, device=device),
-                "b": torch.zeros(cfg.d_model, device=device)}
-    return {"w": torch.ones(cfg.d_model, device=device)}
+        p["b"] = torch.zeros(cfg.d_model, device=device)
+    return as_dtype(p, dtype)
 
 
 def apply_norm(cfg: ModelConfig, p: Dict[str, torch.Tensor],

@@ -13,7 +13,7 @@ update, in plain PyTorch as in the reference.  All SSD math in float32.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +22,11 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+
+
+# the leaves the reference draws in float32 and keeps there at any
+# parameter type (``init_mamba2``)
+FLOAT32_LEAVES = ("A_log", "dt_bias", "D")
 
 
 def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -33,13 +38,15 @@ def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def init_mamba2(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Dict[str, torch.Tensor]:
+                device="cuda", dtype: Optional[torch.dtype] = None
+                ) -> Dict[str, torch.Tensor]:
     """Seeded init with the reference's shapes and distributions:
     truncated normal in (-2, 2) std / sqrt(fan_in) for ``w_in`` and
     ``w_out``, N(0, 1) * 0.1 for the depthwise conv, ``A_log = log(1..H)``,
     ``dt_bias`` the inverse softplus of a log-uniform dt in [dt_min,
     dt_max], ones for ``D`` and ``norm_w``.  Tensors are drawn on
-    ``generator.device`` and moved to ``device``."""
+    ``generator.device`` and moved to ``device``; every leaf but
+    ``FLOAT32_LEAVES`` is cast to ``dtype``, as the reference's."""
     s = cfg.ssm
     d_inner, H, conv_ch = ssm_dims(cfg)
     gdev = "meta" if L.is_meta(device) else generator.device
@@ -52,7 +59,7 @@ def init_mamba2(cfg: ModelConfig, generator: torch.Generator,
     dt = torch.exp(u * (math.log(s.dt_max) - math.log(s.dt_min))
                    + math.log(s.dt_min))
     dt_bias = dt + torch.log(-torch.expm1(-dt))          # inverse softplus
-    return {
+    p = {
         "w_in": w_in,
         "conv_w": conv_w.to(device),
         "conv_b": torch.zeros(conv_ch, device=device),
@@ -63,6 +70,8 @@ def init_mamba2(cfg: ModelConfig, generator: torch.Generator,
         "norm_w": torch.ones(d_inner, device=device),
         "w_out": L.dense_init(d_inner, cfg.d_model, generator, device),
     }
+    return {k: v if k in FLOAT32_LEAVES else L.as_dtype(v, dtype)
+            for k, v in p.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -39,12 +39,13 @@ from repro_torch.models.config import ModelConfig
 
 
 def init_moe(cfg: ModelConfig, generator: torch.Generator,
-             device="cuda") -> Dict:
+             device="cuda", dtype: Optional[torch.dtype] = None) -> Dict:
     """Seeded MoE weights with the reference's shapes and scales: the
     router at std 0.02, each (E, D, F) / (E, F, D) expert slab at 1 /
     sqrt(E) (the reference's ``dense_init`` takes the leading axis as
     the fan-in), the shared experts' SwiGLU at width
-    ``d_ff_expert * n_shared_experts``."""
+    ``d_ff_expert * n_shared_experts``; every leaf cast to ``dtype``
+    (the router too, as the reference's; routing runs in float32)."""
     m = cfg.moe
     E, D, F_ = m.n_experts, cfg.d_model, m.d_ff_expert
     p = {"router": L.slab_init((D, E), generator, device, scale=0.02),
@@ -54,7 +55,7 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator,
     if m.n_shared_experts > 0:
         p["shared"] = L.init_mlp(cfg, generator, device,
                                  d_ff=F_ * m.n_shared_experts)
-    return p
+    return L.as_dtype(p, dtype)
 
 
 def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:

@@ -1,7 +1,7 @@
 """Architecture registry: the dispatch surface over model families (the
 port of ``repro.models.registry``).
 
-  init_params(cfg, generator, device)
+  init_params(cfg, generator, device, dtype)
   forward_hidden(cfg, params, batch, remat, ctx) -> (hidden, aux) training
   lm_loss(cfg, params, batch, remat, ctx)      -> (loss, {"ce", "aux"})
   init_decode_state(cfg, batch, max_len, dtype, device)
@@ -21,7 +21,7 @@ positions of a VLM's image + text sequence, as the reference does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -35,17 +35,20 @@ from repro_torch.models.transformer import LOCAL, ParallelCtx
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> Dict:
+                device="cuda", dtype: Optional[torch.dtype] = None) -> Dict:
+    """Seeded parameters; ``dtype`` (None: float32) as the reference's
+    ``init_params(cfg, key, dtype)``: every float leaf in it but a mamba
+    block's ``A_log``, ``dt_bias`` and ``D``, which stay float32."""
     if cfg.family == "vit":
         from repro_torch import convert
-        return convert.init_vitdet_params(cfg, generator, device)
+        return convert.init_vitdet_params(cfg, generator, device, dtype)
     if cfg.family == "ssm":
-        return ssm_lm.init_ssm_params(cfg, generator, device)
+        return ssm_lm.init_ssm_params(cfg, generator, device, dtype)
     if cfg.family == "hybrid":
-        return hyb.init_hybrid_params(cfg, generator, device)
+        return hyb.init_hybrid_params(cfg, generator, device, dtype)
     if cfg.family == "encdec":
-        return whs.init_whisper_params(cfg, generator, device)
-    return tfm.init_lm_params(cfg, generator, device)   # dense / moe / vlm
+        return whs.init_whisper_params(cfg, generator, device, dtype)
+    return tfm.init_lm_params(cfg, generator, device, dtype)  # dense/moe/vlm
 
 
 # ---------------------------------------------------------------------------

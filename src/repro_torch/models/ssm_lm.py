@@ -11,7 +11,7 @@ On the card every layer's prefill runs the ``ssd_scan`` kernel;
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,13 +23,16 @@ from repro_torch.models.hybrid import (_mamba_prefill, _store,
 
 
 def init_ssm_params(cfg: ModelConfig, generator: torch.Generator,
-                    device="cuda") -> Dict:
-    """Seeded init with the reference's shapes and distributions."""
-    embed = L.init_embedding(cfg, generator, device)
+                    device="cuda", dtype: Optional[torch.dtype] = None
+                    ) -> Dict:
+    """Seeded init with the reference's shapes and distributions, each
+    piece cast to ``dtype`` as it is drawn (a mamba block's
+    ``FLOAT32_LEAVES`` stay float32, as the reference's)."""
+    embed = L.init_embedding(cfg, generator, device, dtype)
     return {"embed": embed,
-            "mamba_blocks": init_mamba_blocks(cfg, generator, device),
-            "final_norm": L.init_norm(cfg, device),
-            "lm_head": L.init_lm_head(cfg, generator, device)}
+            "mamba_blocks": init_mamba_blocks(cfg, generator, device, dtype),
+            "final_norm": L.init_norm(cfg, device, dtype),
+            "lm_head": L.init_lm_head(cfg, generator, device, dtype)}
 
 
 def _block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:

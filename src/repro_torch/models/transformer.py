@@ -40,7 +40,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.quant import qtensor as qt
 
 
 @dataclass(frozen=True)
@@ -112,17 +111,20 @@ def layer_kind(cfg: ModelConfig, idx: int) -> str:
 
 
 def init_block(cfg: ModelConfig, generator: torch.Generator, device,
-               kind: str) -> Dict:
+               kind: str, dtype: Optional[torch.dtype] = None) -> Dict:
     """One pre-norm block: GQA or MLA attention, then a SwiGLU FFN (at
-    ``moe.d_ff_dense`` in a MoE config's dense layers) or the MoE FFN."""
-    p = {"ln1": L.init_norm(cfg, device), "ln2": L.init_norm(cfg, device)}
-    p["attn"] = (attn.init_mla(cfg, generator, device) if cfg.mla is not None
-                 else attn.init_attention(cfg, generator, device))
+    ``moe.d_ff_dense`` in a MoE config's dense layers) or the MoE FFN;
+    cast to ``dtype``."""
+    p = {"ln1": L.init_norm(cfg, device, dtype),
+         "ln2": L.init_norm(cfg, device, dtype)}
+    p["attn"] = (attn.init_mla(cfg, generator, device, dtype)
+                 if cfg.mla is not None
+                 else attn.init_attention(cfg, generator, device, dtype))
     if kind == "moe":
-        p["ffn"] = moe_lib.init_moe(cfg, generator, device)
+        p["ffn"] = moe_lib.init_moe(cfg, generator, device, dtype)
     else:
         d_ff = cfg.moe.d_ff_dense if cfg.moe is not None else None
-        p["ffn"] = L.init_mlp(cfg, generator, device, d_ff=d_ff)
+        p["ffn"] = L.init_mlp(cfg, generator, device, d_ff=d_ff, dtype=dtype)
     return p
 
 
@@ -138,24 +140,20 @@ def init_lm_params(cfg: ModelConfig, generator: torch.Generator,
     as it is drawn, so the tree equals ``qtensor.cast_tree`` of the
     float32 tree while at most one float32 block is alive."""
     check_decoder(cfg)
-
-    def cast(tree):
-        return tree if dtype is None else qt.cast_tree(tree, dtype)
-
-    embed = cast(L.init_embedding(cfg, generator, device))
-    blocks = [cast(init_block(cfg, generator, device, layer_kind(cfg, i)))
+    embed = L.init_embedding(cfg, generator, device, dtype)
+    blocks = [init_block(cfg, generator, device, layer_kind(cfg, i), dtype)
               for i in range(cfg.n_layers)]
     params = {"embed": embed, "blocks": blocks,
-              "final_norm": L.init_norm(cfg, device),
-              "lm_head": L.init_lm_head(cfg, generator, device)}
+              "final_norm": L.init_norm(cfg, device, dtype),
+              "lm_head": L.init_lm_head(cfg, generator, device, dtype)}
     if cfg.vlm is not None:
         D = cfg.d_model
-        params["projector"] = {
+        params["projector"] = L.as_dtype({
             "w1": L.dense_init(cfg.vlm.vision_hidden, D, generator, device),
             "b1": torch.zeros(D, device=device),
             "w2": L.dense_init(D, D, generator, device),
-            "b2": torch.zeros(D, device=device)}
-    return cast(params)
+            "b2": torch.zeros(D, device=device)}, dtype)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -251,12 +249,17 @@ def embed_inputs(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     """The token embeddings (B, T, D); for a VLM config given
     ``image_embeds`` (B, N, vision_hidden), the projected image tokens
     ``gelu(e @ w1 + b1) @ w2 + b2`` (tanh GELU, the reference's
-    ``jax.nn.gelu`` default) ahead of them: (B, N + T, D)."""
+    ``jax.nn.gelu`` default) ahead of them: (B, N + T, D).  The
+    projector runs in the promoted type of the embeddings and its
+    weights (float32 embeddings under a half tree: float32), then joins
+    the token embeddings in their type, as the reference's."""
     x = L.embed_tokens(params["embed"], tokens)
     if cfg.vlm is not None and image_embeds is not None:
         pr = params["projector"]
-        v = F.gelu(image_embeds @ pr["w1"] + pr["b1"], approximate="tanh")
-        x = torch.cat([(v @ pr["w2"] + pr["b2"]).to(x.dtype), x], dim=1)
+        v = F.gelu(L.mm(image_embeds, pr["w1"]) + pr["b1"],
+                   approximate="tanh")
+        x = torch.cat([(L.mm(v, pr["w2"]) + pr["b2"]).to(x.dtype), x],
+                      dim=1)
     return x
 
 

@@ -35,39 +35,42 @@ from repro_torch.models.config import ModelConfig
 
 
 def init_whisper_params(cfg: ModelConfig, generator: torch.Generator,
-                        device="cuda") -> Dict:
+                        device="cuda", dtype: Optional[torch.dtype] = None
+                        ) -> Dict:
     """Seeded init with the reference's shapes and distributions (dense
     weights truncated normal / sqrt(fan_in), the token table and
     ``dec_pos`` (max_seq_len, D) normal with std 0.02, ones and zeros for
     the LayerNorms, zero biases); self-attention q / k / v fused as
-    ``w_qkv`` with ``b_qkv``, cross-attention weights apart."""
+    ``w_qkv`` with ``b_qkv``, cross-attention weights apart; each piece
+    cast to ``dtype`` as it is drawn."""
     def enc_layer():
-        return {"ln1": L.init_norm(cfg, device),
-                "attn": attn.init_attention(cfg, generator, device),
-                "ln2": L.init_norm(cfg, device),
-                "ffn": L.init_mlp(cfg, generator, device)}
+        return {"ln1": L.init_norm(cfg, device, dtype),
+                "attn": attn.init_attention(cfg, generator, device, dtype),
+                "ln2": L.init_norm(cfg, device, dtype),
+                "ffn": L.init_mlp(cfg, generator, device, dtype=dtype)}
 
     def dec_layer():
-        return {"ln1": L.init_norm(cfg, device),
-                "self_attn": attn.init_attention(cfg, generator, device),
-                "ln_x": L.init_norm(cfg, device),
+        return {"ln1": L.init_norm(cfg, device, dtype),
+                "self_attn": attn.init_attention(cfg, generator, device,
+                                                 dtype),
+                "ln_x": L.init_norm(cfg, device, dtype),
                 "cross_attn": attn.init_cross_attention(cfg, generator,
-                                                        device),
-                "ln2": L.init_norm(cfg, device),
-                "ffn": L.init_mlp(cfg, generator, device)}
+                                                        device, dtype),
+                "ln2": L.init_norm(cfg, device, dtype),
+                "ffn": L.init_mlp(cfg, generator, device, dtype=dtype)}
 
     enc = [enc_layer() for _ in range(cfg.encdec.n_encoder_layers)]
-    embed = L.init_embedding(cfg, generator, device)
+    embed = L.init_embedding(cfg, generator, device, dtype)
     dec_pos = torch.empty((cfg.max_seq_len, cfg.d_model),
                           device="meta" if L.is_meta(device)
                           else generator.device)
     if not L.is_meta(device):
         torch.nn.init.normal_(dec_pos, 0.0, 0.02, generator=generator)
-    return {"enc_blocks": enc, "enc_norm": L.init_norm(cfg, device),
-            "embed": embed, "dec_pos": dec_pos.to(device),
+    return {"enc_blocks": enc, "enc_norm": L.init_norm(cfg, device, dtype),
+            "embed": embed, "dec_pos": L.as_dtype(dec_pos.to(device), dtype),
             "dec_blocks": [dec_layer() for _ in range(cfg.n_layers)],
-            "final_norm": L.init_norm(cfg, device),
-            "lm_head": L.init_lm_head(cfg, generator, device)}
+            "final_norm": L.init_norm(cfg, device, dtype),
+            "lm_head": L.init_lm_head(cfg, generator, device, dtype)}
 
 
 def enc_block(cfg: ModelConfig, p: Dict, x: torch.Tensor) -> torch.Tensor:

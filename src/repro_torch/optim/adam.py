@@ -3,9 +3,13 @@
 The reference's update, kept as it is: b2 = 0.95 by default, a
 global-norm gradient clip (1.0 by default) fused into the moment
 updates, fp32 moments, and a non-finite gradient norm skips the step
-(the moments see zero gradients).  The port's parameters are float32
-(the reference also casts other dtypes; here they raise).
-``torch.optim.Adam`` has other defaults and no clip.
+(the moments see zero gradients).  Parameters and gradients may be of
+any float type, leaf by leaf (a bf16 tree whose mamba ``A_log`` /
+``dt_bias`` / ``D`` are float32): the update runs in float32 and each
+parameter is rounded once to its own type, the reference's
+``(p.astype(f32) - lr * delta).astype(p.dtype)``, its decay term
+``weight_decay * p.astype(f32)``.  ``torch.optim.Adam`` has other
+defaults and no clip.
 
 The reference's update is a function that builds new trees; here
 ``adam_update`` writes the live parameters and moments in place
@@ -15,9 +19,10 @@ at their peak (113 GB for Qwen3-4B).  The gradients are not changed.
 The leaves go in groups whose fp32 bytes stay under ``GROUP_BYTES``, so
 each of the update's temporaries (the scaled gradients and their
 squares, the bias-corrected moments, the decay term; at most two alive
-at once) is at most one group; a leaf larger than the budget forms a
-group of its own.  Each product is rounded on its own, as in the
-reference's expressions, so the result equals the functional form's.
+at once, plus a float32 copy of a group's half parameters) is at most
+one group; a leaf larger than the budget forms a group of its own.
+Each product is rounded on its own, as in the reference's expressions,
+so the result equals the functional form's.
 The clip's scale and the finite check stay device tensors: the update
 makes no host sync.
 """
@@ -71,8 +76,6 @@ def adam_update(grads: Tree, state: AdamState, params: Tree, *,
     {"grad_norm"}).  ``gnorm``: the gradients' global norm when they are
     local pieces of a sharded tree (``train.trainer`` sums it across the
     mesh); by default :func:`global_norm` of ``grads``."""
-    if any(p.dtype != torch.float32 for p in params.values()):
-        raise ValueError("adam_update: float32 parameters only")
     step = state.step + 1
     if gnorm is None:
         gnorm = global_norm(grads)
@@ -110,10 +113,19 @@ def adam_update(grads: Tree, state: AdamState, params: Tree, *,
         delta = torch._foreach_div(ms, bc1)
         torch._foreach_div_(delta, den)
         del den
+        # the float32 view of the parameters: a float32 leaf itself (its
+        # update stays in place), a half leaf a float32 copy
+        half = [i for i, p in enumerate(ps) if p.dtype != torch.float32]
+        pf = [p if p.dtype == torch.float32 else p.float() for p in ps]
         if weight_decay:
-            torch._foreach_add_(delta, torch._foreach_mul(ps, weight_decay))
+            torch._foreach_add_(delta, torch._foreach_mul(pf, weight_decay))
         torch._foreach_mul_(delta, lr)
-        torch._foreach_sub_(ps, delta)
+        torch._foreach_sub_(pf, delta)
+        del delta
+        if half:                 # one rounding to the parameter's type
+            torch._foreach_copy_([ps[i] for i in half],
+                                 [pf[i] for i in half])
+        del pf
     return params, AdamState(step, state.m, state.v), {"grad_norm": gnorm}
 
 

@@ -127,9 +127,10 @@ def check_lm_int8(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: {INT8_MLA_REFUSAL}")
 
 
-def quantize_lm_params(params):
+def quantize_lm_params(params, out_dtype: torch.dtype = torch.float32):
     """The LM serving lane's tree walk: per-output-channel int8
-    QuantTensors (float32 outputs) for the attention and MLP projections
+    QuantTensors (outputs in ``out_dtype``, float32 by default, as the
+    reference's) for the attention and MLP projections
     of every block (``LM_TARGETS``), which route through
     ``qtensor.matmul``; embeddings, norms, the LM head and the mamba
     layers' ``w_in`` / ``w_out`` (plain GEMMs in the reference too) pass
@@ -156,8 +157,9 @@ def quantize_lm_params(params):
         if isinstance(node, dict):
             if "router" in node:          # a MoE FFN: router and slabs float
                 return node
-            return {k: (qt.quantize_weight(v) if k in LM_TARGETS
-                        else walk(v)) for k, v in node.items()}
+            return {k: (qt.quantize_weight(v, out_dtype=out_dtype)
+                        if k in LM_TARGETS else walk(v))
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(walk(v) for v in node)
         return node

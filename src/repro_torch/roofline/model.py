@@ -20,8 +20,9 @@ the per-chip division is already done; the totals scale them back up.
 The port runs float32 GEMMs in full float32 (PyTorch's default for
 matmuls, which ``kernels.dispatch.disable_tf32`` keeps), on the CUDA
 cores and not the tensor cores: ``roofline_terms`` prices FLOPs at the
-peak of its ``compute_dtype``, and a float32 step (every train cell) at
-``PEAK_FLOPS_FP32``.
+peak of its ``compute_dtype``, a float32 step at ``PEAK_FLOPS_FP32``
+and a bf16 one (every dry-run cell, train cells included, as the
+reference's) at ``PEAK_FLOPS``.
 MODEL_FLOPS = 6*N*D (dense) or 6*N_active*D (MoE) measures how much of
 the counted compute is useful.
 """

@@ -12,12 +12,18 @@ moments in place.  The optimiser state runs over the flat view of the
 tree (``train.checkpoint.flatten``), whose leaves are the tree's own
 tensors.
 
+Parameters may be float32, fp16 or bf16 (``init_train_state(dtype=)``),
+leaf by leaf; the AdamW moments are float32 at any type.
+
 Accumulation: with ``accum_steps`` A the batch's rows go in A
 contiguous microbatches, each one's ``backward`` adding into the leaves'
 ``.grad``, which are then divided by A: the reference's float32 sum over
-its microbatch scan, then the divide.  Only one gradient set is ever
-alive (a second, added in, would be another 16 GB at Qwen3-4B), and the
-leaves' ``.grad`` are freed after the update.
+its microbatch scan, then the divide.  A half leaf's microbatch gradient
+is moved into a float32 sum instead (its ``.grad`` freed), so the sum
+and the divide run in float32 as the reference's; at A = 1 gradients
+stay in the parameter's type, as the reference's.  Only one gradient
+set is ever alive (a second, added in, would be another 16 GB at
+Qwen3-4B), and the leaves' ``.grad`` are freed after the update.
 
 On a mesh (``launch.mesh``; the reference's FSDP + expert-parallel
 layout, ``train_shardings``): ``params`` and both AdamW moments are this
@@ -26,11 +32,13 @@ batch, of which each data rank takes its rows (microbatch by
 microbatch, as the reference's sharded microbatch scan splits them);
 each block gathers its leaves as it runs (``sharding.Gathered``), the
 MoE slabs over ``data`` only, split over ``model``
-(``moe.moe_sharded``); gradients come back reduce-scattered, and a leaf
-replicated over an axis sums its gradient over that axis; the loss is
-the global masked mean (``registry.lm_loss``); the clip's global norm
-counts each element once (a replicated leaf on the ranks at coordinate 0
-of its replicated axes only); AdamW updates the local pieces.  Compute
+(``moe.moe_sharded``); gradients come back reduce-scattered (a half
+leaf's in its type, each microbatch's before it joins the float32 sum),
+and a leaf replicated over an axis sums its gradient over that axis;
+the loss is the global masked mean (``registry.lm_loss``); the clip's
+global norm counts each element once (a replicated leaf on the ranks at
+coordinate 0 of its replicated axes only); AdamW updates the local
+pieces.  Compute
 gathers (tensor parallelism by gather, not Megatron's split GEMMs): the
 numbers are the reference's on any mesh, as GSPMD's are.  ``sp`` keeps
 the decoder's residual carry in d_model pieces over ``model``
@@ -42,7 +50,7 @@ parameters are plain tensors again, as the reference's arrays.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -93,9 +101,11 @@ def train_shardings(cfg: ModelConfig, mesh, params, batch=None
     return pspecs, opt, bspecs
 
 
-def shape_tree(cfg: ModelConfig) -> Dict:
-    """The config's parameter tree on the meta device: shapes only."""
-    return registry.init_params(cfg, torch.Generator(), "meta")
+def shape_tree(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
+               ) -> Dict:
+    """The config's parameter tree on the meta device: shapes and the
+    dtypes ``registry.init_params(..., dtype)`` gives, no storage."""
+    return registry.init_params(cfg, torch.Generator(), "meta", dtype)
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig = TrainConfig(),
@@ -121,6 +131,7 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig = TrainConfig(),
         rows = _rows(batch, A)
         flat = _require_grad(params)
         loss, metrics = 0.0, {}
+        acc: Dict[str, torch.Tensor] = {}
         for i in range(A):
             mb = {k: v[i * rows // A:(i + 1) * rows // A]
                   for k, v in batch.items()}
@@ -129,7 +140,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig = TrainConfig(),
             loss = loss + mb_loss.detach()
             if A == 1:                   # the reference drops them at A > 1
                 metrics = {k: v.detach() for k, v in mb_metrics.items()}
-        grads = _grads(flat)
+            else:
+                _accumulate_half(flat, acc)
+        grads = _grads(flat, acc)
         if A > 1:
             torch._foreach_div_(list(grads.values()), A)
             loss = loss / A
@@ -155,11 +168,31 @@ def _require_grad(params: Dict) -> Dict[str, torch.Tensor]:
     return flat
 
 
-def _grads(flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def _accumulate_half(flat: Dict[str, torch.Tensor],
+                     acc: Dict[str, torch.Tensor]) -> None:
+    """Move each half leaf's microbatch gradient into its float32 sum in
+    ``acc`` (the reference's ``a + b.astype(f32)`` over its microbatch
+    scan); float32 leaves keep adding into their ``.grad``."""
+    with torch.no_grad():
+        for k, p in flat.items():
+            if p.dtype == torch.float32 or p.grad is None:
+                continue
+            g = p.grad.float()
+            p.grad = None
+            if k in acc:
+                acc[k].add_(g)
+            else:
+                acc[k] = g
+
+
+def _grads(flat: Dict[str, torch.Tensor],
+           acc: Optional[Dict[str, torch.Tensor]] = None
+           ) -> Dict[str, torch.Tensor]:
     # a leaf the loss does not reach (the hybrid's shared block at fewer
     # than six layers) gets the zero gradient jax.grad gives it
-    return {k: p.grad if p.grad is not None else torch.zeros_like(p)
-            for k, p in flat.items()}
+    acc = acc or {}
+    return {k: acc[k] if k in acc else p.grad if p.grad is not None
+            else torch.zeros_like(p) for k, p in flat.items()}
 
 
 def _update(tc: TrainConfig, params, opt_state, flat, grads, gnorm, loss,
@@ -200,6 +233,7 @@ def _mesh_step(cfg: ModelConfig, tc: TrainConfig, mesh) -> Callable:
         flat = _require_grad(params)
         view = shd.Gathered(params, pspecs, mesh)
         loss, metrics = 0.0, {}
+        acc: Dict[str, torch.Tensor] = {}
         for i in range(A):
             mb = {k: v[i * rows // A:(i + 1) * rows // A]
                   for k, v in batch.items()}
@@ -210,7 +244,9 @@ def _mesh_step(cfg: ModelConfig, tc: TrainConfig, mesh) -> Callable:
             loss = loss + (mb_metrics["ce"] + aux_coef * mb_metrics["aux"])
             if A == 1:
                 metrics = dict(mb_metrics)
-        grads = _grads(flat)
+            else:
+                _accumulate_half(flat, acc)
+        grads = _grads(flat, acc)
         with torch.no_grad():
             for k, g in grads.items():
                 shd.reduce_over(g, mesh, replicated[k])
@@ -240,8 +276,10 @@ def shard_train_state(cfg: ModelConfig, mesh, params: Dict
 
 
 def init_train_state(cfg: ModelConfig, generator: torch.Generator,
-                     device="cuda") -> Tuple[Dict, adam.AdamState]:
-    """Seeded parameters (``registry.init_params``) and a fresh AdamW
-    state over their flat view."""
-    params = registry.init_params(cfg, generator, device)
+                     device="cuda", dtype: Optional[torch.dtype] = None
+                     ) -> Tuple[Dict, adam.AdamState]:
+    """Seeded parameters at ``dtype`` (``registry.init_params``; None is
+    float32) and a fresh AdamW state over their flat view, its moments
+    float32 at any parameter type, as the reference's."""
+    params = registry.init_params(cfg, generator, device, dtype)
     return params, adam.init_adam(ckpt.flatten(params))

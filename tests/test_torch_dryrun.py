@@ -327,6 +327,24 @@ def _real_cost(cell):
     return costing.trace_cost(cell.fn, *args)
 
 
+def test_build_cell_from_takes_a_float32_train_cell():
+    """``build_cell_from(dtype=torch.float32)`` prices the port's float32
+    step (phase 28 of the card run holds it to a float32 step): float32
+    parameters and moments, the cell's dtype float32; by default bf16
+    parameters (a mamba block's ``A_log`` / ``dt_bias`` / ``D`` float32
+    aside, none in this config) and float32 moments."""
+    cfg, shape = _tiny()
+    with dryrun.fake_world(4):
+        mesh = mesh_lib.make_local_mesh(*TINY["mesh"], device_type="cpu")
+        for dt in (torch.float32, torch.bfloat16):
+            kw = {} if dt == torch.bfloat16 else {"dtype": dt}
+            cell = sp.build_cell_from(cfg, shape, mesh, accum=1, **kw)
+            assert cell.dtype == dt
+            params, opt, _ = cell.args
+            assert {t.dtype for t in ckpt.flatten(params).values()} == {dt}
+            assert {t.dtype for t in opt.m.values()} == {torch.float32}
+
+
 def test_fake_count_equals_a_real_cpu_run():
     """FLOPs, bytes, every collective record and the memory tally of a
     tiny train step on a (2, 2) mesh: fake tensors vs a real CPU run of
@@ -446,6 +464,10 @@ FLOP_RATIO_BAND = (1.85, 1.95)
 
 
 def test_tiny_train_cell_matches_reference_memory_and_flop_band(ref):
+    """The tiny cell at bf16 parameters, the reference's: its argument
+    bytes equal the reference's; its GEMM FLOPs against XLA's HLO FLOPs
+    of the float32 cell (a bf16 module's count adds its converts), in
+    the band both packages' float32 steps keep."""
     cfg, shape = _tiny()
     with dryrun.fake_world(4):
         mesh = mesh_lib.make_local_mesh(*TINY["mesh"], device_type="cpu")
@@ -453,13 +475,16 @@ def test_tiny_train_cell_matches_reference_memory_and_flop_band(ref):
             cost, mem = costing.cell_cost(sp.build_cell_from(
                 cfg, shape, mesh, accum=accum))
             want = ref["tiny"][f"accum{accum}"]
-            # params + AdamW moments + the rank's batch rows (the port's
-            # step holds the global batch; the reference's AdamState adds
-            # its int32 step)
+            # bf16 params + float32 AdamW moments + the rank's batch rows
+            # (the port's step holds the global batch; the reference's
+            # AdamState adds its int32 step)
             params, moments, _ = mem.by_arg
             assert params + moments + want["batch_local_bytes"] + 4 == \
                 want["argument_bytes"]
-            ratio = cost.flops / want["flops"]
+            cost32, _ = costing.cell_cost(sp.build_cell_from(
+                cfg, shape, mesh, accum=accum, dtype=torch.float32))
+            assert cost32.flops == cost.flops
+            ratio = cost.flops / ref["tiny"][f"accum{accum}_f32"]["flops"]
             assert FLOP_RATIO_BAND[0] < ratio < FLOP_RATIO_BAND[1], ratio
 
 
@@ -498,10 +523,10 @@ def test_run_cell_on_the_production_mesh(monkeypatch, arch, shape, layers):
     assert "probe_cost" not in rec
     kind = tc.SHAPES[shape].kind
     assert rec["layout"] == sp.LAYOUTS[kind]
-    dtype = torch.float32 if kind == "train" else torch.bfloat16
-    assert rec["compute_dtype"] == str(dtype).replace("torch.", "")
+    # every cell holds bf16 parameters, train cells too (the reference's)
+    assert rec["compute_dtype"] == "bfloat16"
     assert rec["roofline"]["t_compute"] == \
-        rec["cost"]["flops_per_device"] / rm.peak_flops(dtype)
+        rec["cost"]["flops_per_device"] / rm.peak_flops(torch.bfloat16)
     assert ("serving layout" in rec["cost"]["source"]) == (kind != "train")
     assert MEM_KEYS <= set(rec["memory"])
     assert rec["n_chips"] == 256 and rec["mesh"] == "pod1"
@@ -516,10 +541,11 @@ def test_run_cell_on_the_production_mesh(monkeypatch, arch, shape, layers):
     assert rec["cost"]["kernel_regions"][f"kernel:{kernel}"]["flops"] > 0
 
 
-def test_run_cell_flash_counts_a_train_cell_at_float32(monkeypatch):
-    """``--opt flash`` on a float32 train cell (one layer of qwen3-4b
-    train_4k on pod1): the kernel's bytes and the byte floor at 4 bytes
-    an element, the plain site counted at float32 unscaled."""
+def test_run_cell_flash_counts_a_train_cell_at_bf16(monkeypatch):
+    """``--opt flash`` on a train cell (one layer of qwen3-4b train_4k on
+    pod1), bf16 as the reference's: the kernel's bytes, the plain site
+    and the byte floor at 2 bytes an element (a float32 cell's floor
+    streams twice the parameter bytes)."""
     _cut_depth(monkeypatch, 1)
     rec = dryrun.run_cell("qwen3-4b", "train_4k", False, "flash")
     assert rec["status"] == "ok", rec
@@ -529,15 +555,14 @@ def test_run_cell_flash_counts_a_train_cell_at_float32(monkeypatch):
     loc = rec["flash_correction"]["local_shapes"]
     assert seg["kernel"] == costing.kernel_attn_bytes(
         "train", loc["b"], seg["t"], seg["s"], loc["h"], loc["kv"],
-        loc["dh"], 4)
+        loc["dh"], 2)
     assert seg["plain"] == costing._attn_site_saving(
         "train", loc["b"], seg["t"], seg["s"], loc["h"], loc["kv"],
-        loc["dh"], 4)["plain"]
-    floor = costing.min_traffic_floor(cfg, spec, SIZES["pod1"], accum,
-                                      dtype_bytes=4)
+        loc["dh"], 2)["plain"]
+    floor = costing.min_traffic_floor(cfg, spec, SIZES["pod1"], accum)
     assert rec["byte_floor"] == floor
-    assert floor["parts"]["params"] == 2 * costing.min_traffic_floor(
-        cfg, spec, SIZES["pod1"], accum)["parts"]["params"]
+    assert 2 * floor["parts"]["params"] == costing.min_traffic_floor(
+        cfg, spec, SIZES["pod1"], accum, dtype_bytes=4)["parts"]["params"]
     assert rec["cost"]["bytes_per_device"] == max(
         rec["cost"]["direct_bytes"]
         - rec["flash_correction"]["bytes_saved_per_device"],

@@ -107,6 +107,29 @@ def test_quantize_lm_params_byte_equal_to_reference(setup):
     assert qt.tree_bytes(got) == qt.tree_bytes(tq_ref)
 
 
+@pytest.mark.parametrize("out", ["float16", "bfloat16"])
+def test_quantize_lm_params_half_outputs_byte_equal_to_reference(setup, out):
+    """``out_dtype`` fp16 / bf16, as the reference's ``quantize_lm_params(
+    params, out_dtype)``: the same codes and scales as its converted tree,
+    every QuantTensor's output type the half one, the other leaves
+    untouched."""
+    jcfg, tcfg, jparams, tparams, _, _ = setup
+    jq = jptq.quantize_lm_params(jparams, out_dtype=getattr(jnp, out))
+    want = dict(_leaves(CONVERT[tcfg.family](
+        jax.tree_util.tree_map(np.asarray, jq), tcfg, "cpu")))
+    got = dict(_leaves(tptq.quantize_lm_params(
+        tparams, out_dtype=getattr(torch, out))))
+    assert got.keys() == want.keys()
+    for path, g in got.items():
+        w = want[path]
+        assert type(g) is type(w), path
+        if isinstance(g, qt.QuantTensor):
+            assert torch.equal(g.q, w.q) and torch.equal(g.scale, w.scale)
+            assert g.out_dtype == w.out_dtype == out, path
+        else:
+            assert torch.equal(g, w), path
+
+
 def test_mamba2_tree_comes_back_unchanged():
     jcfg, tcfg = _cfgs("mamba2-370m")
     jparams = jregistry.init_params(jcfg, jax.random.PRNGKey(1))

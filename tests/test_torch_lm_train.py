@@ -17,7 +17,9 @@ layer with shared experts; the loss carries the MoE aux), with norm
 scales, biases, ``D`` and ``dt_bias`` moved off their init values.  Tolerances: losses
 1e-5 relative, every gradient leaf 1e-4 of its largest; three train
 steps' losses 1e-4 relative and parameters 1e-4 of each leaf's largest;
-AdamW 1e-6 relative.
+AdamW 1e-6 relative; AdamW on fp16 / bf16 / mixed trees one ULP of the
+half type and >= 99.9% bit-equal (``test_torch_half_train.py`` holds
+the half train steps).
 """
 import dataclasses
 import os
@@ -449,6 +451,86 @@ def test_adam_update_in_place_matches_reference(case):
         assert all(torch.isfinite(v).all() for v in params.values())
 
 
+# the half trees: every leaf bf16 or fp16, or a bf16 tree whose "b/0"
+# and "c" leaves are float32 (as a mamba block's A_log / dt_bias / D)
+HALF_TREES = {"bf16": {}, "fp16": {}, "mixed": {"b/0", "c"}}
+HALF_SHARE = 0.999       # parameters bit-equal to the reference's
+
+
+def _half_ulp(x: torch.Tensor) -> torch.Tensor:
+    p, tiny = {torch.float16: (11, 2.0 ** -24),
+               torch.bfloat16: (8, 2.0 ** -133)}[x.dtype]
+    _, e = torch.frexp(x.float().abs())
+    return torch.clamp(torch.ldexp(torch.ones_like(e, dtype=torch.float32),
+                                   e - p), min=tiny)
+
+
+def _to_jnp(t: torch.Tensor):
+    """A copy (the port's update writes its tensors in place, and
+    ``jnp.asarray`` may alias a numpy view of them)."""
+    if t.dtype == torch.bfloat16:
+        return jnp.array(t.float().numpy()).astype(jnp.bfloat16)
+    return jnp.array(t.numpy(), copy=True)
+
+
+@pytest.mark.parametrize("tree", list(HALF_TREES))
+@pytest.mark.parametrize("case", list(ADAM_CASES))
+def test_adam_update_in_place_at_half_matches_reference(case, tree):
+    """The cases above on fp16 / bf16 parameters (gradients in each
+    parameter's type, as a step at accum 1 gives them) and on a bf16 tree
+    with float32 leaves: three in-place steps against the reference's
+    update.  Half parameters bit-equal at >= 99.9% and within one ULP of
+    their type everywhere (each update rounds once from float32, in both
+    packages); float32 leaves and the float32 moments to ADAM_RTOL."""
+    c = dict(ADAM_CASES[case])
+    dt = torch.float16 if tree == "fp16" else torch.bfloat16
+    rng = np.random.default_rng(0)
+    p0 = _adam_tree(rng)
+    params = {k: _t(v).to(torch.float32 if k in HALF_TREES[tree] else dt)
+              for k, v in p0.items()}
+    state = adam.init_adam(params)
+    jp = {k: _to_jnp(v) for k, v in params.items()}
+    js = jadam.init_adam(jp)
+    kw = dict(lr=3e-2, weight_decay=c.get("weight_decay", 0.0),
+              grad_clip=c["grad_clip"])
+    n_eq = n = 0
+    for s in range(3):
+        g = {k: (c["gscale"] * rng.standard_normal(v.shape)).astype(
+            np.float32) for k, v in p0.items()}
+        if c.get("nan_step") == s:
+            g["b/1"][1, 2, 0] = np.nan
+        tg = {k: _t(v).to(params[k].dtype) for k, v in g.items()}
+        live = dict(params)
+        params, state, m = adam.adam_update(tg, state, params, **kw)
+        assert all(params[k] is live[k] for k in live)     # in place
+        jp, js, jm = jadam.adam_update({k: _to_jnp(v) for k, v in
+                                        tg.items()}, js, jp, **kw)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=ADAM_RTOL)
+        for k, w in jp.items():
+            got = params[k]
+            w = torch.from_numpy(np.asarray(w).astype(np.float32)).to(
+                got.dtype)
+            if got.dtype == torch.float32:
+                np.testing.assert_allclose(got.numpy(), w.numpy(),
+                                           rtol=ADAM_RTOL, atol=ADAM_RTOL)
+                continue
+            d = (got.float() - w.float()).abs()
+            assert bool((d <= _half_ulp(w)).all()), (k, s)
+            n_eq += int((got == w).sum())
+            n += w.numel()
+        for got, want in ((state.m, js.m), (state.v, js.v)):
+            want = {k: np.asarray(w) for k, w in want.items()}
+            top = max(float(np.abs(w).max()) for w in want.values())
+            for k, w in want.items():
+                assert got[k].dtype == torch.float32
+                np.testing.assert_allclose(got[k].numpy(), w, rtol=ADAM_RTOL,
+                                           atol=ADAM_RTOL * top)
+    assert n_eq >= HALF_SHARE * n, n_eq / n
+    if "nan_step" in c:
+        assert all(torch.isfinite(v).all() for v in params.values())
+
+
 class _Allocations(TorchDispatchMode):
     """The bytes of new tensors each op returns (in-place ops return
     their own inputs and count nothing)."""
@@ -680,6 +762,62 @@ def test_checkpoint_round_trip_of_params_and_adam_state(tmp_path):
     jflat = {k: jnp.asarray(v.numpy()) for k, v in flat.items()}
     assert list(tckpt.flatten((flat, adam.init_adam(flat)))) == [
         n for n, _ in jckpt._tree_paths((jflat, jadam.init_adam(jflat)))]
+
+
+def _jnp_leaf(t):
+    if isinstance(t, int):
+        return jnp.asarray(t, jnp.int32)
+    return jnp.array(t.float().numpy()).astype(jnp.bfloat16) \
+        if t.dtype == torch.bfloat16 else jnp.array(t.numpy())
+
+
+def test_half_train_state_checkpoints_cross_both_packages(tmp_path):
+    """A bf16 train state of the SSM config (float32 ``A_log`` /
+    ``dt_bias`` / ``D`` among bf16 leaves, float32 moments, after one
+    step) saved by the port restores through the reference's
+    ``checkpoint.restore`` bit for bit, dtypes kept; and a state the
+    reference saves restores through the port's."""
+    cfg = get_reduced("mamba2-370m")
+    params, opt = ttr.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                       "cpu", torch.bfloat16)
+    step = ttr.make_train_step(cfg, ttr.TrainConfig(**_train_config(1)))
+    params, opt, _ = step(params, opt, {k: _t(v) for k, v in _batch(
+        cfg, 2, 16, 30, mask=False).items()})
+    state = (params, opt)
+    tckpt.save(state, str(tmp_path / "port"), 1)
+    jlike = jax.tree_util.tree_map(_jnp_leaf, state)
+    back = jckpt.restore(jlike, str(tmp_path / "port"))
+    got = tckpt.flatten(state)
+    names = [n for n, _ in jckpt._tree_paths(back)]
+    assert names == list(got)
+    for name, leaf in zip(names, jax.tree_util.tree_leaves(back)):
+        want = got[name]
+        if isinstance(want, int):
+            assert int(leaf) == want
+            continue
+        assert str(np.asarray(leaf).dtype) == str(want.dtype).replace(
+            "torch.", ""), name
+        assert np.array_equal(np.asarray(leaf).astype(np.float32),
+                              want.float().numpy()), name
+    assert {str(want.dtype) for name, want in got.items()
+            if name.endswith("A_log")} == {"torch.float32"}
+    # the reverse: the reference saves (each leaf moved one bf16 step),
+    # the port restores
+    moved = jax.tree_util.tree_map(
+        lambda a: a if a.dtype == jnp.int32 else
+        (a.astype(jnp.float32) * 1.5).astype(a.dtype), jlike)
+    jckpt.save(moved, str(tmp_path / "ref"), 2)
+    fresh = ttr.init_train_state(cfg, torch.Generator().manual_seed(1),
+                                 "cpu", torch.bfloat16)
+    mine = tckpt.flatten(tckpt.restore(fresh, str(tmp_path / "ref")))
+    for name, leaf in zip(names, jax.tree_util.tree_leaves(moved)):
+        if isinstance(mine[name], int):
+            assert mine[name] == int(leaf)
+            continue
+        assert str(mine[name].dtype).replace("torch.", "") == \
+            str(np.asarray(leaf).dtype), name
+        assert np.array_equal(mine[name].float().numpy(),
+                              np.asarray(leaf).astype(np.float32)), name
 
 
 def _launch(*args, tmp_path):

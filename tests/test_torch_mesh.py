@@ -28,6 +28,12 @@ factor 0.5, so tokens drop and the per-shard capacity shows.
   * a checkpoint saved from (2, 2) and ``elastic_restart`` in a world of
     2 ranks: every full tensor equal; ``rebuild_mesh`` over three
     survivors of four;
+  * two steps of the dense config at bf16 parameters, accumulation 2,
+    on a (2, 1) mesh of 2 gloo ranks (bf16 reduce-scatters, a float32
+    gradient sum) against the reference's mesh-free bf16 step: losses
+    1e-2 relative, each step's gradients and the reference's AdamW on
+    them at ``test_torch_half_train.py``'s bounds (3e-2 of a leaf's
+    largest; one bf16 ULP, >= 99.9% bit-equal);
   * ``torch.distributed.run`` of ``launch.train --model-par 2`` on 2 CPU
     ranks exits 0.
 """
@@ -140,6 +146,73 @@ def test_dense_sharded_steps_match_the_mesh_free_step(runs):
                 _close(got[key + "p/" + k], w, TOL, k)
             for k, w in opt.m.items():
                 _close(got[key + "m/" + k], w.numpy(), TOL, k)
+
+
+def test_bf16_sharded_steps_match_the_reference(runs, monkeypatch):
+    """The 2-rank world's bf16 steps on (2, 1) against the reference's
+    jitted mesh-free step on the same bf16 tree (its numbers do not
+    depend on the layout), with ``test_torch_half_train.py``'s bounds:
+    each step's gradients as AdamW got them (float32 sums of the two
+    microbatches' bf16 reduce-scatters) against the reference's, the
+    reference's AdamW applied to them against the mesh's parameters,
+    and the losses."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import configs as jc
+    from repro.optim import adam as jadam
+    from repro.train import trainer as jtr
+    from test_torch_half_train import check_adam_on_own_grads, check_grads
+    ref, got = runs["ref"], runs["w2"]
+    jcfg = jc.get_reduced("qwen3-4b").replace(n_layers=2)
+    cfg = W.config("qwen3-4b")
+    start = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.bfloat16),
+                                   W.nest(ref, "in/train/qwen3-4b/p/"))
+    start.setdefault("lm_head", {})     # tied: the archive drops it
+    tc = jtr.TrainConfig(accum_steps=W.HALF_ACCUM, remat=True, peak_lr=1e-3,
+                         warmup_steps=1, total_steps=10)
+    update = jadam.adam_update
+
+    def record(grads, state, params, **kw):
+        p, s, m = update(grads, state, params, **kw)
+        return p, s, {**m, "grads": grads}
+
+    monkeypatch.setattr(jadam, "adam_update", record)
+    jstep = jax.jit(jtr.make_train_step(jcfg, None, tc))
+    batches = [{k: jnp.asarray(v) for k, v in
+                W.nest(ref, f"in/train/qwen3-4b/batch{i}/").items()}
+               for i in range(2)]
+    tree, opt, losses, ref_grads = start, jadam.init_adam(start), [], []
+    for b in batches:
+        tree, opt, m = jstep(tree, opt, b)
+        losses.append(float(m["loss"]))
+        ref_grads.append(m["grads"])
+    np.testing.assert_allclose(got["half/loss"], losses, rtol=1e-2)
+
+    def conv(t):
+        return tckpt.flatten(convert.lm_params_from_jax(
+            jax.tree_util.tree_map(np.asarray, t), cfg, "cpu"))
+
+    def grads32(b):
+        # the reference's float32 gradient at the same (unmoved: lr 0 at
+        # the first step) parameters
+        t32 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float32),
+                                     start)
+        return conv(jstep(t32, jadam.init_adam(t32), b)[2]["grads"])
+
+    grads = [{k[len(f"half/g{i}/"):]: torch.from_numpy(got[k]).to(
+        getattr(torch, str(got["half/gdtype/" + k[len(f"half/g{i}/"):]])
+                .split(".")[-1]))
+        for k in got.files if k.startswith(f"half/g{i}/")}
+        for i in range(2)]
+    lr0, lr1 = got["half/lr"]
+    assert lr0 == 0 < lr1
+    for g, want, b in zip(grads, ref_grads, batches):
+        check_grads(g, conv(want), lambda b=b: grads32(b))
+    final = {k[len("half/p/"):]: torch.from_numpy(got[k]).to(torch.bfloat16)
+             for k in got.files if k.startswith("half/p/")}
+    check_adam_on_own_grads(conv(start), grads, list(got["half/lr"]), final,
+                            tc.weight_decay, tc.grad_clip)
 
 
 @pytest.mark.parametrize("which,hi", [("full", 0.2501), ("reduced", 0.26)])

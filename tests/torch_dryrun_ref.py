@@ -19,8 +19,9 @@ operand / result bytes and ``collective_bytes``); ``inputs``
 ``state`` (the decode state each serving cell stores); ``runnable``
 (``shape_runnable`` by cell); ``stacks`` and
 ``attn_layers`` by arch; ``tiny`` (a reduced train cell on a (2, 2)
-mesh of four devices: ``memory_analysis`` and the HLO FLOPs with every
-scan unrolled); ``hlo_real`` (the parser on a compiled all-gather).
+mesh of four devices, at bf16 and, ``_f32``, float32 parameters:
+``memory_analysis`` and the HLO FLOPs with every scan unrolled);
+``hlo_real`` (the parser on a compiled all-gather).
 """
 import dataclasses
 import json
@@ -142,35 +143,38 @@ def serving_state(cfg, shape, mesh):
 
 
 def tiny_cell():
-    """A reduced qwen3 train cell on a (2, 2) mesh of four devices, at
-    float32 parameters (the port's training dtype): its memory analysis
-    and, with every scan unrolled, its HLO FLOPs."""
+    """A reduced qwen3 train cell on a (2, 2) mesh of four devices: at the
+    reference's bf16 parameters its memory analysis, and with every scan
+    unrolled its HLO FLOPs at bf16 and at float32 parameters (XLA counts
+    a bf16 step's converts as FLOPs too; the GEMMs are the same)."""
     cfg = jc.get_reduced(TINY["arch"]).replace(n_layers=TINY["layers"])
     shape = jc.ShapeSpec("tiny", TINY["seq"], TINY["batch"], "train")
     mesh = jax.make_mesh(TINY["mesh"], ("data", "model"),
                          devices=jax.devices()[:4],
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
     prev_dtype, prev_unroll = jsp.PARAM_DTYPE, jL.SCAN_UNROLL
-    jsp.PARAM_DTYPE, jL.SCAN_UNROLL = jnp.float32, True
+    jL.SCAN_UNROLL = True
     try:
         out = {}
         for accum in (1, 2):
-            cell = jsp.build_cell_from(cfg, shape, mesh, accum=accum)
-            with mesh:
-                jf = jax.jit(cell.fn, in_shardings=cell.in_shardings,
-                             out_shardings=cell.out_shardings,
-                             donate_argnums=cell.donate_argnums)
-                compiled = jf.lower(*cell.args).compile()
-            ma = compiled.memory_analysis()
-            ca = compiled.cost_analysis() or {}
-            batch_local = sum(
-                int(np.prod(x.shape)) * x.dtype.itemsize
-                // jshd.dp_size(mesh) for x in cell.args[2].values())
-            out[f"accum{accum}"] = {
-                "argument_bytes": int(ma.argument_size_in_bytes),
-                "batch_local_bytes": batch_local,
-                "flops": float(ca.get("flops", 0.0)),
-                "bytes": float(ca.get("bytes accessed", 0.0))}
+            for name, dt in (("", prev_dtype), ("_f32", jnp.float32)):
+                jsp.PARAM_DTYPE = dt
+                cell = jsp.build_cell_from(cfg, shape, mesh, accum=accum)
+                with mesh:
+                    jf = jax.jit(cell.fn, in_shardings=cell.in_shardings,
+                                 out_shardings=cell.out_shardings,
+                                 donate_argnums=cell.donate_argnums)
+                    compiled = jf.lower(*cell.args).compile()
+                ma = compiled.memory_analysis()
+                ca = compiled.cost_analysis() or {}
+                batch_local = sum(
+                    int(np.prod(x.shape)) * x.dtype.itemsize
+                    // jshd.dp_size(mesh) for x in cell.args[2].values())
+                out[f"accum{accum}{name}"] = {
+                    "argument_bytes": int(ma.argument_size_in_bytes),
+                    "batch_local_bytes": batch_local,
+                    "flops": float(ca.get("flops", 0.0)),
+                    "bytes": float(ca.get("bytes accessed", 0.0))}
         return out
     finally:
         jsp.PARAM_DTYPE, jL.SCAN_UNROLL = prev_dtype, prev_unroll

@@ -9,8 +9,11 @@ World 4: the expert-parallel layer and two sharded train steps on the
 inputs ``torch_mesh_ref.py`` wrote, each rank's stored bytes at (4, 1),
 the int8 all-reduce over a ``pod`` axis, the GPipe forward over a
 ``stage`` axis, and a sharded checkpoint at (2, 2).  World 2: the
-elastic restart of that checkpoint on a (1, 2) mesh, and the production
-mesh's refusal of a world of the wrong size.
+elastic restart of that checkpoint on a (1, 2) mesh, the production
+mesh's refusal of a world of the wrong size, and two sharded steps of
+the dense config at bf16 parameters with accumulation 2 on a (2, 1)
+mesh (gloo reduces bf16 on the CPU: each microbatch's gradients come
+back reduce-scattered in bf16 and join a float32 sum).
 """
 import dataclasses
 import os
@@ -30,7 +33,9 @@ from repro_torch.distributed import pipeline as pl  # noqa: E402
 from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.optim import adam  # noqa: E402
 from repro_torch.optim import grad_compression as gc  # noqa: E402
+from repro_torch.quant import qtensor as qt  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train import elastic  # noqa: E402
 from repro_torch.train import trainer as tr  # noqa: E402
@@ -270,10 +275,63 @@ def world2(rank, port, out_dir):
             mesh_lib.make_production_mesh(device_type="cpu")
         except ValueError as e:
             res["production_error"] = np.asarray(str(e))
+        half_train_check(np.load(os.path.join(out_dir, "ref.npz")), res)
         if rank == 0:
             np.savez(os.path.join(out_dir, "w2.npz"), **res)
     finally:
         dist.destroy_process_group()
+
+
+HALF_ACCUM = 2
+
+
+def half_train_check(z, res):
+    """Two steps of the dense config on bf16 parameters (the float32
+    inputs cast once) at ``HALF_ACCUM`` microbatches on a (2, 1) mesh;
+    the losses, the learning rates, each step's gradients as AdamW got
+    them (gathered to full tensors, with their type) and the gathered
+    parameters after both steps (bf16 values stored as float32,
+    exactly)."""
+    cfg = config("qwen3-4b")
+    params = qt.cast_tree(convert.lm_params_from_jax(
+        nest(z, "in/train/qwen3-4b/p/"), cfg, "cpu"), torch.bfloat16)
+    mesh = mesh_lib.make_local_mesh(2, 1, device_type="cpu")
+    pspecs, _, _ = tr.train_shardings(cfg, mesh, params)
+    flat_specs = ckpt.flatten(pspecs)
+    lp, lo = tr.shard_train_state(cfg, mesh, params)
+    del params
+    step = tr.make_train_step(cfg, dataclasses.replace(
+        train_config(False), accum_steps=HALF_ACCUM), mesh)
+    seen = []
+    update = adam.adam_update
+
+    def record(grads, state, params, **kw):
+        seen.append({k: g.detach().clone() for k, g in grads.items()})
+        return update(grads, state, params, **kw)
+
+    adam.adam_update = record
+    try:
+        losses, lrs = [], []
+        for i in range(2):
+            b = {k: torch.from_numpy(v) for k, v in
+                 nest(z, f"in/train/qwen3-4b/batch{i}/").items()}
+            lp, lo, met = step(lp, lo, b)
+            losses.append(float(met["loss"]))
+            lrs.append(float(met["lr"]))
+    finally:
+        adam.adam_update = update
+    res["half/loss"], res["half/lr"] = np.asarray(losses), np.asarray(lrs)
+    with torch.no_grad():
+        for i, grads in enumerate(seen):
+            for k in sorted(grads):
+                g = shd.gather_leaf(grads[k], mesh, flat_specs[k])
+                res[f"half/g{i}/{k}"] = g.float().numpy()
+                res[f"half/gdtype/{k}"] = np.asarray(str(g.dtype))
+        full = shd.gather_tree(mesh, lp, pspecs)
+    for k, v in ckpt.flatten(full).items():
+        assert v.dtype == torch.bfloat16, k
+        res["half/p/" + k] = v.float().numpy()
+    assert all(m.dtype == torch.float32 for m in lo.m.values())
 
 
 def free_port() -> int:
